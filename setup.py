@@ -11,8 +11,10 @@ setup(
     version="0.1.0",
     description="TPU-native recommender framework (JAX/XLA/Pallas) with the "
                 "capabilities of scikit-recommender",
-    packages=find_packages(include=["skrx", "skrx.*"]),
-    package_data={"skrx.native": ["csrc/*.cc"]},
+    packages=find_packages(include=["skrx", "skrx.*",
+                                    "skrx_torch", "skrx_torch.*"]),
+    package_data={"skrx.native": ["csrc/*.cc"],
+                  "skrx_torch.ops.kernels": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "numpy>=1.17",

@@ -1,0 +1,199 @@
+"""Collaborative-filtering dataset layer, numpy-only.
+
+Reads the ``<name>.{train,valid,test}`` and ``<name>.{user2id,item2id}``
+layout that ``skrx.io.synthetic.make_dataset_dir`` and this package's
+:mod:`skrx_torch.io.synthetic` write, and exposes the views that the serving
+slice uses. The JAX package's pickle view cache is not carried.
+"""
+import os
+import warnings
+from collections import OrderedDict
+from typing import Dict, Optional
+
+import numpy as np
+
+__all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "RSDataset"]
+
+_COLUMN_SETS = {"UI": ("user", "item"),
+                "UIR": ("user", "item", "rating"),
+                "UIT": ("user", "item", "time"),
+                "UIRT": ("user", "item", "rating", "time")}
+
+
+def _read_table(path: str, sep: str, names) -> Dict[str, np.ndarray]:
+    """Columns of a headerless delimited file; user and item as int64, the
+    rest as float64 (timestamps up to 2**53 stay exact)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # empty file
+        data = np.loadtxt(path, delimiter=sep, dtype=np.float64, ndmin=2)
+    if data.size == 0:
+        return {}
+    if data.shape[1] != len(names):
+        raise ValueError(f"{path}: {data.shape[1]} columns, expected "
+                         f"{len(names)} ({', '.join(names)})")
+    if np.isnan(data).any():
+        warnings.warn(f"{path} has null values; check the file or the "
+                      f"separator.")
+    cols = {name: data[:, i] for i, name in enumerate(names)}
+    for key in ("user", "item"):
+        cols[key] = cols[key].astype(np.int64)
+    return cols
+
+
+class PaddedPositives:
+    """Per-user positive sets as a device-ready table.
+
+    ``table``: (num_users, max_pos) int32, each row the user's positive items
+    sorted ascending, padded with ``pad_id`` (= num_items). ``lengths``:
+    (num_users,) int32.
+    """
+
+    def __init__(self, table: np.ndarray, lengths: np.ndarray, pad_id: int):
+        self.table = table
+        self.lengths = lengths
+        self.pad_id = pad_id
+
+
+class ImplicitFeedback:
+    """Views over one split of (user, item[, rating, time]) rows, in file
+    order."""
+
+    def __init__(self, columns: Optional[Dict[str, np.ndarray]] = None,
+                 num_users: Optional[int] = None,
+                 num_items: Optional[int] = None):
+        cols = columns or {}
+        users = cols.get("user", np.zeros(0, np.int64))
+        items = cols.get("item", np.zeros(0, np.int64))
+        self._users, self._items = users, items
+        self.num_ratings = len(users)
+        self.num_users = (num_users if num_users is not None
+                          else int(users.max()) + 1 if len(users) else 0)
+        self.num_items = (num_items if num_items is not None
+                          else int(items.max()) + 1 if len(items) else 0)
+        self._views: Dict = {}
+
+    def __len__(self):
+        return self.num_ratings
+
+    def to_user_item_pairs(self) -> np.ndarray:
+        """(num_ratings, 2) int32 (user, item) rows in file order."""
+        return np.stack([self._users, self._items], axis=1).astype(np.int32)
+
+    def to_user_dict(self) -> "OrderedDict[int, np.ndarray]":
+        """user -> int32 items in file order, users ascending."""
+        if "user_dict" not in self._views:
+            order = np.argsort(self._users, kind="stable")
+            users = self._users[order]
+            items = self._items[order].astype(np.int32)
+            keys, starts = np.unique(users, return_index=True)
+            self._views["user_dict"] = OrderedDict(
+                (int(u), part) for u, part in
+                zip(keys, np.split(items, starts[1:])))
+        return self._views["user_dict"]
+
+    def to_padded_positive_table(self, bucket: int = 32,
+                                 max_pos_cap: Optional[int] = None
+                                 ) -> PaddedPositives:
+        """(num_users, max_pos) table of sorted positive items; ``max_pos``
+        rounded up to a multiple of ``bucket``. ``max_pos_cap`` keeps a
+        random subsample (``np.random.default_rng(0)``, users ascending) of
+        the items of users above it, as the JAX package does."""
+        key = ("padded", bucket, max_pos_cap)
+        if key in self._views:
+            return self._views[key]
+        user_dict = self.to_user_dict()
+        lengths = np.zeros(self.num_users, dtype=np.int32)
+        rows = {}
+        rng = np.random.default_rng(0)
+        for u, items in user_dict.items():
+            if max_pos_cap is not None and len(items) > max_pos_cap:
+                items = rng.choice(items, max_pos_cap, replace=False)
+            rows[u] = np.sort(items)
+            lengths[u] = len(rows[u])
+        max_pos = max(1, int(lengths.max()) if len(lengths) else 1)
+        max_pos = -(-max_pos // bucket) * bucket
+        table = np.full((self.num_users, max_pos), self.num_items,
+                        dtype=np.int32)
+        if rows:
+            users = np.repeat(np.fromiter(rows, np.int64, len(rows)),
+                              [len(r) for r in rows.values()])
+            cols = np.concatenate([np.arange(len(r)) for r in rows.values()])
+            table[users, cols] = np.concatenate(list(rows.values()))
+        out = PaddedPositives(table, lengths, pad_id=self.num_items)
+        self._views[key] = out
+        return out
+
+
+class CFData:
+    """Load ``<prefix>.{train,valid,test}`` and the id maps; ``.train`` and
+    ``.test`` are required, ``.valid`` is optional."""
+
+    def __init__(self, data_dir: str, sep: str, columns: str):
+        if columns not in _COLUMN_SETS:
+            raise ValueError(f"'columns' must be one of {list(_COLUMN_SETS)}")
+        names = _COLUMN_SETS[columns]
+        self.data_dir = data_dir
+        self.data_name = os.path.basename(os.path.normpath(data_dir))
+        prefix = os.path.join(data_dir, self.data_name)
+
+        splits = {}
+        for split in ("train", "valid", "test"):
+            path = f"{prefix}.{split}"
+            if not os.path.isfile(path):
+                if split != "valid":
+                    raise FileNotFoundError(path)
+                splits[split] = {}
+                continue
+            splits[split] = _read_table(path, sep, names)
+
+        self.user2id, self.id2user = self._read_map_file(prefix + ".user2id",
+                                                         sep)
+        self.item2id, self.id2item = self._read_map_file(prefix + ".item2id",
+                                                         sep)
+
+        # counts from the max id over all splits, as the JAX package does
+        present = [c for c in splits.values() if c]
+        if not present:
+            raise ValueError(f"{data_dir}: no interactions")
+        self.num_users = max(int(c["user"].max()) for c in present) + 1
+        self.num_items = max(int(c["item"].max()) for c in present) + 1
+        self.num_ratings = sum(len(c["user"]) for c in present)
+        self.train_data, self.valid_data, self.test_data = (
+            ImplicitFeedback(splits[s], self.num_users, self.num_items)
+            for s in ("train", "valid", "test"))
+
+    @staticmethod
+    def _read_map_file(path: str, sep: str):
+        if not os.path.isfile(path):
+            return None, None
+        fwd, bwd = OrderedDict(), OrderedDict()
+        with open(path) as f:
+            for line in f:
+                raw, idx = line.rstrip("\n").split(sep)
+                fwd[raw] = int(idx)
+                bwd[int(idx)] = raw
+        return fwd, bwd
+
+
+class RSDataset:
+    """Facade that loads the collaborative-filtering data on first use."""
+
+    def __init__(self, data_dir: str, sep: str, columns: str):
+        self.data_dir = data_dir
+        self.sep = sep
+        self.columns = columns
+        self.data_name = os.path.basename(os.path.normpath(data_dir))
+        self._cf_data = None
+
+    @property
+    def cf_data(self) -> CFData:
+        if self._cf_data is None:
+            self._cf_data = CFData(self.data_dir, self.sep, self.columns)
+        return self._cf_data
+
+    train_data = property(lambda self: self.cf_data.train_data)
+    valid_data = property(lambda self: self.cf_data.valid_data)
+    test_data = property(lambda self: self.cf_data.test_data)
+    num_users = property(lambda self: self.cf_data.num_users)
+    num_items = property(lambda self: self.cf_data.num_items)
+    num_ratings = property(lambda self: self.cf_data.num_ratings)
