@@ -1,0 +1,308 @@
+"""Ranking evaluation: MetricReport, RankingEvaluator, EarlyStopping (the
+port of ``skrx.eval.evaluator``).
+
+The whole loop stays on the evaluator's device: per batch of users the
+model's ``predict`` gives (B, N) scores, :func:`eval_score_matrix_device`
+masks train items, ranks each test item (the rank-count CUDA kernels on a
+card) and computes the cumulative metrics; the per-batch sums accumulate on
+the device and one copy to the host ends the call. Metrics are averaged over
+users, with ``top_show`` columns selected, as in the JAX package.
+
+Strategies: "auto" and "full" score the whole catalog per batch (the JAX
+package's fused and chunked routes that "auto" takes on a TPU or for huge
+catalogs are not ported, and route choices tuned on a TPU are not carried).
+"chunked", "fused" and "topk" raise ``NotImplementedError`` (ROADMAP.md,
+Queue 1).
+"""
+import itertools
+from collections import OrderedDict
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..ops.metrics import ID2METRIC, METRIC2ID, eval_score_matrix_device
+from ..utils import resolve_device
+
+__all__ = ["MetricReport", "RankingEvaluator", "EarlyStopping"]
+
+# ANSI colors (the file handler strips these)
+_COLORS = ["\x1b[31m", "\x1b[32m", "\x1b[33m", "\x1b[34m", "\x1b[35m",
+           "\x1b[36m"]
+_RESET = "\x1b[0m"
+_NOT_PORTED = ("chunked", "fused", "topk")
+
+
+def _colored(cells) -> str:
+    return "\t".join(c + f"{cell}".ljust(12) + _RESET
+                     for c, cell in zip(itertools.cycle(_COLORS), cells))
+
+
+class MetricReport:
+    """Ordered metric -> value mapping with colored string rendering."""
+
+    def __init__(self, metrics: Sequence[str], values: Sequence[float]):
+        if len(metrics) != len(values):
+            raise ValueError(f"lengths of metrics and values differ "
+                             f"({len(metrics)}!={len(values)})")
+        self._results = OrderedDict(zip(metrics, [float(v) for v in values]))
+
+    def metrics(self):
+        return self._results.keys()
+
+    def values(self):
+        return self._results.values()
+
+    def items(self):
+        return self._results.items()
+
+    @property
+    def results(self) -> Dict[str, float]:
+        return self._results
+
+    @property
+    def metrics_str(self) -> str:
+        return _colored(self.metrics())
+
+    @property
+    def values_str(self) -> str:
+        return _colored(f"{v:.8f}" for v in self.values())
+
+    def __getitem__(self, item):
+        if item not in self._results:
+            raise KeyError(item)
+        return self._results[item]
+
+    def __str__(self):
+        return str(self._results)
+
+
+def _pad_table(user_dict: Dict[int, np.ndarray], users: np.ndarray,
+               pad_id: int, bucket: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """(len(users), maxLen) padded item table + lengths for the given users;
+    maxLen is rounded up to a multiple of ``bucket``."""
+    lengths = np.array([len(user_dict.get(int(u), ())) for u in users],
+                       dtype=np.int32)
+    max_len = max(int(lengths.max()) if len(lengths) else 1, 1)
+    max_len = ((max_len + bucket - 1) // bucket) * bucket
+    table = np.full((len(users), max_len), pad_id, dtype=np.int32)
+    for i, u in enumerate(users):
+        items = user_dict.get(int(u))
+        if items is not None and len(items):
+            table[i, : len(items)] = items
+    return table, lengths
+
+
+class RankingEvaluator:
+    """Evaluate a model's top-K ranking quality on ``device`` (``cuda`` unless
+    given; absent CUDA raises).
+
+    The model must provide ``predict(users) -> (B, N) scores``.
+    """
+
+    # device-resident batch tables kept for this many user sets (fit()
+    # alternates validation and test users)
+    _LRU_SLOTS = 4
+    # above this many bytes of batch tables, upload them one batch at a time
+    table_cache_budget = 1 << 30
+
+    def __init__(self, user_train_dict: Optional[Dict[int, np.ndarray]],
+                 user_test_dict: Dict[int, np.ndarray],
+                 metric: Union[None, str, Tuple[str, ...], List[str]] = None,
+                 top_k: Union[int, List[int], Tuple[int, ...]] = 50,
+                 batch_size: int = 256, num_thread: int = 8,
+                 eval_mode: str = "auto",
+                 device: Optional[Union[str, torch.device]] = None):
+        if metric is None:
+            metric = ["Precision", "Recall", "MAP", "NDCG", "MRR"]
+        elif isinstance(metric, str):
+            metric = [metric]
+        elif isinstance(metric, (tuple, list)):
+            metric = list(metric)
+        else:
+            raise TypeError(f"invalid 'metric' type: {type(metric).__name__}")
+        for m in metric:
+            if m not in METRIC2ID:
+                raise ValueError(f"'{m}' is not in {tuple(METRIC2ID)}")
+        if eval_mode in _NOT_PORTED:
+            raise NotImplementedError(
+                f"eval_mode={eval_mode!r} is not ported yet (ROADMAP.md, "
+                f"Queue 1); use eval_mode='auto' or 'full'")
+        if eval_mode not in ("auto", "full"):
+            raise ValueError(f"unknown eval_mode {eval_mode!r}")
+        if not user_test_dict:
+            raise ValueError("'user_test_dict' cannot be empty.")
+        self.device = resolve_device(device)
+        self.user_pos_train = user_train_dict if user_train_dict is not None \
+            else {}
+        self.user_pos_test = user_test_dict
+        self.metrics_num = len(metric)
+        self.metrics = tuple(METRIC2ID[m] for m in metric)
+        self.num_thread = num_thread        # API parity; unused
+        self.batch_size = batch_size
+        self.eval_mode = eval_mode
+        if isinstance(top_k, int):
+            self.max_top = top_k
+            self.top_show = np.arange(top_k) + 1
+        else:
+            self.max_top = max(top_k)
+            self.top_show = np.sort(top_k)
+        self._table_key = None
+        self._lru: "OrderedDict[tuple, list]" = OrderedDict()
+
+    @property
+    def metrics_list(self) -> List[str]:
+        return [f"{ID2METRIC[mid]}@{k}" for mid in self.metrics
+                for k in self.top_show]
+
+    @property
+    def metrics_str(self) -> str:
+        return _colored(self.metrics_list)
+
+    def _tables_for(self, users: np.ndarray, num_items: int):
+        """Padded train/test tables for the given users, built once at the
+        full width (the widest list of any user), so every batch has one
+        shape."""
+        if self._table_key != num_items:
+            all_users = np.arange(
+                max((max(self.user_pos_test, default=0),
+                     max(self.user_pos_train, default=0))) + 1, dtype=np.int32)
+            self._train_table, _ = _pad_table(self.user_pos_train, all_users,
+                                              num_items)
+            self._test_table, self._test_len = _pad_table(self.user_pos_test,
+                                                          all_users, num_items)
+            self._table_key = num_items
+        return (self._train_table[users], self._test_table[users],
+                self._test_len[users])
+
+    def _dev_batches(self, users: np.ndarray, num_items: int):
+        """Per batch ``(batch_users, train_t, test_t, test_len (>= 1),
+        weight)`` on the device, the last batch padded with its last user
+        (weight 0). Kept across evaluations of the same users (LRU of
+        ``_LRU_SLOTS``); above ``table_cache_budget`` bytes a generator
+        uploads one batch at a time."""
+        bs = self.batch_size
+        n_users = len(users)
+
+        def put(x):
+            return torch.as_tensor(x).to(self.device)
+
+        def build():
+            for lo in range(0, n_users, bs):
+                batch_users = users[lo: lo + bs]
+                n_real = len(batch_users)
+                if n_real < bs:
+                    batch_users = np.concatenate(
+                        [batch_users,
+                         np.full(bs - n_real, batch_users[-1], np.int32)])
+                train_table, test_table, test_len = self._tables_for(
+                    batch_users, num_items)
+                weight = (np.arange(bs) < n_real) & (test_len > 0)
+                yield (put(batch_users.astype(np.int64)), put(train_table),
+                       put(test_table), put(np.maximum(test_len, 1)),
+                       put(weight.astype(np.float32)))
+
+        self._tables_for(users[:1], num_items)      # width probe
+        w = self._train_table.shape[1] + self._test_table.shape[1]
+        total_bytes = 4 * (-(-n_users // bs) * bs) * (w + 3)
+        if total_bytes > self.table_cache_budget:
+            return build()
+        key = (num_items, bs, hash(users.tobytes()))
+        if key in self._lru:
+            self._lru.move_to_end(key)
+        else:
+            self._lru[key] = list(build())
+            while len(self._lru) > self._LRU_SLOTS:
+                self._lru.popitem(last=False)
+        return self._lru[key]
+
+    def per_user_metrics(self, scores: torch.Tensor, train_table: torch.Tensor,
+                         test_table: torch.Tensor,
+                         test_len: torch.Tensor) -> torch.Tensor:
+        """(B, n_metrics, max_top) f32 metrics of one batch of scores."""
+        return eval_score_matrix_device(scores, train_table, test_table,
+                                        test_len, self.metrics, self.max_top)
+
+    def evaluate(self, model, test_users: Optional[Iterable[int]] = None
+                 ) -> MetricReport:
+        """Metrics of ``model`` over ``test_users`` (default: every user with
+        test items), scoring the full catalog per batch."""
+        if not hasattr(model, "predict"):
+            raise TypeError("the model must have a 'predict' method")
+        if test_users is not None:
+            test_users = [int(u) for u in test_users
+                          if int(u) in self.user_pos_test]
+        else:
+            test_users = [int(u) for u in self.user_pos_test.keys()]
+        if not test_users:
+            raise ValueError("no test users")
+        users = np.asarray(test_users, dtype=np.int32)
+        n_users = len(users)
+        bs = self.batch_size
+
+        def predict(batch_users):
+            return torch.as_tensor(model.predict(batch_users)).to(
+                device=self.device, dtype=torch.float32)
+
+        # the catalog width comes from the first batch's scores
+        first_users = users[:bs] if n_users >= bs else np.concatenate(
+            [users, np.full(bs - n_users, users[-1], np.int32)])
+        first_scores = predict(first_users.astype(np.int64))
+        metric_sum = None
+        batches = self._dev_batches(users, int(first_scores.shape[1]))
+        for bi, (batch_users, train_t, test_t, test_len, weight) in \
+                enumerate(batches):
+            scores = first_scores if bi == 0 else predict(batch_users)
+            per_user = self.per_user_metrics(scores, train_t, test_t,
+                                             test_len)
+            batch_sum = torch.sum(per_user * weight[:, None, None], dim=0)
+            metric_sum = batch_sum if metric_sum is None \
+                else metric_sum + batch_sum
+        final = metric_sum.double().cpu().numpy() / n_users   # (M, max_top)
+        final = final[:, self.top_show - 1].reshape(-1)
+        return MetricReport(self.metrics_list, final)
+
+
+class EarlyStopping:
+    """Track the best MetricReport on one key metric with patience."""
+
+    def __init__(self, metric: str = "NDCG@10", patience: int = 100):
+        self._metric = metric
+        self._patience = patience
+        self._best_score: Optional[MetricReport] = None
+        self._counter = 0
+
+    def __call__(self, val_result: MetricReport) -> bool:
+        if self._best_score is None:
+            self._best_score = val_result
+        elif val_result[self.key_metric] <= self._best_score[self.key_metric]:
+            self._counter += 1
+            if self._counter >= self._patience > 0:
+                return True
+        else:
+            self._best_score = val_result
+            self._counter = 0
+        return False
+
+    @property
+    def key_metric(self) -> str:
+        return self._metric
+
+    @property
+    def best_result(self) -> MetricReport:
+        if self._best_score is not None:
+            return self._best_score
+        return MetricReport(["None"], [0])
+
+    def get_state(self) -> dict:
+        best = None
+        if self._best_score is not None:
+            best = (list(self._best_score.metrics()),
+                    list(self._best_score.values()))
+        return {"counter": self._counter, "best": best}
+
+    def set_state(self, state: dict) -> None:
+        self._counter = state.get("counter", 0)
+        best = state.get("best")
+        if best is not None:
+            self._best_score = MetricReport(best[0], best[1])

@@ -3,7 +3,7 @@
 Reads the ``<name>.{train,valid,test}`` and ``<name>.{user2id,item2id}``
 layout that ``skrx.io.synthetic.make_dataset_dir`` and this package's
 :mod:`skrx_torch.io.synthetic` write, and exposes the views that the serving
-slice uses. The JAX package's pickle view cache is not carried.
+and training slices use. The JAX package's pickle view cache is not carried.
 """
 import os
 import warnings
@@ -162,6 +162,27 @@ class CFData:
             ImplicitFeedback(splits[s], self.num_users, self.num_items)
             for s in ("train", "valid", "test"))
 
+    @property
+    def statistic_info(self) -> str:
+        """The dataset summary a run's log opens with."""
+        if 0 in (self.num_users, self.num_items, self.num_ratings):
+            return ""
+        sparsity = 1.0 - self.num_ratings / (self.num_users * self.num_items)
+        return "\n".join([
+            "Dataset statistic information:",
+            f"Name: {self.data_name}",
+            f"Path: {os.path.abspath(self.data_dir)}",
+            f"The number of users: {self.num_users}",
+            f"The number of items: {self.num_items}",
+            f"The number of ratings: {self.num_ratings}",
+            f"Average actions of users: {self.num_ratings / self.num_users:.2f}",
+            f"Average actions of items: {self.num_ratings / self.num_items:.2f}",
+            f"The sparsity of the dataset: {sparsity * 100:.6f}%",
+            "",
+            f"The number of training: {len(self.train_data)}",
+            f"The number of validation: {len(self.valid_data)}",
+            f"The number of testing: {len(self.test_data)}"])
+
     @staticmethod
     def _read_map_file(path: str, sep: str):
         if not os.path.isfile(path):
@@ -197,3 +218,4 @@ class RSDataset:
     num_users = property(lambda self: self.cf_data.num_users)
     num_items = property(lambda self: self.cf_data.num_items)
     num_ratings = property(lambda self: self.cf_data.num_ratings)
+    statistic_info = property(lambda self: self.cf_data.statistic_info)

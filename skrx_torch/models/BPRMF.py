@@ -1,25 +1,31 @@
 """BPRMF — Bayesian Personalized Ranking matrix factorization (Rendle et
-al., UAI 2009): the port of ``skrx.models.BPRMF`` for serving.
+al., UAI 2009): the port of ``skrx.models.BPRMF``.
 
 Same config fields and defaults, same parameters (``user_emb`` (U, d) and
 ``item_emb`` (N, d) drawn from N(0, 0.01^2), ``item_bias`` (N,) zeros).
+Training: per step the summed BPR loss of the batch plus
+``reg * 0.5 * sum(w * (|ue|^2 + |pe|^2 + |ne|^2 + bp^2 + bn^2))`` over its
+gathered rows (padded rows weigh 0), then one dense Adam step; epochs come
+from :class:`PairwiseEpochPipeline` with one negative per pair.
 ``predict`` is one f32 ``torch.matmul`` plus the bias, outside any kernel as
 in the JAX package; it assumes PyTorch's default of TF32 off for f32
-matmuls (``torch.backends.cuda.matmul.allow_tf32`` False). Training (the
-BPR epoch pipeline and Adam) comes with a later slice.
+matmuls (``torch.backends.cuda.matmul.allow_tf32`` False).
 """
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..convert import bprmf_params_from_jax
+from ..convert import bprmf_adam_state_from_jax, bprmf_params_from_jax
 from ..ops.initializers import get_initializer
+from ..ops.losses import bpr_loss
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .base import TorchRecommender
-from .common import ChunkedDotPredictMixin, as_user_tensor
+from .common import (ChunkedDotPredictMixin, as_user_tensor, make_optimizer,
+                     make_train_step)
+from .pipeline import PairwiseEpochPipeline, epoch_generator
 
 __all__ = ["BPRMF", "BPRMFConfig"]
 
@@ -57,6 +63,30 @@ class BPRMF(ChunkedDotPredictMixin, TorchRecommender):
         self.item_emb = nn.Parameter(
             normal((self.num_items, d), gen).to(self.device))
         self.item_bias = nn.Parameter(zeros((self.num_items,)).to(self.device))
+        self.optimizer = make_optimizer(
+            self.config.optimizer,
+            [self.user_emb, self.item_emb, self.item_bias], self.config.lr)
+        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.pipeline = PairwiseEpochPipeline(
+            self.dataset.train_data, self.config.batch_size, self.device,
+            num_neg=1)
+
+    def _loss(self, users, pos, neg, w) -> torch.Tensor:
+        neg = neg[:, 0]
+        ue = self.user_emb[users]
+        pe, ne = self.item_emb[pos], self.item_emb[neg]
+        bp, bn = self.item_bias[pos], self.item_bias[neg]
+        y_pos = torch.sum(ue * pe, dim=-1) + bp
+        y_neg = torch.sum(ue * ne, dim=-1) + bn
+        loss = torch.sum(bpr_loss(y_pos, y_neg) * w)
+        reg_term = 0.5 * torch.sum(
+            (torch.sum(ue ** 2 + pe ** 2 + ne ** 2, dim=-1) + bp ** 2
+             + bn ** 2) * w)
+        return loss + self.config.reg * reg_term
+
+    def _train_epoch(self, epoch: int) -> float:
+        gen = epoch_generator(self.run_config.seed + 1, epoch, self.device)
+        return self.pipeline.run_epoch(gen, self.train_step)
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX BPRMF's ``params`` (arrays taken with ``np.asarray``)
@@ -69,6 +99,21 @@ class BPRMF(ChunkedDotPredictMixin, TorchRecommender):
                     raise ValueError(f"{name}: shape {tuple(value.shape)}, "
                                      f"model has {tuple(target.shape)}")
                 target.copy_(value)
+
+    def load_jax_opt_state(self, count: int, mu: np.ndarray,
+                           nu: np.ndarray) -> None:
+        """Set the Adam state from a JAX BPRMF's flat ``optax.adam`` state
+        (``count`` and the raveled ``mu``, ``nu``)."""
+        shapes = {"user_emb": tuple(self.user_emb.shape),
+                  "item_emb": tuple(self.item_emb.shape),
+                  "item_bias": tuple(self.item_bias.shape)}
+        for name, state in bprmf_adam_state_from_jax(count, mu, nu,
+                                                     shapes).items():
+            param = getattr(self, name)
+            self.optimizer.state[param] = {
+                "step": state["step"],
+                "exp_avg": state["exp_avg"].to(self.device),
+                "exp_avg_sq": state["exp_avg_sq"].to(self.device)}
 
     def _chunk_embeddings(self):
         return self.user_emb, self.item_emb

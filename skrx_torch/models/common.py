@@ -1,10 +1,47 @@
-"""Shared model helpers: chunked scoring for dot-product models."""
-from typing import Optional, Tuple
+"""Shared model helpers: the optimizer and train-step factory, and chunked
+scoring for dot-product models (the port of the parts of
+``skrx.models.common`` that BPRMF uses)."""
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["ChunkedDotPredictMixin", "as_user_tensor"]
+__all__ = ["ChunkedDotPredictMixin", "as_user_tensor", "make_optimizer",
+           "make_train_step", "make_sharded_train_step"]
+
+
+def make_optimizer(name: str, params: Iterable[torch.nn.Parameter],
+                   lr: float) -> torch.optim.Optimizer:
+    """Dense Adam (``optax.adam``'s constants) over ``params``. The JAX
+    package runs it over the raveled parameter vector; Adam is elementwise,
+    so per-parameter state computes the same update. ``lazy_adam`` (row-wise
+    sparse updates) is not ported yet."""
+    if name == "lazy_adam":
+        raise NotImplementedError("optimizer='lazy_adam' is not ported yet "
+                                  "(ROADMAP.md, Queue 1); use 'adam'")
+    if name != "adam":
+        raise ValueError(f"unknown optimizer {name!r}")
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_train_step(optimizer: torch.optim.Optimizer,
+                    loss_fn: Callable[..., torch.Tensor]) -> Callable:
+    """``train_step(batch) -> loss``: the loss of ``loss_fn(*batch)`` before
+    the update, then one optimizer step. The loss stays on the device."""
+    def train_step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(*batch)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+    return train_step
+
+
+def make_sharded_train_step(*args, **kwargs):
+    """The tensor-parallel step of the JAX package (tables row-sharded over
+    a mesh) is not ported yet."""
+    raise NotImplementedError("the tensor-parallel train step is not ported "
+                              "yet (ROADMAP.md, Queue 1, parallel/)")
 
 
 def as_user_tensor(users, device: torch.device) -> torch.Tensor:

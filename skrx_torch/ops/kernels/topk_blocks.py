@@ -1,7 +1,10 @@
 """Exact blockwise top-k of a (B, N) score matrix with fused seen-item
-masking: the port of ``skrx.ops.pallas.topk_blocks.blockwise_topk``.
+masking, and the rank counts of full-catalog evaluation: the port of
+``skrx.ops.pallas.topk_blocks`` (``blockwise_topk``, ``masked_topk_ranks``,
+``masked_topk_ranks_small``).
 
-Three passes, each a hand-written CUDA kernel (``csrc/topk_blocks.cu``):
+Top-k in three passes, each a hand-written CUDA kernel
+(``csrc/topk_blocks.cu``):
 
 1. :func:`submax` — per row, the max of every strided column group (group l
    of column block j = columns c of the block with c % 128 == l), masked.
@@ -11,6 +14,12 @@ Three passes, each a hand-written CUDA kernel (``csrc/topk_blocks.cu``):
 3. :func:`extract` — per column block, its top-min(k, #>=tau) finite
    elements; then :func:`pruned_merge` takes the sorted top-k of those
    (B, n_blocks * k) candidates.
+
+Evaluation ranks (``csrc/rank_counts.cu``): :func:`masked_topk_ranks` runs
+the first passes and then :func:`rank_count` (each test item's position among
+the candidates); :func:`masked_topk_ranks_small` is one kernel,
+:func:`direct_rank`, that counts over the whole masked row. Both take any
+number of test items per row.
 
 Contract, as in the JAX package: ties rank by (value desc, id asc); slots
 beyond the row's unmasked items hold (-inf, ``SENTINEL`` = int32max // 2);
@@ -26,12 +35,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..sampling import is_member_sorted
 from . import _build
 
 __all__ = ["blockwise_topk", "blockwise_candidates", "kth_largest",
            "pruned_merge", "vmem_topk", "submax", "extract",
            "submax_plain", "kth_largest_plain", "extract_plain",
-           "pruned_merge_plain", "fold_submaxes", "order_key", "LAUNCHES",
+           "pruned_merge_plain", "fold_submaxes", "order_key", "rank_count",
+           "rank_count_plain", "direct_rank", "direct_rank_plain",
+           "masked_topk_ranks", "masked_topk_ranks_small", "LAUNCHES",
            "reset_launches", "SENTINEL", "KERNELS", "MAX_BLOCK_N"]
 
 SENTINEL = 2 ** 31 // 2 - 1          # int32max // 2, id of an empty slot
@@ -40,7 +52,8 @@ MAX_BLOCK_N = 4096                  # widest column block the kernels take
 _TAU_MAX_W = 4096                    # fold group maxima down to this width
 
 # kernel name -> its launches since the last reset
-KERNELS = ("submax", "kth_largest", "extract", "pruned_merge")
+KERNELS = ("submax", "kth_largest", "extract", "pruned_merge", "rank_count",
+           "direct_rank")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -51,20 +64,25 @@ def reset_launches() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# C launcher -> (source stem in csrc/, argument types before the stream)
 _SIGNATURES = {
-    "skrx_submax": [_P, _I, _I, _I, _P, _I, _P, _P],
-    "skrx_kth_largest": [_P, _I, _I, _I, _P, _P],
-    "skrx_extract": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
-    "skrx_pruned_merge": [_P, _P, _I, _I, _P, _I, _P, _P, _P],
+    "skrx_submax": ("topk_blocks", [_P, _I, _I, _I, _P, _I, _P, _P]),
+    "skrx_kth_largest": ("topk_blocks", [_P, _I, _I, _I, _P, _P]),
+    "skrx_extract": ("topk_blocks",
+                     [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P]),
+    "skrx_pruned_merge": ("topk_blocks", [_P, _P, _I, _I, _P, _I, _P, _P, _P]),
+    "skrx_rank_count": ("rank_counts", [_P, _P, _I, _I, _P, _P, _I, _P, _P]),
+    "skrx_direct_rank": ("rank_counts", [_P, _I, _I, _P, _I, _P, _I, _I, _P,
+                                         _P]),
 }
 
 
 def _launch(fn_name: str, device: torch.device, *args) -> None:
     """Call the C launcher ``fn_name`` on ``device``'s current stream; a
     tensor argument passes its data pointer."""
-    lib = _build.load("topk_blocks")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = _SIGNATURES[fn_name]
+    stem, argtypes = _SIGNATURES[fn_name]
+    fn = getattr(_build.load(stem), fn_name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
@@ -336,3 +354,139 @@ def blockwise_topk(scores: torch.Tensor, k: int, block_n: int = 4096,
     k <= block_n. ``scores`` is read, never written."""
     cand_v, cand_i, tau = blockwise_candidates(scores, k, block_n, mask_table)
     return pruned_merge(cand_v, cand_i, k, tau)
+
+
+# ------------------------------------------------------------- kernel 6
+
+def _check_probes(b: int, t_ids: torch.Tensor) -> None:
+    _check(t_ids, "test ids", torch.int32, 2)
+    if t_ids.shape[0] != b:
+        raise ValueError(f"test ids have {t_ids.shape[0]} rows, scores {b}")
+
+
+def rank_count_plain(vals: torch.Tensor, ids: torch.Tensor,
+                     s_t: torch.Tensor, t_ids: torch.Tensor) -> torch.Tensor:
+    # (B, T, W) compare in slices of 64 probes, so memory stays B x 64 x W
+    b, t = s_t.shape
+    out = torch.empty((b, t), dtype=torch.int32, device=vals.device)
+    v, i = vals[:, None, :], ids[:, None, :]
+    for lo in range(0, t, 64):
+        s, ti = s_t[:, lo:lo + 64, None], t_ids[:, lo:lo + 64, None]
+        above = (v > s) | ((v == s) & (i < ti))
+        out[:, lo:lo + 64] = above.sum(2, dtype=torch.int32)
+    return out
+
+
+def rank_count(vals: torch.Tensor, ids: torch.Tensor, s_t: torch.Tensor,
+               t_ids: torch.Tensor) -> torch.Tensor:
+    """(B, T) int32: for each probe (``s_t`` (B, T) f32, ``t_ids`` (B, T)
+    int32), the number of candidates of its row (``vals`` (B, W) f32,
+    ``ids`` (B, W) int32) with value > s or (value == s and id < t). The
+    contract of JAX's ``_rank_counts``, for any T."""
+    _check(vals, "vals", torch.float32, 2)
+    _check(ids, "ids", torch.int32, 2)
+    _check(s_t, "s_t", torch.float32, 2)
+    b, w = vals.shape
+    _check_probes(b, t_ids)
+    if ids.shape != vals.shape or s_t.shape != t_ids.shape:
+        raise ValueError(f"need ids {tuple(vals.shape)} and s_t == t_ids in "
+                         f"shape; got ids {tuple(ids.shape)}, s_t "
+                         f"{tuple(s_t.shape)}, t_ids {tuple(t_ids.shape)}")
+    if not _on_cuda(vals, ids, s_t, t_ids):
+        return rank_count_plain(vals, ids, s_t, t_ids)
+    vals, ids = vals.contiguous(), ids.contiguous()
+    s_t, t_ids = s_t.contiguous(), t_ids.contiguous()
+    t = s_t.shape[1]
+    out = torch.empty((b, t), dtype=torch.int32, device=vals.device)
+    if b and t:
+        _launch("skrx_rank_count", vals.device, vals, ids, b, w, s_t, t_ids,
+                t, out)
+        LAUNCHES["rank_count"] += 1
+    return out
+
+
+def _in_rows(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """(B, T) bool: ``queries[b, j]`` is among ``table[b, :]`` (any order,
+    duplicates allowed): a binary search on the sorted rows, no (B, T, L)
+    broadcast."""
+    return is_member_sorted(torch.sort(table, dim=1).values.contiguous(),
+                            queries.contiguous())
+
+
+def masked_topk_ranks(scores: torch.Tensor, k: int, test_table: torch.Tensor,
+                      mask_table: Optional[torch.Tensor] = None,
+                      block_n: int = 4096) -> torch.Tensor:
+    """(B, T) int32 rank of each ``test_table`` item in its row's masked
+    (value desc, id asc) order, exact where it is below k and >= k
+    otherwise; an item out of [0, N), in ``mask_table`` or scored -inf,
+    +inf or NaN gets k. Counts over the candidates of
+    :func:`blockwise_candidates` (every element above a rank-<k item is
+    one), so the kernels are submax, kth_largest, extract and
+    :func:`rank_count`. Needs N // 128 >= k and k <= block_n."""
+    _check(scores, "scores", torch.float32, 2)
+    b, n = scores.shape
+    _check_probes(b, test_table)
+    cand_v, cand_i, _ = blockwise_candidates(scores, k, block_n, mask_table)
+    valid = (test_table >= 0) & (test_table < n)
+    safe = torch.where(valid, test_table, 0)
+    s_t = scores.gather(1, safe.long())
+    if mask_table is not None:
+        valid &= ~_in_rows(mask_table, safe)
+    valid &= torch.isfinite(s_t)
+    ranks = rank_count(cand_v, cand_i, s_t, safe)
+    return torch.where(valid, ranks, k)
+
+
+# ------------------------------------------------------------- kernel 8
+
+def direct_rank_plain(scores: torch.Tensor, mask_table: Optional[torch.Tensor],
+                      t_ids: torch.Tensor, k: int) -> torch.Tensor:
+    b, n = scores.shape
+    s = scores if mask_table is None else _masked_padded(scores, mask_table,
+                                                         max(n, 1))
+    # position of every column in the row's (value desc, id asc) order
+    order = torch.sort(s, dim=1, descending=True, stable=True).indices
+    pos = torch.empty_like(order)
+    pos.scatter_(1, order, torch.arange(n, device=s.device).expand(b, n))
+    valid = (t_ids >= 0) & (t_ids < n)
+    safe = torch.where(valid, t_ids, 0).long()
+    if n:
+        valid &= torch.isfinite(s.gather(1, safe))
+        ranks = pos.gather(1, safe).to(torch.int32)
+    else:
+        ranks = torch.zeros_like(t_ids)
+    return torch.where(valid, ranks, k)
+
+
+def direct_rank(scores: torch.Tensor, t_ids: torch.Tensor, k: int,
+                mask_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T) int32 exact rank of each test id over its whole masked row of
+    ``scores`` (B, N) f32, in (value desc, id asc) order; a test id out of
+    [0, N), in ``mask_table`` (B, L) int32 (entries outside [0, N) are
+    padding) or scored -inf, +inf or NaN gets ``k``. The contract of JAX's
+    ``masked_topk_ranks_small``, for any T and N."""
+    _check(scores, "scores", torch.float32, 2)
+    b, n = scores.shape
+    _check_probes(b, t_ids)
+    mask_table = _check_mask(mask_table, b)
+    if not _on_cuda(scores, t_ids, mask_table):
+        return direct_rank_plain(scores, mask_table, t_ids, k)
+    scores, t_ids = scores.contiguous(), t_ids.contiguous()
+    t = t_ids.shape[1]
+    out = torch.empty((b, t), dtype=torch.int32, device=scores.device)
+    if b and t:
+        _launch("skrx_direct_rank", scores.device, scores, b, n, mask_table,
+                0 if mask_table is None else mask_table.shape[1], t_ids, t, k,
+                out)
+        LAUNCHES["direct_rank"] += 1
+    return out
+
+
+def masked_topk_ranks_small(scores: torch.Tensor, k: int,
+                            test_table: torch.Tensor,
+                            mask_table: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """:func:`masked_topk_ranks` by a direct count over the whole row
+    (kernel :func:`direct_rank`): exact at any rank, for catalogs too small
+    for the candidate prune."""
+    return direct_rank(scores, test_table, k, mask_table)

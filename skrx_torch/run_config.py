@@ -1,13 +1,16 @@
 """Run-level configuration (the port's own copy of ``skrx.run_config``,
-with the fields the serving slice reads; the JAX package's mesh, dtype,
-evaluation and search options come with the slices that use them)."""
-from typing import Union
+with the fields the serving, training and evaluation slices read; the JAX
+package's mesh, dtype, checkpoint, profiler, chunked-evaluation and search
+options come with the slices that use them)."""
+from typing import Tuple, Union
 
 from .utils.config import Config
 
 __all__ = ["RunConfig"]
 
 _VALID_COLUMNS = ("UI", "UIR", "UIT", "UIRT")
+_VALID_METRICS = ("Precision", "Recall", "MAP", "NDCG", "MRR")
+_EVAL_MODES = ("auto", "full", "chunked", "fused", "topk")
 
 
 class RunConfig(Config):
@@ -17,7 +20,18 @@ class RunConfig(Config):
     sep: str = "\t"
     # index of the CUDA device the entry points run on (cuda:<gpu_id>)
     gpu_id: Union[int, str] = 0
+    metric: Tuple[str, ...] = ("Precision", "Recall", "MAP", "NDCG")
+    top_k: Tuple[int, ...] = (10, 20, 30, 40, 50)
+    # users per evaluation batch, or "auto": the largest power of two whose
+    # (B, num_items) f32 score block stays under ~1 GB, in [64, 4096]
+    test_batch_size: Union[int, str] = 64
+    # kept for API parity with the JAX package; evaluation runs on the device
+    test_thread: int = 4
     seed: int = 2021
+    # evaluation strategy: "auto" and "full" score the whole catalog per
+    # batch; "chunked", "fused" and "topk" are not ported yet (ROADMAP.md)
+    # and raise NotImplementedError when the evaluator is built
+    eval_mode: str = "auto"
 
     def _validate(self):
         if not (isinstance(self.recommender, str) and self.recommender):
@@ -30,3 +44,25 @@ class RunConfig(Config):
             raise ValueError("gpu_id must be >= 0")
         if not isinstance(self.seed, int):
             raise ValueError("seed must be an int")
+        if isinstance(self.metric, str):
+            self.metric = (self.metric,)
+        self.metric = tuple(self.metric)
+        for m in self.metric:
+            if m not in _VALID_METRICS:
+                raise ValueError(f"unknown metric {m!r}")
+        if isinstance(self.top_k, int):
+            self.top_k = (self.top_k,)
+        self.top_k = tuple(int(k) for k in self.top_k)
+        if not (self.top_k and all(k > 0 for k in self.top_k)):
+            raise ValueError("top_k must hold positive ints")
+        if isinstance(self.test_batch_size, str):
+            if self.test_batch_size != "auto":
+                raise ValueError("test_batch_size must be a positive int or "
+                                 "'auto'")
+        elif self.test_batch_size <= 0:
+            raise ValueError("test_batch_size must be a positive int or "
+                             "'auto'")
+        if self.test_thread <= 0:
+            raise ValueError("test_thread must be > 0")
+        if self.eval_mode not in _EVAL_MODES:
+            raise ValueError(f"eval_mode must be one of {_EVAL_MODES}")

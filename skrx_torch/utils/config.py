@@ -47,6 +47,11 @@ class Config:
             out[key] = getattr(self, key)
         return out
 
+    def to_string(self, sep: str = ", ") -> str:
+        """``key=value`` pairs joined by ``sep`` (run-id slugs and the
+        hyper-parameter block of a log)."""
+        return sep.join(f"{k}={v}" for k, v in self.to_dict().items())
+
     def __str__(self):
         items = ", ".join(f"{k}={v!r}" for k, v in self.to_dict().items())
         return f"{type(self).__name__}({items})"

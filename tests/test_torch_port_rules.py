@@ -59,9 +59,11 @@ def test_importing_every_port_module_pulls_in_no_jax_or_skrx():
     assert int(out.stdout.strip()) >= 15
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
+                                                           monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    monkeypatch.chdir(tmp_path)            # the model writes log/ here
     from skrx_torch import RunConfig, resolve_device
     from skrx_torch.io import synthetic
     from skrx_torch.models.BPRMF import BPRMF
@@ -81,6 +83,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
                                  dataset=model.dataset, num_items=40)
     with pytest.raises(RuntimeError, match="CUDA"):
         TopKRecommender(stub)
+
+
+def test_fit_and_evaluate_default_to_cuda_and_raise_without_it(tmp_path,
+                                                               monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from skrx_torch import ModelRegistry, RunConfig
+    from skrx_torch.eval import RankingEvaluator
+    from skrx_torch.io import synthetic
+
+    monkeypatch.chdir(tmp_path)
+    data = synthetic.make_dataset_dir(str(tmp_path), num_users=20,
+                                      num_items=40, num_ratings=200, seed=1)
+    reg = ModelRegistry()
+    reg.load_skrx_model("BPRMF")
+    cls, _ = reg.get_model("BPRMF")
+    run = RunConfig(data_dir=data, top_k=(10,), metric=("NDCG",))
+    # the model that fit() and evaluate() run on cannot be built on the
+    # default device, nor can a bare evaluator
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cls(run, {"epochs": 1})
+    model = cls(run, {"epochs": 1}, device="cpu")
+    train = model.dataset.train_data.to_user_dict()
+    test = model.dataset.test_data.to_user_dict()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RankingEvaluator(train, test, top_k=10)
+    assert model.evaluator.device.type == "cpu"
+    assert 0.0 <= model.fit()["NDCG@10"] <= 1.0
+    assert 0.0 <= model.evaluate()["NDCG@10"] <= 1.0
 
 
 def test_wrappers_refuse_bad_inputs():
@@ -145,4 +176,56 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
     assert torch.equal(vv.cpu(), rmv) and torch.equal(vi.cpu(), rmi)
     torch.cuda.synchronize()
     assert ttb.LAUNCHES == {"submax": 1, "kth_largest": 1, "extract": 1,
-                            "pruned_merge": 2}
+                            "pruned_merge": 2, "rank_count": 0,
+                            "direct_rank": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,t,width", [
+    (64, 40981, 50, 424, 1472),            # the evaluation shape, Gowalla
+    (64, 3706, 50, 464, 2600),             # the evaluation shape, ML-1M
+    (7, 51000, 200, 1, 300),               # one probe, a row of 25 tiles
+    (9, 5000, 10, 130, 0),                 # T > 128, no mask
+    (5, 2100, 5, 40, 2100),                # fully masked rows
+])
+def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width):
+    """rank_count and direct_rank against their plain versions on CPU
+    copies of the same inputs: ties, masked, out-of-range, duplicated,
+    -inf and +inf probes (needs a card, as the sweep above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    rng = np.random.default_rng(n + t)
+    s = rng.standard_normal((b, n)).astype(np.float32)
+    s[1] = np.round(s[1])                  # tie storm
+    s[2, ::3] = -np.inf
+    s[3, 5] = np.inf
+    table = rng.integers(-2, n + 2, (b, width)).astype(np.int32)
+    if width >= n:
+        table[0, :n] = np.arange(n)
+    probes = rng.integers(-3, n + 3, (b, t)).astype(np.int32)
+    probes[:, : t // 2] = probes[:, :1]    # duplicates
+    probes[3, 0] = 5                       # the +inf column
+    if width and t > 4:
+        probes[:, 1:4] = table[:, :3]      # masked probes
+    cpu = [torch.from_numpy(x) for x in (s, table, probes)]
+    gpu = [x.cuda() for x in cpu]
+    mask_c, mask_g = (cpu[1], gpu[1]) if width else (None, None)
+    ttb.reset_launches()
+    got = ttb.direct_rank(gpu[0], gpu[2], k, mask_g)
+    assert torch.equal(got.cpu(), ttb.direct_rank_plain(cpu[0], mask_c,
+                                                        cpu[2], k))
+    if n // 128 >= k:
+        cand_v, cand_i, _ = ttb.blockwise_candidates(gpu[0], k, 4096, mask_g)
+        st = gpu[0].gather(1, gpu[2].clamp(0, n - 1).long())
+        got = ttb.rank_count(cand_v, cand_i, st, gpu[2])
+        ref = ttb.rank_count_plain(cand_v.cpu(), cand_i.cpu(), st.cpu(),
+                                   cpu[2])
+        assert torch.equal(got.cpu(), ref)
+        ranks = ttb.masked_topk_ranks(gpu[0], k, gpu[2], mask_g)
+        small = ttb.direct_rank_plain(cpu[0], mask_c, cpu[2], k)
+        assert torch.equal(ranks.cpu().clamp(max=k), small.clamp(max=k))
+    torch.cuda.synchronize()
+    assert ttb.LAUNCHES["direct_rank"] == 1
+    assert ttb.LAUNCHES["rank_count"] == (2 if n // 128 >= k else 0)

@@ -29,11 +29,13 @@ def pair(tmp_path_factory):
                                           num_items=130, num_ratings=1800,
                                           seed=5)
     cwd = os.getcwd()
-    os.chdir(root)                         # the JAX model writes log/ here
+    os.chdir(root)                         # both models write log/ here
     try:
         jm = JaxBPRMF(JaxRunConfig(recommender="BPRMF", data_dir=data,
                                    seed=1, metric=("NDCG",), top_k=(10,)),
                       dict(n_dim=16))
+        tm = BPRMF(RunConfig(data_dir=data, seed=1), dict(n_dim=16),
+                   device="cpu")
     finally:
         os.chdir(cwd)
     rng = np.random.default_rng(11)
@@ -45,8 +47,6 @@ def pair(tmp_path_factory):
         "item_bias": jnp.asarray(rng.standard_normal(
             jm.num_items).astype(np.float32)),
     }
-    tm = BPRMF(RunConfig(data_dir=data, seed=1), dict(n_dim=16),
-               device="cpu")
     tm.load_jax_params({k: np.asarray(v) for k, v in jm.params.items()})
     return jm, tm
 
@@ -112,8 +112,9 @@ def test_fused_always_is_not_ported(pair):
         TopKRecommender(tm, fused="sometimes")
 
 
-def test_registry_builds_bprmf_by_name(pair):
+def test_registry_builds_bprmf_by_name(pair, tmp_path, monkeypatch):
     jm, _ = pair
+    monkeypatch.chdir(tmp_path)            # the model writes log/ here
     reg = ModelRegistry()
     reg.load_skrx_model("BPRMF")
     cls, cfg_cls = reg.get_model("BPRMF")
