@@ -37,14 +37,29 @@ skrx_torch fails and it exits 1):
    items, 1,000,209 interactions), fit() for one epoch and its
    evaluate(); direct_rank must have launched, and equals its plain
    version at that shape.
-6. Times on the card: each kernel, its plain version and a library call
+6. LightGCN at Gowalla scale, at its defaults (embed_size 64, 3 layers,
+   adj_type "pre", batch 1,024, Adam) on the phase-3 data. The graph
+   kernel (segsum and its merge pass) against segsum_plain in float64 on
+   CPU copies, per row within 1e-5 * sum|msg|, forward (A) and backward
+   (A^T), f32 and bf16 messages, with and without an edge mask, at the real
+   graph (70,839 rows, 1,464,964 edges, D=64; its largest in-degree
+   printed) and on adversarial graphs: a hub of >= 20 segments, isolated
+   rows and the empty graph (exact zeros), masked edges from inf/NaN
+   rows (finite output), a rectangular operator, D=8 and D=128. The
+   gradient of one batch's loss on the card against the same loss through
+   segsum_plain on CPU copies. fit() for 2 epochs with evaluation after
+   each: losses finite and falling, NDCG@10 above the untrained model's,
+   segsum launched exactly 2 x steps x 6 + 3 per evaluate(). Serving:
+   recommend for 1, 64 and 1,024 users equals the plain top-k of the same
+   scores and holds no seen item.
+7. Times on the card: each kernel, its plain version and a library call
    where one computes the same function, as device time per call
    (torch.profiler, 50 calls after warm-up) and as the median time of one
    call between CUDA events (host launch gaps included); the kernel's
    bound; recommend's p50 per batch size with the
    card's busy share during it (torch.profiler); train steps/s, seconds per
    epoch and evaluation users/s with the busy share and the top device
-   kernels of one epoch and one evaluate().
+   kernels of one epoch and one evaluate(), for BPRMF and LightGCN.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -61,8 +76,12 @@ import torch
 
 from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.io import synthetic
+from skrx_torch.models.LightGCN import lightgcn_loss
+from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
-from skrx_torch.ops.kernels import _build
+from skrx_torch.ops.graph import graph_from_coo
+from skrx_torch.ops.kernels import _build, runtime
+from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.kernels import topk_blocks as tb
 from skrx_torch.serve import TopKRecommender
 
@@ -81,13 +100,19 @@ SERVING = ("submax", "kth_largest", "extract", "pruned_merge")
 SOURCE = {name: "skrx_torch/ops/kernels/csrc/topk_blocks.cu"
           for name in SERVING}
 SOURCE.update(rank_count="skrx_torch/ops/kernels/csrc/rank_counts.cu",
-              direct_rank="skrx_torch/ops/kernels/csrc/rank_counts.cu")
+              direct_rank="skrx_torch/ops/kernels/csrc/rank_counts.cu",
+              segsum="skrx_torch/ops/kernels/csrc/segsum.cu",
+              segsum_merge="skrx_torch/ops/kernels/csrc/segsum.cu")
 REPLACES = {"submax": "skrx/ops/pallas/topk_blocks.py:488",
             "kth_largest": "skrx/ops/pallas/topk_blocks.py:224",
             "extract": "skrx/ops/pallas/topk_blocks.py:601",
             "pruned_merge": "skrx/ops/pallas/topk_blocks.py:295",
             "rank_count": "skrx/ops/pallas/topk_blocks.py:815",
-            "direct_rank": "skrx/ops/pallas/topk_blocks.py:935"}
+            "direct_rank": "skrx/ops/pallas/topk_blocks.py:935",
+            "segsum": "skrx/ops/pallas/segsum_mxu.py:203",
+            "segsum_merge": "skrx/ops/pallas/segsum_mxu.py:203"}
+GCN_SERVE = (1, 64, 1024)
+MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
 # H100 SXM data sheet: f32 outside the tensor cores, device-memory bytes/s
 F32_OPS = 67e12
 MEM_RATE = 3.35e12
@@ -275,6 +300,127 @@ def adversarial_ranks(dev, errs: dict) -> None:
                     torch.from_numpy(probes).to(dev), K_EVAL, errs)
 
 
+def check_segsum(seg, x, mask, msg: str, errs: dict):
+    """segsum (and its merge) on the card against segsum_plain in float64
+    on CPU copies: per row |kernel - ref| <= 1e-5 * sum|msg| + 1e-30, rows
+    without a kept edge exactly 0, the output finite. Returns the kernel's
+    and the f32 plain version's largest error as a share of the bound."""
+    seg_cpu = seg.to("cpu")
+    x_cpu = x.cpu()
+    m_cpu = None if mask is None else mask.cpu()
+    dtype = MSG[msg]
+    got = ss.segsum(seg, x, mask, dtype).cpu().double()
+    ref = ss.segsum_plain(seg_cpu, x_cpu.double(), m_cpu, dtype)
+    scale = ss.segsum_plain(seg_cpu._replace(weight=seg_cpu.weight.abs()),
+                            x_cpu.abs().double(), m_cpu, dtype)
+    bound = 1e-5 * scale + 1e-30
+    err = (got - ref).abs()
+    plain = (ss.segsum_plain(seg_cpu, x_cpu, m_cpu, dtype).double()
+             - ref).abs()
+    require(bool(torch.isfinite(got).all()), "segsum: non-finite output")
+    require(bool((err <= bound).all()),
+            f"segsum {msg}: error {float((err / bound).max())} x the bound")
+    require(bool((got[scale == 0] == 0).all()),
+            "segsum: a row without a kept edge is not 0")
+    if not err.numel():
+        return 0.0, 0.0
+    errs["segsum"] = max(errs.get("segsum", 0.0), float(err.max()))
+    if seg.num_partials:        # the rows that segsum_merge wrote
+        errs["segsum_merge"] = max(errs.get("segsum_merge", 0.0), float(
+            err[seg_cpu.merge_row.long()].max()))
+    return float((err / bound).max()), float((plain / bound).max())
+
+
+def check_merge(seg, d: int, errs: dict) -> torch.Tensor:
+    """segsum_merge alone on random partial rows of ``seg``'s layout against
+    segsum_merge_plain on CPU copies, within 1e-5 * sum|partial| per row
+    (f32 sums in the same order on both sides); returns the partials."""
+    dev = seg.src.device
+    partial = torch.randn((seg.num_partials, d), device=dev,
+                          generator=torch.Generator(dev).manual_seed(SEED))
+    out = torch.zeros((seg.num_nodes, d), device=dev)
+    ss.segsum_merge(partial, seg.merge_row, seg.merge_ptr, out)
+    ref = torch.zeros((seg.num_nodes, d))
+    args = (seg.merge_row.cpu(), seg.merge_ptr.cpu())
+    ss.segsum_merge_plain(partial.cpu(), *args, ref)
+    scale = torch.zeros((seg.num_nodes, d))
+    ss.segsum_merge_plain(partial.cpu().abs(), *args, scale)
+    err = (out.cpu() - ref).abs()
+    require(bool((err <= 1e-5 * scale + 1e-30).all()),
+            f"segsum_merge: error {float(err.max())}")
+    errs["segsum_merge"] = max(errs.get("segsum_merge", 0.0),
+                               float(err.max()))
+    return partial
+
+
+def segsum_adversarial(dev, errs: dict) -> None:
+    """The kernel on graphs built to break it, D = 8, 64 and 128, both
+    message types, with and without an edge mask."""
+    rng = np.random.default_rng(SEED + 3)
+    hub = 20 * ss.SEGMENT_EDGES + 3
+    cases = {
+        # one destination of >= 20 segments
+        "hub": (rng.integers(0, 900, hub), np.zeros(hub, np.int64),
+                rng.random(hub), 40, 900),
+        # 380 of 400 rows without edges
+        "isolated rows": (rng.integers(0, 400, 300),
+                          rng.integers(0, 20, 300) * 19, rng.random(300),
+                          400, 400),
+        "empty graph": (np.array([], np.int64), np.array([], np.int64),
+                        np.array([]), 33, 33),
+        "rectangular": (rng.integers(0, 5000, 40_000),
+                        rng.integers(0, 1500, 40_000), rng.random(40_000),
+                        1500, 5000),
+        "inf/NaN sources": (rng.integers(0, 600, 9000),
+                            rng.integers(0, 600, 9000), rng.random(9000),
+                            600, 600),
+    }
+    for name, (src, dst, w, n, n_src) in cases.items():
+        g = graph_from_coo(src, dst, w, n, num_src_nodes=n_src, device=dev)
+        mask = torch.from_numpy((rng.random(len(src)) < 0.35)
+                                .astype(np.float32) / 0.35).to(dev)
+        shares = []
+        for d in (8, 64, 128):
+            x = torch.randn((n_src, d), device=dev)
+            masks = (None, mask)
+            if name == "inf/NaN sources":   # their edges all dropped
+                bad = torch.tensor([5, 99, 300], device=dev)
+                x[bad, 0::2] = float("inf")
+                x[bad, 1::2] = float("nan")
+                mask[g.fwd.orig[torch.isin(g.fwd.src, bad.int())].long()] = 0
+                masks = (mask,)
+            for msg in MSG:
+                for m in masks:
+                    shares.append(check_segsum(g.fwd, x, m, msg, errs))
+                    if name == "rectangular":
+                        shares.append(check_segsum(
+                            g.bwd, torch.randn((n, d), device=dev), m, msg,
+                            errs))
+        print(f"  segsum {name} ({len(src)} edges, largest in-degree "
+              f"{g.fwd.max_degree}): worst error {max(a for a, _ in shares)}"
+              f" of the bound, f32 plain {max(b for _, b in shares)}",
+              flush=True)
+
+
+def check_served(server, u, ids, vals, seen) -> torch.Tensor:
+    """A served answer equals the plain top-k of the model's scores for
+    the same users (blockwise_topk and a full sort on CPU copies) and holds
+    no seen item; returns the scores' CPU copy."""
+    require(ids.shape == vals.shape == (len(u), K)
+            and np.isfinite(vals).all(), "finite (B, k) answers")
+    s_cpu = server.model.predict(u).cpu()
+    m_cpu = server._seen[torch.as_tensor(u, device=server.device)].cpu()
+    ref_v, ref_i = tb.blockwise_topk(s_cpu, K, mask_table=m_cpu)
+    np.testing.assert_array_equal(ids, ref_i.numpy())
+    np.testing.assert_array_equal(vals, ref_v.numpy())
+    _, sort_i = metrics.topk_scores_and_indices(s_cpu, K, m_cpu)
+    np.testing.assert_array_equal(ids, sort_i.numpy())
+    for user, row in zip(u, ids):
+        require(not np.isin(row, seen.get(int(user), [])).any(),
+                f"user {user} got a seen item")
+    return s_cpu
+
+
 def time_ms(fn, reps: int = REPS) -> float:
     """Median device time of fn() over reps launches (CUDA events)."""
     for _ in range(5):
@@ -299,13 +445,14 @@ def _device_events(prof):
             and "#" not in e.key]
 
 
-def device_ms(fn, reps: int = REPS) -> float:
+def device_ms(fn, reps: int = REPS, only: str = "") -> float:
     """Device time per call of fn: the summed durations of the kernels and
-    copies it launches (torch.profiler), over reps calls after warm-up.
-    Unlike time_ms it leaves out the idle gaps while the host launches,
-    which dominate a kernel of a few microseconds. A profile now and then
-    records no device event at all; it is taken again, and after three
-    empty ones the CUDA-event time of time_ms stands in (a line says so)."""
+    copies it launches (torch.profiler), over reps calls after warm-up;
+    with ``only``, of the kernels whose name holds it. Unlike time_ms it
+    leaves out the idle gaps while the host launches, which dominate a
+    kernel of a few microseconds. A profile now and then records no device
+    event at all; it is taken again, and after three empty ones the
+    CUDA-event time of time_ms stands in (a line says so)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
@@ -315,7 +462,8 @@ def device_ms(fn, reps: int = REPS) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in _device_events(prof))
+        total_us = sum(e.self_device_time_total for e in _device_events(prof)
+                       if only in e.key)
         if total_us > 0:
             return total_us / reps / 1e3
     print("device_ms: three profiles recorded no device time; CUDA-event "
@@ -362,10 +510,10 @@ def counted(fn):
     """(result, launches per kernel) of fn(): the counts are set to 0 just
     before and read just after."""
     torch.cuda.synchronize()
-    tb.reset_launches()
+    runtime.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(tb.LAUNCHES)
+    return out, dict(runtime.LAUNCHES)
 
 
 def main() -> int:
@@ -383,7 +531,7 @@ def main() -> int:
             and torch.get_float32_matmul_precision() == "highest",
             "f32 matmuls must run without TF32")
     t0 = time.perf_counter()
-    _build.load("topk_blocks")
+    _build.load("segsum")
     info = _build.build_info()
     print(f"kernels ready in {time.perf_counter() - t0:.2f} s (nvcc "
           f"{info.get('seconds', 0.0):.2f} s, built {info.get('built')})")
@@ -455,18 +603,7 @@ def main() -> int:
                 f"{kname} never launched while serving")
     seen = model.dataset.train_data.to_user_dict()
     for u, ids, vals in served:
-        require(ids.shape == vals.shape == (len(u), K)
-                and np.isfinite(vals).all(), "finite (B, k) answers")
-        s_cpu = model.predict(u).cpu()
-        m_cpu = server._seen[torch.as_tensor(u, device=dev)].cpu()
-        ref_v, ref_i = tb.blockwise_topk(s_cpu, K, mask_table=m_cpu)
-        np.testing.assert_array_equal(ids, ref_i.numpy())
-        np.testing.assert_array_equal(vals, ref_v.numpy())
-        sort_v, sort_i = metrics.topk_scores_and_indices(s_cpu, K, m_cpu)
-        np.testing.assert_array_equal(ids, sort_i.numpy())
-        for user, row in zip(u, ids):
-            require(not np.isin(row, seen.get(int(user), [])).any(),
-                    f"user {user} got a seen item")
+        s_cpu = check_served(server, u, ids, vals, seen)
         # predict against float64 on the CPU: |err| <= 1e-6 + 1e-5 |ref|
         u_t = torch.as_tensor(u, device=dev)
         ue = model.user_emb.detach()[u_t].cpu().double()
@@ -532,7 +669,107 @@ def main() -> int:
           f"{ml_best['NDCG@10']}; direct_rank == plain at B={B_EVAL}, "
           f"T={te.shape[1]}, L={tr.shape[1]}", flush=True)
 
-    # ------------------------------------------------------ phase 6: times
+    # ----------------------------------------- phase 6: LightGCN at Gowalla
+    t0 = time.perf_counter()
+    reg.load_skrx_model("LightGCN")
+    gcn_cls, _ = reg.get_model("LightGCN")
+    gcn = gcn_cls(RunConfig(recommender="LightGCN", data_dir=path,
+                            seed=SEED),
+                  {"epochs": EPOCHS, "early_stop": EPOCHS})
+    graph, gcfg = gcn.graph, gcn.config
+    layers, gsteps = gcfg.n_layers, gcn.pipeline.num_batches
+    fseg = graph.fwd
+    require(graph.num_nodes == USERS + ITEMS and gcfg.embed_size == DIM
+            and gcn.user_emb.device == dev and fseg.src.device == dev,
+            "LightGCN at full width on the card")
+    print(f"LightGCN ready in {time.perf_counter() - t0:.1f} s: "
+          f"{graph.num_nodes} rows, {graph.num_edges} edges, largest "
+          f"in-degree {fseg.max_degree} (mean "
+          f"{graph.num_edges / graph.num_nodes}); {fseg.seg_dst.shape[0]} "
+          f"segments of <= {ss.SEGMENT_EDGES} edges, "
+          f"{fseg.merge_row.shape[0]} rows merged from {fseg.num_partials} "
+          f"partials; {gsteps} steps an epoch", flush=True)
+    # 1. the kernel against its float64 plain version, real graph and
+    # adversarial ones
+    ego = torch.cat([gcn.user_emb, gcn.item_emb]).detach()
+    keep = torch.rand(graph.num_edges, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED)) < 0.8
+    drop_mask = keep.float() / 0.8
+    shares = [check_segsum(getattr(graph, direction), ego, m, msg, errs)
+              for msg in MSG for direction in ("fwd", "bwd")
+              for m in (None, drop_mask)]
+    print(f"segsum at the Gowalla graph (D={DIM}, A and A^T, f32 and bf16 "
+          f"messages, with and without a 0.8 dropout mask): worst error "
+          f"{max(a for a, _ in shares)} of the bound 1e-5 sum|msg|, the f32 "
+          f"plain version's {max(b for _, b in shares)}", flush=True)
+    require(fseg.num_partials > 0, "the Gowalla graph has rows to merge")
+    partial = check_merge(fseg, DIM, errs)
+    segsum_adversarial(dev, errs)
+    # 2. the gradient of one batch's loss, card against plain on the CPU
+    batch = next(gcn.pipeline.batches(epoch_generator(SEED, 0, dev)))
+    params = [gcn.user_emb, gcn.item_emb]
+    hyper = (layers, gcfg.reg, gcfg.batch_size)
+    loss = lightgcn_loss(graph, *params, *hyper, *batch)
+    grads = torch.autograd.grad(loss, params)
+    cpu_params = [p.detach().cpu().requires_grad_(True) for p in params]
+    loss_cpu = lightgcn_loss(graph.to("cpu"), *cpu_params, *hyper,
+                             *(t.cpu() for t in batch))
+    grads_cpu = torch.autograd.grad(loss_cpu, cpu_params)
+    for name_, g_card, g_cpu in zip(("user_emb", "item_emb"), grads,
+                                    grads_cpu):
+        scale = float(g_cpu.abs().max())
+        gerr = float((g_card.cpu() - g_cpu).abs().max())
+        require(gerr <= 1e-5 * scale + 1e-30,
+                f"{name_} gradient off by {gerr} (scale {scale})")
+        print(f"gradient of one batch's loss, {name_}: max |card - plain| "
+              f"{gerr}, max |grad| {scale}; loss card {float(loss.detach())}, "
+              f"plain {float(loss_cpu.detach())}", flush=True)
+    del grads, grads_cpu, loss, loss_cpu
+    # 3. fit(): the segsum launches are counted exactly
+    gcn_ndcg0 = gcn.evaluate()["NDCG@10"]
+    gcn_best, gcn_launches = counted(gcn.fit)
+    gcn_losses = [h["loss"] for h in gcn.history]
+    evals = sum("report" in h for h in gcn.history)
+    with_merge = [int(graph.fwd.num_partials > 0),
+                  int(graph.bwd.num_partials > 0)]
+    expect = {"segsum": EPOCHS * gsteps * 2 * layers + layers * evals,
+              "segsum_merge": EPOCHS * gsteps * layers * sum(with_merge)
+              + layers * evals * with_merge[0]}
+    print(f"launches during LightGCN fit() ({EPOCHS} epochs + {evals} "
+          f"evaluations): {gcn_launches}; expected segsum {expect['segsum']}"
+          f", segsum_merge {expect['segsum_merge']}", flush=True)
+    for kname, n_expect in expect.items():
+        require(gcn_launches[kname] == n_expect,
+                f"{kname}: {gcn_launches[kname]} launches, not {n_expect}")
+    for kname in ("submax", "kth_largest", "extract", "rank_count"):
+        require(gcn_launches[kname] >= 1,
+                f"{kname} never launched in LightGCN fit()")
+    require(len(gcn_losses) == EPOCHS and bool(np.isfinite(gcn_losses).all())
+            and gcn_losses[1] < gcn_losses[0],
+            f"LightGCN losses finite and falling: {gcn_losses}")
+    require(gcn_best["NDCG@10"] > gcn_ndcg0, f"LightGCN NDCG@10 "
+            f"{gcn_best['NDCG@10']} not above the untrained {gcn_ndcg0}")
+    print(f"LightGCN fit(): losses {gcn_losses}, NDCG@10 {gcn_ndcg0} "
+          f"untrained -> {gcn_best['NDCG@10']} (Recall@10 "
+          f"{gcn_best['Recall@10']})", flush=True)
+    # 4. serving from the frozen propagated embeddings
+    gcn_server = TopKRecommender(gcn, k=K)
+    gcn_served, gcn_serve_launches = counted(lambda: [
+        (u,) + gcn_server.recommend(u)
+        for u in (rng.integers(0, USERS, bs) for bs in GCN_SERVE)])
+    print(f"launches while serving LightGCN {GCN_SERVE}: "
+          f"{gcn_serve_launches}")
+    require(gcn_serve_launches["segsum"] == 0,
+            "serving reuses the embeddings frozen by the last evaluate()")
+    for kname in SERVING:
+        require(gcn_serve_launches[kname] >= 1,
+                f"{kname} never launched while serving LightGCN")
+    for u, ids, vals in gcn_served:
+        check_served(gcn_server, u, ids, vals, seen)
+    print("LightGCN recommend == plain top-k of the same scores, no seen "
+          "item", flush=True)
+
+    # ------------------------------------------------------ phase 7: times
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
     s_masked = tb._masked_padded(scores, mask, BLOCK_N).reshape(b, -1, BLOCK_N)
     found = ((s_masked >= tau[:, None, None]) & (s_masked != NEG_INF)).sum(2)
@@ -550,6 +787,22 @@ def main() -> int:
                    & ~tb._in_rows(m_tr, m_safe)
                    & torch.isfinite(m_sc.gather(1, m_safe.long()))).sum())
     bm_, tm_, lm_ = m_sc.shape[0], m_te.shape[1], m_tr.shape[1]
+    # segsum at the Gowalla graph, forward (A) on the ego embeddings as in
+    # the first layer of a training step; the merge on check_merge's
+    # partials at the same layout
+    n_rows, n_edges, n_seg = graph.num_nodes, graph.num_edges, \
+        fseg.seg_dst.shape[0]
+    n_part, n_merge = fseg.num_partials, fseg.merge_row.shape[0]
+    merge_out = torch.zeros((n_rows, DIM), device=dev)
+    counts = (fseg.merge_ptr[1:] - fseg.merge_ptr[:-1]).long()
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(fseg.dst.long(),
+                                           minlength=n_rows), 0)
+    a_csr = torch.sparse_csr_tensor(crow, fseg.src.long(), fseg.weight,
+                                    (n_rows, n_rows))
+    require(bool(torch.allclose(torch.sparse.mm(a_csr, ego),
+                                ss.segsum(fseg, ego), rtol=1e-4, atol=1e-6)),
+            "torch.sparse.mm of the CSR matrix computes the same function")
     work = {   # (bytes moved, operations) for this run's inputs
         "submax": (4 * (b * n + b * seen_w + b * w_sub), b * n),
         "kth_largest": (4 * (b * w_sub + b), 2 * 33 * b * w_sub),
@@ -562,7 +815,19 @@ def main() -> int:
         # a compare and an add per (found probe, column) pair
         "direct_rank": (4 * (bm_ * ML_ITEMS + bm_ * lm_ + 2 * bm_ * tm_),
                         2 * m_valid * ML_ITEMS),
+        # x once, each edge's source id and weight, the segment table; the
+        # single-segment rows and the partial rows written; a multiply and
+        # an add per (edge, feature)
+        "segsum": (4 * (n_rows * DIM + 2 * n_edges + 2 * n_seg + 1
+                        + (n_rows - n_merge + n_part) * DIM),
+                   2 * n_edges * DIM),
+        # the partials once, the merge table, the merged rows written
+        "segsum_merge": (4 * (n_part * DIM + 2 * n_merge + 1
+                              + n_merge * DIM), n_part * DIM),
     }
+    # the whole propagate as a user calls it: x, the CSR arrays (row
+    # offsets, source ids, weights) and the output
+    prop_bytes = 4 * (2 * n_rows * DIM + n_rows + 1 + 2 * n_edges)
     neg = torch.full_like(tau, NEG_INF)
     kernel_fns = {
         "submax": (lambda: tb.submax(scores, mask, BLOCK_N),
@@ -582,23 +847,40 @@ def main() -> int:
         "direct_rank": (lambda: tb.direct_rank(m_sc, m_te, K_EVAL, m_tr),
                         lambda: tb.direct_rank_plain(m_sc, m_tr, m_te,
                                                      K_EVAL), None),
+        "segsum": (lambda: ss.segsum(fseg, ego),
+                   lambda: ss.segsum_plain(fseg, ego),
+                   lambda: torch.sparse.mm(a_csr, ego)),
+        "segsum_merge": (
+            lambda: ss.segsum_merge(partial, fseg.merge_row, fseg.merge_ptr,
+                                    merge_out),
+            lambda: ss.segsum_merge_plain(partial, fseg.merge_row,
+                                          fseg.merge_ptr, merge_out),
+            lambda: torch.segment_reduce(partial, "sum", lengths=counts)),
     }
+    # device time of the kernel itself where its wrapper launches two
+    only = {"segsum": "segsum_kernel"}
     launches = {k: serve_launches[k] for k in SERVING}
     launches.update(rank_count=fit_launches["rank_count"],
-                    direct_rank=ml_launches["direct_rank"])
+                    direct_rank=ml_launches["direct_rank"],
+                    segsum=gcn_launches["segsum"],
+                    segsum_merge=gcn_launches["segsum_merge"])
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     shapes["rank_count"] = (f"B={be}, N={ITEMS}, k={K_EVAL}, W={w_r}, "
                             f"T={t_eval}")
     shapes["direct_rank"] = (f"B={bm_}, N={ML_ITEMS}, k={K_EVAL}, L={lm_}, "
                              f"T={tm_}, found {m_valid}")
+    shapes["segsum"] = (f"N={n_rows}, E={n_edges}, D={DIM}, {n_seg} "
+                        f"segments, {n_part} partial rows")
+    shapes["segsum_merge"] = f"{n_merge} rows from {n_part} partials, D={DIM}"
     rows = []
-    for kname in tb.KERNELS:
+    for kname in runtime.KERNELS:
         fn, plain, lib = kernel_fns[kname]
         nbytes, ops = work[kname]
         t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / F32_OPS * 1e3
         row = {"name": kname, "route": "cuda", "source": SOURCE[kname],
                "replaces": REPLACES[kname], "launches": launches[kname],
-               "max_abs_err": errs.get(kname, 0.0), "ms": device_ms(fn),
+               "max_abs_err": errs.get(kname, 0.0),
+               "ms": device_ms(fn, only=only.get(kname, "")),
                "plain_ms": device_ms(plain),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -610,10 +892,22 @@ def main() -> int:
               f"call between CUDA events {time_ms(fn)} ms, plain "
               f"{time_ms(plain)} ms; launches on its path "
               f"{launches[kname]}  [{card}, {shapes[kname]}]", flush=True)
+    prop_bound = max(prop_bytes / MEM_RATE, 2 * n_edges * DIM / F32_OPS) * 1e3
+    print(f"propagate at the Gowalla graph (segsum + segsum_merge, as a "
+          f"user calls it): f32 messages {device_ms(lambda: ss.segsum(fseg, ego))}"
+          f" ms, bf16 messages "
+          f"{device_ms(lambda: ss.segsum(fseg, ego, None, torch.bfloat16))} "
+          f"ms, with a dropout mask "
+          f"{device_ms(lambda: ss.segsum(fseg, ego, drop_mask))} ms of device "
+          f"time; one call between CUDA events "
+          f"{time_ms(lambda: ss.segsum(fseg, ego))} ms; bound "
+          f"{prop_bound} ms (bytes, {prop_bytes} B: x, CSR, output) "
+          f"[{card}, {shapes['segsum']}]", flush=True)
     n_full = ITEMS // BLOCK_N * BLOCK_N
     two_calls = device_ms(lambda: torch.amax(metrics.mask_items(
         scores, mask)[:, :n_full].reshape(b, -1, BLOCK_N // 128, 128), dim=2))
-    vmem_ms = time_ms(lambda: tb.pruned_merge(cv, ci, K, neg))
+    vmem_ms = (device_ms(lambda: tb.pruned_merge(cv, ci, K, neg)),
+               time_ms(lambda: tb.pruned_merge(cv, ci, K, neg)))
     total = time_ms(lambda: tb.blockwise_topk(scores, K, mask_table=mask))
 
     def masked_topk():
@@ -621,7 +915,8 @@ def main() -> int:
     print(f"submax yardstick, two calls (mask_items + amax over the "
           f"{n_full // BLOCK_N} full column blocks): {two_calls} ms of "
           f"device time; "
-          f"vmem_topk (tau=-inf) {vmem_ms} ms; blockwise_topk total "
+          f"vmem_topk (tau=-inf) {vmem_ms[0]} ms of device time, "
+          f"{vmem_ms[1]} ms between CUDA events; blockwise_topk total "
           f"{total} ms vs masked torch.topk {time_ms(masked_topk)} ms; "
           f"predict {time_ms(lambda: model.predict(users))} ms "
           f"[{card}, B={b}]")
@@ -644,14 +939,16 @@ def main() -> int:
               f"max {lat[-1]} ms  device busy "
               f"{'not measured' if busy is None else busy}  [{card}]")
     # training and evaluation, end to end
-    steps = model.pipeline.num_batches
-    for h in model.history:
-        print(f"Gowalla epoch {h['epoch']}: train {h['train_seconds']} s "
-              f"({steps / h['train_seconds']} steps/s of batch "
-              f"{model.config.batch_size}), evaluate() {h['eval_seconds']} s"
-              f"  [{card}]")
+    for tag, m in (("Gowalla", model), ("LightGCN Gowalla", gcn)):
+        steps = m.pipeline.num_batches
+        for h in m.history:
+            print(f"{tag} epoch {h['epoch']}: train {h['train_seconds']} s "
+                  f"({steps / h['train_seconds']} steps/s of batch "
+                  f"{m.config.batch_size}), evaluate() {h['eval_seconds']} "
+                  f"s  [{card}]")
     for tag, m, n_users in (("Gowalla", model, len(test_users)),
-                            ("ML-1M", ml, len(ml_test))):
+                            ("ML-1M", ml, len(ml_test)),
+                            ("LightGCN Gowalla", gcn, len(test_users))):
         _, sec = timed(m.evaluate)
         _, per_eval = counted(m.evaluate)
         print(f"{tag} evaluate(): {sec} s, {n_users / sec} users/s, "

@@ -9,19 +9,23 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["bprmf_params_from_jax", "bprmf_adam_state_from_jax"]
+__all__ = ["bprmf_params_from_jax", "lightgcn_params_from_jax",
+           "adam_state_from_jax"]
 
-_BPRMF_KEYS = ("user_emb", "item_emb", "item_bias")
+
+def _tensors(params: Dict[str, np.ndarray], keys: Tuple[str, ...]
+             ) -> Dict[str, torch.Tensor]:
+    if set(params) != set(keys):
+        raise ValueError(f"expected keys {keys}, got {sorted(params)}")
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32))
+            for k in keys}
 
 
 def bprmf_params_from_jax(params: Dict[str, np.ndarray]
                           ) -> Dict[str, torch.Tensor]:
     """``{"user_emb": (U, d), "item_emb": (N, d), "item_bias": (N,)}`` f32
     CPU tensors from a JAX BPRMF's ``params``."""
-    if set(params) != set(_BPRMF_KEYS):
-        raise ValueError(f"expected keys {_BPRMF_KEYS}, got {sorted(params)}")
-    out = {k: torch.from_numpy(np.array(params[k], dtype=np.float32))
-           for k in _BPRMF_KEYS}
+    out = _tensors(params, ("user_emb", "item_emb", "item_bias"))
     u, i, b = out["user_emb"], out["item_emb"], out["item_bias"]
     if (u.dim() != 2 or i.dim() != 2 or b.dim() != 1
             or u.shape[1] != i.shape[1] or b.shape[0] != i.shape[0]):
@@ -31,17 +35,28 @@ def bprmf_params_from_jax(params: Dict[str, np.ndarray]
     return out
 
 
-def bprmf_adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
-                              shapes: Dict[str, Tuple[int, ...]]
-                              ) -> Dict[str, Dict[str, torch.Tensor]]:
+def lightgcn_params_from_jax(params: Dict[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """``{"user_emb": (U, d), "item_emb": (N, d)}`` f32 CPU tensors from a
+    JAX LightGCN's ``params`` (the ego embeddings)."""
+    out = _tensors(params, ("user_emb", "item_emb"))
+    u, i = out["user_emb"], out["item_emb"]
+    if u.dim() != 2 or i.dim() != 2 or u.shape[1] != i.shape[1]:
+        raise ValueError(f"inconsistent shapes: user_emb {tuple(u.shape)}, "
+                         f"item_emb {tuple(i.shape)}")
+    return out
+
+
+def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
+                        shapes: Dict[str, Tuple[int, ...]]
+                        ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Per-parameter ``torch.optim.Adam`` state (``step``, ``exp_avg``,
-    ``exp_avg_sq``, CPU tensors) from a JAX BPRMF's ``optax.adam`` state
+    ``exp_avg_sq``, CPU tensors) from a JAX model's ``optax.adam`` state
     over its raveled parameters: ``count`` and the flat ``mu`` and ``nu``.
-    ``ravel_pytree`` concatenates the leaves by sorted key (``item_bias``,
-    ``item_emb``, ``user_emb``); ``shapes`` gives each leaf's shape.
-    optax's count and torch's step both count the updates taken."""
-    if set(shapes) != set(_BPRMF_KEYS):
-        raise ValueError(f"expected keys {_BPRMF_KEYS}, got {sorted(shapes)}")
+    ``ravel_pytree`` concatenates a dict's leaves by sorted key (BPRMF:
+    ``item_bias``, ``item_emb``, ``user_emb``; LightGCN: ``item_emb``,
+    ``user_emb``); ``shapes`` gives each leaf's shape. optax's count and
+    torch's step both count the updates taken."""
     mu = np.asarray(mu, dtype=np.float32).reshape(-1)
     nu = np.asarray(nu, dtype=np.float32).reshape(-1)
     total = sum(int(np.prod(s)) for s in shapes.values())

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..convert import bprmf_adam_state_from_jax, bprmf_params_from_jax
+from ..convert import bprmf_params_from_jax
 from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
 from ..run_config import RunConfig
@@ -52,6 +52,8 @@ class BPRMFConfig(ModelConfig):
 
 
 class BPRMF(ChunkedDotPredictMixin, TorchRecommender):
+    _JAX_PARAMS = ("user_emb", "item_emb", "item_bias")
+
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, BPRMFConfig(**model_config), device)
@@ -91,29 +93,7 @@ class BPRMF(ChunkedDotPredictMixin, TorchRecommender):
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX BPRMF's ``params`` (arrays taken with ``np.asarray``)
         into this model."""
-        tensors = bprmf_params_from_jax(params)
-        with torch.no_grad():
-            for name, value in tensors.items():
-                target = getattr(self, name)
-                if target.shape != value.shape:
-                    raise ValueError(f"{name}: shape {tuple(value.shape)}, "
-                                     f"model has {tuple(target.shape)}")
-                target.copy_(value)
-
-    def load_jax_opt_state(self, count: int, mu: np.ndarray,
-                           nu: np.ndarray) -> None:
-        """Set the Adam state from a JAX BPRMF's flat ``optax.adam`` state
-        (``count`` and the raveled ``mu``, ``nu``)."""
-        shapes = {"user_emb": tuple(self.user_emb.shape),
-                  "item_emb": tuple(self.item_emb.shape),
-                  "item_bias": tuple(self.item_bias.shape)}
-        for name, state in bprmf_adam_state_from_jax(count, mu, nu,
-                                                     shapes).items():
-            param = getattr(self, name)
-            self.optimizer.state[param] = {
-                "step": state["step"],
-                "exp_avg": state["exp_avg"].to(self.device),
-                "exp_avg_sq": state["exp_avg_sq"].to(self.device)}
+        self._copy_params(bprmf_params_from_jax(params))
 
     def _chunk_embeddings(self):
         return self.user_emb, self.item_emb

@@ -8,18 +8,20 @@ under the working directory) and ``RankingEvaluator``. ``fit()`` runs one
 epoch at a time and evaluates every ``verbose`` epochs, stops early on
 NDCG@10 after ``early_stop`` evaluations without a gain, and stops on a
 non-finite loss. Subclasses implement ``_train_epoch(epoch) -> loss`` and
-``predict``. Checkpoint and resume, the profiler trace and evaluation by
+``predict``; a model trained by ``self.optimizer`` names in ``_JAX_PARAMS``
+the parameters a JAX model of its kind carries over. Checkpoint and resume, the profiler trace and evaluation by
 user group are not ported yet (ROADMAP.md, Queue 1).
 """
 import os
 import platform
 import time
-from typing import Iterable, List, Optional, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..convert import adam_state_from_jax
 from ..eval import EarlyStopping, MetricReport, RankingEvaluator
 from ..io import RSDataset
 from ..run_config import RunConfig
@@ -44,6 +46,8 @@ def resolve_eval_batch_size(batch_size: Union[int, str],
 
 
 class TorchRecommender(nn.Module):
+    _JAX_PARAMS: Tuple[str, ...] = ()
+
     def __init__(self, run_config: RunConfig, model_config: Config,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
@@ -137,6 +141,30 @@ class TorchRecommender(nn.Module):
 
     def _train_epoch(self, epoch: int) -> Optional[float]:
         raise NotImplementedError
+
+    def _copy_params(self, tensors: Dict[str, torch.Tensor]) -> None:
+        """Copy CPU tensors into the parameters of the same names."""
+        with torch.no_grad():
+            for name, value in tensors.items():
+                target = getattr(self, name)
+                if target.shape != value.shape:
+                    raise ValueError(f"{name}: shape {tuple(value.shape)}, "
+                                     f"model has {tuple(target.shape)}")
+                target.copy_(value)
+
+    def load_jax_opt_state(self, count: int, mu: np.ndarray,
+                           nu: np.ndarray) -> None:
+        """Set the Adam state from the flat ``optax.adam`` state of a JAX
+        model of this kind (``count`` and the raveled ``mu``, ``nu``)."""
+        shapes = {name: tuple(getattr(self, name).shape)
+                  for name in self._JAX_PARAMS}
+        for name, state in adam_state_from_jax(count, mu, nu,
+                                               shapes).items():
+            param = getattr(self, name)
+            self.optimizer.state[param] = {
+                "step": state["step"],
+                "exp_avg": state["exp_avg"].to(self.device),
+                "exp_avg_sq": state["exp_avg_sq"].to(self.device)}
 
     def predict(self, users):
         raise NotImplementedError

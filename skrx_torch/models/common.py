@@ -1,13 +1,20 @@
-"""Shared model helpers: the optimizer and train-step factory, and chunked
-scoring for dot-product models (the port of the parts of
-``skrx.models.common`` that BPRMF uses)."""
+"""Shared model helpers: the optimizer and train-step factory, chunked
+scoring for dot-product models, and the lowering of a model's adjacency for
+propagation (the port of the parts of ``skrx.models.common`` that BPRMF and
+LightGCN use)."""
 from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
+from ..ops.graph import Graph, graph_from_sp_matrix
+
 __all__ = ["ChunkedDotPredictMixin", "as_user_tensor", "make_optimizer",
-           "make_train_step", "make_sharded_train_step"]
+           "make_train_step", "make_sharded_train_step", "GRAPH_IMPLS",
+           "resolve_graph_impl", "mxu_msg_dtype", "build_prop_graph"]
+
+GRAPH_IMPLS = ("auto", "segment", "mxu", "mxu_bf16")
 
 
 def make_optimizer(name: str, params: Iterable[torch.nn.Parameter],
@@ -73,3 +80,34 @@ class ChunkedDotPredictMixin:
         if bias is not None:
             scores = scores + bias[None, item_lo:item_hi]
         return scores
+
+
+def resolve_graph_impl(graph_impl: str) -> str:
+    """The concrete propagation for a model's ``graph_impl``. Every choice
+    runs kernel #11 (its plain version on the CPU): "segment" and "mxu"
+    with f32 messages, "mxu_bf16" with bf16 messages summed in f32. "auto"
+    is "segment": the JAX package sends large graphs to bf16 messages on a
+    TPU after measurements there, which do not carry to this card."""
+    if graph_impl not in GRAPH_IMPLS:
+        raise ValueError(f"graph_impl must be one of {GRAPH_IMPLS}, got "
+                         f"{graph_impl!r}")
+    return "segment" if graph_impl == "auto" else graph_impl
+
+
+def mxu_msg_dtype(impl: str) -> torch.dtype:
+    """Message dtype of a resolved ``graph_impl``."""
+    return torch.bfloat16 if impl == "mxu_bf16" else torch.float32
+
+
+def build_prop_graph(adj: sp.spmatrix, graph_impl: str = "auto",
+                     mesh=None, device="cpu") -> Graph:
+    """Lower a square scipy adjacency for
+    :func:`skrx_torch.ops.graph.propagate` on ``device``. A device mesh
+    (row-sharded propagation) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError("sharded propagation over a mesh is not "
+                                  "ported yet (ROADMAP.md, Queue 1, "
+                                  "parallel/)")
+    impl = resolve_graph_impl(graph_impl)
+    return graph_from_sp_matrix(adj, msg_dtype=mxu_msg_dtype(impl),
+                                device=device)

@@ -28,87 +28,28 @@ beyond the row's unmasked items hold (-inf, ``SENTINEL`` = int32max // 2);
 Every kernel has a plain PyTorch version of the same function beside it
 (``*_plain``). A wrapper runs the plain version when its tensor lies on the
 CPU (the tests) and launches the kernel on a CUDA tensor, or raises. It adds
-one to ``LAUNCHES[<kernel>]`` per kernel launch and nowhere else.
+one to ``runtime.LAUNCHES[<kernel>]`` per kernel launch and nowhere else.
 """
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..sampling import is_member_sorted
-from . import _build
+from .runtime import LAUNCHES, check as _check, launch as _launch
+from .runtime import on_cuda as _on_cuda
 
 __all__ = ["blockwise_topk", "blockwise_candidates", "kth_largest",
            "pruned_merge", "vmem_topk", "submax", "extract",
            "submax_plain", "kth_largest_plain", "extract_plain",
            "pruned_merge_plain", "fold_submaxes", "order_key", "rank_count",
            "rank_count_plain", "direct_rank", "direct_rank_plain",
-           "masked_topk_ranks", "masked_topk_ranks_small", "LAUNCHES",
-           "reset_launches", "SENTINEL", "KERNELS", "MAX_BLOCK_N"]
+           "masked_topk_ranks", "masked_topk_ranks_small", "SENTINEL",
+           "MAX_BLOCK_N"]
 
 SENTINEL = 2 ** 31 // 2 - 1          # int32max // 2, id of an empty slot
 GROUPS = 128                         # strided column groups per block
 MAX_BLOCK_N = 4096                  # widest column block the kernels take
 _TAU_MAX_W = 4096                    # fold group maxima down to this width
-
-# kernel name -> its launches since the last reset
-KERNELS = ("submax", "kth_largest", "extract", "pruned_merge", "rank_count",
-           "direct_rank")
-LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-
-
-def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-# C launcher -> (source stem in csrc/, argument types before the stream)
-_SIGNATURES = {
-    "skrx_submax": ("topk_blocks", [_P, _I, _I, _I, _P, _I, _P, _P]),
-    "skrx_kth_largest": ("topk_blocks", [_P, _I, _I, _I, _P, _P]),
-    "skrx_extract": ("topk_blocks",
-                     [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P]),
-    "skrx_pruned_merge": ("topk_blocks", [_P, _P, _I, _I, _P, _I, _P, _P, _P]),
-    "skrx_rank_count": ("rank_counts", [_P, _P, _I, _I, _P, _P, _I, _P, _P]),
-    "skrx_direct_rank": ("rank_counts", [_P, _I, _I, _P, _I, _P, _I, _I, _P,
-                                         _P]),
-}
-
-
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    """Call the C launcher ``fn_name`` on ``device``'s current stream; a
-    tensor argument passes its data pointer."""
-    stem, argtypes = _SIGNATURES[fn_name]
-    fn = getattr(_build.load(stem), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(device).cuda_stream
-    c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
-              else (None if a is None else a) for a in args]
-    with torch.cuda.device(device):
-        err = fn(*c_args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-
-
-def _on_cuda(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix or on
-    another device type."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"tensors must share one device, got {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name} must be a {ndim}-D {dtype} tensor, got "
-                         f"{t.dim()}-D {t.dtype}")
 
 
 def _check_block_n(block_n: int) -> None:

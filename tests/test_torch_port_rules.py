@@ -46,17 +46,21 @@ def test_port_sources_import_no_jax_skrx_pandas_or_module_level_triton():
 
 def test_importing_every_port_module_pulls_in_no_jax_or_skrx():
     code = (
-        "import importlib, pkgutil, sys, skrx_torch\n"
+        "import importlib, pkgutil, subprocess, sys, skrx_torch\n"
+        "def no_nvcc(*a, **k): raise AssertionError('nvcc at import')\n"
+        "subprocess.Popen = no_nvcc\n"
         "for m in pkgutil.walk_packages(skrx_torch.__path__, 'skrx_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'skrx', 'pandas', 'triton')]\n"
         "assert not bad, bad\n"
+        "from skrx_torch.ops.kernels import _build\n"
+        "assert not _build._libs and not _build._info\n"
         "print(len([m for m in sys.modules if m.startswith('skrx_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 20
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
@@ -79,6 +83,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
             BPRMF(run, {}, device=device)
     model = BPRMF(run, {}, device="cpu")
     assert model.user_emb.device.type == "cpu"
+    from skrx_torch.models.LightGCN import LightGCN
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LightGCN(run, {"embed_size": 8}, device=device)
+    gcn = LightGCN(run, {"embed_size": 8}, device="cpu")
+    assert gcn.user_emb.device.type == gcn.graph.fwd.src.device.type == "cpu"
     stub = types.SimpleNamespace(device=torch.device("cuda"),
                                  dataset=model.dataset, num_items=40)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -130,10 +140,106 @@ def test_wrappers_refuse_bad_inputs():
 
 
 def test_launch_counts_untouched_by_cpu_path():
+    from skrx_torch.ops.graph import graph_from_coo, propagate
+    from skrx_torch.ops.kernels import runtime
     from skrx_torch.ops.kernels import topk_blocks as ttb
-    ttb.reset_launches()
+    runtime.reset_launches()
     ttb.blockwise_topk(torch.randn(3, 5000), 10)
-    assert all(v == 0 for v in ttb.LAUNCHES.values())
+    x = torch.randn(4, 8, requires_grad=True)
+    propagate(graph_from_coo([0, 1, 2], [1, 2, 3], [1.0, 1.0, 1.0], 4),
+              x).sum().backward()
+    assert set(runtime.LAUNCHES) == set(runtime.KERNELS)
+    assert all(v == 0 for v in runtime.LAUNCHES.values())
+
+
+def test_ctypes_signatures_match_the_c_launchers():
+    """Every C launcher in csrc/ has a signature in runtime, argument for
+    argument (pointers and the stream as c_void_p, ints as c_int), and
+    launch() types the stream too: an untyped stream argument is passed as
+    a 32-bit int."""
+    import ctypes
+    import glob
+    import re
+    from skrx_torch.ops.kernels import runtime
+    found = {}
+    for path in glob.glob(os.path.join(ROOT, "skrx_torch", "ops", "kernels",
+                                       "csrc", "*.cu")):
+        with open(path) as f:
+            text = f.read()
+        stem = os.path.splitext(os.path.basename(path))[0]
+        for name, params in re.findall(r"^int (skrx_\w+)\(([^)]*)\)", text,
+                                       re.M):
+            if name.endswith("_abi_version"):
+                continue
+            found[name] = (stem, [
+                ctypes.c_void_p if "*" in p or "cudaStream_t" in p
+                else ctypes.c_int for p in params.split(",")])
+    assert found and set(found) == set(runtime._SIGNATURES)
+    for name, (stem, types_) in found.items():
+        assert runtime._SIGNATURES[name][0] == stem
+        assert runtime._SIGNATURES[name][1] + [ctypes.c_void_p] == types_, name
+
+
+def test_launch_types_every_argument_and_raises_on_a_cuda_error(
+        monkeypatch):
+    import contextlib
+    import ctypes
+    from skrx_torch.ops.kernels import _build, runtime
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 700 if len(calls) > 1 else 0
+    monkeypatch.setattr(_build, "load", lambda stem: types.SimpleNamespace(
+        skrx_segsum_merge=fn))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    part = torch.zeros(3, 4)
+    runtime.launch("skrx_segsum_merge", "cuda", part, 4, None, part, 1, part)
+    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p]
+    assert calls[0] == (part.data_ptr(), 4, None, part.data_ptr(), 1,
+                        part.data_ptr(), 0)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        runtime.launch("skrx_segsum_merge", "cuda", part, 4, None, part, 1,
+                       part)
+
+
+def test_segsum_on_a_cuda_tensor_never_reaches_the_plain_version(
+        monkeypatch):
+    """With the device check answering 'cuda', segsum and the merge go to
+    their launches, and a failed launch raises instead of falling back."""
+    from skrx_torch.ops.graph import graph_from_coo
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import segsum as ss
+
+    def plain(*args, **kwargs):
+        raise AssertionError("plain version reached")
+
+    calls = []
+    monkeypatch.setattr(ss, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(ss, "segsum_plain", plain)
+    monkeypatch.setattr(ss, "segsum_merge_plain", plain)
+    monkeypatch.setattr(ss, "launch", lambda name, dev, *a: calls.append(
+        (name, a)))
+    hub = 2 * ss.SEGMENT_EDGES + 1
+    g = graph_from_coo(list(range(hub)), [0] * hub, [1.0] * hub, 2,
+                       num_src_nodes=hub)
+    runtime.reset_launches()
+    mask = torch.ones(hub)
+    ss.segsum(g.fwd, torch.zeros((hub, 64)), mask, torch.bfloat16)
+    assert [c[0] for c in calls] == ["skrx_segsum", "skrx_segsum_merge"]
+    assert calls[0][1][8] is mask and calls[0][1][9] == 1     # mask, bf16
+    assert runtime.LAUNCHES["segsum"] == runtime.LAUNCHES["segsum_merge"] == 1
+
+    def failed(name, dev, *a):
+        raise RuntimeError(f"{name} launch failed: CUDA error 1")
+    monkeypatch.setattr(ss, "launch", failed)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ss.segsum(g.fwd, torch.zeros((hub, 64)))
 
 
 @pytest.mark.cuda
@@ -152,6 +258,7 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
+    from skrx_torch.ops.kernels import runtime
     from skrx_torch.ops.kernels import topk_blocks as ttb
     rng = np.random.default_rng(n + k)
     s = rng.standard_normal((b, n)).astype(np.float32)
@@ -164,7 +271,7 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
         table[0, :n] = np.arange(n)
     cpu = (torch.from_numpy(s), torch.from_numpy(table) if width else None)
     gpu = tuple(None if x is None else x.cuda() for x in cpu)
-    ttb.reset_launches()
+    runtime.reset_launches()
     v, i, tau = ttb.blockwise_candidates(gpu[0], k, block_n, gpu[1])
     rv, ri, rtau = ttb.blockwise_candidates(cpu[0], k, block_n, cpu[1])
     assert torch.equal(tau.cpu().view(torch.int32), rtau.view(torch.int32))
@@ -175,9 +282,10 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
     vv, vi = ttb.vmem_topk(v, i, k)
     assert torch.equal(vv.cpu(), rmv) and torch.equal(vi.cpu(), rmi)
     torch.cuda.synchronize()
-    assert ttb.LAUNCHES == {"submax": 1, "kth_largest": 1, "extract": 1,
-                            "pruned_merge": 2, "rank_count": 0,
-                            "direct_rank": 0}
+    assert runtime.LAUNCHES == {"submax": 1, "kth_largest": 1, "extract": 1,
+                                "pruned_merge": 2, "rank_count": 0,
+                                "direct_rank": 0, "segsum": 0,
+                                "segsum_merge": 0}
 
 
 @pytest.mark.cuda
@@ -195,6 +303,7 @@ def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
+    from skrx_torch.ops.kernels import runtime
     from skrx_torch.ops.kernels import topk_blocks as ttb
     rng = np.random.default_rng(n + t)
     s = rng.standard_normal((b, n)).astype(np.float32)
@@ -212,7 +321,7 @@ def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width):
     cpu = [torch.from_numpy(x) for x in (s, table, probes)]
     gpu = [x.cuda() for x in cpu]
     mask_c, mask_g = (cpu[1], gpu[1]) if width else (None, None)
-    ttb.reset_launches()
+    runtime.reset_launches()
     got = ttb.direct_rank(gpu[0], gpu[2], k, mask_g)
     assert torch.equal(got.cpu(), ttb.direct_rank_plain(cpu[0], mask_c,
                                                         cpu[2], k))
@@ -227,5 +336,96 @@ def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width):
         small = ttb.direct_rank_plain(cpu[0], mask_c, cpu[2], k)
         assert torch.equal(ranks.cpu().clamp(max=k), small.clamp(max=k))
     torch.cuda.synchronize()
-    assert ttb.LAUNCHES["direct_rank"] == 1
-    assert ttb.LAUNCHES["rank_count"] == (2 if n // 128 >= k else 0)
+    assert runtime.LAUNCHES["direct_rank"] == 1
+    assert runtime.LAUNCHES["rank_count"] == (2 if n // 128 >= k else 0)
+
+
+def _segsum_case(case: str, rng):
+    """(src, dst, weight, num_nodes, num_src_nodes, nonfinite source rows)
+    of one adversarial graph for the segsum kernel."""
+    import numpy as np
+    if case == "zipf":          # a LightGCN-like bipartite graph with hubs
+        users = rng.integers(0, 3000, 60_000)
+        items = 3000 + rng.zipf(1.3, 60_000) % 4000
+        src = np.concatenate([users, items])
+        dst = np.concatenate([items, users])
+        return src, dst, rng.random(len(src)), 7000, 7000, []
+    if case == "hub":           # one row of 20 x 128 + 3 edges, 90% masked
+        e = 20 * 128 + 3
+        return (rng.integers(0, 500, e), np.zeros(e, np.int64),
+                rng.random(e), 50, 500, [])
+    if case == "isolated":      # most rows without edges
+        return (rng.integers(0, 400, 300), rng.integers(0, 20, 300) * 17,
+                rng.random(300), 400, 400, [])
+    if case == "empty":
+        return (np.array([], np.int64), np.array([], np.int64),
+                np.array([]), 33, 33, [])
+    if case == "nonfinite":     # inf/NaN sources behind masked edges
+        return (rng.integers(0, 300, 5000), rng.integers(0, 300, 5000),
+                rng.random(5000), 300, 300, [3, 77, 150])
+    # rectangular: 2,000 sources into 700 rows
+    return (rng.integers(0, 2000, 20_000), rng.integers(0, 700, 20_000),
+            rng.random(20_000), 700, 2000, [])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zipf", "hub", "isolated", "empty",
+                                  "nonfinite", "rectangular"])
+@pytest.mark.parametrize("d", [8, 64, 100, 128])
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+def test_cuda_segsum_matches_its_float64_plain_version(case, d, msg):
+    """segsum and its merge on the card against segsum_plain in float64 on
+    CPU copies, both directions, with and without an edge mask: per row
+    |kernel - ref| <= 1e-5 * sum|msg| (exact zeros where a row has no kept
+    edge); the gradient of propagate likewise. Needs a card, as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.graph import graph_from_coo, propagate
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import segsum as ss
+    rng = np.random.default_rng(d)
+    src, dst, w, n, n_src, bad = _segsum_case(case, rng)
+    dtype = torch.float32 if msg == "f32" else torch.bfloat16
+    g_cpu = graph_from_coo(src, dst, w, n, dtype, num_src_nodes=n_src)
+    g = g_cpu.to("cuda")
+    mask = torch.from_numpy((rng.random(len(src)) < 0.1 if case == "hub"
+                             else rng.random(len(src)) < 0.7)
+                            .astype(np.float32) / 0.7)
+    for direction, rows_in in (("fwd", n_src), ("bwd", n)):
+        seg, seg_cpu = getattr(g, direction), getattr(g_cpu, direction)
+        x = torch.from_numpy(rng.standard_normal((rows_in, d))
+                             .astype(np.float32))
+        if bad and direction == "fwd":
+            x[bad] = torch.tensor([float("inf"), float("nan")]).repeat(
+                d)[:d]
+            cut = np.isin(seg_cpu.src.numpy(), bad)
+            mask[torch.from_numpy(seg_cpu.orig.numpy()[cut]).long()] = 0.0
+        for m in (None, mask):
+            if bad and m is None:
+                continue
+            runtime.reset_launches()
+            got = ss.segsum(seg, x.cuda(), None if m is None else m.cuda(),
+                            dtype).cpu().double()
+            ref = ss.segsum_plain(seg_cpu, x.double(), m, dtype)
+            scale = ss.segsum_plain(
+                seg_cpu._replace(weight=seg_cpu.weight.abs()),
+                x.abs().double(), m, dtype)
+            assert torch.isfinite(got).all()
+            err = (got - ref).abs()
+            assert bool((err <= 1e-5 * scale + 1e-30).all()), \
+                f"{case} {direction}: max err {float(err.max())}"
+            assert runtime.LAUNCHES["segsum"] == (1 if seg.num_nodes else 0)
+            assert runtime.LAUNCHES["segsum_merge"] == \
+                (1 if seg.num_partials else 0)
+    if bad:
+        return
+    x = torch.from_numpy(rng.standard_normal((n_src, d)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    grads = []
+    for graph, dev in ((g, "cuda"), (g_cpu, "cpu")):
+        xx = x.to(dev).requires_grad_(True)
+        (propagate(graph, xx, mask.to(dev)) * ct.to(dev)).sum().backward()
+        grads.append(xx.grad.cpu().double())
+    scale = float(grads[1].abs().max()) + 1e-30
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5 * scale

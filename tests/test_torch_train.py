@@ -18,7 +18,7 @@ from skrx.ops import initializers as jinit
 from skrx.ops import losses as jlosses
 from skrx.ops import sampling as jsampling
 from skrx_torch import ModelRegistry, RunConfig
-from skrx_torch.convert import bprmf_adam_state_from_jax
+from skrx_torch.convert import adam_state_from_jax
 from skrx_torch.io import RSDataset
 from skrx_torch.models import pipeline as tpipeline
 from skrx_torch.models.BPRMF import BPRMF
@@ -239,7 +239,7 @@ def test_adam_state_conversion_follows_ravel_order():
             "item_bias": rng.standard_normal(4).astype(np.float32)}
     flat, _ = ravel_pytree({k: jnp.asarray(v) for k, v in tree.items()})
     shapes = {k: v.shape for k, v in tree.items()}
-    state = bprmf_adam_state_from_jax(7, np.asarray(flat), 2 * np.asarray(flat),
+    state = adam_state_from_jax(7, np.asarray(flat), 2 * np.asarray(flat),
                                       shapes)
     for key, value in tree.items():
         np.testing.assert_array_equal(state[key]["exp_avg"].numpy(), value)
@@ -247,7 +247,7 @@ def test_adam_state_conversion_follows_ravel_order():
                                       2 * value)
         assert float(state[key]["step"]) == 7.0
     with pytest.raises(ValueError):
-        bprmf_adam_state_from_jax(1, np.zeros(3), np.zeros(3), shapes)
+        adam_state_from_jax(1, np.zeros(3), np.zeros(3), shapes)
 
 
 def test_train_step_matches_jax(small_data, monkeypatch):
