@@ -52,13 +52,34 @@ skrx_torch fails and it exits 1):
    segsum launched exactly 2 x steps x 6 + 3 per evaluate(). Serving:
    recommend for 1, 64 and 1,024 users equals the plain top-k of the same
    scores and holds no seen item.
-7. Times on the card: each kernel, its plain version and a library call
+7. Fused score-and-select and chunked evaluation. The fused kernels
+   (dot_submax, dot_extract) and rank_lookup_count against their plain
+   versions on CPU copies, bit for bit (values, ids, tau, ranks, found): at
+   the serving shape (B=1024, the Gowalla catalog, d=64, k=10, the seen
+   table), at the evaluation shapes (B=64 and 1024, k=50, the evaluator's
+   real T and L), and on adversarial inputs: duplicated item rows and zero
+   user vectors over a constant bias (ties across whole column blocks),
+   fully masked rows and rows with fewer than k unmasked items, N not a
+   multiple of the block, d in {8, 60, 128, 512}, no bias, probes masked,
+   out of range, padding, duplicated, one or more than 128 a row.
+   TopKRecommender(fused="always") for BPRMF and LightGCN at 1, 64 and
+   1,024 users: equal to dot_topk's plain version on CPU copies, no seen
+   item, within 1e-5 of the score-matrix route (ids equal where its values
+   are separated), and less memory during the call than one (B, N) f32
+   score matrix. evaluate() with eval_mode "fused" (BPRMF after phase 4's
+   fit(), LightGCN after phase 6's) and "chunked" (BPRMF, 8,192 items a
+   chunk): the kernels of each route launched, metrics within 1e-4 of the
+   full route's. A catalog of 1,048,576 items (d=64, B=256, random factors
+   and seen table from the seed): dot_topk equal to its plain version, and
+   the peak memory of both routes.
+8. Times on the card: each kernel, its plain version and a library call
    where one computes the same function, as device time per call
    (torch.profiler, 50 calls after warm-up) and as the median time of one
    call between CUDA events (host launch gaps included); the kernel's
    bound; recommend's p50 per batch size with the
-   card's busy share during it (torch.profiler); train steps/s, seconds per
-   epoch and evaluation users/s with the busy share and the top device
+   card's busy share during it (torch.profiler), for the score-matrix and
+   the fused route; train steps/s, seconds per epoch and evaluation users/s
+   (full, fused and chunked) with the busy share and the top device
    kernels of one epoch and one evaluate(), for BPRMF and LightGCN.
 
 The second-to-last line is the per-kernel JSON record, the last line
@@ -81,6 +102,7 @@ from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
 from skrx_torch.ops.graph import graph_from_coo
 from skrx_torch.ops.kernels import _build, runtime
+from skrx_torch.ops.kernels import dot_topk as dt
 from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.kernels import topk_blocks as tb
 from skrx_torch.serve import TopKRecommender
@@ -100,7 +122,10 @@ SERVING = ("submax", "kth_largest", "extract", "pruned_merge")
 SOURCE = {name: "skrx_torch/ops/kernels/csrc/topk_blocks.cu"
           for name in SERVING}
 SOURCE.update(rank_count="skrx_torch/ops/kernels/csrc/rank_counts.cu",
+              rank_lookup_count="skrx_torch/ops/kernels/csrc/rank_counts.cu",
               direct_rank="skrx_torch/ops/kernels/csrc/rank_counts.cu",
+              dot_submax="skrx_torch/ops/kernels/csrc/dot_topk.cu",
+              dot_extract="skrx_torch/ops/kernels/csrc/dot_topk.cu",
               segsum="skrx_torch/ops/kernels/csrc/segsum.cu",
               segsum_merge="skrx_torch/ops/kernels/csrc/segsum.cu")
 REPLACES = {"submax": "skrx/ops/pallas/topk_blocks.py:488",
@@ -108,10 +133,16 @@ REPLACES = {"submax": "skrx/ops/pallas/topk_blocks.py:488",
             "extract": "skrx/ops/pallas/topk_blocks.py:601",
             "pruned_merge": "skrx/ops/pallas/topk_blocks.py:295",
             "rank_count": "skrx/ops/pallas/topk_blocks.py:815",
+            "rank_lookup_count": "skrx/ops/pallas/topk_blocks.py:872",
             "direct_rank": "skrx/ops/pallas/topk_blocks.py:935",
+            "dot_submax": "skrx/ops/pallas/dot_topk.py:109",
+            "dot_extract": "skrx/ops/pallas/dot_topk.py:115",
             "segsum": "skrx/ops/pallas/segsum_mxu.py:203",
             "segsum_merge": "skrx/ops/pallas/segsum_mxu.py:203"}
 GCN_SERVE = (1, 64, 1024)
+FUSED = ("dot_submax", "dot_extract")
+BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
+CHUNK = 8_192
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
 # H100 SXM data sheet: f32 outside the tensor cores, device-memory bytes/s
 F32_OPS = 67e12
@@ -419,6 +450,185 @@ def check_served(server, u, ids, vals, seen) -> torch.Tensor:
         require(not np.isin(row, seen.get(int(user), [])).any(),
                 f"user {user} got a seen item")
     return s_cpu
+
+
+def cpu_packed(packed: dt.PackedItems) -> dt.PackedItems:
+    return packed._replace(table=packed.table.cpu(), bias=packed.bias.cpu())
+
+
+def check_fused(what: str, uv, packed, mask, k: int, errs: dict):
+    """dot_submax and dot_extract on the card against their plain versions
+    on CPU copies of the same inputs, bit for bit; tau as the composition
+    takes it. Returns the card's (tau, cand_vals, cand_ids)."""
+    pc, uv_c = cpu_packed(packed), uv.cpu()
+    m_c = None if mask is None else mask.cpu()
+    scores = dt.dot_scores_plain(uv_c, pc)   # what both plain versions score
+    bm = dt.dot_submax(uv, packed, mask)
+    expect_equal(f"{what} dot_submax", [bm],
+                 [tb.submax_plain(scores, m_c, pc.block_n)], errs,
+                 "dot_submax")
+    if bm.shape[1] >= k:
+        bmf = tb.fold_submaxes(bm, k).contiguous()
+        tau = tb.kth_largest(bmf, k)
+        expect_equal(f"{what} tau bits", [tau.view(torch.int32)],
+                     [tb.kth_largest_plain(bmf.cpu(), k).view(torch.int32)],
+                     errs, "kth_largest")
+    else:
+        tau = torch.full((uv.shape[0],), NEG_INF, device=uv.device)
+    cv, ci = dt.dot_extract(uv, packed, tau, k, mask)
+    expect_equal(f"{what} dot_extract", [cv, ci],
+                 tb.extract_plain(scores, m_c, tau.cpu(), k, pc.block_n),
+                 errs, "dot_extract")
+    return tau, cv, ci
+
+
+def check_lookup(what: str, cv, ci, probes, errs: dict) -> None:
+    """rank_lookup_count on the card against its plain version on CPU
+    copies: ranks and found equal."""
+    expect_equal(f"{what} rank_lookup_count",
+                 tb.rank_lookup_count(cv, ci, probes),
+                 tb.rank_lookup_count_plain(cv.cpu(), ci.cpu(), probes.cpu()),
+                 errs, "rank_lookup_count")
+
+
+def lookup_probes(rng, ids, mask, n: int, t_count: int) -> np.ndarray:
+    """Probes for rank_lookup_count: the row's candidate ids (found, some
+    of rank < k), masked ids, padding (n), out of range, duplicated and
+    random ids."""
+    p = rng.integers(-3, n + 3, (ids.shape[0], max(t_count, 40)))
+    p[:, :12] = ids[:, :12]
+    if mask is not None:
+        p[:, 12:17] = mask[:, :5]                      # masked
+    p[:, 17], p[:, 18], p[:, 19] = n, -1, n + 5        # padding, out of range
+    p[:, 20:26] = p[:, 1:2]                            # duplicated
+    return p[:, :t_count].astype(np.int32)
+
+
+def fused_adversarial(dev, items, errs: dict) -> None:
+    """The fused kernels on inputs built to break them."""
+    rng = np.random.default_rng(SEED + 4)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    # duplicated item rows, and zero user vectors over a constant bias:
+    # every score of a row equal, across whole 4,096-column blocks
+    dup = items.clone()
+    dup[ITEMS // 2: ITEMS // 2 + 4096] = dup[:4096]
+    uv = torch.randn((64, DIM), device=dev,
+                     generator=torch.Generator(dev).manual_seed(SEED))
+    uv[::2] = 0.0
+    mask = rng.integers(0, ITEMS, (64, 40)).astype(np.int32)
+    mask[:, -5:] = ITEMS
+    for bias in (torch.full((ITEMS,), 0.5, device=dev), None):
+        packed = dt.pack_items(dup, bias)
+        for k in (K, K_EVAL):
+            _, cv, ci = check_fused(f"tie storm k={k}", uv, packed, t(mask), k,
+                                    errs)
+            check_lookup(f"tie storm k={k}", cv, ci, t(lookup_probes(
+                rng, ci.cpu().numpy(), mask, ITEMS, 300)), errs)
+    # fully masked rows and rows with fewer than k unmasked items, N not a
+    # multiple of the block
+    n = 8192 + 1000
+    packed = dt.pack_items(torch.randn((n, DIM), device=dev), None)
+    uv = torch.randn((8, DIM), device=dev)
+    mask = np.full((8, n), n, np.int32)
+    mask[0] = np.arange(n)
+    mask[1, : n - 4] = rng.permutation(n)[: n - 4]
+    mask[2, :5] = [-1, n + 3, 7, 7, n - 1]
+    for k in (K, K_EVAL):
+        _, cv, ci = check_fused(f"masked rows k={k}", uv, packed, t(mask), k,
+                                errs)
+        for t_count in (1, 130):
+            check_lookup(f"masked rows k={k} T={t_count}", cv, ci,
+                         t(lookup_probes(rng, ci.cpu().numpy(), mask, n,
+                                         t_count)), errs)
+    # other widths, with and without a bias; a small catalog (n_sub < k:
+    # tau = -inf)
+    for d, n, bias in ((8, 5000, True), (60, 9000, False), (128, 4100, True),
+                       (512, 6000, False), (16, 300, True)):
+        b = 33
+        items_d = torch.randn((n, d), device=dev)
+        packed = dt.pack_items(items_d, torch.randn(n, device=dev)
+                               if bias else None)
+        uv = torch.randn((b, d), device=dev)
+        mask = rng.integers(-2, n + 2, (b, 50)).astype(np.int32)
+        k = 200 if n == 300 else K_EVAL
+        _, cv, ci = check_fused(f"d={d} N={n}", uv, packed, t(mask), k, errs)
+        check_lookup(f"d={d} N={n}", cv, ci, t(lookup_probes(
+            rng, ci.cpu().numpy(), mask, n, 300)), errs)
+    try:
+        dt.pack_items(torch.zeros((10, dt.MAX_DIM + 1), device=dev))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("d > 512 must be refused")
+
+
+def peak_above(fn):
+    """(result, peak device bytes allocated during fn() above what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def serve_measured(server, u):
+    """(u, ids, scores, peak bytes) of server.recommend(u), called once
+    before so that the packed item table is cached."""
+    server.recommend(u)
+    (ids, vals), peak = peak_above(lambda: server.recommend(u))
+    return u, ids, vals, peak
+
+
+def check_fused_served(server, u, ids, vals, peak, seen) -> int:
+    """A fused answer equals dot_topk's plain version on CPU copies, holds
+    no seen item, and is within 1e-5 (relative) of the score-matrix route,
+    with ids equal where that route's values are separated by more; the
+    call allocated less than one (B, N) f32 score matrix above what was
+    allocated before it. Returns the rows whose ids differ from the
+    score-matrix route."""
+    require(peak < 4 * len(u) * ITEMS,
+            f"fused recommend B={len(u)} allocated {peak} B")
+    u_all, _ = server.model._chunk_embeddings()
+    u_t = torch.as_tensor(u, device=server.device)
+    ref_v, ref_i = dt.dot_topk_plain(
+        u_all.detach()[u_t].cpu(), cpu_packed(server._packed_cache[2]), K,
+        server._seen[u_t].cpu())
+    np.testing.assert_array_equal(ids, ref_i.numpy())
+    np.testing.assert_array_equal(vals, ref_v.numpy())
+    for user, row in zip(u, ids):
+        require(not np.isin(row, seen.get(int(user), [])).any(),
+                f"user {user} got a seen item (fused)")
+    # the score-matrix route's top k + 1, so that the last slot's gap to
+    # the next item is known
+    m_vals, m_ids = metrics.topk_scores_and_indices(
+        server.model.predict(u_t), K + 1, mask_table=server._seen[u_t])
+    m_vals, m_ids = m_vals.cpu().numpy(), m_ids.cpu().numpy()
+    np.testing.assert_allclose(vals, m_vals[:, :K], rtol=1e-5, atol=1e-6)
+    gap = np.abs(np.diff(m_vals, axis=1)) > 1e-5 * np.abs(m_vals[:, 1:])
+    sep = gap[:, :K].copy()
+    sep[:, 1:] &= gap[:, :K - 1]
+    m_ids = m_ids[:, :K]
+    require(sep.mean() > 0.9, f"separated slots {sep.mean()}")
+    np.testing.assert_array_equal(ids[sep], m_ids[sep])
+    print(f"  fused recommend B={len(u)}: == plain, {peak} B above the "
+          f"allocated (one score matrix {4 * len(u) * ITEMS} B), "
+          f"{int((ids != m_ids).any(1).sum())} rows with ids unlike the "
+          f"score-matrix route", flush=True)
+    return int((ids != m_ids).any(1).sum())
+
+
+def evaluate_as(m, mode: str, chunk_size: int = 0):
+    """(MetricReport, host seconds) of m.evaluate() with the evaluator's
+    eval_mode (and chunk size) set for the call."""
+    ev = m.evaluator
+    saved = ev.eval_mode, ev.chunk_size
+    ev.eval_mode, ev.chunk_size = mode, chunk_size or ev.chunk_size
+    try:
+        return timed(m.evaluate)
+    finally:
+        ev.eval_mode, ev.chunk_size = saved
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -769,13 +979,101 @@ def main() -> int:
     print("LightGCN recommend == plain top-k of the same scores, no seen "
           "item", flush=True)
 
-    # ------------------------------------------------------ phase 7: times
+    # ------------------------- phase 7: fused score-and-select and chunked
+    # 1. the kernels against their plain versions
+    packed_s = dt.pack_items(model.item_emb, model.item_bias)
+    uv_s = model.user_emb.detach()[users]
+    tau_s, fcv, fci = check_fused("serving shape", uv_s, packed_s, mask, K,
+                                  errs)
+    fused_eval_in = {}
+    for bsz in (B_EVAL, B_KERNEL):
+        u, _, tr, te, _ = eval_in[bsz]
+        u_t = torch.as_tensor(u, device=dev)
+        fused_eval_in[bsz] = check_fused(
+            f"evaluation shape B={bsz}", model.user_emb.detach()[u_t],
+            packed_s, tr, K_EVAL, errs)
+        check_lookup(f"evaluation shape B={bsz}", *fused_eval_in[bsz][1:], te,
+                     errs)
+    fused_adversarial(dev, model.item_emb.detach(), errs)
+    print(f"fused kernels == plain versions (max abs err "
+          f"{ {k: errs.get(k, 0.0) for k in FUSED + ('rank_lookup_count',)} }"
+          f"); evaluation tables T={t_eval}, L={l_eval}", flush=True)
+    # 2. fused serving
+    fused_launches = {}
+    for tag, m in (("BPRMF", model), ("LightGCN", gcn)):
+        fsrv = TopKRecommender(m, k=K, fused="always")
+        require(fsrv.fused, f"{tag}: a dot model takes the fused route")
+        answers, launched = counted(lambda: [
+            serve_measured(fsrv, rng.integers(0, USERS, bs))
+            for bs in GCN_SERVE])
+        fused_launches[tag] = launched
+        differ = [check_fused_served(fsrv, *a, seen) for a in answers]
+        print(f"fused serving {tag} {GCN_SERVE}: launches {launched}; rows "
+              f"unlike the score-matrix route {differ}", flush=True)
+        for kname in FUSED + ("kth_largest", "pruned_merge"):
+            require(launched[kname] >= 1,
+                    f"{kname} never launched in fused serving of {tag}")
+        require(launched["submax"] == launched["extract"] == 0,
+                "fused serving built a score matrix")
+    # 3. fused and chunked evaluate()
+    eval_runs = {}
+    for tag, m, modes in (("BPRMF", model, ("full", "fused", "chunked")),
+                          ("LightGCN", gcn, ("full", "fused"))):
+        for mode in modes:
+            (rep, sec), launched = counted(lambda: evaluate_as(m, mode, CHUNK))
+            eval_runs[tag, mode] = (rep, sec, launched)
+        full = np.array(list(eval_runs[tag, "full"][0].values()))
+        for mode in modes[1:]:
+            rep, sec, launched = eval_runs[tag, mode]
+            diff = float(np.abs(np.array(list(rep.values())) - full).max())
+            print(f"{tag} evaluate() eval_mode={mode!r}: {sec} s, NDCG@10 "
+                  f"{rep['NDCG@10']} (full {eval_runs[tag, 'full'][0]['NDCG@10']}"
+                  f"), largest metric difference to the full route {diff}; "
+                  f"launches {launched}", flush=True)
+            require(diff <= 1e-4, f"{tag} {mode}: metrics off by {diff}")
+            need = (FUSED + ("kth_largest", "rank_lookup_count")
+                    if mode == "fused" else ("pruned_merge",))
+            for kname in need:
+                require(launched[kname] >= 1,
+                        f"{kname} never launched in {mode} evaluate() of {tag}")
+            require(launched["rank_count"] == 0,
+                    f"{mode} evaluate() took the full route")
+    # 4. a catalog that only the fused route serves cheaply
+    gen = torch.Generator(dev).manual_seed(SEED)
+    big_items = torch.randn((BIG_ITEMS, DIM), device=dev, generator=gen)
+    big_bias = torch.randn((BIG_ITEMS,), device=dev, generator=gen)
+    big_uv = torch.randn((BIG_B, DIM), device=dev, generator=gen)
+    big_seen = torch.randint(0, BIG_ITEMS, (BIG_B, 300), device=dev,
+                             generator=gen, dtype=torch.int32)
+    big_seen[:, -20:] = BIG_ITEMS                       # padding
+    big_packed, pack_peak = peak_above(
+        lambda: dt.pack_items(big_items, big_bias))
+    (bv, bi), big_fused_peak = peak_above(lambda: dt.dot_topk(
+        big_uv, None, None, K, mask_table=big_seen, packed=big_packed))
+    rv, ri = dt.dot_topk_plain(big_uv, big_packed, K, big_seen)
+    expect_equal(f"dot_topk N={BIG_ITEMS}", [bv, bi], [rv.cpu(), ri.cpu()],
+                 errs, "dot_extract")
+    del rv, ri
+    _, big_matrix_peak = peak_above(lambda: tb.blockwise_topk(
+        torch.matmul(big_uv, big_items.T) + big_bias, K,
+        mask_table=big_seen))
+    print(f"catalog of {BIG_ITEMS} items, B={BIG_B}, d={DIM}: dot_topk == "
+          f"plain; peak device memory above the allocated: fused "
+          f"{big_fused_peak} B (packing the table once {pack_peak} B), "
+          f"score-matrix route {big_matrix_peak} B", flush=True)
+    require(big_fused_peak < 4 * BIG_B * BIG_ITEMS,
+            "the fused route must allocate less than one score matrix")
+
+    # ------------------------------------------------------ phase 8: times
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
     s_masked = tb._masked_padded(scores, mask, BLOCK_N).reshape(b, -1, BLOCK_N)
     found = ((s_masked >= tau[:, None, None]) & (s_masked != NEG_INF)).sum(2)
     del s_masked
-    # rank_count at the evaluation batch of the Gowalla route
+    # rank_count at the evaluation batch of the Gowalla route;
+    # rank_lookup_count on the fused candidates of the same batch
     e_u, e_sc, e_tr, e_te, e_tl = eval_in[B_EVAL]
+    _, l_cv, l_ci = fused_eval_in[B_EVAL]
+    w_l = l_cv.shape[1]
     e_cv, e_ci, _ = tb.blockwise_candidates(e_sc, K_EVAL, BLOCK_N, e_tr)
     e_st = e_sc.gather(1, e_te.clamp(0, ITEMS - 1).long())
     be, w_r = e_sc.shape[0], e_cv.shape[1]
@@ -824,6 +1122,17 @@ def main() -> int:
         # the partials once, the merge table, the merged rows written
         "segsum_merge": (4 * (n_part * DIM + 2 * n_merge + 1
                               + n_merge * DIM), n_part * DIM),
+        # uv, the item table and bias once, the seen table, the maxima
+        # written; a multiply and an add per (row, item, dimension)
+        "dot_submax": (4 * (b * DIM + n * DIM + n + b * seen_w + b * w_sub),
+                       2 * b * n * DIM),
+        "dot_extract": (4 * (b * DIM + n * DIM + n + b * seen_w + b)
+                        + 8 * b * w_c, 2 * b * n * DIM),
+        # the candidates and probes once, ranks and found written; per
+        # (probe, candidate) pair a compare and a max (lookup), a compare
+        # and an add (count)
+        "rank_lookup_count": (8 * be * w_l + 4 * be * t_eval + 5 * be * t_eval,
+                              4 * be * t_eval * w_l),
     }
     # the whole propagate as a user calls it: x, the CSR arrays (row
     # offsets, source ids, weights) and the output
@@ -856,15 +1165,33 @@ def main() -> int:
             lambda: ss.segsum_merge_plain(partial, fseg.merge_row,
                                           fseg.merge_ptr, merge_out),
             lambda: torch.segment_reduce(partial, "sum", lengths=counts)),
+        # no single PyTorch call computes these; the fused top-k as a
+        # whole is held against matmul + mask_items + torch.topk below
+        "dot_submax": (lambda: dt.dot_submax(uv_s, packed_s, mask),
+                       lambda: dt.dot_submax_plain(uv_s, packed_s, mask),
+                       None),
+        "dot_extract": (
+            lambda: dt.dot_extract(uv_s, packed_s, tau_s, K, mask),
+            lambda: dt.dot_extract_plain(uv_s, packed_s, mask, tau_s, K),
+            None),
+        "rank_lookup_count": (
+            lambda: tb.rank_lookup_count(l_cv, l_ci, e_te),
+            lambda: tb.rank_lookup_count_plain(l_cv, l_ci, e_te), None),
     }
     # device time of the kernel itself where its wrapper launches two
     only = {"segsum": "segsum_kernel"}
-    launches = {k: serve_launches[k] for k in SERVING}
-    launches.update(rank_count=fit_launches["rank_count"],
-                    direct_rank=ml_launches["direct_rank"],
-                    segsum=gcn_launches["segsum"],
-                    segsum_merge=gcn_launches["segsum_merge"])
+    # launches over every main-path run of this script: serving, both
+    # fit()s at Gowalla, the ML-1M-scale fit(), LightGCN serving, fused
+    # serving, and the fused and chunked evaluate() calls
+    path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
+                 gcn_serve_launches, *fused_launches.values(),
+                 *(r[2] for r in eval_runs.values())]
+    launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
+    for kname in FUSED:
+        shapes[kname] = f"B={b}, N={n}, d={DIM}, k={K}, L={seen_w}"
+    shapes["rank_lookup_count"] = (f"B={be}, N={ITEMS}, k={K_EVAL}, W={w_l}, "
+                                   f"T={t_eval}")
     shapes["rank_count"] = (f"B={be}, N={ITEMS}, k={K_EVAL}, W={w_r}, "
                             f"T={t_eval}")
     shapes["direct_rank"] = (f"B={bm_}, N={ML_ITEMS}, k={K_EVAL}, L={lm_}, "
@@ -920,24 +1247,64 @@ def main() -> int:
           f"{total} ms vs masked torch.topk {time_ms(masked_topk)} ms; "
           f"predict {time_ms(lambda: model.predict(users))} ms "
           f"[{card}, B={b}]")
+    # the fused top-k as a whole, beside the score-matrix route and the
+    # library yardstick; the fused kernels at the evaluation batch
+    def matrix_topk(uv, items, bias, seen_rows):
+        return tb.blockwise_topk(torch.matmul(uv, items.T) + bias, K,
+                                 mask_table=seen_rows)
+    item_w, item_b = model.item_emb.detach(), model.item_bias.detach()
+    for tag, fused_fn, matrix_fn, lib_fn in (
+            (f"B={b}, N={n}",
+             lambda: dt.dot_topk(uv_s, None, None, K, mask, packed=packed_s),
+             lambda: matrix_topk(uv_s, item_w, item_b, mask),
+             lambda: torch.topk(metrics.mask_items(
+                 torch.matmul(uv_s, item_w.T) + item_b, mask), K, dim=1)),
+            (f"B={BIG_B}, N={BIG_ITEMS}",
+             lambda: dt.dot_topk(big_uv, None, None, K, big_seen,
+                                 packed=big_packed),
+             lambda: matrix_topk(big_uv, big_items, big_bias, big_seen),
+             lambda: torch.topk(metrics.mask_items(
+                 torch.matmul(big_uv, big_items.T) + big_bias, big_seen), K,
+                 dim=1))):
+        print(f"top-{K} {tag}, d={DIM}: fused dot_topk {device_ms(fused_fn)} "
+              f"ms of device time ({time_ms(fused_fn)} ms between CUDA "
+              f"events); score-matrix route (matmul + blockwise_topk) "
+              f"{device_ms(matrix_fn)} ms ({time_ms(matrix_fn)}); library "
+              f"yardstick matmul + mask_items + torch.topk "
+              f"{device_ms(lib_fn)} ms ({time_ms(lib_fn)})  [{card}]",
+              flush=True)
+    e_uv = model.user_emb.detach()[torch.as_tensor(e_u, device=dev)]
+    e_tau = fused_eval_in[B_EVAL][0]
+    e_flops = 2 * be * ITEMS * DIM
+    print(f"fused kernels at the evaluation batch B={be}: dot_submax "
+          f"{device_ms(lambda: dt.dot_submax(e_uv, packed_s, e_tr))} ms, "
+          f"dot_extract "
+          f"{device_ms(lambda: dt.dot_extract(e_uv, packed_s, e_tau, K_EVAL, e_tr))}"
+          f" ms of device time; bound {e_flops / F32_OPS * 1e3} ms "
+          f"(operations), item table read {4 * ITEMS * DIM / MEM_RATE * 1e3} "
+          f"ms; dot_topk_ranks "
+          f"{time_ms(lambda: dt.dot_topk_ranks(e_uv, None, None, K_EVAL, e_te, e_tr, packed=packed_s))}"
+          f" ms between CUDA events  [{card}]", flush=True)
     ranks_ms = time_ms(lambda: tb.masked_topk_ranks(e_sc, K_EVAL, e_te, e_tr))
     metrics_ms = time_ms(lambda: ev.per_user_metrics(e_sc, e_tr, e_te,
                                                      e_tl))
     print(f"evaluation batch B={be}: masked_topk_ranks {ranks_ms} ms, "
           f"per-user metrics (ranks included) {metrics_ms} ms, predict "
           f"{time_ms(lambda: model.predict(e_u))} ms [{card}]")
+    fused_server = TopKRecommender(model, k=K, fused="always")
     for bs in BATCHES:
         u = rng.integers(0, USERS, bs)
-        lat = []
-        for _ in range(35):
-            t0 = time.perf_counter()
-            server.recommend(u)
-            lat.append((time.perf_counter() - t0) * 1e3)
-        lat = np.sort(lat[5:])
-        busy, _ = busy_share(lambda: server.recommend(u))
-        print(f"recommend B={bs:5d}: p50 {lat[len(lat) // 2]} ms  "
-              f"max {lat[-1]} ms  device busy "
-              f"{'not measured' if busy is None else busy}  [{card}]")
+        for route, srv in (("score matrix", server), ("fused", fused_server)):
+            lat = []
+            for _ in range(35):
+                t0 = time.perf_counter()
+                srv.recommend(u)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            lat = np.sort(lat[5:])
+            busy, _ = busy_share(lambda: srv.recommend(u))
+            print(f"recommend B={bs:5d} {route:12s}: p50 {lat[len(lat) // 2]}"
+                  f" ms  max {lat[-1]} ms  device busy "
+                  f"{'not measured' if busy is None else busy}  [{card}]")
     # training and evaluation, end to end
     for tag, m in (("Gowalla", model), ("LightGCN Gowalla", gcn)):
         steps = m.pipeline.num_batches
@@ -956,6 +1323,14 @@ def main() -> int:
         busy, heads = busy_share(m.evaluate, reps=1, warm=False, top=6)
         print(f"{tag} evaluate() device busy {busy}; top device kernels "
               f"(ms): {heads}")
+        modes = {model: ("fused", "chunked"), gcn: ("fused",)}.get(m, ())
+        for mode in modes:
+            (_, sec) = evaluate_as(m, mode, CHUNK)
+            busy, heads = busy_share(lambda: evaluate_as(m, mode, CHUNK),
+                                     reps=1, warm=False, top=6)
+            print(f"{tag} evaluate() eval_mode={mode!r}: {sec} s, "
+                  f"{n_users / sec} users/s; device busy {busy}; top device "
+                  f"kernels (ms): {heads}  [{card}]")
         busy, heads = busy_share(lambda: m._train_epoch(99), reps=1,
                                  warm=False, top=6)
         print(f"{tag} train epoch device busy {busy}; top device kernels "

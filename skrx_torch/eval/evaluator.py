@@ -2,17 +2,27 @@
 port of ``skrx.eval.evaluator``).
 
 The whole loop stays on the evaluator's device: per batch of users the
-model's ``predict`` gives (B, N) scores, :func:`eval_score_matrix_device`
-masks train items, ranks each test item (the rank-count CUDA kernels on a
-card) and computes the cumulative metrics; the per-batch sums accumulate on
-the device and one copy to the host ends the call. Metrics are averaged over
-users, with ``top_show`` columns selected, as in the JAX package.
+ranks or top-k of the test items are taken, the cumulative metrics computed
+and the per-batch sums accumulated on the device; one copy to the host ends
+the call. Metrics are averaged over users, with ``top_show`` columns
+selected, as in the JAX package. Strategies (``eval_mode``):
 
-Strategies: "auto" and "full" score the whole catalog per batch (the JAX
-package's fused and chunked routes that "auto" takes on a TPU or for huge
-catalogs are not ported, and route choices tuned on a TPU are not carried).
-"chunked", "fused" and "topk" raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1).
+- "full": the model's ``predict`` gives (B, N) scores per batch;
+  :func:`eval_score_matrix_device` masks train items and ranks each test
+  item (the rank-count CUDA kernels on a card);
+- "chunked": ``predict_chunk`` scores ``chunk_size`` items at a time; each
+  chunk's masked top-k merges into the running (B, k) best through
+  ``vmem_topk``, then the hits against the test table;
+- "fused": dot models; :func:`~skrx_torch.ops.kernels.dot_topk.
+  dot_topk_ranks` ranks each test item without any (B, N) scores (the fused
+  score-and-select kernels and ``rank_lookup_count``);
+- "auto": "chunked" for a model with ``predict_chunk`` when the catalog has
+  ``chunk_threshold`` items or more (a memory rule), else "full", as the
+  JAX package routes off a TPU (its TPU-measured choice of "fused" is not
+  carried).
+
+"topk" (the tensor-parallel strategy) waits for ``parallel/`` and raises
+``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 import itertools
 from collections import OrderedDict
@@ -21,7 +31,12 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.metrics import ID2METRIC, METRIC2ID, eval_score_matrix_device
+from ..ops.kernels.dot_topk import dot_topk_ranks, pack_items
+from ..ops.kernels.topk_blocks import vmem_topk
+from ..ops.metrics import (ID2METRIC, METRIC2ID, eval_score_matrix_device,
+                           hits_against_padded_truth, hits_from_ranks,
+                           ranking_metrics_from_hits,
+                           topk_scores_and_indices)
 from ..utils import resolve_device
 
 __all__ = ["MetricReport", "RankingEvaluator", "EarlyStopping"]
@@ -30,7 +45,7 @@ __all__ = ["MetricReport", "RankingEvaluator", "EarlyStopping"]
 _COLORS = ["\x1b[31m", "\x1b[32m", "\x1b[33m", "\x1b[34m", "\x1b[35m",
            "\x1b[36m"]
 _RESET = "\x1b[0m"
-_NOT_PORTED = ("chunked", "fused", "topk")
+_EVAL_MODES = ("auto", "full", "chunked", "fused", "topk")
 
 
 def _colored(cells) -> str:
@@ -111,7 +126,8 @@ class RankingEvaluator:
                  metric: Union[None, str, Tuple[str, ...], List[str]] = None,
                  top_k: Union[int, List[int], Tuple[int, ...]] = 50,
                  batch_size: int = 256, num_thread: int = 8,
-                 eval_mode: str = "auto",
+                 eval_mode: str = "auto", chunk_size: int = 65536,
+                 chunk_threshold: int = 131072,
                  device: Optional[Union[str, torch.device]] = None):
         if metric is None:
             metric = ["Precision", "Recall", "MAP", "NDCG", "MRR"]
@@ -124,12 +140,15 @@ class RankingEvaluator:
         for m in metric:
             if m not in METRIC2ID:
                 raise ValueError(f"'{m}' is not in {tuple(METRIC2ID)}")
-        if eval_mode in _NOT_PORTED:
-            raise NotImplementedError(
-                f"eval_mode={eval_mode!r} is not ported yet (ROADMAP.md, "
-                f"Queue 1); use eval_mode='auto' or 'full'")
-        if eval_mode not in ("auto", "full"):
+        if eval_mode not in _EVAL_MODES:
             raise ValueError(f"unknown eval_mode {eval_mode!r}")
+        if eval_mode == "topk":
+            raise NotImplementedError(
+                "eval_mode='topk' is not ported yet (ROADMAP.md, Queue 1, "
+                "parallel/); use 'auto', 'full', 'chunked' or 'fused'")
+        if chunk_size <= 0 or chunk_threshold <= 0:
+            raise ValueError(f"chunk_size and chunk_threshold must be > 0, "
+                             f"got {chunk_size}, {chunk_threshold}")
         if not user_test_dict:
             raise ValueError("'user_test_dict' cannot be empty.")
         self.device = resolve_device(device)
@@ -141,6 +160,8 @@ class RankingEvaluator:
         self.num_thread = num_thread        # API parity; unused
         self.batch_size = batch_size
         self.eval_mode = eval_mode
+        self.chunk_size = int(chunk_size)
+        self.chunk_threshold = int(chunk_threshold)
         if isinstance(top_k, int):
             self.max_top = top_k
             self.top_show = np.arange(top_k) + 1
@@ -223,21 +244,59 @@ class RankingEvaluator:
         return eval_score_matrix_device(scores, train_table, test_table,
                                         test_len, self.metrics, self.max_top)
 
+    def _test_users(self, test_users: Optional[Iterable[int]]) -> np.ndarray:
+        """The users to evaluate: those given that have test items, or every
+        user with test items."""
+        if test_users is not None:
+            users = [int(u) for u in test_users if int(u) in self.user_pos_test]
+        else:
+            users = [int(u) for u in self.user_pos_test.keys()]
+        if not users:
+            raise ValueError("no test users")
+        return np.asarray(users, dtype=np.int32)
+
     def evaluate(self, model, test_users: Optional[Iterable[int]] = None
                  ) -> MetricReport:
         """Metrics of ``model`` over ``test_users`` (default: every user with
-        test items), scoring the full catalog per batch."""
+        test items), by the strategy of ``eval_mode`` (see the module
+        docstring); every strategy computes the same metrics."""
+        num_items = (getattr(model, "_eval_width", None)
+                     or getattr(model, "num_items", None))
+        mode = self.eval_mode
+        if mode in ("fused", "chunked") and num_items is None:
+            raise ValueError(f"eval_mode={mode!r} needs model.num_items")
+        if mode == "fused":
+            return self.evaluate_fused(model, num_items, test_users)
+        if mode == "chunked" or (
+                mode == "auto" and num_items is not None
+                and num_items >= self.chunk_threshold
+                and hasattr(model, "predict_chunk")):
+            return self.evaluate_chunked(model, num_items, self.chunk_size,
+                                         test_users)
+        return self._evaluate_full(model, test_users)
+
+    def _sum_batches(self, users: np.ndarray, num_items: int,
+                     per_user) -> MetricReport:
+        """The report of ``per_user(bi, batch_users, train_t, test_t,
+        test_len) -> (B, n_metrics, max_top)`` over the batches of
+        ``users``, summed on the device (padding rows weigh 0)."""
+        metric_sum = None
+        for bi, (batch_users, train_t, test_t, test_len, weight) in \
+                enumerate(self._dev_batches(users, num_items)):
+            batch_sum = torch.sum(
+                per_user(bi, batch_users, train_t, test_t, test_len)
+                * weight[:, None, None], dim=0)
+            metric_sum = batch_sum if metric_sum is None \
+                else metric_sum + batch_sum
+        final = metric_sum.double().cpu().numpy() / len(users)  # (M, top)
+        return MetricReport(self.metrics_list,
+                            final[:, self.top_show - 1].reshape(-1))
+
+    def _evaluate_full(self, model, test_users: Optional[Iterable[int]] = None
+                       ) -> MetricReport:
         if not hasattr(model, "predict"):
             raise TypeError("the model must have a 'predict' method")
-        if test_users is not None:
-            test_users = [int(u) for u in test_users
-                          if int(u) in self.user_pos_test]
-        else:
-            test_users = [int(u) for u in self.user_pos_test.keys()]
-        if not test_users:
-            raise ValueError("no test users")
-        users = np.asarray(test_users, dtype=np.int32)
-        n_users = len(users)
+        users = self._test_users(test_users)
         bs = self.batch_size
 
         def predict(batch_users):
@@ -245,22 +304,80 @@ class RankingEvaluator:
                 device=self.device, dtype=torch.float32)
 
         # the catalog width comes from the first batch's scores
-        first_users = users[:bs] if n_users >= bs else np.concatenate(
-            [users, np.full(bs - n_users, users[-1], np.int32)])
+        first_users = users[:bs] if len(users) >= bs else np.concatenate(
+            [users, np.full(bs - len(users), users[-1], np.int32)])
         first_scores = predict(first_users.astype(np.int64))
-        metric_sum = None
-        batches = self._dev_batches(users, int(first_scores.shape[1]))
-        for bi, (batch_users, train_t, test_t, test_len, weight) in \
-                enumerate(batches):
-            scores = first_scores if bi == 0 else predict(batch_users)
-            per_user = self.per_user_metrics(scores, train_t, test_t,
-                                             test_len)
-            batch_sum = torch.sum(per_user * weight[:, None, None], dim=0)
-            metric_sum = batch_sum if metric_sum is None \
-                else metric_sum + batch_sum
-        final = metric_sum.double().cpu().numpy() / n_users   # (M, max_top)
-        final = final[:, self.top_show - 1].reshape(-1)
-        return MetricReport(self.metrics_list, final)
+        return self._sum_batches(
+            users, int(first_scores.shape[1]),
+            lambda bi, batch_users, *tables: self.per_user_metrics(
+                first_scores if bi == 0 else predict(batch_users), *tables))
+
+    def evaluate_chunked(self, model, num_items: int,
+                         chunk_size: Optional[int] = None,
+                         test_users: Optional[Iterable[int]] = None
+                         ) -> MetricReport:
+        """Metrics without the (B, N) score matrix: per batch, the model's
+        ``predict_chunk(users, lo, hi)`` scores ``chunk_size`` items at a
+        time (default ``self.chunk_size``); each chunk's masked top-k
+        (train ids shifted by the chunk's offset) merges into the running
+        (B, k) best through ``vmem_topk``, whose empty slots never hit a
+        test item; then the hits against the test table."""
+        if not hasattr(model, "predict_chunk"):
+            raise TypeError("chunked evaluation needs the model's "
+                            "predict_chunk(users, lo, hi)")
+        chunk_size = int(chunk_size or self.chunk_size)
+        bs, k = self.batch_size, self.max_top
+
+        def per_user(bi, batch_users, train_t, test_t, test_len):
+            best_v = torch.full((bs, k), float("-inf"), device=self.device)
+            # never a test id nor the tables' pad id (num_items)
+            best_i = torch.full((bs, k), num_items + 1, dtype=torch.int32,
+                                device=self.device)
+            for lo in range(0, num_items, chunk_size):
+                hi = min(lo + chunk_size, num_items)
+                scores = torch.as_tensor(model.predict_chunk(
+                    batch_users, lo, hi)).to(device=self.device,
+                                             dtype=torch.float32)
+                shifted = train_t - lo      # ids of other chunks: padding
+                shifted = torch.where(shifted < 0, hi - lo, shifted)
+                vals, idx = topk_scores_and_indices(scores, min(k, hi - lo),
+                                                    mask_table=shifted)
+                best_v, best_i = vmem_topk(torch.cat([best_v, vals], 1),
+                                           torch.cat([best_i, idx + lo], 1), k)
+            return ranking_metrics_from_hits(
+                hits_against_padded_truth(best_i, test_t), test_len,
+                self.metrics)
+
+        return self._sum_batches(self._test_users(test_users), num_items,
+                                 per_user)
+
+    def evaluate_fused(self, model, num_items: int,
+                       test_users: Optional[Iterable[int]] = None
+                       ) -> MetricReport:
+        """Metrics of a dot model (``_chunk_embeddings() -> (u_all,
+        i_all)``, optional ``_chunk_bias()``, no ``_topk_score_fn``) without
+        any (B, N) scores: the item table is packed once, then per batch
+        :func:`dot_topk_ranks` ranks each test item with the batch's train
+        table as the mask; hits and metrics follow on the device."""
+        if (not hasattr(model, "_chunk_embeddings")
+                or getattr(model, "_topk_score_fn", None) is not None):
+            raise TypeError("fused evaluation needs the model's plain dot "
+                            "factors (_chunk_embeddings, no _topk_score_fn)")
+        users = self._test_users(test_users)
+        k = self.max_top
+        u_all, i_all = model._chunk_embeddings()
+        u_all = u_all.detach().to(device=self.device, dtype=torch.float32)
+        bias = model._chunk_bias() if hasattr(model, "_chunk_bias") else None
+        packed = pack_items(i_all.to(self.device),
+                            None if bias is None else bias.to(self.device))
+
+        def per_user(bi, batch_users, train_t, test_t, test_len):
+            ranks = dot_topk_ranks(u_all[batch_users], None, None, k, test_t,
+                                   mask_table=train_t, packed=packed)
+            return ranking_metrics_from_hits(hits_from_ranks(ranks, k),
+                                             test_len, self.metrics)
+
+        return self._sum_batches(users, num_items, per_user)
 
 
 class EarlyStopping:

@@ -68,7 +68,21 @@ class TorchRecommender(nn.Module):
             batch_size=resolve_eval_batch_size(run_config.test_batch_size,
                                                self.num_items),
             num_thread=run_config.test_thread,
-            eval_mode=run_config.eval_mode, device=self.device)
+            eval_mode=run_config.eval_mode,
+            chunk_size=run_config.eval_chunk_size,
+            chunk_threshold=run_config.eval_chunk_threshold,
+            device=self.device)
+        # likewise a forced strategy this model cannot serve
+        mode = self.evaluator.eval_mode
+        if ((mode == "chunked" and not hasattr(type(self), "predict_chunk"))
+                or (mode == "fused"
+                    and not (hasattr(type(self), "_chunk_embeddings")
+                             and getattr(type(self), "_topk_score_fn", None)
+                             is None))):
+            raise TypeError(f"eval_mode={mode!r} is not supported by "
+                            f"{type(self).__name__} (its predict has no "
+                            f"compatible factorization); use eval_mode="
+                            f"'auto' or 'full'")
         # one entry per fit() epoch: epoch, loss, train_seconds and, where
         # it evaluated, eval_seconds and the MetricReport
         self.history: List[dict] = []

@@ -63,7 +63,18 @@ class ChunkedDotPredictMixin:
     is ``user_vectors @ item_vectors.T (+ bias)``: scores of items
     [lo, hi) only, so a caller can walk a catalog without building (B, N).
     Subclasses implement ``_chunk_embeddings() -> (u_all, i_all)`` and
-    optionally ``_chunk_bias() -> (N,) or None``."""
+    optionally ``_chunk_bias() -> (N,) or None``.
+
+    The fused route (``TopKRecommender(fused="always")``, eval_mode
+    "fused") relies on this contract: ``predict(users)`` scores
+    ``u_all[users] @ i_all.T (+ bias)`` with no transform after the dot (a
+    model that applies one sets ``_topk_score_fn`` and keeps the predict
+    route). Serving caches the packed item table and packs it again when
+    ``i_all`` or the bias is another tensor or was updated in place (its
+    storage and version counter), so the returned tensors must be the ones
+    ``predict`` reads: BPRMF returns its live parameters, which an optimizer
+    step updates in place; LightGCN the embeddings frozen at
+    ``evaluate()``, a new tensor each time they are propagated again."""
 
     def _chunk_embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError

@@ -1,13 +1,15 @@
 // Rank counting for full-catalog evaluation, written by hand for Hopper
-// (sm_90a). Port of the two Pallas kernels of skrx/ops/pallas/topk_blocks.py
-// that evaluation runs:
+// (sm_90a). Port of the three Pallas kernels of
+// skrx/ops/pallas/topk_blocks.py that evaluation runs:
 //
-//   skrx_rank_count   <- _rank_count_kernel   (topk_blocks.py:815), the tail
-//                        of masked_topk_ranks
-//   skrx_direct_rank  <- _direct_rank_kernel  (topk_blocks.py:935), behind
-//                        masked_topk_ranks_small
+//   skrx_rank_count         <- _rank_count_kernel         (topk_blocks.py:815),
+//                              the tail of masked_topk_ranks
+//   skrx_rank_lookup_count  <- _rank_lookup_count_kernel  (topk_blocks.py:872),
+//                              the tail of dot_topk_ranks (fused evaluation)
+//   skrx_direct_rank        <- _direct_rank_kernel        (topk_blocks.py:935),
+//                              behind masked_topk_ranks_small
 //
-// Both count, for each probe (score s, id t) of a row, the row's elements
+// All count, for each probe (score s, id t) of a row, the row's elements
 // (v, i) with v > s or (v == s and i < t): the probe's 0-based position in
 // the row's (value desc, id asc) order. The TPU kernels take at most 128
 // probes (one unrolled round each, lane-padded); here any number: one thread
@@ -64,6 +66,58 @@ rank_count_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
     __syncthreads();
   }
   if (has) out[b * t_count + p] = cnt;
+}
+
+// Replaces _rank_lookup_count_kernel. As rank_count_kernel, but the probe
+// arrives as an id alone: its score is looked up among the row's candidates
+// (the max value over the lanes that hold its id; -inf when none does), so
+// the fused route never recomputes a score outside its kernels. Two walks
+// over the candidate tiles: the lookup, then the count. found = the
+// looked-up score is finite; a probe whose id is masked, out of range or
+// padding is among no candidates and is not found. Bound: operations (two
+// compares per (probe, candidate) pair in each walk).
+__global__ void __launch_bounds__(kThreads)
+rank_lookup_count_kernel(const float* __restrict__ vals,
+                         const int* __restrict__ ids, int w,
+                         const int* __restrict__ tid, int t_count,
+                         int* __restrict__ out, bool* __restrict__ found) {
+  __shared__ float sv[kTile];
+  __shared__ int si[kTile];
+  const long long b = blockIdx.x;
+  const int p = blockIdx.y * kThreads + threadIdx.x;
+  const bool has = p < t_count;
+  const int t = has ? tid[b * t_count + p] : 0;
+  const float* rv = vals + b * w;
+  const int* ri = ids + b * w;
+  float s = -INFINITY;
+  int cnt = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int lo = 0; lo < w; lo += kTile) {
+      const int width = min(kTile, w - lo);
+      for (int e = threadIdx.x; e < width; e += kThreads) {
+        sv[e] = __ldg(rv + lo + e);
+        si[e] = __ldg(ri + lo + e);
+      }
+      __syncthreads();
+      if (has && pass == 0) {
+#pragma unroll 8
+        for (int e = 0; e < width; ++e) {
+          if (si[e] == t) s = fmaxf(s, sv[e]);
+        }
+      } else if (has) {
+#pragma unroll 8
+        for (int e = 0; e < width; ++e) {
+          const float v = sv[e];
+          cnt += (v > s) | ((v == s) & (si[e] < t));
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (has) {
+    out[b * t_count + p] = cnt;
+    found[b * t_count + p] = isfinite(s);
+  }
 }
 
 // Replaces _direct_rank_kernel. Counts over the whole masked score row, so
@@ -142,6 +196,15 @@ int skrx_rank_count(const float* vals, const int* ids, int b, int w,
                     cudaStream_t stream) {
   const dim3 grid(b, (t + kThreads - 1) / kThreads);
   rank_count_kernel<<<grid, kThreads, 0, stream>>>(vals, ids, w, st, tid, t, out);
+  return (int)cudaGetLastError();
+}
+
+int skrx_rank_lookup_count(const float* vals, const int* ids, int b, int w,
+                           const int* tid, int t, int* out, bool* found,
+                           cudaStream_t stream) {
+  const dim3 grid(b, (t + kThreads - 1) / kThreads);
+  rank_lookup_count_kernel<<<grid, kThreads, 0, stream>>>(vals, ids, w, tid, t,
+                                                           out, found);
   return (int)cudaGetLastError();
 }
 

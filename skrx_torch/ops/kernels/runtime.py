@@ -17,7 +17,8 @@ __all__ = ["KERNELS", "LAUNCHES", "reset_launches", "launch", "on_cuda",
 
 # kernel name -> its launches since the last reset
 KERNELS = ("submax", "kth_largest", "extract", "pruned_merge", "rank_count",
-           "direct_rank", "segsum", "segsum_merge")
+           "rank_lookup_count", "direct_rank", "dot_submax", "dot_extract",
+           "segsum", "segsum_merge")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -35,7 +36,13 @@ _SIGNATURES = {
     "skrx_extract": ("topk_blocks", [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P]),
     "skrx_pruned_merge": ("topk_blocks", [_P, _P, _I, _I, _P, _I, _P, _P]),
     "skrx_rank_count": ("rank_counts", [_P, _P, _I, _I, _P, _P, _I, _P]),
+    "skrx_rank_lookup_count": ("rank_counts", [_P, _P, _I, _I, _P, _I, _P,
+                                               _P]),
     "skrx_direct_rank": ("rank_counts", [_P, _I, _I, _P, _I, _P, _I, _I, _P]),
+    "skrx_dot_submax": ("dot_topk", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I,
+                                     _P]),
+    "skrx_dot_extract": ("dot_topk", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I,
+                                      _P, _I, _P, _P]),
     "skrx_segsum": ("segsum", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                                _P]),
     "skrx_segsum_merge": ("segsum", [_P, _I, _P, _P, _I, _P]),

@@ -1,7 +1,7 @@
 """Exact blockwise top-k of a (B, N) score matrix with fused seen-item
 masking, and the rank counts of full-catalog evaluation: the port of
 ``skrx.ops.pallas.topk_blocks`` (``blockwise_topk``, ``masked_topk_ranks``,
-``masked_topk_ranks_small``).
+``masked_topk_ranks_small``, ``_rank_lookup_counts``).
 
 Top-k in three passes, each a hand-written CUDA kernel
 (``csrc/topk_blocks.cu``):
@@ -18,8 +18,10 @@ Top-k in three passes, each a hand-written CUDA kernel
 Evaluation ranks (``csrc/rank_counts.cu``): :func:`masked_topk_ranks` runs
 the first passes and then :func:`rank_count` (each test item's position among
 the candidates); :func:`masked_topk_ranks_small` is one kernel,
-:func:`direct_rank`, that counts over the whole masked row. Both take any
-number of test items per row.
+:func:`direct_rank`, that counts over the whole masked row;
+:func:`rank_lookup_count` counts as :func:`rank_count` with each probe's
+score looked up by id among the candidates (the fused route of
+``dot_topk``). All take any number of test items per row.
 
 Contract, as in the JAX package: ties rank by (value desc, id asc); slots
 beyond the row's unmasked items hold (-inf, ``SENTINEL`` = int32max // 2);
@@ -42,7 +44,8 @@ __all__ = ["blockwise_topk", "blockwise_candidates", "kth_largest",
            "pruned_merge", "vmem_topk", "submax", "extract",
            "submax_plain", "kth_largest_plain", "extract_plain",
            "pruned_merge_plain", "fold_submaxes", "order_key", "rank_count",
-           "rank_count_plain", "direct_rank", "direct_rank_plain",
+           "rank_count_plain", "rank_lookup_count", "rank_lookup_count_plain",
+           "direct_rank", "direct_rank_plain",
            "masked_topk_ranks", "masked_topk_ranks_small", "SENTINEL",
            "MAX_BLOCK_N"]
 
@@ -344,6 +347,52 @@ def rank_count(vals: torch.Tensor, ids: torch.Tensor, s_t: torch.Tensor,
                 t, out)
         LAUNCHES["rank_count"] += 1
     return out
+
+
+# ------------------------------------------------------------- kernel 7
+
+def rank_lookup_count_plain(vals: torch.Tensor, ids: torch.Tensor,
+                            t_ids: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, t = t_ids.shape
+    out = torch.empty((b, t), dtype=torch.int32, device=vals.device)
+    s_t = torch.empty((b, t), dtype=vals.dtype, device=vals.device)
+    v, i = vals[:, None, :], ids[:, None, :]
+    for lo in range(0, t, 64):
+        ti = t_ids[:, lo:lo + 64, None]
+        s = torch.where(i == ti, v, float("-inf")).amax(2, keepdim=True)
+        above = (v > s) | ((v == s) & (i < ti))
+        out[:, lo:lo + 64] = above.sum(2, dtype=torch.int32)
+        s_t[:, lo:lo + 64] = s[:, :, 0]
+    return out, torch.isfinite(s_t)
+
+
+def rank_lookup_count(vals: torch.Tensor, ids: torch.Tensor,
+                      t_ids: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ranks (B, T) int32, found (B, T) bool)``: each probe id's score is
+    the max value among its row's candidates (``vals`` (B, W) f32, ``ids``
+    (B, W) int32) with that id, -inf when none has it; its rank counts the
+    candidates with value > s or (value == s and id < t); found means s is
+    finite. The contract of JAX's ``_rank_lookup_counts``, for any T."""
+    _check(vals, "vals", torch.float32, 2)
+    _check(ids, "ids", torch.int32, 2)
+    b, w = vals.shape
+    _check_probes(b, t_ids)
+    if ids.shape != vals.shape:
+        raise ValueError(f"need ids {tuple(vals.shape)}, got "
+                         f"{tuple(ids.shape)}")
+    if not _on_cuda(vals, ids, t_ids):
+        return rank_lookup_count_plain(vals, ids, t_ids)
+    vals, ids, t_ids = vals.contiguous(), ids.contiguous(), t_ids.contiguous()
+    t = t_ids.shape[1]
+    out = torch.empty((b, t), dtype=torch.int32, device=vals.device)
+    found = torch.empty((b, t), dtype=torch.bool, device=vals.device)
+    if b and t:
+        _launch("skrx_rank_lookup_count", vals.device, vals, ids, b, w, t_ids,
+                t, out, found)
+        LAUNCHES["rank_lookup_count"] += 1
+    return out, found
 
 
 def _in_rows(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Run-level configuration (the port's own copy of ``skrx.run_config``,
 with the fields the serving, training and evaluation slices read; the JAX
-package's mesh, dtype, checkpoint, profiler, chunked-evaluation and search
-options come with the slices that use them)."""
+package's mesh, dtype, checkpoint, profiler and search options come with
+the slices that use them)."""
 from typing import Tuple, Union
 
 from .utils.config import Config
@@ -28,10 +28,16 @@ class RunConfig(Config):
     # kept for API parity with the JAX package; evaluation runs on the device
     test_thread: int = 4
     seed: int = 2021
-    # evaluation strategy: "auto" and "full" score the whole catalog per
-    # batch; "chunked", "fused" and "topk" are not ported yet (ROADMAP.md)
-    # and raise NotImplementedError when the evaluator is built
+    # evaluation strategy: "full" scores the whole catalog per batch,
+    # "chunked" eval_chunk_size items at a time (the (B, N) scores never
+    # exist), "fused" ranks through the fused score-and-select kernels (dot
+    # models); "auto" is "chunked" from eval_chunk_threshold items on, for
+    # a model with predict_chunk, else "full". "topk" is not ported yet
+    # (ROADMAP.md) and raises NotImplementedError when the evaluator is
+    # built. All produce the same metrics.
     eval_mode: str = "auto"
+    eval_chunk_size: int = 65536
+    eval_chunk_threshold: int = 131072
 
     def _validate(self):
         if not (isinstance(self.recommender, str) and self.recommender):
@@ -66,3 +72,6 @@ class RunConfig(Config):
             raise ValueError("test_thread must be > 0")
         if self.eval_mode not in _EVAL_MODES:
             raise ValueError(f"eval_mode must be one of {_EVAL_MODES}")
+        if not (self.eval_chunk_size > 0 and self.eval_chunk_threshold > 0):
+            raise ValueError("eval_chunk_size and eval_chunk_threshold must "
+                             "be > 0")

@@ -216,10 +216,23 @@ def test_evaluator_matches_jax(n, top_k, bs):
 
 
 def test_evaluator_refuses_modes_not_ported():
+    """Only "topk" (it waits for parallel/) is refused; "chunked" and
+    "fused" are built, with their chunk settings."""
     train, test = {0: np.array([1])}, {0: np.array([2])}
-    for mode in ("chunked", "fused", "topk"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RankingEvaluator(train, test, eval_mode=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RankingEvaluator(train, test, eval_mode="topk", device="cpu")
+    for mode in ("auto", "full", "chunked", "fused"):
+        ev = RankingEvaluator(train, test, eval_mode=mode, chunk_size=512,
+                              chunk_threshold=1024, device="cpu")
+        assert (ev.eval_mode, ev.chunk_size, ev.chunk_threshold) == (
+            mode, 512, 1024)
+    for bad in (dict(eval_mode="paged"), dict(chunk_size=0)):
+        with pytest.raises(ValueError):
+            RankingEvaluator(train, test, device="cpu", **bad)
+    with pytest.raises(ValueError):
+        RunConfig(eval_chunk_threshold=0)
+    assert (RunConfig().eval_chunk_size, RunConfig().eval_chunk_threshold) \
+        == (65536, 131072)
     with pytest.raises(ValueError):
         RankingEvaluator(train, {}, device="cpu")
     with pytest.raises(ValueError):

@@ -145,6 +145,9 @@ def test_launch_counts_untouched_by_cpu_path():
     from skrx_torch.ops.kernels import topk_blocks as ttb
     runtime.reset_launches()
     ttb.blockwise_topk(torch.randn(3, 5000), 10)
+    from skrx_torch.ops.kernels import dot_topk as tdt
+    tdt.dot_topk_ranks(torch.randn(3, 8), torch.randn(700, 8), None, 5,
+                       torch.zeros((3, 4), dtype=torch.int32), block_n=256)
     x = torch.randn(4, 8, requires_grad=True)
     propagate(graph_from_coo([0, 1, 2], [1, 2, 3], [1.0, 1.0, 1.0], 4),
               x).sum().backward()
@@ -178,6 +181,23 @@ def test_ctypes_signatures_match_the_c_launchers():
     for name, (stem, types_) in found.items():
         assert runtime._SIGNATURES[name][0] == stem
         assert runtime._SIGNATURES[name][1] + [ctypes.c_void_p] == types_, name
+
+
+@pytest.mark.parametrize("name,stem,n_args", [
+    ("skrx_rank_lookup_count", "rank_counts", 8),
+    ("skrx_dot_submax", "dot_topk", 11),
+    ("skrx_dot_extract", "dot_topk", 14),
+])
+def test_fused_route_launchers_have_typed_signatures(name, stem, n_args):
+    """The launchers of kernels #7, #9 and #10: every argument before the
+    stream typed, pointers as c_void_p (the test above holds them to the C
+    declarations)."""
+    import ctypes
+    from skrx_torch.ops.kernels import runtime
+    got_stem, argtypes = runtime._SIGNATURES[name]
+    assert got_stem == stem and len(argtypes) == n_args
+    assert set(argtypes) <= {ctypes.c_void_p, ctypes.c_int}
+    assert argtypes[0] is ctypes.c_void_p and argtypes[-1] is ctypes.c_void_p
 
 
 def test_launch_types_every_argument_and_raises_on_a_cuda_error(
@@ -284,8 +304,9 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
     torch.cuda.synchronize()
     assert runtime.LAUNCHES == {"submax": 1, "kth_largest": 1, "extract": 1,
                                 "pruned_merge": 2, "rank_count": 0,
-                                "direct_rank": 0, "segsum": 0,
-                                "segsum_merge": 0}
+                                "rank_lookup_count": 0, "direct_rank": 0,
+                                "dot_submax": 0, "dot_extract": 0,
+                                "segsum": 0, "segsum_merge": 0}
 
 
 @pytest.mark.cuda
@@ -338,6 +359,63 @@ def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width):
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["direct_rank"] == 1
     assert runtime.LAUNCHES["rank_count"] == (2 if n // 128 >= k else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k,width,kind", [
+    (1024, 40981, 64, 10, 1472, "normal"),     # the serving shape
+    (64, 40981, 64, 50, 1472, "normal"),       # the evaluation shape
+    (40, 9000, 8, 50, 30, "no bias"),
+    (9, 4200, 60, 20, 0, "normal"),            # no mask, d not a power of 2
+    (33, 5000, 512, 10, 40, "normal"),         # the widest d
+    (64, 12288, 16, 50, 6, "tie storm"),       # whole blocks equal
+    (6, 8192, 16, 10, 8192, "masked rows"),    # fully masked, < k unmasked
+    (5, 300, 16, 200, 10, "duplicated"),       # n_sub < k: tau = -inf
+])
+def test_cuda_fused_kernels_match_plain_versions(b, n, d, k, width, kind):
+    """dot_submax, dot_extract and rank_lookup_count against their plain
+    versions on CPU copies of the same inputs, bit for bit (needs a card,
+    as the sweeps above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import dot_topk as tdt
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    rng = np.random.default_rng(n + d)
+    uv = rng.standard_normal((b, d)).astype(np.float32)
+    items = rng.standard_normal((n, d)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    if kind == "tie storm":
+        uv[:], bias[:] = 0.0, 0.25
+    if kind == "duplicated":
+        items[n // 2:] = items[: n - n // 2]
+    table = rng.integers(-2, n + 2, (b, width)).astype(np.int32)
+    if kind == "masked rows":
+        table[0] = np.arange(n)
+        table[1, : n - 4] = np.arange(n - 4)
+    cpu = [torch.from_numpy(x) for x in (uv, items, bias, table)]
+    gpu = [x.cuda() for x in cpu]
+    bias_c, bias_g = (None, None) if kind == "no bias" else (cpu[2], gpu[2])
+    mask_c, mask_g = (cpu[3], gpu[3]) if width else (None, None)
+    pc, pg = tdt.pack_items(cpu[1], bias_c), tdt.pack_items(gpu[1], bias_g)
+    runtime.reset_launches()
+    bm = tdt.dot_submax(gpu[0], pg, mask_g)
+    assert torch.equal(bm.cpu(), tdt.dot_submax_plain(cpu[0], pc, mask_c))
+    v, i, tau = tdt.dot_topk_candidates(gpu[0], None, None, k, mask_g,
+                                        packed=pg)
+    rv, ri = tdt.dot_extract_plain(cpu[0], pc, mask_c, tau.cpu(), k)
+    assert torch.equal(v.cpu(), rv) and torch.equal(i.cpu(), ri)
+    probes = rng.integers(-3, n + 3, (b, 300)).astype(np.int32)
+    probes[:, :10] = ri[:, :10].numpy()
+    probes[:, 10:14] = probes[:, :1]               # duplicated
+    got = ttb.rank_lookup_count(v, i, torch.from_numpy(probes).cuda())
+    ref = ttb.rank_lookup_count_plain(rv, ri, torch.from_numpy(probes))
+    assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["dot_submax"] == 2
+    assert runtime.LAUNCHES["dot_extract"] == 1
+    assert runtime.LAUNCHES["rank_lookup_count"] == 1
 
 
 def _segsum_case(case: str, rng):

@@ -105,11 +105,19 @@ def test_recommend_rejects_unknown_users(pair):
 
 
 def test_fused_always_is_not_ported(pair):
+    """fused="sometimes" is refused; under "always" a dot model takes the
+    fused route, under "auto" and "never" the score-matrix route, and the
+    two give the same top-k."""
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TopKRecommender(tm, fused="always")
     with pytest.raises(ValueError):
         TopKRecommender(tm, fused="sometimes")
+    users = np.arange(tm.num_users)
+    server = TopKRecommender(tm, fused="always")
+    assert server.fused
+    assert not TopKRecommender(tm, fused="auto").fused
+    assert not TopKRecommender(tm, fused="never").fused
+    got, ref = server.recommend(users), TopKRecommender(tm).recommend(users)
+    _assert_same_ranking(*got, *ref)
 
 
 def test_registry_builds_bprmf_by_name(pair, tmp_path, monkeypatch):
