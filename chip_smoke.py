@@ -57,9 +57,12 @@ skrx_torch fails and it exits 1):
    versions on CPU copies, bit for bit (values, ids, tau, ranks, found): at
    the serving shape (B=1024, the Gowalla catalog, d=64, k=10, the seen
    table), at the evaluation shapes (B=64 and 1024, k=50, the evaluator's
-   real T and L), and on adversarial inputs: duplicated item rows and zero
-   user vectors over a constant bias (ties across whole column blocks),
-   fully masked rows and rows with fewer than k unmasked items, N not a
+   real T and L; B=1 and 7 at the serving shape), and on adversarial
+   inputs: duplicated item rows and zero user vectors over a constant bias
+   (ties across whole column blocks, more survivors than the list holds),
+   item columns repeated every 512 columns (ties across the slices a
+   cluster of CTAs splits a block into), fully masked rows and rows with
+   fewer than k unmasked items, N not a
    multiple of the block, d in {8, 60, 128, 512}, no bias, probes masked,
    out of range, padding, duplicated, one or more than 128 a row.
    TopKRecommender(fused="always") for BPRMF and LightGCN at 1, 64 and
@@ -75,8 +78,12 @@ skrx_torch fails and it exits 1):
 8. Times on the card: each kernel, its plain version and a library call
    where one computes the same function, as device time per call
    (torch.profiler, 50 calls after warm-up) and as the median time of one
-   call between CUDA events (host launch gaps included); the kernel's
-   bound; recommend's p50 per batch size with the
+   call between CUDA events (host launch gaps included), and per call of
+   200 back-to-back calls between CUDA events; the kernel's bound; the
+   selection kernels (submax, kth_largest, extract, dot_submax,
+   dot_extract) again at the evaluation shape (B=64, k=50) with their
+   bounds; direct_rank by the profiler and by CUDA events over 1,000
+   back-to-back calls; recommend's p50 per batch size with the
    card's busy share during it (torch.profiler), for the score-matrix and
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
@@ -524,6 +531,21 @@ def fused_adversarial(dev, items, errs: dict) -> None:
                                     errs)
             check_lookup(f"tie storm k={k}", cv, ci, t(lookup_probes(
                 rng, ci.cpu().numpy(), mask, ITEMS, 300)), errs)
+    # ties across the slices that a cluster splits a column block into: at
+    # B=64 eight CTAs score 512 columns each, and each column c of a block
+    # repeats at c + 512, c + 1024, ... so that every score of a row ties
+    # with one in each other slice; found stays under the list's cap
+    tied = items.clone()
+    for blk in range(0, ITEMS - BLOCK_N, BLOCK_N):
+        tied[blk + 512: blk + BLOCK_N] = tied[blk: blk + 512].repeat(7, 1)
+    packed = dt.pack_items(tied, torch.full((ITEMS,), 0.25, device=dev))
+    uv = torch.randn((64, DIM), device=dev,
+                     generator=torch.Generator(dev).manual_seed(SEED + 1))
+    for k in (K, K_EVAL):
+        _, cv, ci = check_fused(f"slice ties k={k}", uv, packed, t(mask), k,
+                                errs)
+        require(bool((cv[:, 1] == cv[:, 0]).all()),
+                "slice ties: the two best of a block tie")
     # fully masked rows and rows with fewer than k unmasked items, N not a
     # multiple of the block
     n = 8192 + 1000
@@ -643,6 +665,23 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def launches_ms(fn, reps: int = 200) -> float:
+    """Time per call of reps back-to-back calls of fn between two CUDA
+    events (after warm-up): device time where the card is the bottleneck,
+    the host's launch rate where the kernel is shorter than a launch."""
+    for _ in range(5):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _device_events(prof):
@@ -985,6 +1024,9 @@ def main() -> int:
     uv_s = model.user_emb.detach()[users]
     tau_s, fcv, fci = check_fused("serving shape", uv_s, packed_s, mask, K,
                                   errs)
+    for bsz in (1, 7):              # the smallest tiles and clusters
+        check_fused(f"serving shape B={bsz}", uv_s[:bsz], packed_s,
+                    mask[:bsz], K, errs)
     fused_eval_in = {}
     for bsz in (B_EVAL, B_KERNEL):
         u, _, tr, te, _ = eval_in[bsz]
@@ -1217,7 +1259,8 @@ def main() -> int:
               f"({row['bound_by']})  plain {row['plain_ms']} ms  library "
               f"{row['library_ms']}  (device time per call); one wrapper "
               f"call between CUDA events {time_ms(fn)} ms, plain "
-              f"{time_ms(plain)} ms; launches on its path "
+              f"{time_ms(plain)} ms; 200 back-to-back calls between CUDA "
+              f"events {launches_ms(fn)} ms a call; launches on its path "
               f"{launches[kname]}  [{card}, {shapes[kname]}]", flush=True)
     prop_bound = max(prop_bytes / MEM_RATE, 2 * n_edges * DIM / F32_OPS) * 1e3
     print(f"propagate at the Gowalla graph (segsum + segsum_merge, as a "
@@ -1273,16 +1316,51 @@ def main() -> int:
               f"yardstick matmul + mask_items + torch.topk "
               f"{device_ms(lib_fn)} ms ({time_ms(lib_fn)})  [{card}]",
               flush=True)
+    # the selection kernels at the evaluation batch (B=64, k=50), where 934
+    # of the fused kernels' launches and nearly all of kth_largest's are
     e_uv = model.user_emb.detach()[torch.as_tensor(e_u, device=dev)]
-    e_tau = fused_eval_in[B_EVAL][0]
-    e_flops = 2 * be * ITEMS * DIM
-    print(f"fused kernels at the evaluation batch B={be}: dot_submax "
-          f"{device_ms(lambda: dt.dot_submax(e_uv, packed_s, e_tr))} ms, "
-          f"dot_extract "
-          f"{device_ms(lambda: dt.dot_extract(e_uv, packed_s, e_tau, K_EVAL, e_tr))}"
-          f" ms of device time; bound {e_flops / F32_OPS * 1e3} ms "
-          f"(operations), item table read {4 * ITEMS * DIM / MEM_RATE * 1e3} "
-          f"ms; dot_topk_ranks "
+    e_tau_f = fused_eval_in[B_EVAL][0]
+    e_bm = tb.submax(e_sc, e_tr, BLOCK_N)
+    e_bmf = tb.fold_submaxes(e_bm, K_EVAL).contiguous()
+    sel_tau = tb.kth_largest(e_bmf, K_EVAL)
+    sel_cv, _ = tb.extract(e_sc, sel_tau, K_EVAL, e_tr, BLOCK_N)
+    sel_masked = tb._masked_padded(e_sc, e_tr, BLOCK_N).reshape(be, -1, BLOCK_N)
+    sel_found = ((sel_masked >= sel_tau[:, None, None])
+                 & (sel_masked != NEG_INF)).sum(2)
+    del sel_masked
+    w_e, w_f, w_ce = e_bm.shape[1], e_bmf.shape[1], sel_cv.shape[1]
+    eval_work = {
+        "submax": ((4 * (be * n + be * l_eval + be * w_e), be * n),
+                   lambda: tb.submax(e_sc, e_tr, BLOCK_N)),
+        "kth_largest": ((4 * (be * w_f + be), 2 * 33 * be * w_f),
+                        lambda: tb.kth_largest(e_bmf, K_EVAL)),
+        "extract": ((4 * (be * n + be * l_eval + be) + 8 * be * w_ce,
+                     be * n + int((sel_found.clamp(max=K_EVAL)
+                                   * sel_found).sum())),
+                    lambda: tb.extract(e_sc, sel_tau, K_EVAL, e_tr, BLOCK_N)),
+        "dot_submax": ((4 * (be * DIM + n * DIM + n + be * l_eval
+                             + be * w_e), 2 * be * n * DIM),
+                       lambda: dt.dot_submax(e_uv, packed_s, e_tr)),
+        "dot_extract": ((4 * (be * DIM + n * DIM + n + be * l_eval + be)
+                         + 8 * be * w_ce, 2 * be * n * DIM),
+                        lambda: dt.dot_extract(e_uv, packed_s, e_tau_f,
+                                               K_EVAL, e_tr)),
+    }
+    for kname, ((nbytes, ops), fn) in eval_work.items():
+        t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / F32_OPS * 1e3
+        print(f"{kname:13s} at the evaluation shape (B={be}, N={n}, "
+              f"k={K_EVAL}, W={w_e}, L={l_eval}): {device_ms(fn)} ms of "
+              f"device time, bound {max(t_bytes, t_ops)} ms ("
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}); 200 "
+              f"back-to-back calls between CUDA events {launches_ms(fn)} ms "
+              f"a call  [{card}]", flush=True)
+    print(f"direct_rank at the ML-1M evaluation shape: {device_ms(kernel_fns['direct_rank'][0])} "
+          f"ms of device time (torch.profiler, the table's number), "
+          f"{launches_ms(kernel_fns['direct_rank'][0], 1000)} ms a call over "
+          f"1,000 back-to-back calls between CUDA events (the host's launch "
+          f"rate where it is the slower), {time_ms(kernel_fns['direct_rank'][0])} "
+          f"ms for one call between CUDA events  [{card}]", flush=True)
+    print(f"dot_topk_ranks at the evaluation batch B={be}: "
           f"{time_ms(lambda: dt.dot_topk_ranks(e_uv, None, None, K_EVAL, e_te, e_tr, packed=packed_s))}"
           f" ms between CUDA events  [{card}]", flush=True)
     ranks_ms = time_ms(lambda: tb.masked_topk_ranks(e_sc, K_EVAL, e_te, e_tr))

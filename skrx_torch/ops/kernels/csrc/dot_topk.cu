@@ -22,23 +22,29 @@
 // -inf, so they score -inf and are never selected. uv is (B_pad, d4) with
 // zero rows and columns past (B, d).
 //
-// Tiling. A block of 8 warps takes a tile of 8 * RT user rows and one
-// column block; warp w owns rows w*RT .. w*RT+RT-1, lane l the columns
-// 32*j + l (j < 4) of each 128-column stripe, i.e. the strided groups
-// l + 32*j. Per quad a thread loads RT user quads (the same address across
-// the warp: a broadcast) and four item quads, and does 2*4*RT*4 operations,
-// so the item slab is read once per tile of rows, from L2 (10.5 MB at the
-// Gowalla catalog, d = 64), not once per row. Bound: operations, 2*B*N*d
-// f32 (mul and add issued apart, as the exact order needs).
+// Tiling of dot_submax. A block of 8 warps takes a tile of 8 * RT user rows
+// and one column block; warp w owns rows w*RT .. w*RT+RT-1, lane l the
+// columns 32*j + l (j < 4) of each 128-column stripe, i.e. the strided
+// groups l + 32*j. Per quad a thread loads RT user quads (the same address
+// across the warp: a broadcast) and four item quads, and does 2*4*RT*4
+// operations, so the item slab is read once per tile of rows, from L2 (10.5
+// MB at the Gowalla catalog, d = 64), not once per row. dot_extract stages
+// its tiles in shared memory and splits a column block across a cluster of
+// CTAs (see the kernel). Bound: operations, 2*B*N*d f32 (mul and add issued
+// apart, as the exact order needs).
 //
 // Plain C interface (launch on the caller's stream, return
 // cudaGetLastError()); the wrappers in ../dot_topk.py check shapes, types
 // and devices, pack and pad the operands, allocate the outputs and count
 // launches.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -49,7 +55,6 @@ constexpr int kSentinel = INT_MAX / 2;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kCols = 4;                      // columns a lane takes per stripe
-constexpr int kMaxDynSmem = 96 * 1024;        // survivor lists of dot_extract
 
 struct Pair {
   float v;
@@ -193,76 +198,258 @@ dot_submax_kernel(const float* __restrict__ uv, int b, int dq,
   }
 }
 
-// Replaces _dot_extract_kernel. Grid (row tiles, column blocks). Pass 1:
-// every score of the tile is computed once; the finite unmasked ones >= the
-// row's tau are appended to the row's survivor list in shared memory (cap
-// entries a row; the count goes on past cap). Pass 2, a warp per row (the
-// rows it scored): with found <= cap, min(k, found) argmax rounds over the
-// list by (value desc, column asc), each strictly after the last pick; with
-// found > cap (a tie storm, or tau = -inf on a small catalog), the same
-// rounds over the whole column block, recomputing each score with the same
-// arithmetic. Output: slots j*k .. j*k+k-1 of the row hold block j's
-// top-min(k, found), then (-inf, sentinel), as skrx_extract writes them.
-template <int RT>
-__global__ void __launch_bounds__(kThreads)
-dot_extract_kernel(const float* __restrict__ uv, int b, int dq,
+// Replaces _dot_extract_kernel. A CTA takes TR (16 or 32) user rows and a
+// slice of one column block: the block's CTAs form a cluster of cl (1..8)
+// CTAs, each scoring block_n / cl columns, so that a small batch still
+// spreads over the card (launch_extract picks TR and cl). Warps 0..7 score;
+// one lane of warp 8, the producer, feeds them.
+//
+// Staging. The tile's user rows are copied into shared memory once. The item
+// table streams through a ring of kStages stages; a stage holds four quads
+// of one 128-column stripe (8 KB), copied by the producer with
+// cp.async.bulk (one 2 KB copy per quad: the packed table keeps a quad's
+// columns side by side) and completed on the stage's "full" mbarrier; each
+// scoring warp arrives on the stage's "empty" mbarrier once it has read it.
+//
+// Scores. The eight warps are TR / 4 row groups of 4 rows by 32 / TR column
+// parts; a thread scores its group's 4 rows against CT = TR / 8 columns of
+// each stripe (lane + 32 j of its part), a register tile whose item quads
+// are reused across the four rows in registers and whose user quads are
+// warp-wide broadcasts from shared memory. The four quads of a stage are
+// unrolled; with d = 64 (kDQ = 16) the stage count of a stripe is a
+// constant too, other d take the generic instantiation. The arithmetic is
+// dot_tile's: acc = acc + u * it per dimension in quad order, each rounded,
+// then + bias.
+//
+// The cluster's first CTA (rank 0, the leader) holds the tile's mask bitmap
+// of the whole block, the survivor lists and their counts; the other CTAs
+// reach them through distributed shared memory. Each CTA scans its share of
+// the tile's mask rows into the leader's bitmap (remote atomicOr). A score
+// >= its row's tau (finite, unmasked) is appended to the row's list: a
+// remote atomicAdd on the row's count, then the value and the column at
+// that slot while it is below cap; the count goes on past cap. After a
+// cluster barrier the leader's warps take a row each: with found <= cap,
+// min(k, found) argmax rounds over the list by (value desc, column asc),
+// each strictly after the last pick; with found > cap (a tie storm, or tau
+// = -inf on a small catalog), the same rounds over the whole column block,
+// recomputing each score with the same arithmetic from global memory.
+// Output: slots j*k .. j*k+k-1 of the row hold block j's top-min(k, found),
+// then (-inf, sentinel), as skrx_extract writes them.
+constexpr int kXRT = 4;                        // rows a thread scores
+constexpr int kXWarps = 8;                     // scoring warps
+constexpr int kXThreads = (kXWarps + 1) * 32;  // and the producer's warp
+constexpr int kStripe = 128;                   // columns of a stripe
+constexpr int kStageQuads = 4;
+constexpr int kStages = 4;
+constexpr int kStageFloats = kStageQuads * kStripe * 4;
+constexpr int kMaxCluster = 8;
+constexpr int kMaxQuads = 128;                 // d <= 512
+constexpr int kMaxTile = 32;
+constexpr int kListBytes = 64 * 1024;          // survivor lists of a tile
+constexpr int kMaxXDyn = kStages * kStageFloats * 4 + kMaxTile * kMaxQuads * 16
+                         + kListBytes;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+template <int TR, int kDQ>
+__global__ void __launch_bounds__(kXThreads, TR == 16 ? 3 : 2)
+dot_extract_kernel(const float* __restrict__ uv, int b, int dq_arg,
                    const float* __restrict__ items, const float* __restrict__ bias,
                    int n, long long n_pad, int block_n,
                    const int* __restrict__ mask, int L,
                    const float* __restrict__ tau, int k, int cap,
                    float* __restrict__ out_v, int* __restrict__ out_i, int out_w) {
-  constexpr int kRows = kWarps * RT;
-  __shared__ unsigned bits[kRows][kMaskWords];
-  __shared__ int found_sh[kRows];
-  extern __shared__ unsigned char dyn[];
-  float* sv = reinterpret_cast<float*>(dyn);                 // [kRows][cap]
-  int* si = reinterpret_cast<int*>(dyn) + kRows * cap;       // [kRows][cap]
+  constexpr int kParts = kXWarps / (TR / kXRT);      // column parts of a stripe
+  constexpr int kCT = kStripe / (32 * kParts);       // columns a thread scores
+  const int dq = kDQ > 0 ? kDQ : dq_arg;
+  __shared__ unsigned bits[TR][kMaskWords];
+  __shared__ int found_sh[TR];
+  __shared__ __align__(8) unsigned long long full_bar[kStages], empty_bar[kStages];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* ring = reinterpret_cast<float*>(dyn);                   // [kStages][kStageFloats]
+  float4* users = reinterpret_cast<float4*>(ring + kStages * kStageFloats);  // [TR][dq]
+  float* sv = reinterpret_cast<float*>(users + TR * dq);         // [TR][cap]
+  int* si = reinterpret_cast<int*>(sv + TR * cap);               // [TR][cap]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int j_blk = blockIdx.y;
+  const long long row0 = (long long)blockIdx.x * TR;
+  const int j_blk = blockIdx.y / cl;
   const int lo = j_blk * block_n;
-  if (threadIdx.x < kRows) found_sh[threadIdx.x] = 0;
-  load_tile_mask(bits, kRows, mask, L, row0, b, lo, min(block_n, n - lo));
-  const float4* u4 = reinterpret_cast<const float4*>(uv) + (row0 + warp * RT) * dq;
-  const float4* it4 = reinterpret_cast<const float4*>(items);
-  float t[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const long long row = row0 + warp * RT + i;
-    t[i] = row < b ? __ldg(tau + row) : INFINITY;   // padding rows keep none
+  const int width = min(block_n, n - lo);
+  const int slice = block_n / cl;
+  const int c0 = rank * slice;                 // this CTA's first column in the block
+  const int n_qst = (dq + kStageQuads - 1) / kStageQuads;
+  const int n_steps = slice / kStripe * n_qst;
+  const bool producer = threadIdx.x == kXWarps * 32;
+  unsigned* bits_l = cluster.map_shared_rank(&bits[0][0], 0);   // the leader's
+
+  // the producer's copies of step `step` (stripe step / n_qst, its quads
+  // from 4 (step % n_qst) on) into stage step % kStages
+  auto issue = [&](int step) {
+    const int s = step % kStages, q0 = step % n_qst * kStageQuads;
+    const int qn = min(kStageQuads, dq - q0);
+    const long long col = lo + c0 + (long long)(step / n_qst) * kStripe;
+    mbar_expect(&full_bar[s], qn * kStripe * 16);
+    for (int q = 0; q < qn; ++q)
+      bulk_copy(ring + s * kStageFloats + q * kStripe * 4,
+                items + ((long long)(q0 + q) * n_pad + col) * 4, kStripe * 16,
+                &full_bar[s]);
+  };
+
+  if (producer) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], kXWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int s = 0; s < block_n; s += kLanes) {
-    float acc[RT][kCols];
-    dot_tile<RT>(u4, dq, it4, n_pad, lo + s + lane, acc);
+  if (threadIdx.x < TR) found_sh[threadIdx.x] = 0;
+  for (int e = threadIdx.x; e < TR * kMaskWords; e += kXThreads) (&bits[0][0])[e] = 0u;
+  __syncthreads();
+  if (producer)
+    for (int step = 0; step < min(kStages, n_steps); ++step) issue(step);
+  const float4* uv4 = reinterpret_cast<const float4*>(uv) + row0 * dq;
+  for (int e = threadIdx.x; e < TR * dq; e += kXThreads) users[e] = __ldg(uv4 + e);
+  cluster.sync();            // the leader's bitmap and counts are 0
+  if (mask != nullptr) {
+    // this CTA's share of the tile's mask entries (rows < b), four loads
+    // in flight a thread; ids outside [lo, lo + width) are ignored
+    const int total = (int)(b - row0 < TR ? b - row0 : TR) * L;
+    const int stride = cl * kXThreads;
+    const int* m = mask + row0 * L;
+    for (int e0 = rank * kXThreads + threadIdx.x; e0 < total; e0 += 4 * stride) {
+      int id[4];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = s + lane + 32 * j;
-      const float bj = __ldg(bias + lo + c);
+      for (int u = 0; u < 4; ++u) id[u] = e0 + u * stride < total ? __ldg(m + e0 + u * stride) : -1;
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int r = warp * RT + i;
-        const float v = __fadd_rn(acc[i][j], bj);
-        if (v >= t[i] && v != -INFINITY && (mask == nullptr || !masked_at(bits[r], c))) {
-          const int p = atomicAdd(&found_sh[r], 1);
-          if (p < cap) {
-            sv[r * cap + p] = v;
-            si[r * cap + p] = c;
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * stride;
+        const long long rel = (long long)id[u] - lo;
+        if (e < total && rel >= 0 && rel < width)
+          atomicOr(bits_l + (e / L) * kMaskWords + (rel >> 5), 1u << (rel & 31));
+      }
+    }
+  }
+  cluster.sync();            // the leader's bitmap is complete
+
+  if (warp < kXWarps) {
+    const int rg = warp / kParts, part = warp % kParts;
+    float t[kXRT];
+#pragma unroll
+    for (int i = 0; i < kXRT; ++i) {
+      const long long row = row0 + rg * kXRT + i;
+      t[i] = row < b ? __ldg(tau + row) : INFINITY;   // padding rows keep none
+    }
+    const float4* u4 = users + rg * kXRT * dq;
+    int* found_l = cluster.map_shared_rank(found_sh, 0);
+    float* sv_l = cluster.map_shared_rank(sv, 0);
+    int* si_l = cluster.map_shared_rank(si, 0);
+    int step = 0;
+    for (int c_st = c0; c_st < c0 + slice; c_st += kStripe) {
+      float acc[kXRT][kCT];
+#pragma unroll
+      for (int i = 0; i < kXRT; ++i)
+#pragma unroll
+        for (int j = 0; j < kCT; ++j) acc[i][j] = 0.f;
+      for (int qs = 0; qs < n_qst; ++qs, ++step) {
+        const int s = step % kStages, q0 = qs * kStageQuads;
+        mbar_wait(&full_bar[s], (step / kStages) & 1);
+        const float4* it4 = reinterpret_cast<const float4*>(ring + s * kStageFloats)
+                            + part * 32 * kCT + lane;
+#pragma unroll
+        for (int q = 0; q < kStageQuads; ++q) {
+          if (q0 + q < dq) {
+            float4 u[kXRT], it[kCT];
+#pragma unroll
+            for (int i = 0; i < kXRT; ++i) u[i] = u4[i * dq + q0 + q];
+#pragma unroll
+            for (int j = 0; j < kCT; ++j) it[j] = it4[q * kStripe + 32 * j];
+#pragma unroll
+            for (int i = 0; i < kXRT; ++i)
+#pragma unroll
+              for (int j = 0; j < kCT; ++j) acc[i][j] = quad_dot(acc[i][j], u[i], it[j]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty_bar[s]);
+      }
+#pragma unroll
+      for (int j = 0; j < kCT; ++j) {
+        const int c = c_st + part * 32 * kCT + lane + 32 * j;
+        const float bj = __ldg(bias + lo + c);
+#pragma unroll
+        for (int i = 0; i < kXRT; ++i) {
+          const int r = rg * kXRT + i;
+          const float v = __fadd_rn(acc[i][j], bj);
+          if (v >= t[i] && v != -INFINITY
+              && (mask == nullptr || !masked_at(bits_l + r * kMaskWords, c))) {
+            const int p = atomicAdd(found_l + r, 1);
+            if (p < cap) {
+              sv_l[r * cap + p] = v;
+              si_l[r * cap + p] = c;
+            }
           }
         }
       }
     }
+  } else if (producer) {
+    for (int step = kStages; step < n_steps; ++step) {
+      mbar_wait(&empty_bar[step % kStages], ((step / kStages) & 1) ^ 1);
+      issue(step);
+    }
   }
-  __syncthreads();
-  for (int i = 0; i < RT; ++i) {
-    const int r = warp * RT + i;
+  __syncwarp();
+  cluster.sync();            // every survivor of the block is in the leader's lists
+  if (rank != 0) return;
+  const float4* it4 = reinterpret_cast<const float4*>(items);
+  for (int r = warp; r < TR; r += kXWarps + 1) {
     const long long row = row0 + r;
     if (row >= b) break;
+    const float t = __ldg(tau + row);
     const int found = found_sh[r];
     const int rounds = min(k, found);
     float* ov = out_v + row * out_w + (long long)j_blk * k;
     int* oi = out_i + row * out_w + (long long)j_blk * k;
     const unsigned* rb = bits[r];
-    const float4* ur = u4 + (long long)i * dq;
+    const float4* ur = reinterpret_cast<const float4*>(uv) + row * dq;
     Pair prev{INFINITY, -1};     // ranks before every pair
     for (int q = 0; q < rounds; ++q) {
       Pair best{-INFINITY, INT_MAX};
@@ -276,7 +463,7 @@ dot_extract_kernel(const float* __restrict__ uv, int b, int dq,
           if (mask != nullptr && masked_at(rb, c)) continue;
           const float v = __fadd_rn(dot_one(ur, dq, it4, n_pad, lo + c), __ldg(bias + lo + c));
           const Pair p{v, c};
-          if (v >= t[i] && v != -INFINITY && before(prev.v, prev.id, p.v, p.id))
+          if (v >= t && v != -INFINITY && before(prev.v, prev.id, p.v, p.id))
             best = better(best, p);
         }
       }
@@ -315,41 +502,100 @@ int launch_submax(const float* uv, int b, int dq, const float* items, const floa
   return (int)cudaGetLastError();
 }
 
-template <int RT>
-int launch_extract(const float* uv, int b, int dq, const float* items,
-                   const float* bias, int n, long long n_pad, int block_n,
-                   const int* mask, int L, const float* tau, int k, float* out_v,
-                   int* out_i, cudaStream_t stream) {
-  constexpr int kRows = kWarps * RT;
-  // survivor slots a row: 2k (at least 64), as many as 96 KB allow
-  int cap = ((2 * k + 31) / 32) * 32;
-  cap = max(cap, 64);
-  cap = min(cap, kMaxDynSmem / (kRows * 8));
-  const int dyn = kRows * cap * 8;
-  // static + dynamic shared memory may pass 48 KB: opt in once per device
+// Tile rows and cluster size of a launch: tiles of 32 rows (the item table
+// read half as often) where they alone give two CTAs an SM, else 16; then
+// column blocks split in two until the grid has eight CTAs an SM, a slice
+// is one stripe, or the cluster has 8 CTAs.
+struct ExtractGrid {
+  int tile, cl;
+};
+
+ExtractGrid extract_grid(int b, int n_blocks, int block_n, int sms) {
+  ExtractGrid g{32, 1};
+  if ((long long)((b + 31) / 32) * n_blocks < 2LL * sms) g.tile = 16;
+  const long long tiles = (long long)((b + g.tile - 1) / g.tile) * n_blocks;
+  while (g.cl < kMaxCluster && block_n / (2 * g.cl) >= kStripe
+         && tiles * g.cl < 8LL * sms && 2LL * n_blocks * g.cl <= 65535)
+    g.cl *= 2;
+  return g;
+}
+
+template <int TR, int kDQ>
+int launch_extract_tile(const float* uv, int b, int dq, const float* items,
+                        const float* bias, int n, long long n_pad, int block_n,
+                        const int* mask, int L, const float* tau, int k,
+                        float* out_v, int* out_i, int cl, cudaStream_t stream) {
+  // survivor slots a row: 2k (at least 64), as many as kListBytes allow
+  const int cap = min(max(((2 * k + 31) / 32) * 32, 64), kListBytes / (TR * 8));
+  const int dyn = kStages * kStageFloats * 4 + TR * dq * 16 + TR * cap * 8;
+  // past 48 KB of shared memory: opt in once per device
   static bool opted[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !opted[dev]) {
-    err = cudaFuncSetAttribute(dot_extract_kernel<RT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(dot_extract_kernel<TR, kDQ>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxXDyn);
     if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted[dev] = true;
+    opted[dev] = true;
   }
   const int n_blocks = (int)(n_pad / block_n);
-  const dim3 grid((b + kRows - 1) / kRows, n_blocks);
-  dot_extract_kernel<RT><<<grid, kThreads, dyn, stream>>>(
-      uv, b, dq, items, bias, n, n_pad, block_n, mask, L, tau, k, cap, out_v, out_i,
-      n_blocks * k);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cl;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((b + TR - 1) / TR), (unsigned)(n_blocks * cl));
+  cfg.blockDim = dim3(kXThreads);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dot_extract_kernel<TR, kDQ>, uv, b, dq, items, bias,
+                           n, n_pad, block_n, mask, L, tau, k, cap, out_v, out_i,
+                           n_blocks * k);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int launch_extract(const float* uv, int b, int dq, const float* items,
+                   const float* bias, int n, long long n_pad, int block_n,
+                   const int* mask, int L, const float* tau, int k, float* out_v,
+                   int* out_i, cudaStream_t stream) {
+  if (dq < 1 || dq > kMaxQuads || reinterpret_cast<uintptr_t>(items) % 16
+      || reinterpret_cast<uintptr_t>(uv) % 16)
+    return (int)cudaErrorInvalidValue;
+  static int sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_blocks = (int)(n_pad / block_n);
+  const ExtractGrid g = extract_grid(b, n_blocks, block_n, sms[dev]);
+  if ((long long)n_blocks * g.cl > 65535) return (int)cudaErrorInvalidConfiguration;
+#define SKRX_EXTRACT(TR_, DQ_)                                                       \
+  return launch_extract_tile<TR_, DQ_>(uv, b, dq, items, bias, n, n_pad, block_n, \
+                                       mask, L, tau, k, out_v, out_i, g.cl, stream)
+  if (g.tile == 32) {
+    if (dq == 16) SKRX_EXTRACT(32, 16);
+    SKRX_EXTRACT(32, 0);
+  }
+  if (dq == 16) SKRX_EXTRACT(16, 16);
+  SKRX_EXTRACT(16, 0);
+#undef SKRX_EXTRACT
 }
 
 }  // namespace
 
 extern "C" {
 
-int skrx_dot_topk_abi_version() { return 1; }
+int skrx_dot_topk_abi_version() { return 2; }
 
 // uv: (B_pad, 4*dq) with B_pad a multiple of 32; items: (dq, n_pad, 4);
 // bias: (n_pad,); mask: (B, L) or null; out: (B, n_pad / block_n * 128).
@@ -368,11 +614,8 @@ int skrx_dot_extract(const float* uv, int b, int dq, const float* items,
                      const float* bias, int n, int n_pad, int block_n,
                      const int* mask, int L, const float* tau, int k, float* out_v,
                      int* out_i, cudaStream_t stream) {
-  switch (rows_per_thread(b, n_pad / block_n)) {
-    case 4: return launch_extract<4>(uv, b, dq, items, bias, n, n_pad, block_n, mask, L, tau, k, out_v, out_i, stream);
-    case 2: return launch_extract<2>(uv, b, dq, items, bias, n, n_pad, block_n, mask, L, tau, k, out_v, out_i, stream);
-    default: return launch_extract<1>(uv, b, dq, items, bias, n, n_pad, block_n, mask, L, tau, k, out_v, out_i, stream);
-  }
+  return launch_extract(uv, b, dq, items, bias, n, n_pad, block_n, mask, L, tau, k,
+                        out_v, out_i, stream);
 }
 
 }  // extern "C"
