@@ -6,28 +6,36 @@ Usage, from the root of a checkout, on a machine with a card:
     git archive <parent> skrx_torch/ops/kernels/csrc | tar -x -C build/parent
     python3 chip_ab.py --parent build/parent/skrx_torch/ops/kernels/csrc
 
-``--parent`` names a directory holding the parent's ``segsum.cu`` and
-``dot_topk.cu`` (keep it under ``build/``, which git ignores). The script
-builds them with nvcc beside this tree's kernels, and builds the
+``--parent`` names a directory holding the parent's ``segsum.cu``,
+``dot_topk.cu`` and ``topk_blocks.cu`` (keep it under ``build/``, which git
+ignores). The script builds them with nvcc beside this tree's kernels, the
 experimental hot-row design of segsum (``experiments/segsum_hot_rows.cu``)
-three times, with clusters of 1, 8 and 16 CTAs
-(``-DSKRX_SEGSUM_CLUSTER``). On the synthetic Gowalla-scale data of
+three times, with clusters of 1, 8 and 16 CTAs (``-DSKRX_SEGSUM_CLUSTER``),
+and the experimental radix-select design of kth_largest
+(``experiments/kth_radix_select.cu``). Every time is device time per launch
+(``chip_smoke.device_ms``: torch.profiler, the kernels' own durations over
+50 launches after warm-up), so a kernel shorter than a host launch is not
+timed by the host's launch rate. On the synthetic Gowalla-scale data of
 ``chip_smoke.py`` (seed 2021) it then:
 
 1. segsum on the LightGCN graph (D=64, forward), f32 and bf16 messages,
    with and without a 0.8 dropout mask: each variant's output equal bit
    for bit to the parent's kernel (one fmaf per edge in the same order),
-   then the device time of one launch (CUDA events around 200
-   back-to-back launches) in turns: parent, the variants, the variants
-   backwards, parent. The variants: the parent's kernel with eight edges'
-   row loads in flight a warp instead of four, and the hot-row design with
-   as many hot rows as its cluster holds at D=64 (768, 6,144, 12,288;
-   :func:`hot_layout`) and once, in its 1-CTA build, with none, which
-   times its structure alone;
-2. dot_extract at B=64 (k=50, the evaluator's train table), B=1,024 (k=10,
-   the seen table) and B=256 over 1,048,576 random items (k=10, 300 seen
-   ids a row): this tree's kernel equal bit for bit to the parent's, then
-   timed in turns: parent, new, new, parent.
+   then the device time of one launch in turns: parent, the variants, the
+   variants backwards, parent. The variants: the parent's kernel with eight
+   edges' row loads in flight a warp instead of four, and the hot-row
+   design with as many hot rows as its cluster holds at D=64 (768, 6,144,
+   12,288; :func:`hot_layout`) and once, in its 1-CTA build, with none,
+   which times its structure alone;
+2. the fused kernels at B=64 (k=50, the evaluator's train table),
+   B=1,024 (k=10, the seen table), B=7 (k=10, the seen table) and B=256
+   over 1,048,576 random items (k=10, 300 seen ids a row): this tree's
+   dot_submax and dot_extract each equal bit for bit to the parent's, then
+   timed in turns: parent, new, new, parent;
+3. kth_largest on the folded group maxima those dot_submax calls produce
+   (B=64 W=1,408 k=50, B=1,024 W=1,408 k=10, B=256 W=4,096 k=10): this
+   tree's kernel and the radix-select design equal bit for bit to the
+   parent's, then timed in turns: parent, new, radix, radix, new, parent.
 
 Prints one line per measurement with the card's name and power limit, and
 writes every number to ``chiprun_out/chip_ab.json``. Exits 2 without CUDA.
@@ -44,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import card_line, launches_ms
+from chip_smoke import card_line, device_ms
 from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.io import synthetic
 from skrx_torch.ops.kernels import _build
@@ -60,6 +68,12 @@ P, I = ctypes.c_void_p, ctypes.c_int
 PARENT_SEGSUM = [P, I, P, P, I, P, P, P, P, I, P, P, P]
 NEW_SEGSUM = [P, I, P, P, I, P, P, I, P, P, P, I, P, P, P, P]
 EXTRACT = [P, I, I, P, P, I, I, I, P, I, P, I, P, P, P]
+SUBMAX = [P, I, I, P, P, I, I, I, P, I, P, P]
+KTH = [P, I, I, I, P, P]
+# the fused cases whose folded maxima kth_largest is timed on, and its shape
+KTH_SHAPES = {"B=64 k=50 (evaluation)": "B=64 W=1408 k=50",
+              "B=1024 k=10 (serving)": "B=1024 W=1408 k=10",
+              f"B={BIG_B} N={BIG_ITEMS} k=10": f"B={BIG_B} W=4096 k=10"}
 
 
 def hot_layout(src: np.ndarray, num_src_nodes: int, hot_rows: int):
@@ -124,14 +138,15 @@ def in_turns(fns: dict, order) -> dict:
     """{name: [ms of each turn]} timing fns in the given order of names."""
     times = {name: [] for name in fns}
     for name in order:
-        times[name].append(launches_ms(fns[name]))
+        times[name].append(device_ms(fns[name]))
     return times
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
-                    help="directory with the parent's segsum.cu and dot_topk.cu")
+                    help="directory with the parent's segsum.cu, dot_topk.cu "
+                    "and topk_blocks.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_ab: torch.cuda.is_available() is False", file=sys.stderr)
@@ -141,6 +156,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
     hot_src = os.path.join(here, "experiments", "segsum_hot_rows.cu")
+    radix_src = os.path.join(here, "experiments", "kth_radix_select.cu")
     out_dir = os.path.join(here, "build", "chip_ab")
     os.makedirs(out_dir, exist_ok=True)
     # the parent's segsum with eight edges' row loads in flight a warp
@@ -155,7 +171,9 @@ def main() -> int:
         f.write(text.replace(edge_loop, edge_loop.replace("4", "8", 1)))
     jobs = {"parent_segsum": (os.path.join(args.parent, "segsum.cu"), []),
             "parent_segsum_unroll8": (unroll8, []),
-            "parent_dot_topk": (os.path.join(args.parent, "dot_topk.cu"), [])}
+            "parent_dot_topk": (os.path.join(args.parent, "dot_topk.cu"), []),
+            "parent_topk": (os.path.join(args.parent, "topk_blocks.cu"), []),
+            "kth_radix": (radix_src, [])}
     for c in CLUSTERS:
         jobs[f"segsum_c{c}"] = (hot_src, [f"-DSKRX_SEGSUM_CLUSTER={c}"])
     t0 = time.perf_counter()
@@ -245,11 +263,18 @@ def main() -> int:
                 f"{k} {np.mean(v)} ms {v}" for k, v in times.items())
                 + f"  [{card}]", flush=True)
 
-    # ----------------------------------------------------- dot_extract
-    p_extract = checked(c_fn(libs["parent_dot_topk"], "skrx_dot_extract",
-                             EXTRACT))
-    n_extract = checked(c_fn(_build.load("dot_topk"), "skrx_dot_extract",
-                             EXTRACT))
+    # ------------------------------- dot_submax, dot_extract, kth_largest
+    new_lib = _build.load("dot_topk")
+    fused = {"dot_submax": {"parent": c_fn(libs["parent_dot_topk"],
+                                           "skrx_dot_submax", SUBMAX),
+                            "new": c_fn(new_lib, "skrx_dot_submax", SUBMAX)},
+             "dot_extract": {"parent": c_fn(libs["parent_dot_topk"],
+                                            "skrx_dot_extract", EXTRACT),
+                             "new": c_fn(new_lib, "skrx_dot_extract",
+                                         EXTRACT)}}
+    kth = {"parent": c_fn(libs["parent_topk"], "skrx_kth_largest", KTH),
+           "new": c_fn(_build.load("topk_blocks"), "skrx_kth_largest", KTH),
+           "radix": c_fn(libs["kth_radix"], "skrx_kth_largest", KTH)}
     ev = bpr.evaluator
     rng = np.random.default_rng(SEED)
     test_users = np.fromiter(ev.user_pos_test, np.int64)
@@ -270,27 +295,67 @@ def main() -> int:
         "B=1024 k=10 (serving)": (
             bpr.user_emb.detach()[torch.as_tensor(u1k, device=dev)], packed,
             seen[torch.as_tensor(u1k, device=dev)], 10),
+        "B=7 k=10 (serving)": (
+            bpr.user_emb.detach()[torch.as_tensor(u1k[:7], device=dev)],
+            packed, seen[torch.as_tensor(u1k[:7], device=dev)], 10),
         f"B={BIG_B} N={BIG_ITEMS} k=10": (big_uv, big, big_seen, 10),
     }
+
+    def report(kname: str, tag: str, times: dict) -> None:
+        results[f"{kname} {tag}"] = times
+        print(f"{kname} {tag} (== parent bit for bit): " + ", ".join(
+            f"{k_} {np.mean(v)} ms {v}" for k_, v in times.items())
+            + f"  [{card}]", flush=True)
+
     for tag, (uv, pk, mask, k) in cases.items():
         uv = uv.contiguous()
         mask = mask.contiguous()
         b = uv.shape[0]
-        bm = dt.dot_submax(uv, pk, mask)
-        tau = tb.kth_largest(tb.fold_submaxes(bm, k).contiguous(), k)
         uvp = dt._padded_uv(uv, pk)
-        w = pk.table.shape[1] // pk.block_n * k
+        head = (ptr(uvp), b, pk.table.shape[0], ptr(pk.table), ptr(pk.bias),
+                pk.n, pk.table.shape[1], pk.block_n, ptr(mask), mask.shape[1])
+        n_blocks = pk.table.shape[1] // pk.block_n
+        # dot_submax
+        bms = {name: torch.empty((b, n_blocks * 128), device=dev)
+               for name in ("parent", "new")}
+        fns = {name: (lambda fn=checked(fn), out=bms[name]:
+                      fn(*head, ptr(out)))
+               for name, fn in fused["dot_submax"].items()}
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        if not torch.equal(bms["parent"].view(torch.int32),
+                           bms["new"].view(torch.int32)):
+            raise AssertionError(f"dot_submax {tag}: not equal to the "
+                                 "parent's kernel")
+        report("dot_submax", tag, in_turns(fns, ["parent", "new", "new",
+                                                 "parent"]))
+        # kth_largest on the folded maxima of this call
+        bmf = tb.fold_submaxes(bms["new"], k).contiguous()
+        taus = {name: torch.empty((b,), device=dev) for name in kth}
+        fns = {name: (lambda fn=checked(fn), out=taus[name]:
+                      fn(ptr(bmf), b, bmf.shape[1], k, ptr(out)))
+               for name, fn in kth.items()}
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        for name in ("new", "radix"):
+            if not torch.equal(taus["parent"].view(torch.int32),
+                               taus[name].view(torch.int32)):
+                raise AssertionError(f"kth_largest {name} {tag}: not equal to "
+                                     "the parent's kernel")
+        if tag in KTH_SHAPES:
+            report("kth_largest", KTH_SHAPES[tag], in_turns(
+                fns, ["parent", "new", "radix", "radix", "new", "parent"]))
+        # dot_extract
+        tau = taus["new"]
+        w = n_blocks * k
         outs = {name: (torch.empty((b, w), device=dev),
                        torch.empty((b, w), device=dev, dtype=torch.int32))
                 for name in ("parent", "new")}
-
-        def call(fn, name):
-            ov, oi = outs[name]
-            return lambda: fn(ptr(uvp), b, pk.table.shape[0], ptr(pk.table),
-                              ptr(pk.bias), pk.n, pk.table.shape[1],
-                              pk.block_n, ptr(mask), mask.shape[1], ptr(tau),
-                              k, ptr(ov), ptr(oi))
-        fns = {"parent": call(p_extract, "parent"), "new": call(n_extract, "new")}
+        fns = {name: (lambda fn=checked(fn), out=outs[name]:
+                      fn(*head, ptr(tau), k, ptr(out[0]), ptr(out[1])))
+               for name, fn in fused["dot_extract"].items()}
         for fn in fns.values():
             fn()
         torch.cuda.synchronize()
@@ -298,11 +363,8 @@ def main() -> int:
                 and torch.equal(outs["parent"][1], outs["new"][1])):
             raise AssertionError(f"dot_extract {tag}: not equal to the "
                                  "parent's kernel")
-        times = in_turns(fns, ["parent", "new", "new", "parent"])
-        results[f"dot_extract {tag}"] = times
-        print(f"dot_extract {tag} (== parent bit for bit): " + ", ".join(
-            f"{k_} {np.mean(v)} ms {v}" for k_, v in times.items())
-            + f"  [{card}]", flush=True)
+        report("dot_extract", tag, in_turns(fns, ["parent", "new", "new",
+                                                  "parent"]))
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)

@@ -18,8 +18,12 @@ skrx_torch fails and it exits 1):
    evaluator's real test-table width T); and adversarial inputs: tie
    storms, fully masked rows, -inf rows, duplicate candidates, signed
    zeros; probes that are masked, out of range, duplicated or scored -inf,
-   T=1 and T>128, rows with fewer than k unmasked items. Selection and
-   counting do no arithmetic, so values, ids and ranks must be equal.
+   T=1 and T>128, rows with fewer than k unmasked items; kth_largest at
+   W in {128, 256, 1,408, 4,096, 5,000} and k in {1, 10, 50, W} on ties
+   across the k-th place, all -inf rows, signed zeros and subnormals,
+   negatives only, fewer than k finite entries (its bits equal the plain
+   version's). Selection and counting do no arithmetic, so values, ids and
+   ranks must be equal.
 3. Serving: Gowalla-scale synthetic data (29,858 users, 40,981 items,
    1,027,370 interactions), BPRMF at its defaults (n_dim=64, random weights
    from a seed) built by name on cuda, TopKRecommender.recommend for
@@ -62,9 +66,12 @@ skrx_torch fails and it exits 1):
    (ties across whole column blocks, more survivors than the list holds),
    item columns repeated every 512 columns (ties across the slices a
    cluster of CTAs splits a block into), fully masked rows and rows with
-   fewer than k unmasked items, N not a
-   multiple of the block, d in {8, 60, 128, 512}, no bias, probes masked,
-   out of range, padding, duplicated, one or more than 128 a row.
+   fewer than k unmasked items, N not a multiple of the block, d in {8,
+   60, 128, 512}, no bias, probes masked, out of range, padding,
+   duplicated, one or more than 128 a row; dot_submax alone at B=1, 7 and
+   33 (each block split over 8 CTAs) with mask ids in every CTA's slice,
+   repeated columns and a zero user vector over a +-0.0 bias, d in {8, 60,
+   64, 128, 512} (bits equal, torch.equal of the int32 views).
    TopKRecommender(fused="always") for BPRMF and LightGCN at 1, 64 and
    1,024 users: equal to dot_topk's plain version on CPU copies, no seen
    item, within 1e-5 of the score-matrix route (ids equal where its values
@@ -82,7 +89,7 @@ skrx_torch fails and it exits 1):
    200 back-to-back calls between CUDA events; the kernel's bound; the
    selection kernels (submax, kth_largest, extract, dot_submax,
    dot_extract) again at the evaluation shape (B=64, k=50) with their
-   bounds; direct_rank by the profiler and by CUDA events over 1,000
+   bounds (and torch.kthvalue beside kth_largest); direct_rank by the profiler and by CUDA events over 1,000
    back-to-back calls; recommend's p50 per batch size with the
    card's busy share during it (torch.profiler), for the score-matrix and
    the fused route; train steps/s, seconds per epoch and evaluation users/s
@@ -256,16 +263,45 @@ def adversarial(dev, errs: dict) -> None:
     expect_equal("duplicate candidates", got,
                  tb.pruned_merge_plain(t(vals).cpu(), t(ids).cpu(), K, tau),
                  errs, "pruned_merge")
-    # signed zeros, subnormals and -inf rows for the bisection
-    x = np.zeros((8, 1408), np.float32)
-    x[0, :5] = [-0.0, 0.0, 1e-40, -1e-40, 5e-324]
-    x[1] = -0.0
-    x[2] = NEG_INF
-    for k in (1, 3, K):
-        expect_equal("kth_largest zeros",
-                     [tb.kth_largest(t(x), k).view(torch.int32)],
-                     [tb.kth_largest_plain(t(x).cpu(), k).view(torch.int32)],
-                     errs, "kth_largest")
+    kth_adversarial(dev, errs)
+
+
+def kth_rows(rng, w: int) -> np.ndarray:
+    """(11, w) f32 rows built to break a selection of the k-th largest (k
+    in {1, 10, 50, W}): ties across the k-th place, all -inf, negatives
+    only, signed zeros and subnormals, 5 finite entries, +inf, one value.
+    The tests of kth_largest use them too."""
+    x = rng.standard_normal((11, w)).astype(np.float32)
+    x[1] = np.round(x[1] * 2)
+    x[2, rng.choice(w, min(w, 60), replace=False)] = 3.0   # places 1..60 tie
+    x[3] = NEG_INF
+    x[4] = -np.abs(x[4]) - 1.0
+    x[5] = np.where(rng.random(w) < 0.5, -0.0, 0.0)
+    x[5, :4] = [1e-40, -1e-40, 1e-45, -1e-45]
+    x[6] = -0.0
+    x[6, :20] = 0.0
+    x[7, 5:] = NEG_INF
+    x[8] = rng.standard_normal(w) * 1e-39                  # subnormals only
+    x[9, :3] = np.inf
+    x[10] = 0.25
+    return x
+
+
+def kth_adversarial(dev, errs: dict) -> None:
+    """kth_largest at every instantiation's width and past the widest
+    (5,000 reads the row each round), k in {1, 10, 50, W}: bits equal to
+    the plain version's (torch.equal of the int32 views)."""
+    rng = np.random.default_rng(SEED + 5)
+    for w in (128, 256, 1408, 4096, 5000):
+        x = torch.from_numpy(kth_rows(rng, w))
+        xd = x.to(dev)
+        for k in sorted({1, min(10, w), min(50, w), w}):
+            got = tb.kth_largest(xd, k).cpu()
+            ref = tb.kth_largest_plain(x, k)
+            require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                    f"kth_largest W={w} k={k}: kernel != plain")
+            errs["kth_largest"] = max(errs.get("kth_largest", 0.0),
+                                      max_err(got, ref))
 
 
 def rank_case(rng, n: int, b: int, width: int, t_count: int, k: int):
@@ -576,12 +612,54 @@ def fused_adversarial(dev, items, errs: dict) -> None:
         _, cv, ci = check_fused(f"d={d} N={n}", uv, packed, t(mask), k, errs)
         check_lookup(f"d={d} N={n}", cv, ci, t(lookup_probes(
             rng, ci.cpu().numpy(), mask, n, 300)), errs)
+    submax_adversarial(dev, items, errs)
     try:
         dt.pack_items(torch.zeros((10, dt.MAX_DIM + 1), device=dev))
     except ValueError:
         pass
     else:
         raise AssertionError("d > 512 must be refused")
+
+
+def submax_adversarial(dev, items, errs: dict) -> None:
+    """dot_submax where a 4,096-column block is split over a cluster of 8
+    CTAs (B = 1, 7 and 33 over the Gowalla catalog), bit for bit against
+    its plain version on CPU copies (torch.equal of the int32 views): item
+    columns repeated every 512 (equal group maxima in every CTA's slice),
+    mask ids in every slice of every block, a fully masked row, a zero user
+    vector over a bias of +-0.0 (zero maxima are +0.0); then d in {8, 60,
+    128, 512} on smaller catalogs, N not a multiple of the block."""
+    rng = np.random.default_rng(SEED + 6)
+    tied = items.clone()
+    for blk in range(0, ITEMS - BLOCK_N, BLOCK_N):
+        tied[blk + 512: blk + BLOCK_N] = tied[blk: blk + 512].repeat(7, 1)
+    zeros = torch.from_numpy(np.where(rng.random(ITEMS) < 0.5, -0.0, 0.0)
+                             .astype(np.float32)).to(dev)
+    cases = [(dt.pack_items(tied, zeros), DIM)]
+    for d, n in ((8, 9000), (60, 9000), (128, 5000), (512, 6000)):
+        cases.append((dt.pack_items(torch.randn((n, d), device=dev),
+                                    torch.randn(n, device=dev)), d))
+    for packed, d in cases:
+        pc, n = cpu_packed(packed), packed.n
+        n_sl = n // 512
+        table = np.full((33, n), n, np.int32)
+        for r in range(33):                   # 5 ids in each 512-column slice
+            table[r, :5 * n_sl] = (np.arange(n_sl).repeat(5) * 512
+                                   + rng.integers(0, 512, 5 * n_sl))
+        table[1] = np.arange(n)               # fully masked
+        for b in (1, 7, 33):
+            uv = torch.randn((b, d), device=dev)
+            uv[2:3] = 0.0                     # scores = bias
+            for m in (torch.from_numpy(table[:b]).to(dev), None):
+                got = dt.dot_submax(uv, packed, m).cpu()
+                ref = tb.submax_plain(dt.dot_scores_plain(uv.cpu(), pc),
+                                      None if m is None else m.cpu(),
+                                      pc.block_n)
+                require(torch.equal(got.view(torch.int32),
+                                    ref.view(torch.int32)),
+                        f"dot_submax B={b} d={d} N={n}: kernel != plain")
+                errs["dot_submax"] = max(errs.get("dot_submax", 0.0),
+                                         max_err(got, ref))
 
 
 def peak_above(fn):
@@ -1329,29 +1407,34 @@ def main() -> int:
                  & (sel_masked != NEG_INF)).sum(2)
     del sel_masked
     w_e, w_f, w_ce = e_bm.shape[1], e_bmf.shape[1], sel_cv.shape[1]
-    eval_work = {
+    eval_work = {   # (bytes, operations), the kernel, a library call
         "submax": ((4 * (be * n + be * l_eval + be * w_e), be * n),
-                   lambda: tb.submax(e_sc, e_tr, BLOCK_N)),
+                   lambda: tb.submax(e_sc, e_tr, BLOCK_N), None),
         "kth_largest": ((4 * (be * w_f + be), 2 * 33 * be * w_f),
-                        lambda: tb.kth_largest(e_bmf, K_EVAL)),
+                        lambda: tb.kth_largest(e_bmf, K_EVAL),
+                        lambda: torch.kthvalue(e_bmf, w_f - K_EVAL + 1,
+                                               dim=1)),
         "extract": ((4 * (be * n + be * l_eval + be) + 8 * be * w_ce,
                      be * n + int((sel_found.clamp(max=K_EVAL)
                                    * sel_found).sum())),
-                    lambda: tb.extract(e_sc, sel_tau, K_EVAL, e_tr, BLOCK_N)),
+                    lambda: tb.extract(e_sc, sel_tau, K_EVAL, e_tr, BLOCK_N),
+                    None),
         "dot_submax": ((4 * (be * DIM + n * DIM + n + be * l_eval
                              + be * w_e), 2 * be * n * DIM),
-                       lambda: dt.dot_submax(e_uv, packed_s, e_tr)),
+                       lambda: dt.dot_submax(e_uv, packed_s, e_tr), None),
         "dot_extract": ((4 * (be * DIM + n * DIM + n + be * l_eval + be)
                          + 8 * be * w_ce, 2 * be * n * DIM),
                         lambda: dt.dot_extract(e_uv, packed_s, e_tau_f,
-                                               K_EVAL, e_tr)),
+                                               K_EVAL, e_tr), None),
     }
-    for kname, ((nbytes, ops), fn) in eval_work.items():
+    for kname, ((nbytes, ops), fn, lib) in eval_work.items():
         t_bytes, t_ops = nbytes / MEM_RATE * 1e3, ops / F32_OPS * 1e3
         print(f"{kname:13s} at the evaluation shape (B={be}, N={n}, "
-              f"k={K_EVAL}, W={w_e}, L={l_eval}): {device_ms(fn)} ms of "
-              f"device time, bound {max(t_bytes, t_ops)} ms ("
-              f"{'bytes' if t_bytes >= t_ops else 'operations'}); 200 "
+              f"k={K_EVAL}, W={w_e} (folded {w_f}), L={l_eval}): "
+              f"{device_ms(fn)} ms of device time, bound "
+              f"{max(t_bytes, t_ops)} ms ("
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}); library "
+              f"{None if lib is None else device_ms(lib)} ms; 200 "
               f"back-to-back calls between CUDA events {launches_ms(fn)} ms "
               f"a call  [{card}]", flush=True)
     print(f"direct_rank at the ML-1M evaluation shape: {device_ms(kernel_fns['direct_rank'][0])} "

@@ -27,7 +27,8 @@ constexpr int kLanes = 128;                   // strided groups per block
 constexpr int kMaxBlockN = 4096;              // widest column block
 constexpr int kMaskWords = kMaxBlockN / 32;
 constexpr int kSentinel = INT_MAX / 2;        // id of an empty slot
-constexpr int kKthThreads = 256;
+constexpr int kKthWarps = 4;                  // rows a block of kth_largest
+constexpr int kKthSums = 8;                   // independent counts a lane
 constexpr int kExtractThreads = 256;
 constexpr int kMergeThreads = 128;
 
@@ -68,28 +69,6 @@ __device__ Pair block_best(Pair p, Pair* sh) {
   }
   __syncthreads();
   const Pair r = sh[32];
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Sum over the block, returned to every thread. sh holds 33 ints.
-__device__ int block_sum(int v, int* sh) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) sh[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    int q = lane < (int)(blockDim.x >> 5) ? sh[lane] : 0;
-    q = warp_sum(q);
-    if (lane == 0) sh[32] = q;
-  }
-  __syncthreads();
-  const int r = sh[32];
   __syncthreads();
   return r;
 }
@@ -143,25 +122,55 @@ submax_kernel(const float* __restrict__ scores, int n, int block_n,
   out[b * out_w + (long long)j * kLanes + threadIdx.x] = m;
 }
 
-// Replaces _kth_largest_kernel. One block per row; 32 rounds of bitwise
-// bisection over the order keys, each a block-wide count of keys >= the
-// candidate; the row (a few KB) stays in L1 across rounds. Bit-identical to
-// the JAX kernel. Bound: bytes of the (B, W) read; 33 compares per element.
-__global__ void __launch_bounds__(kKthThreads)
-kth_largest_kernel(const float* __restrict__ vals, int w, int k,
+// Replaces _kth_largest_kernel. One warp per row, kKthWarps rows a block:
+// 32 rounds of bitwise bisection over the order keys as the JAX kernel runs
+// them (the sign, then bits 30..0), each a count of the row's keys >= the
+// candidate, summed over the warp by one redux.sync, so no round waits on a
+// block barrier. A warp alone on its scheduler is bound by its latency, so
+// a lane counts into kKthSums independent sums, not one serial chain. With
+// KPL > 0 the row's keys sit in registers, KPL a lane (key i of lane l is
+// element l + 32 i; slots past W hold INT_MIN, the key of no float but a
+// NaN, below every candidate, so they are never counted); with KPL = 0
+// (rows wider than 32 * 128) each round reads the row again from L1 / L2.
+// Bit-identical to the JAX kernel: any exact selection returns the same
+// key. Bound: bytes of the (B, W) read; 33 compares per element.
+template <int KPL>
+__global__ void __launch_bounds__(kKthWarps * 32)
+kth_largest_kernel(const float* __restrict__ vals, int b, int w, int k,
                    float* __restrict__ out) {
-  __shared__ int sh[33];
-  const int* row = reinterpret_cast<const int*>(vals) + (long long)blockIdx.x * w;
-  int cnt = 0;
-  for (int i = threadIdx.x; i < w; i += blockDim.x) cnt += order_key(__ldg(row + i)) >= 0;
-  int cur = block_sum(cnt, sh) >= k ? 0 : INT_MIN;
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * kKthWarps + (threadIdx.x >> 5);
+  if (r >= b) return;                       // the whole warp
+  const int* row = reinterpret_cast<const int*>(vals) + r * w;
+  int key[KPL > 0 ? KPL : 1];
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int c = lane + 32 * i;
+    key[i] = c < w ? order_key(__ldg(row + c)) : INT_MIN;
+  }
+  auto count = [&](int cand) {
+    int cnt[kKthSums] = {};
+    if constexpr (KPL > 0) {
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) cnt[i % kKthSums] += key[i] >= cand;
+    } else {
+      for (int c = lane; c < w; c += 32 * kKthSums) {
+#pragma unroll
+        for (int u = 0; u < kKthSums; ++u)
+          if (c + 32 * u < w) cnt[u] += order_key(__ldg(row + c + 32 * u)) >= cand;
+      }
+    }
+    int total = 0;
+#pragma unroll
+    for (int u = 0; u < kKthSums; ++u) total += cnt[u];
+    return __reduce_add_sync(0xffffffffu, total);
+  };
+  int cur = count(0) >= k ? 0 : INT_MIN;
   for (int bit = 30; bit >= 0; --bit) {
     const int cand = cur | (1 << bit);
-    cnt = 0;
-    for (int i = threadIdx.x; i < w; i += blockDim.x) cnt += order_key(__ldg(row + i)) >= cand;
-    if (block_sum(cnt, sh) >= k) cur = cand;
+    if (count(cand) >= k) cur = cand;
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = __int_as_float(order_key(cur));
+  if (lane == 0) out[r] = __int_as_float(order_key(cur));
 }
 
 // Replaces _extract_kernel. Grid (B, column blocks). A block gathers the
@@ -279,9 +288,20 @@ int skrx_submax(const float* scores, int b, int n, int block_n, const int* mask,
   return (int)cudaGetLastError();
 }
 
+// Keys a lane holds in registers: the smallest instantiation whose 32 * KPL
+// slots hold the row, else 0 (the row read each round).
 int skrx_kth_largest(const float* vals, int b, int w, int k, float* out,
                      cudaStream_t stream) {
-  kth_largest_kernel<<<b, kKthThreads, 0, stream>>>(vals, w, k, out);
+  const int blocks = (b + kKthWarps - 1) / kKthWarps;
+#define SKRX_KTH(KPL_)                                                        \
+  kth_largest_kernel<KPL_><<<blocks, kKthWarps * 32, 0, stream>>>(vals, b, w, \
+                                                                 k, out)
+  if (w <= 32 * 8) SKRX_KTH(8);
+  else if (w <= 32 * 16) SKRX_KTH(16);
+  else if (w <= 32 * 48) SKRX_KTH(48);
+  else if (w <= 32 * 128) SKRX_KTH(128);
+  else SKRX_KTH(0);
+#undef SKRX_KTH
   return (int)cudaGetLastError();
 }
 

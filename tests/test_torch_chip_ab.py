@@ -103,11 +103,14 @@ def test_edge_encoding_round_trips_to_the_source_row(case):
     ("experiments/segsum_hot_rows.cu", "skrx_segsum", "NEW_SEGSUM"),
     ("skrx_torch/ops/kernels/csrc/dot_topk.cu", "skrx_dot_extract",
      "EXTRACT"),
+    ("skrx_torch/ops/kernels/csrc/dot_topk.cu", "skrx_dot_submax", "SUBMAX"),
+    ("skrx_torch/ops/kernels/csrc/topk_blocks.cu", "skrx_kth_largest", "KTH"),
+    ("experiments/kth_radix_select.cu", "skrx_kth_largest", "KTH"),
 ])
 def test_launcher_signatures_match_the_c_declarations(path, fn, attr):
     """The argument types chip_ab.py gives each C launcher, the stream
-    included, are the declaration's (the parent's segsum and dot_extract
-    keep this tree's signatures)."""
+    included, are the declaration's (the parent's segsum, dot_submax,
+    dot_extract and kth_largest keep this tree's signatures)."""
     with open(os.path.join(ROOT, path)) as f:
         params = dict(re.findall(r"^int (skrx_\w+)\(([^)]*)\)", f.read(),
                                  re.M))[fn]

@@ -2,6 +2,7 @@
 triton only inside functions, and its entry points default to CUDA and
 raise without it."""
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -417,6 +418,80 @@ def test_cuda_fused_kernels_match_plain_versions(b, n, d, k, width, kind):
     assert runtime.LAUNCHES["dot_submax"] == 2
     assert runtime.LAUNCHES["dot_extract"] == 1
     assert runtime.LAUNCHES["rank_lookup_count"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [128, 256, 1408, 4096, 5000])
+def test_cuda_kth_largest_matches_plain_version(w):
+    """kth_largest at the widths of its register instantiations and past
+    them (5,000: the row read each round), k in {1, 10, 50, W}, against its
+    plain version on a CPU copy, bit for bit: ties across the k-th place,
+    all -inf rows, signed zeros and subnormals, negatives only, fewer than
+    k finite entries, +inf (needs a card, as the sweeps above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    x = _chip_smoke().kth_rows(np.random.default_rng(w), w)
+    ks = sorted({1, min(10, w), min(50, w), w})
+    runtime.reset_launches()
+    for k in ks:
+        got = ttb.kth_largest(torch.from_numpy(x).cuda(), k)
+        ref = ttb.kth_largest_plain(torch.from_numpy(x), k)
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["kth_largest"] == len(ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 33])
+@pytest.mark.parametrize("d", [8, 60, 64, 128, 512])
+def test_cuda_dot_submax_matches_plain_version(b, d):
+    """dot_submax where each 4,096-column block is split over a cluster of
+    CTAs (B <= 33 over 4 blocks), against its plain version on CPU copies,
+    bit for bit: item columns repeated every 512 (equal group maxima in
+    every CTA's slice), mask ids in every slice of every block, a fully
+    masked row, a zero user vector over a bias with -0.0 (zero maxima are
+    +0.0), with and without a bias (needs a card, as the sweeps above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import dot_topk as tdt
+    from skrx_torch.ops.kernels import runtime
+    n = 3 * 4096 + 1000
+    rng = np.random.default_rng(b * d)
+    uv = rng.standard_normal((b, d)).astype(np.float32)
+    uv[-1] = 0.0
+    items = rng.standard_normal((n, d)).astype(np.float32)
+    for lo in range(0, n - 4096, 4096):
+        items[lo + 512: lo + 4096] = np.tile(items[lo: lo + 512], (7, 1))
+    bias = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+    table = np.full((b, n), n, np.int32)
+    for r in range(b):                                 # 5 ids in each slice
+        table[r, :5 * (n // 512)] = (np.arange(n // 512).repeat(5) * 512
+                                     + rng.integers(0, 512, 5 * (n // 512)))
+    table[0] = np.arange(n)                            # fully masked
+    cpu = [torch.from_numpy(x) for x in (uv, items, bias, table)]
+    gpu = [x.cuda() for x in cpu]
+    runtime.reset_launches()
+    for with_bias in (True, False):
+        pc = tdt.pack_items(cpu[1], cpu[2] if with_bias else None)
+        pg = tdt.pack_items(gpu[1], gpu[2] if with_bias else None)
+        for mask_c, mask_g in ((cpu[3], gpu[3]), (None, None)):
+            got = tdt.dot_submax(gpu[0], pg, mask_g).cpu()
+            ref = tdt.dot_submax_plain(cpu[0], pc, mask_c)
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["dot_submax"] == 4
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _segsum_case(case: str, rng):

@@ -2,6 +2,9 @@
 the plain PyTorch versions) against the JAX package's Pallas kernels run in
 interpret mode, on the same numpy-seeded inputs. Selection does no
 arithmetic, so values, ids and tau must match exactly."""
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 
@@ -15,6 +18,7 @@ from skrx_torch.ops import metrics as tmetrics
 from skrx_torch.ops.kernels import topk_blocks as ttb
 
 NEG_INF = np.float32(-np.inf)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _t(x):
@@ -56,6 +60,30 @@ def test_kth_largest_signed_zeros_and_subnormals():
         got = ttb.kth_largest(_t(x), k).numpy()
         # bit patterns: -0.0 and +0.0 are distinct in the kernel's order
         np.testing.assert_array_equal(got.view(np.int32), ref[:, 0].view(np.int32))
+
+
+def _kth_rows(w):
+    """chip_smoke.py's adversarial rows for kth_largest at width w."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.kth_rows(np.random.default_rng(w), w)
+
+
+@pytest.mark.parametrize("w", [256, 1408, 4096])
+@pytest.mark.parametrize("k", [1, 10, 50, "W"])
+def test_kth_largest_matches_jax_at_main_path_widths(w, k):
+    """The widths the main path gives kth_largest (chunked evaluation,
+    Gowalla serving and evaluation, the folded 1,048,576-item catalog), at
+    its k and at k = W; rows with fewer than k finite entries give -inf."""
+    k = w if k == "W" else k
+    x = _kth_rows(w)
+    ref = np.asarray(jtb.kth_largest(jnp.asarray(x), k, interpret=True))
+    got = ttb.kth_largest(_t(x), k).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref[:, 0].view(np.int32))
+    if k > 5:
+        assert got[3] == got[7] == -np.inf
 
 
 def test_kth_largest_rejects_bad_k():
