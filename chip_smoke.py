@@ -22,8 +22,11 @@ skrx_torch fails and it exits 1):
    W in {128, 256, 1,408, 4,096, 5,000} and k in {1, 10, 50, W} on ties
    across the k-th place, all -inf rows, signed zeros and subnormals,
    negatives only, fewer than k finite entries (its bits equal the plain
-   version's). Selection and counting do no arithmetic, so values, ids and
-   ranks must be equal.
+   version's); extract at k = 10 and 50 on blocks of 0, 1, 31, 32, 33, k-1,
+   k, k+1, F and F+1 survivors (F = 256, the most it ranks directly), a
+   block whose every column equals tau and +-0.0 ties (values as int32).
+   Selection and counting do no arithmetic, so values, ids and ranks must
+   be equal.
 3. Serving: Gowalla-scale synthetic data (29,858 users, 40,981 items,
    1,027,370 interactions), BPRMF at its defaults (n_dim=64, random weights
    from a seed) built by name on cuda, TopKRecommender.recommend for
@@ -43,13 +46,16 @@ skrx_torch fails and it exits 1):
    version at that shape.
 6. LightGCN at Gowalla scale, at its defaults (embed_size 64, 3 layers,
    adj_type "pre", batch 1,024, Adam) on the phase-3 data. The graph
-   kernel (segsum and its merge pass) against segsum_plain in float64 on
-   CPU copies, per row within 1e-5 * sum|msg|, forward (A) and backward
-   (A^T), f32 and bf16 messages, with and without an edge mask, at the real
-   graph (70,839 rows, 1,464,964 edges, D=64; its largest in-degree
-   printed) and on adversarial graphs: a hub of >= 20 segments, isolated
-   rows and the empty graph (exact zeros), masked edges from inf/NaN
-   rows (finite output), a rectangular operator, D=8 and D=128. The
+   kernel (segsum, whose last warp to finish a row of several segments
+   merges it) against segsum_plain in float64 on CPU copies, per row
+   within 1e-5 * sum|msg|, forward (A) and backward (A^T), f32 and bf16
+   messages, with and without an edge mask, at the real graph (70,839 rows,
+   1,464,964 edges, D=64; its largest in-degree printed) and on adversarial
+   graphs: a hub of >= 20 segments, 40 rows of 2-4 segments side by side
+   (many merged rows in one block), isolated rows and the empty graph
+   (exact zeros), masked edges from inf/NaN rows (finite output), a
+   rectangular operator, D=8 and D=128; every arrival counter 0 after each
+   launch, and three launches in a row on one graph equal bit for bit. The
    gradient of one batch's loss on the card against the same loss through
    segsum_plain on CPU copies. fit() for 2 epochs with evaluation after
    each: losses finite and falling, NDCG@10 above the untrained model's,
@@ -89,7 +95,8 @@ skrx_torch fails and it exits 1):
    200 back-to-back calls between CUDA events; the kernel's bound; the
    selection kernels (submax, kth_largest, extract, dot_submax,
    dot_extract) again at the evaluation shape (B=64, k=50) with their
-   bounds (and torch.kthvalue beside kth_largest); direct_rank by the profiler and by CUDA events over 1,000
+   bounds (and torch.kthvalue beside kth_largest); vmem_topk at chunked
+   evaluate()'s merge (B=64, W=100, k=50, beside torch.topk); direct_rank by the profiler and by CUDA events over 1,000
    back-to-back calls; recommend's p50 per batch size with the
    card's busy share during it (torch.profiler), for the score-matrix and
    the fused route; train steps/s, seconds per epoch and evaluation users/s
@@ -140,8 +147,7 @@ SOURCE.update(rank_count="skrx_torch/ops/kernels/csrc/rank_counts.cu",
               direct_rank="skrx_torch/ops/kernels/csrc/rank_counts.cu",
               dot_submax="skrx_torch/ops/kernels/csrc/dot_topk.cu",
               dot_extract="skrx_torch/ops/kernels/csrc/dot_topk.cu",
-              segsum="skrx_torch/ops/kernels/csrc/segsum.cu",
-              segsum_merge="skrx_torch/ops/kernels/csrc/segsum.cu")
+              segsum="skrx_torch/ops/kernels/csrc/segsum.cu")
 REPLACES = {"submax": "skrx/ops/pallas/topk_blocks.py:488",
             "kth_largest": "skrx/ops/pallas/topk_blocks.py:224",
             "extract": "skrx/ops/pallas/topk_blocks.py:601",
@@ -151,13 +157,15 @@ REPLACES = {"submax": "skrx/ops/pallas/topk_blocks.py:488",
             "direct_rank": "skrx/ops/pallas/topk_blocks.py:935",
             "dot_submax": "skrx/ops/pallas/dot_topk.py:109",
             "dot_extract": "skrx/ops/pallas/dot_topk.py:115",
-            "segsum": "skrx/ops/pallas/segsum_mxu.py:203",
-            "segsum_merge": "skrx/ops/pallas/segsum_mxu.py:203"}
+            "segsum": "skrx/ops/pallas/segsum_mxu.py:203"}
 GCN_SERVE = (1, 64, 1024)
 FUSED = ("dot_submax", "dot_extract")
 BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
 CHUNK = 8_192
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
+# F, the most survivors of a block that extract ranks directly
+# (csrc/topk_blocks.cu kRankCap)
+RANK_CAP = 256
 # H100 SXM data sheet: f32 outside the tensor cores, device-memory bytes/s
 F32_OPS = 67e12
 MEM_RATE = 3.35e12
@@ -264,6 +272,7 @@ def adversarial(dev, errs: dict) -> None:
                  tb.pruned_merge_plain(t(vals).cpu(), t(ids).cpu(), K, tau),
                  errs, "pruned_merge")
     kth_adversarial(dev, errs)
+    extract_adversarial(dev, errs)
 
 
 def kth_rows(rng, w: int) -> np.ndarray:
@@ -302,6 +311,62 @@ def kth_adversarial(dev, errs: dict) -> None:
                     f"kth_largest W={w} k={k}: kernel != plain")
             errs["kth_largest"] = max(errs.get("kth_largest", 0.0),
                                       max_err(got, ref))
+
+
+def extract_rows(rng, k: int, block_n: int = BLOCK_N):
+    """(scores (R, N), mask table (R, 8), tau (R,), founds): rows built to
+    break extract's selection, N = 2 block_n + 100 (a ragged third block).
+    Block 0 of row r < len(founds) holds exactly founds[r] survivors (at
+    or above tau = 1.0, ties among them, three more masked away): 0, 1, 31,
+    32, 33 (one warp and past it), k - 1, k, k + 1, and F, F + 1 (the most
+    extract ranks directly, csrc/topk_blocks.cu kRankCap); its other blocks
+    a few survivors and -inf columns. Then a row whose block 1 is tau in
+    every column, and one of +0.0 and -0.0 ties at tau = +0.0 (300 in block
+    0, past F; 40 in block 1). The tests of extract use them too."""
+    founds = sorted({0, 1, 31, 32, 33, k - 1, k, k + 1, RANK_CAP,
+                     RANK_CAP + 1})
+    n = 2 * block_n + 100
+    rows = len(founds) + 2
+    s = rng.uniform(-3.0, 0.99, (rows, n)).astype(np.float32)
+    tau = np.ones(rows, np.float32)
+    mask = np.full((rows, 8), n, np.int32)
+    mask[:, 5:] = [-1, n + 7, 2 * block_n + 3]   # padding, out of range, real
+    for r, f in enumerate(founds):
+        cols = rng.choice(block_n, f + 3, replace=False)
+        s[r, cols] = 1.0 + np.round(rng.random(f + 3) * 4) / 4
+        mask[r, :3] = cols[:3]
+        later = block_n + rng.choice(n - block_n, 60, replace=False)
+        s[r, later[:40]] = NEG_INF
+        s[r, later[40:]] = 1.5
+    r = len(founds)
+    s[r, block_n:2 * block_n] = tau[r]
+    r += 1
+    tau[r] = 0.0
+    s[r] = -1.0
+    s[r, :300] = np.where(rng.random(300) < 0.5, -0.0, 0.0)
+    s[r, block_n:block_n + 40] = np.where(rng.random(40) < 0.5, -0.0, 0.0)
+    return s, mask, tau, founds
+
+
+def extract_adversarial(dev, errs: dict) -> None:
+    """extract on extract_rows at k = 10 and 50: values (as int32, so signed
+    zeros count) and ids equal to extract_plain's."""
+    rng = np.random.default_rng(SEED + 6)
+    for k in (K, K_EVAL):
+        s, mask, tau, founds = extract_rows(rng, k)
+        s_t, m_t, tau_t = (torch.from_numpy(x) for x in (s, mask, tau))
+        found = ((tb._masked_padded(s_t, m_t, BLOCK_N)[:, :BLOCK_N]
+                  >= tau_t[:, None]).sum(1))
+        require(found[:len(founds)].tolist() == founds,
+                f"extract rows: block 0 holds {found.tolist()} survivors")
+        got = tb.extract(s_t.to(dev), tau_t.to(dev), k, m_t.to(dev), BLOCK_N)
+        ref = tb.extract_plain(s_t, m_t, tau_t, k, BLOCK_N)
+        require(torch.equal(got[0].cpu().view(torch.int32),
+                            ref[0].view(torch.int32))
+                and torch.equal(got[1].cpu(), ref[1]),
+                f"extract k={k}, survivors {founds}: kernel != plain")
+        errs["extract"] = max(errs.get("extract", 0.0),
+                              max_err(got[0], ref[0]))
 
 
 def rank_case(rng, n: int, b: int, width: int, t_count: int, k: int):
@@ -375,10 +440,11 @@ def adversarial_ranks(dev, errs: dict) -> None:
 
 
 def check_segsum(seg, x, mask, msg: str, errs: dict):
-    """segsum (and its merge) on the card against segsum_plain in float64
-    on CPU copies: per row |kernel - ref| <= 1e-5 * sum|msg| + 1e-30, rows
-    without a kept edge exactly 0, the output finite. Returns the kernel's
-    and the f32 plain version's largest error as a share of the bound."""
+    """segsum (its merge pass included) on the card against segsum_plain in
+    float64 on CPU copies: per row |kernel - ref| <= 1e-5 * sum|msg| +
+    1e-30, rows without a kept edge exactly 0, the output finite, every
+    arrival counter back at 0. Returns the kernel's and the f32 plain
+    version's largest error as a share of the bound."""
     seg_cpu = seg.to("cpu")
     x_cpu = x.cpu()
     m_cpu = None if mask is None else mask.cpu()
@@ -396,35 +462,24 @@ def check_segsum(seg, x, mask, msg: str, errs: dict):
             f"segsum {msg}: error {float((err / bound).max())} x the bound")
     require(bool((got[scale == 0] == 0).all()),
             "segsum: a row without a kept edge is not 0")
+    require(not bool(seg.merge_count.any()), "segsum left a counter set")
     if not err.numel():
         return 0.0, 0.0
     errs["segsum"] = max(errs.get("segsum", 0.0), float(err.max()))
-    if seg.num_partials:        # the rows that segsum_merge wrote
-        errs["segsum_merge"] = max(errs.get("segsum_merge", 0.0), float(
-            err[seg_cpu.merge_row.long()].max()))
     return float((err / bound).max()), float((plain / bound).max())
 
 
-def check_merge(seg, d: int, errs: dict) -> torch.Tensor:
-    """segsum_merge alone on random partial rows of ``seg``'s layout against
-    segsum_merge_plain on CPU copies, within 1e-5 * sum|partial| per row
-    (f32 sums in the same order on both sides); returns the partials."""
-    dev = seg.src.device
-    partial = torch.randn((seg.num_partials, d), device=dev,
-                          generator=torch.Generator(dev).manual_seed(SEED))
-    out = torch.zeros((seg.num_nodes, d), device=dev)
-    ss.segsum_merge(partial, seg.merge_row, seg.merge_ptr, out)
-    ref = torch.zeros((seg.num_nodes, d))
-    args = (seg.merge_row.cpu(), seg.merge_ptr.cpu())
-    ss.segsum_merge_plain(partial.cpu(), *args, ref)
-    scale = torch.zeros((seg.num_nodes, d))
-    ss.segsum_merge_plain(partial.cpu().abs(), *args, scale)
-    err = (out.cpu() - ref).abs()
-    require(bool((err <= 1e-5 * scale + 1e-30).all()),
-            f"segsum_merge: error {float(err.max())}")
-    errs["segsum_merge"] = max(errs.get("segsum_merge", 0.0),
-                               float(err.max()))
-    return partial
+def check_repeat(seg, x, mask, msg: str, calls: int = 3) -> None:
+    """``calls`` launches in a row on one Segments: each output's bits equal
+    the first's, and the arrival counters are 0 after each (the merge pass
+    resets them)."""
+    first = ss.segsum(seg, x, mask, MSG[msg])
+    for i in range(1, calls):
+        again = ss.segsum(seg, x, mask, MSG[msg])
+        torch.cuda.synchronize()
+        require(torch.equal(again.view(torch.int32), first.view(torch.int32))
+                and not bool(seg.merge_count.any()),
+                f"segsum {msg}: launch {i + 1} on one Segments differs")
 
 
 def segsum_adversarial(dev, errs: dict) -> None:
@@ -432,10 +487,14 @@ def segsum_adversarial(dev, errs: dict) -> None:
     message types, with and without an edge mask."""
     rng = np.random.default_rng(SEED + 3)
     hub = 20 * ss.SEGMENT_EDGES + 3
+    # 40 rows of 2 to 4 segments side by side: many merged rows in a block
+    multi = np.repeat(np.arange(40), rng.integers(129, 4 * 128 + 1, 40))
     cases = {
         # one destination of >= 20 segments
         "hub": (rng.integers(0, 900, hub), np.zeros(hub, np.int64),
                 rng.random(hub), 40, 900),
+        "merged rows in one block": (rng.integers(0, 900, len(multi)), multi,
+                                     rng.random(len(multi)), 60, 900),
         # 380 of 400 rows without edges
         "isolated rows": (rng.integers(0, 400, 300),
                           rng.integers(0, 20, 300) * 19, rng.random(300),
@@ -466,6 +525,7 @@ def segsum_adversarial(dev, errs: dict) -> None:
             for msg in MSG:
                 for m in masks:
                     shares.append(check_segsum(g.fwd, x, m, msg, errs))
+                    check_repeat(g.fwd, x, m, msg)
                     if name == "rectangular":
                         shares.append(check_segsum(
                             g.bwd, torch.randn((n, d), device=dev), m, msg,
@@ -719,6 +779,16 @@ def check_fused_served(server, u, ids, vals, peak, seen) -> int:
     return int((ids != m_ids).any(1).sum())
 
 
+def select_ops(found: torch.Tensor, k: int) -> int:
+    """Operations of extract's selection for these survivor counts per
+    (row, block): found^2 compares where it ranks (found <= RANK_CAP), k
+    rounds over the block's survivors where it does not."""
+    found = found.long()
+    rank = found <= RANK_CAP
+    return int((found * found)[rank].sum()
+               + (found.clamp(max=k) * found)[~rank].sum())
+
+
 def evaluate_as(m, mode: str, chunk_size: int = 0):
     """(MetricReport, host seconds) of m.evaluate() with the evaluator's
     eval_mode (and chunk size) set for the call."""
@@ -772,10 +842,10 @@ def _device_events(prof):
             and "#" not in e.key]
 
 
-def device_ms(fn, reps: int = REPS, only: str = "") -> float:
+def device_ms(fn, reps: int = REPS) -> float:
     """Device time per call of fn: the summed durations of the kernels and
-    copies it launches (torch.profiler), over reps calls after warm-up;
-    with ``only``, of the kernels whose name holds it. Unlike time_ms it
+    copies it launches (torch.profiler), over reps calls after warm-up.
+    Unlike time_ms it
     leaves out the idle gaps while the host launches, which dominate a
     kernel of a few microseconds. A profile now and then records no device
     event at all; it is taken again, and after three empty ones the
@@ -789,8 +859,7 @@ def device_ms(fn, reps: int = REPS, only: str = "") -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in _device_events(prof)
-                       if only in e.key)
+        total_us = sum(e.self_device_time_total for e in _device_events(prof))
         if total_us > 0:
             return total_us / reps / 1e3
     print("device_ms: three profiles recorded no device time; CUDA-event "
@@ -1030,7 +1099,8 @@ def main() -> int:
           f"{max(a for a, _ in shares)} of the bound 1e-5 sum|msg|, the f32 "
           f"plain version's {max(b for _, b in shares)}", flush=True)
     require(fseg.num_partials > 0, "the Gowalla graph has rows to merge")
-    partial = check_merge(fseg, DIM, errs)
+    for msg in MSG:
+        check_repeat(fseg, ego, drop_mask, msg)
     segsum_adversarial(dev, errs)
     # 2. the gradient of one batch's loss, card against plain on the CPU
     batch = next(gcn.pipeline.batches(epoch_generator(SEED, 0, dev)))
@@ -1057,17 +1127,12 @@ def main() -> int:
     gcn_best, gcn_launches = counted(gcn.fit)
     gcn_losses = [h["loss"] for h in gcn.history]
     evals = sum("report" in h for h in gcn.history)
-    with_merge = [int(graph.fwd.num_partials > 0),
-                  int(graph.bwd.num_partials > 0)]
-    expect = {"segsum": EPOCHS * gsteps * 2 * layers + layers * evals,
-              "segsum_merge": EPOCHS * gsteps * layers * sum(with_merge)
-              + layers * evals * with_merge[0]}
+    expect = EPOCHS * gsteps * 2 * layers + layers * evals
     print(f"launches during LightGCN fit() ({EPOCHS} epochs + {evals} "
-          f"evaluations): {gcn_launches}; expected segsum {expect['segsum']}"
-          f", segsum_merge {expect['segsum_merge']}", flush=True)
-    for kname, n_expect in expect.items():
-        require(gcn_launches[kname] == n_expect,
-                f"{kname}: {gcn_launches[kname]} launches, not {n_expect}")
+          f"evaluations): {gcn_launches}; expected segsum {expect}",
+          flush=True)
+    require(gcn_launches["segsum"] == expect,
+            f"segsum: {gcn_launches['segsum']} launches, not {expect}")
     for kname in ("submax", "kth_largest", "extract", "rank_count"):
         require(gcn_launches[kname] >= 1,
                 f"{kname} never launched in LightGCN fit()")
@@ -1206,18 +1271,17 @@ def main() -> int:
                    & torch.isfinite(m_sc.gather(1, m_safe.long()))).sum())
     bm_, tm_, lm_ = m_sc.shape[0], m_te.shape[1], m_tr.shape[1]
     # segsum at the Gowalla graph, forward (A) on the ego embeddings as in
-    # the first layer of a training step; the merge on check_merge's
-    # partials at the same layout
+    # the first layer of a training step
     n_rows, n_edges, n_seg = graph.num_nodes, graph.num_edges, \
         fseg.seg_dst.shape[0]
     n_part, n_merge = fseg.num_partials, fseg.merge_row.shape[0]
-    merge_out = torch.zeros((n_rows, DIM), device=dev)
-    counts = (fseg.merge_ptr[1:] - fseg.merge_ptr[:-1]).long()
+    # the CSR matrix of A (the segments' edges in row order)
+    by_row = torch.argsort(fseg.dst, stable=True)
     crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
     crow[1:] = torch.cumsum(torch.bincount(fseg.dst.long(),
                                            minlength=n_rows), 0)
-    a_csr = torch.sparse_csr_tensor(crow, fseg.src.long(), fseg.weight,
-                                    (n_rows, n_rows))
+    a_csr = torch.sparse_csr_tensor(crow, fseg.src[by_row].long(),
+                                    fseg.weight[by_row], (n_rows, n_rows))
     require(bool(torch.allclose(torch.sparse.mm(a_csr, ego),
                                 ss.segsum(fseg, ego), rtol=1e-4, atol=1e-6)),
             "torch.sparse.mm of the CSR matrix computes the same function")
@@ -1225,7 +1289,7 @@ def main() -> int:
         "submax": (4 * (b * n + b * seen_w + b * w_sub), b * n),
         "kth_largest": (4 * (b * w_sub + b), 2 * 33 * b * w_sub),
         "extract": (4 * (b * n + b * seen_w + b) + 8 * b * w_c,
-                    b * n + int((found.clamp(max=K) * found).sum())),
+                    b * n + select_ops(found, K)),
         "pruned_merge": (8 * b * w_c + 4 * b + 8 * b * K, 2 * K * b * w_c),
         # a compare and an add per (probe, candidate) pair
         "rank_count": (8 * be * w_r + 12 * be * t_eval,
@@ -1233,15 +1297,13 @@ def main() -> int:
         # a compare and an add per (found probe, column) pair
         "direct_rank": (4 * (bm_ * ML_ITEMS + bm_ * lm_ + 2 * bm_ * tm_),
                         2 * m_valid * ML_ITEMS),
-        # x once, each edge's source id and weight, the segment table; the
-        # single-segment rows and the partial rows written; a multiply and
-        # an add per (edge, feature)
-        "segsum": (4 * (n_rows * DIM + 2 * n_edges + 2 * n_seg + 1
-                        + (n_rows - n_merge + n_part) * DIM),
-                   2 * n_edges * DIM),
-        # the partials once, the merge table, the merged rows written
-        "segsum_merge": (4 * (n_part * DIM + 2 * n_merge + 1
-                              + n_merge * DIM), n_part * DIM),
+        # x once, each edge's source id and weight, the segment and merge
+        # tables, the counters read and reset, the output written (partial
+        # rows are the kernel's scratch); a multiply and an add per (edge,
+        # feature), an add per partial feature
+        "segsum": (4 * (2 * n_rows * DIM + 2 * n_edges + 2 * n_seg + 1
+                        + n_part + 4 * n_merge + 1),
+                   2 * n_edges * DIM + n_part * DIM),
         # uv, the item table and bias once, the seen table, the maxima
         # written; a multiply and an add per (row, item, dimension)
         "dot_submax": (4 * (b * DIM + n * DIM + n + b * seen_w + b * w_sub),
@@ -1279,12 +1341,6 @@ def main() -> int:
         "segsum": (lambda: ss.segsum(fseg, ego),
                    lambda: ss.segsum_plain(fseg, ego),
                    lambda: torch.sparse.mm(a_csr, ego)),
-        "segsum_merge": (
-            lambda: ss.segsum_merge(partial, fseg.merge_row, fseg.merge_ptr,
-                                    merge_out),
-            lambda: ss.segsum_merge_plain(partial, fseg.merge_row,
-                                          fseg.merge_ptr, merge_out),
-            lambda: torch.segment_reduce(partial, "sum", lengths=counts)),
         # no single PyTorch call computes these; the fused top-k as a
         # whole is held against matmul + mask_items + torch.topk below
         "dot_submax": (lambda: dt.dot_submax(uv_s, packed_s, mask),
@@ -1298,8 +1354,6 @@ def main() -> int:
             lambda: tb.rank_lookup_count(l_cv, l_ci, e_te),
             lambda: tb.rank_lookup_count_plain(l_cv, l_ci, e_te), None),
     }
-    # device time of the kernel itself where its wrapper launches two
-    only = {"segsum": "segsum_kernel"}
     # launches over every main-path run of this script: serving, both
     # fit()s at Gowalla, the ML-1M-scale fit(), LightGCN serving, fused
     # serving, and the fused and chunked evaluate() calls
@@ -1317,8 +1371,8 @@ def main() -> int:
     shapes["direct_rank"] = (f"B={bm_}, N={ML_ITEMS}, k={K_EVAL}, L={lm_}, "
                              f"T={tm_}, found {m_valid}")
     shapes["segsum"] = (f"N={n_rows}, E={n_edges}, D={DIM}, {n_seg} "
-                        f"segments, {n_part} partial rows")
-    shapes["segsum_merge"] = f"{n_merge} rows from {n_part} partials, D={DIM}"
+                        f"segments, {n_merge} rows merged from {n_part} "
+                        f"partial rows")
     rows = []
     for kname in runtime.KERNELS:
         fn, plain, lib = kernel_fns[kname]
@@ -1327,7 +1381,7 @@ def main() -> int:
         row = {"name": kname, "route": "cuda", "source": SOURCE[kname],
                "replaces": REPLACES[kname], "launches": launches[kname],
                "max_abs_err": errs.get(kname, 0.0),
-               "ms": device_ms(fn, only=only.get(kname, "")),
+               "ms": device_ms(fn),
                "plain_ms": device_ms(plain),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1341,8 +1395,8 @@ def main() -> int:
               f"events {launches_ms(fn)} ms a call; launches on its path "
               f"{launches[kname]}  [{card}, {shapes[kname]}]", flush=True)
     prop_bound = max(prop_bytes / MEM_RATE, 2 * n_edges * DIM / F32_OPS) * 1e3
-    print(f"propagate at the Gowalla graph (segsum + segsum_merge, as a "
-          f"user calls it): f32 messages {device_ms(lambda: ss.segsum(fseg, ego))}"
+    print(f"propagate at the Gowalla graph (segsum, one launch with its "
+          f"merge pass, as a user calls it): f32 messages {device_ms(lambda: ss.segsum(fseg, ego))}"
           f" ms, bf16 messages "
           f"{device_ms(lambda: ss.segsum(fseg, ego, None, torch.bfloat16))} "
           f"ms, with a dropout mask "
@@ -1368,6 +1422,30 @@ def main() -> int:
           f"{total} ms vs masked torch.topk {time_ms(masked_topk)} ms; "
           f"predict {time_ms(lambda: model.predict(users))} ms "
           f"[{card}, B={b}]")
+    # vmem_topk (#5) at its own shape, chunked evaluate()'s merge: the
+    # running best (B=64, k=50) beside one chunk's top 50
+    tops = [torch.topk(e_sc[:, lo:lo + CHUNK], K_EVAL, dim=1)
+            for lo in (0, CHUNK)]
+    c_v = torch.cat([t.values for t in tops], 1).contiguous()
+    c_i = torch.cat([tops[0].indices, tops[1].indices + CHUNK],
+                    1).to(torch.int32).contiguous()
+    neg_e = torch.full((be,), NEG_INF, device=dev)
+    w_m = c_v.shape[1]
+    t_bytes = (8 * be * w_m + 4 * be + 8 * be * K_EVAL) / MEM_RATE * 1e3
+    t_ops = 2 * K_EVAL * be * w_m / F32_OPS * 1e3
+    expect_equal("vmem_topk at the chunk-merge shape",
+                 tb.vmem_topk(c_v, c_i, K_EVAL),
+                 tb.pruned_merge_plain(c_v.cpu(), c_i.cpu(), K_EVAL,
+                                       neg_e.cpu()), errs, "pruned_merge")
+    print(f"vmem_topk (pruned_merge, tau=-inf) at the chunked-evaluation "
+          f"merge (B={be}, W={w_m}, k={K_EVAL}): "
+          f"{device_ms(lambda: tb.vmem_topk(c_v, c_i, K_EVAL))} ms of device "
+          f"time, bound {max(t_bytes, t_ops)} ms ("
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}), plain "
+          f"{device_ms(lambda: tb.pruned_merge_plain(c_v, c_i, K_EVAL, neg_e))}"
+          f" ms, library torch.topk "
+          f"{device_ms(lambda: torch.topk(c_v, K_EVAL, dim=1))} ms  [{card}]",
+          flush=True)
     # the fused top-k as a whole, beside the score-matrix route and the
     # library yardstick; the fused kernels at the evaluation batch
     def matrix_topk(uv, items, bias, seen_rows):
@@ -1415,8 +1493,7 @@ def main() -> int:
                         lambda: torch.kthvalue(e_bmf, w_f - K_EVAL + 1,
                                                dim=1)),
         "extract": ((4 * (be * n + be * l_eval + be) + 8 * be * w_ce,
-                     be * n + int((sel_found.clamp(max=K_EVAL)
-                                   * sel_found).sum())),
+                     be * n + select_ops(sel_found, K_EVAL)),
                     lambda: tb.extract(e_sc, sel_tau, K_EVAL, e_tr, BLOCK_N),
                     None),
         "dot_submax": ((4 * (be * DIM + n * DIM + n + be * l_eval

@@ -1,8 +1,8 @@
-// An experimental design of kernel #2 (kth_largest): radix select, built
-// only by chip_ab.py and timed there against the package's kernel
-// (skrx_torch/ops/kernels/csrc/topk_blocks.cu, a warp a row bisecting in 32
-// rounds) and the parent's. It is not part of the package; PERF.md says how
-// it fared.
+// An experimental design of kernel #2 (kth_largest): radix select, timed
+// by an earlier chip_ab.py (see the repository's history) against the
+// package's kernel (skrx_torch/ops/kernels/csrc/topk_blocks.cu, a warp a
+// row bisecting in 32 rounds). It is not part of the package, and no script
+// builds it now; PERF.md says how it fared.
 //
 // It computes what the package's kth_largest_kernel computes, bit for bit:
 // out[r] = the k-th largest of row r of the (B, W) f32 matrix in the total

@@ -1,9 +1,10 @@
 // An experimental design of kernel #11 (segsum), measured against the
 // package's kernel (skrx_torch/ops/kernels/csrc/segsum.cu) and not merged:
-// it lost at the Gowalla-scale LightGCN graph in every variant (PERF.md,
-// PR 5). It is not part of the package and is built only by chip_ab.py,
-// which lays out the hot list for it and compiles it with
-// -DSKRX_SEGSUM_CLUSTER=1, 8 and 16.
+// it lost at the Gowalla-scale LightGCN graph in every variant (PERF.md).
+// It is not part of the package, and no script builds it now: an earlier
+// chip_ab.py (see the repository's history) laid out the hot list for it
+// and compiled it with -DSKRX_SEGSUM_CLUSTER=1, 8 and 16. Its partial rows
+// are left for a separate merge pass, as the package's kernel once did.
 //
 // It computes what the package's segsum_kernel computes, bit for bit (the
 // same edges in the same order, one fmaf each):

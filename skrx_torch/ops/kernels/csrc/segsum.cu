@@ -26,9 +26,23 @@
 // allow). Hub rows (11,582 edges into one item at Gowalla scale, against a
 // mean of 21) are thus many short work items instead of one long warp that
 // would set the time of the whole launch. A row of one segment is written by
-// its warp; a row of several writes one partial row per segment to scratch,
-// and segsum_merge_kernel adds a row's partials in segment order. No
-// atomics, so the sum is the same from run to run.
+// its warp. A row of several writes one partial row per segment to scratch,
+// publishes it (__threadfence, then an atomicAdd on the row's arrival
+// counter), and the warp that arrives last merges the row in the same
+// launch: it reads the other partials through L2 (__ldcg: they were written
+// during this launch, so the non-coherent path could serve stale lines),
+// kMergeFloats registers of them in flight a lane, adds them in segment
+// order from +0.0 and sets the counter back to 0 for the next launch. So a
+// hub row of 91 partials costs its merging warp a dozen L2 round trips, not
+// a second launch whose time one warp's 91 dependent loads set. The host
+// puts the segments of such rows first, the rows of most segments first,
+// so that their merges overlap the edge loops of the rest of the grid
+// instead of trailing it. The adds are the same f32 adds in the same order
+// whichever warp merges, so the sum is the same from run to run. Two
+// launches on one set of counters must not overlap (one stream). The
+// kernel is held to 32 registers (8 blocks of 256 threads an SM): the
+// gather is latency-bound, and the merge's registers would otherwise cost
+// it a quarter of its warps in flight, more than the merge saves.
 //
 // Plain C interface (launch on the caller's stream, return
 // cudaGetLastError()); the wrapper in ../segsum.py checks shapes, types and
@@ -72,16 +86,50 @@ __device__ __forceinline__ void store_vec(float* p, const float (&r)[V]) {
   }
 }
 
+// Loads and stores of partial rows: cached in L2 only, so a partial written
+// by one SM during the launch is read from L2 by the SM that merges it.
+template <int V>
+__device__ __forceinline__ void load_cg(const float* p, float (&r)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = __ldcg(reinterpret_cast<const float2*>(p));
+    r[0] = q.x; r[1] = q.y;
+  } else {
+    r[0] = __ldcg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_cg(float* p, const float (&r)[V]) {
+  if constexpr (V == 4) {
+    __stcg(reinterpret_cast<float4*>(p), make_float4(r[0], r[1], r[2], r[3]));
+  } else if constexpr (V == 2) {
+    __stcg(reinterpret_cast<float2*>(p), make_float2(r[0], r[1]));
+  } else {
+    __stcg(p, r[0]);
+  }
+}
+
+// Partial-row features a lane of the merging warp keeps in flight.
+constexpr int kMergeFloats = 16;
+
 // Lane `lane` owns features (j * 32 + lane) * V .. + V - 1 for j < NV; with
 // V == 1 the features at or past d are idle (D not a multiple of 32).
+// part_merge maps a partial slot to its merged row m: merge_row[m] is the
+// output row, merge_ptr[m] .. merge_ptr[m + 1] - 1 its partial slots in
+// segment order, merge_count[m] its arrival counter (0 between launches).
 template <int V, int NV, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2048 / kThreads)
 segsum_kernel(const float* __restrict__ x, int d,
               const int* __restrict__ seg_ptr, const int* __restrict__ seg_dst,
               int nseg, const int* __restrict__ src,
               const float* __restrict__ weight, const int* __restrict__ orig,
               const float* __restrict__ mask, float* __restrict__ out,
-              float* __restrict__ partial) {
+              float* __restrict__ partial, const int* __restrict__ part_merge,
+              const int* __restrict__ merge_row,
+              const int* __restrict__ merge_ptr, int* __restrict__ merge_count) {
   const int lane = threadIdx.x & 31;
   const long long seg = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (seg >= nseg) return;                      // whole warps leave
@@ -128,60 +176,73 @@ segsum_kernel(const float* __restrict__ x, int d,
     }
   }
   const int dst = __ldg(seg_dst + seg);
-  float* o = dst >= 0 ? out + (size_t)dst * d
-                      : partial + (size_t)(-1 - dst) * d;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int f = (j * 32 + lane) * V;
-    if (V > 1 || f < d) store_vec<V>(o + f, acc[j]);
-  }
-}
-
-// Row merge_row[r] = sum of partial rows merge_ptr[r] .. merge_ptr[r+1]-1,
-// in order; one warp a row, lanes own features as above.
-template <int V, int NV>
-__global__ void __launch_bounds__(kThreads)
-segsum_merge_kernel(const float* __restrict__ partial, int d,
-                    const int* __restrict__ merge_row,
-                    const int* __restrict__ merge_ptr, int nmerge,
-                    float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= nmerge) return;
-  const int p0 = __ldg(merge_ptr + r), p1 = __ldg(merge_ptr + r + 1);
-  float acc[NV][V];
-#pragma unroll
-  for (int j = 0; j < NV; ++j)
-#pragma unroll
-    for (int t = 0; t < V; ++t) acc[j][t] = 0.f;
-#pragma unroll 4
-  for (int p = p0; p < p1; ++p) {
-    const float* row = partial + (size_t)p * d;
+  if (dst >= 0) {
+    float* o = out + (size_t)dst * d;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int f = (j * 32 + lane) * V;
-      if (V > 1 || f < d) {
-        float v[V];
-        load_vec<V>(row + f, v);
-#pragma unroll
-        for (int t = 0; t < V; ++t) acc[j][t] += v[t];
-      }
+      if (V > 1 || f < d) store_vec<V>(o + f, acc[j]);
     }
+    return;
   }
-  float* o = out + (size_t)__ldg(merge_row + r) * d;
+  // a partial row: publish it, and merge the row if this warp came last
+  const int slot = -1 - dst;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
     const int f = (j * 32 + lane) * V;
-    if (V > 1 || f < d) store_vec<V>(o + f, acc[j]);
+    if (V > 1 || f < d) store_cg<V>(partial + (size_t)slot * d + f, acc[j]);
   }
+  __threadfence();                   // each lane's stores before the count
+  __syncwarp();
+  const int m = __ldg(part_merge + slot);
+  const int p0 = __ldg(merge_ptr + m), p1 = __ldg(merge_ptr + m + 1);
+  int last = 0;
+  if (lane == 0) last = atomicAdd(merge_count + m, 1) == p1 - p0 - 1;
+  if (!__shfl_sync(kFull, last, 0)) return;
+  __threadfence();                   // the count before the partials' loads
+  constexpr int kRows = V * NV >= kMergeFloats ? 1 : kMergeFloats / (V * NV);
+  float sum[NV][V];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int t = 0; t < V; ++t) sum[j][t] = 0.f;
+  for (int p = p0; p < p1; p += kRows) {
+    float v[kRows][NV][V];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int f = (j * 32 + lane) * V;
+        if (p + r == slot) {
+#pragma unroll
+          for (int t = 0; t < V; ++t) v[r][j][t] = acc[j][t];
+        } else if (p + r < p1 && (V > 1 || f < d)) {
+          load_cg<V>(partial + (size_t)(p + r) * d + f, v[r][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (p + r < p1)
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+#pragma unroll
+          for (int t = 0; t < V; ++t) sum[j][t] += v[r][j][t];
+  }
+  float* o = out + (size_t)__ldg(merge_row + m) * d;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int f = (j * 32 + lane) * V;
+    if (V > 1 || f < d) store_vec<V>(o + f, sum[j]);
+  }
+  if (lane == 0) merge_count[m] = 0;
 }
 
 // Features a lane loads at once: 4 where D is a multiple of 128 and every
 // row of `p` is 16-byte aligned, 2 for multiples of 64 and 8 bytes, else 1.
-int vec_width(int d, const void* p) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if (d % 128 == 0 && a % 16 == 0) return 4;
-  if (d % 64 == 0 && a % 8 == 0) return 2;
+int vec_width(int d, uintptr_t p) {
+  if (d % 128 == 0 && p % 16 == 0) return 4;
+  if (d % 64 == 0 && p % 8 == 0) return 2;
   return 1;
 }
 
@@ -191,79 +252,66 @@ template <int V, int NV>
 int launch_segsum(bool bf16, int nseg, const float* x, int d,
                   const int* seg_ptr, const int* seg_dst, const int* src,
                   const float* weight, const int* orig, const float* mask,
-                  float* out, float* partial, cudaStream_t stream) {
+                  float* out, float* partial, const int* part_merge,
+                  const int* merge_row, const int* merge_ptr,
+                  int* merge_count, cudaStream_t stream) {
   const int blocks = (nseg + kWarps - 1) / kWarps;
   if (bf16) {
     segsum_kernel<V, NV, true><<<blocks, kThreads, 0, stream>>>(
-        x, d, seg_ptr, seg_dst, nseg, src, weight, orig, mask, out, partial);
+        x, d, seg_ptr, seg_dst, nseg, src, weight, orig, mask, out, partial,
+        part_merge, merge_row, merge_ptr, merge_count);
   } else {
     segsum_kernel<V, NV, false><<<blocks, kThreads, 0, stream>>>(
-        x, d, seg_ptr, seg_dst, nseg, src, weight, orig, mask, out, partial);
+        x, d, seg_ptr, seg_dst, nseg, src, weight, orig, mask, out, partial,
+        part_merge, merge_row, merge_ptr, merge_count);
   }
   return (int)cudaGetLastError();
 }
 
-template <int V, int NV>
-int launch_merge(int nmerge, const float* partial, int d,
-                 const int* merge_row, const int* merge_ptr, float* out,
-                 cudaStream_t stream) {
-  const int blocks = (nmerge + kWarps - 1) / kWarps;
-  segsum_merge_kernel<V, NV><<<blocks, kThreads, 0, stream>>>(
-      partial, d, merge_row, merge_ptr, nmerge, out);
-  return (int)cudaGetLastError();
-}
-
-// The instantiation for (V, NV = ceil(d / (32 V))), d <= kMaxDim: `launch`
-// is launch_segsum or launch_merge, the rest its arguments.
-#define SKRX_DISPATCH(V_, NV_, launch, ...)                    \
-  switch (V_ * 16 + NV_) {                                     \
-    case 4 * 16 + 1: return launch<4, 1>(__VA_ARGS__);         \
-    case 4 * 16 + 2: return launch<4, 2>(__VA_ARGS__);         \
-    case 2 * 16 + 1: return launch<2, 1>(__VA_ARGS__);         \
-    case 2 * 16 + 2: return launch<2, 2>(__VA_ARGS__);         \
-    case 2 * 16 + 3: return launch<2, 3>(__VA_ARGS__);         \
-    case 2 * 16 + 4: return launch<2, 4>(__VA_ARGS__);         \
-    case 1 * 16 + 1: return launch<1, 1>(__VA_ARGS__);         \
-    case 1 * 16 + 2: return launch<1, 2>(__VA_ARGS__);         \
-    case 1 * 16 + 3: return launch<1, 3>(__VA_ARGS__);         \
-    case 1 * 16 + 4: return launch<1, 4>(__VA_ARGS__);         \
-    case 1 * 16 + 5: return launch<1, 5>(__VA_ARGS__);         \
-    case 1 * 16 + 6: return launch<1, 6>(__VA_ARGS__);         \
-    case 1 * 16 + 7: return launch<1, 7>(__VA_ARGS__);         \
-    case 1 * 16 + 8: return launch<1, 8>(__VA_ARGS__);         \
-    default: return (int)cudaErrorInvalidValue;                \
+// The instantiation for (V, NV = ceil(d / (32 V))), d <= kMaxDim.
+#define SKRX_DISPATCH(V_, NV_, ...)                                  \
+  switch (V_ * 16 + NV_) {                                           \
+    case 4 * 16 + 1: return launch_segsum<4, 1>(__VA_ARGS__);        \
+    case 4 * 16 + 2: return launch_segsum<4, 2>(__VA_ARGS__);        \
+    case 2 * 16 + 1: return launch_segsum<2, 1>(__VA_ARGS__);        \
+    case 2 * 16 + 2: return launch_segsum<2, 2>(__VA_ARGS__);        \
+    case 2 * 16 + 3: return launch_segsum<2, 3>(__VA_ARGS__);        \
+    case 2 * 16 + 4: return launch_segsum<2, 4>(__VA_ARGS__);        \
+    case 1 * 16 + 1: return launch_segsum<1, 1>(__VA_ARGS__);        \
+    case 1 * 16 + 2: return launch_segsum<1, 2>(__VA_ARGS__);        \
+    case 1 * 16 + 3: return launch_segsum<1, 3>(__VA_ARGS__);        \
+    case 1 * 16 + 4: return launch_segsum<1, 4>(__VA_ARGS__);        \
+    case 1 * 16 + 5: return launch_segsum<1, 5>(__VA_ARGS__);        \
+    case 1 * 16 + 6: return launch_segsum<1, 6>(__VA_ARGS__);        \
+    case 1 * 16 + 7: return launch_segsum<1, 7>(__VA_ARGS__);        \
+    case 1 * 16 + 8: return launch_segsum<1, 8>(__VA_ARGS__);        \
+    default: return (int)cudaErrorInvalidValue;                      \
   }
 
 }  // namespace
 
 extern "C" {
 
-int skrx_segsum_abi_version() { return 1; }
+int skrx_segsum_abi_version() { return 2; }
 
-// out (num rows, d) gets every single-segment row; partial (P, d) the
-// partial sums of the other rows' segments. mask may be null.
+// out (num rows, d) gets every row; partial (P, d) is scratch for the
+// partial sums of the rows of several segments. mask may be null; so may
+// the four merge arrays, when no segment is partial (seg_dst >= 0).
 int skrx_segsum(const float* x, int d, const int* seg_ptr, const int* seg_dst,
                 int nseg, const int* src, const float* weight,
                 const int* orig, const float* mask, int bf16, float* out,
-                float* partial, cudaStream_t stream) {
+                float* partial, const int* part_merge, const int* merge_row,
+                const int* merge_ptr, int* merge_count, cudaStream_t stream) {
   if (d < 1 || d > kMaxDim || nseg < 1) return (int)cudaErrorInvalidValue;
-  const int v = vec_width(d, x);
+  // x's, out's and partial's rows share one vector width
+  const uintptr_t all = reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(out) |
+                        reinterpret_cast<uintptr_t>(partial);
+  const int v = vec_width(d, all);
   const int nv = (d + 32 * v - 1) / (32 * v);
-  SKRX_DISPATCH(v, nv, launch_segsum, bf16 != 0, nseg, x, d, seg_ptr,
-                seg_dst, src, weight, orig, mask, out, partial, stream);
-}
-
-int skrx_segsum_merge(const float* partial, int d, const int* merge_row,
-                      const int* merge_ptr, int nmerge, float* out,
-                      cudaStream_t stream) {
-  if (d < 1 || d > kMaxDim || nmerge < 1) return (int)cudaErrorInvalidValue;
-  // out's rows share partial's alignment only if out's base allows it too
-  const uintptr_t both = reinterpret_cast<uintptr_t>(partial) |
-                         reinterpret_cast<uintptr_t>(out);
-  const int v = vec_width(d, reinterpret_cast<const void*>(both));
-  const int nv = (d + 32 * v - 1) / (32 * v);
-  SKRX_DISPATCH(v, nv, launch_merge, nmerge, partial, d, merge_row,
-                merge_ptr, out, stream);
+  SKRX_DISPATCH(v, nv, bf16 != 0, nseg, x, d, seg_ptr, seg_dst, src, weight,
+                orig, mask, out, partial, part_merge, merge_row, merge_ptr,
+                merge_count, stream);
 }
 
 }  // extern "C"

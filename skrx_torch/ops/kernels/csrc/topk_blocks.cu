@@ -30,6 +30,13 @@ constexpr int kSentinel = INT_MAX / 2;        // id of an empty slot
 constexpr int kKthWarps = 4;                  // rows a block of kth_largest
 constexpr int kKthSums = 8;                   // independent counts a lane
 constexpr int kExtractThreads = 256;
+// columns a thread of extract holds in registers
+constexpr int kExtractCols = kMaxBlockN / kExtractThreads;
+// Most survivors of a block that extract ranks directly (F); above it a tie
+// storm takes k argmax rounds. At F a thread ranks one survivor in F
+// shared-memory reads, about the cost of two or three rounds.
+constexpr int kRankCap = kExtractThreads;
+constexpr int kMaskBatch = 8;                 // mask ids a thread loads at once
 constexpr int kMergeThreads = 128;
 
 struct Pair {
@@ -173,23 +180,37 @@ kth_largest_kernel(const float* __restrict__ vals, int b, int w, int k,
   if (lane == 0) out[r] = __int_as_float(order_key(cur));
 }
 
-// Replaces _extract_kernel. Grid (B, column blocks). A block gathers the
-// finite masked elements >= tau of its column block into shared memory
-// (usually a handful: tau is the k-th largest group max), then emits its
-// block-local top-min(k, found) by (value desc, column asc) with one
-// block-wide argmax round per output; the rest of its k slots get
-// (-inf, sentinel). Every element of the row's top-k is >= tau and in its
-// block's top-k, so the (B, n_blocks * k) output is a superset of it, each
-// element at most once. Bound: bytes (one read of the scores and mask table,
-// the candidates written); a tie storm costs k rounds over the block.
+// Replaces _extract_kernel. Grid (B, column blocks) of kExtractThreads
+// threads; thread t holds columns t + 256 q (q < kExtractCols) of its block
+// in registers, loaded before the mask is scanned so that both reads are in
+// flight at once. The block turns its row's mask table into a shared bitmap
+// (the ids batched kMaskBatch a thread, one round trip for L <= 2,048), then
+// lists the finite unmasked elements >= tau in shared memory (one shared
+// atomic a warp and a column step). Those survivors are usually a handful:
+// tau is the k-th largest group max, and the evaluation shape (B=64, k=50,
+// 11 blocks a row) sends ~5-10 to a block. Every survivor is then written
+// straight to its slot: thread i counts the survivors that rank before
+// survivor i by (value desc, column asc), reading the list as shared-memory
+// broadcasts, and writes it to slot rank_i when rank_i < k. Columns are
+// distinct, so the ranks are a permutation and the slots are those of a
+// selection in that order, signed zeros included; no barrier is needed
+// between ranks. The slots from min(k, found) to k get (-inf, sentinel).
+// A tie storm (more than kRankCap survivors, up to the whole block when
+// every column equals tau) would cost O(found^2) that way; it takes k
+// rounds of a block-wide argmax over the registers instead, each picking
+// the best pair after the last one picked, so its cost stays bounded by k.
+// Every element of the row's top-k is >= tau and in its block's top-k, so
+// the (B, n_blocks * k) output is a superset of it, each element at most
+// once. Bound: bytes (one read of the scores and mask table, the
+// candidates written).
 __global__ void __launch_bounds__(kExtractThreads)
 extract_kernel(const float* __restrict__ scores, int n, int block_n,
                const int* __restrict__ mask, int L,
                const float* __restrict__ tau, int k,
                float* __restrict__ out_v, int* __restrict__ out_i, int out_w) {
   __shared__ unsigned bits[kMaskWords];
-  __shared__ float sv[kMaxBlockN];
-  __shared__ int si[kMaxBlockN];
+  __shared__ float sv[kRankCap];
+  __shared__ int si[kRankCap];
   __shared__ Pair sh[33];
   __shared__ int found_sh;
   const long long b = blockIdx.x;
@@ -197,39 +218,87 @@ extract_kernel(const float* __restrict__ scores, int n, int block_n,
   const int lo = j * block_n;
   const int width = min(block_n, n - lo);
   const float* row = scores + b * n + lo;
-  if (threadIdx.x == 0) found_sh = 0;
-  if (mask != nullptr) load_mask_bits(bits, mask + b * L, L, lo, width);
+  const int tid = threadIdx.x, lane = tid & 31;
+  float v[kExtractCols];
+#pragma unroll
+  for (int q = 0; q < kExtractCols; ++q) {
+    const int c = tid + kExtractThreads * q;
+    v[q] = c < width ? __ldg(row + c) : -INFINITY;
+  }
+  const float t = __ldg(tau + b);
+  if (tid == 0) found_sh = 0;
+  if (mask != nullptr) {
+    for (int w = tid; w < kMaskWords; w += kExtractThreads) bits[w] = 0u;
+    __syncthreads();
+    const int* mask_row = mask + b * L;
+    for (int e0 = tid; e0 < L; e0 += kMaskBatch * kExtractThreads) {
+      int id[kMaskBatch];
+#pragma unroll
+      for (int u = 0; u < kMaskBatch; ++u) {
+        const int e = e0 + u * kExtractThreads;
+        id[u] = e < L ? __ldg(mask_row + e) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kMaskBatch; ++u) {
+        const long long rel = (long long)id[u] - lo;
+        if (rel >= 0 && rel < width) atomicOr(&bits[rel >> 5], 1u << (rel & 31));
+      }
+    }
+  }
   __syncthreads();
-  const float t = tau[b];
-#pragma unroll 4
-  for (int c = threadIdx.x; c < width; c += blockDim.x) {
-    const float v = __ldg(row + c);
-    if (v >= t && v != -INFINITY && (mask == nullptr || !is_masked(bits, c))) {
-      const int p = atomicAdd(&found_sh, 1);
-      sv[p] = v;
-      si[p] = c;
+  unsigned keep = 0u;                 // bit q: column tid + 256 q survives
+#pragma unroll
+  for (int q = 0; q < kExtractCols; ++q) {
+    const int c = tid + kExtractThreads * q;
+    const bool ok = v[q] >= t && v[q] != -INFINITY &&
+                    (mask == nullptr || !is_masked(bits, c));
+    keep |= (unsigned)ok << q;
+    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+    if (ballot != 0u) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&found_sh, __popc(ballot));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      const int p = base + __popc(ballot & ((1u << lane) - 1u));
+      if (ok && p < kRankCap) {
+        sv[p] = v[q];
+        si[p] = c;
+      }
     }
   }
   __syncthreads();
   const int found = found_sh;
-  const int rounds = min(k, found);
   float* ov = out_v + b * out_w + (long long)j * k;
   int* oi = out_i + b * out_w + (long long)j * k;
-  Pair prev{INFINITY, -1};
-  for (int r = 0; r < rounds; ++r) {
-    Pair best{-INFINITY, INT_MAX};
-    for (int e = threadIdx.x; e < found; e += blockDim.x) {
-      const Pair p{sv[e], si[e]};
-      if (r == 0 || before(prev.v, prev.id, p.v, p.id)) best = better(best, p);
+  if (found <= kRankCap) {
+    if (tid < found) {
+      const float vi = sv[tid];
+      const int ci = si[tid];
+      int rank = 0;
+      for (int e = 0; e < found; ++e) rank += before(sv[e], si[e], vi, ci);
+      if (rank < k) {
+        ov[rank] = vi;
+        oi[rank] = lo + ci;
+      }
     }
-    best = block_best(best, sh);
-    if (threadIdx.x == 0) {
-      ov[r] = best.v;
-      oi[r] = lo + best.id;
+  } else {
+    Pair prev{INFINITY, -1};
+    for (int r = 0; r < min(k, found); ++r) {
+      Pair best{-INFINITY, INT_MAX};
+#pragma unroll
+      for (int q = 0; q < kExtractCols; ++q) {
+        const Pair p{v[q], tid + kExtractThreads * q};
+        if (((keep >> q) & 1u) && (r == 0 || before(prev.v, prev.id, p.v, p.id)))
+          best = better(best, p);
+      }
+      best = block_best(best, sh);
+      if (tid == 0) {
+        ov[r] = best.v;
+        oi[r] = lo + best.id;
+      }
+      prev = best;
     }
-    prev = best;
   }
-  for (int r = rounds + threadIdx.x; r < k; r += blockDim.x) {
+  for (int r = min(k, found) + tid; r < k; r += kExtractThreads) {
     ov[r] = -INFINITY;
     oi[r] = kSentinel;
   }

@@ -18,7 +18,7 @@ __all__ = ["KERNELS", "LAUNCHES", "reset_launches", "launch", "on_cuda",
 # kernel name -> its launches since the last reset
 KERNELS = ("submax", "kth_largest", "extract", "pruned_merge", "rank_count",
            "rank_lookup_count", "direct_rank", "dot_submax", "dot_extract",
-           "segsum", "segsum_merge")
+           "segsum")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
@@ -44,8 +44,7 @@ _SIGNATURES = {
     "skrx_dot_extract": ("dot_topk", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I,
                                       _P, _I, _P, _P]),
     "skrx_segsum": ("segsum", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                               _P]),
-    "skrx_segsum_merge": ("segsum", [_P, _I, _P, _P, _I, _P]),
+                               _P, _P, _P, _P, _P]),
 }
 
 

@@ -11,17 +11,24 @@ NaN included); a row without edges is 0. With bf16 messages each message is
 one-hot matmul sums them.
 
 Layout (:func:`build_segments`, once per graph and direction, on the host):
-the edges sorted by destination (CSR order), every row cut into segments of
-at most ``SEGMENT_EDGES`` edges, a row without edges given one empty
-segment. The CUDA kernel (``csrc/segsum.cu``) gives one warp to a segment,
-so a hub row of thousands of edges is many short work items and does not
-hold up the launch. A row of one segment is written by its warp; a row of
-several writes partial sums to scratch, which ``segsum_merge`` adds in
-segment order. No atomics: the result is the same from run to run.
+the edges grouped by destination, every row cut into segments of at most
+``SEGMENT_EDGES`` edges, a row without edges given one empty segment. The
+CUDA kernel (``csrc/segsum.cu``) gives one warp to a segment, so a hub row
+of thousands of edges is many short work items and does not hold up the
+launch. A row of one segment is written by its warp; a row of several
+writes partial sums to scratch, and the warp that finishes the row's last
+segment adds them in segment order (:func:`segsum_merge_plain` is that
+step's contract) in the same launch. The segments of such rows come first,
+the rows of most segments first, so that their merges run while the rest
+of the grid is still at work rather than at its tail. Each such row has an
+int32
+arrival counter in :class:`Segments` (``merge_count``), 0 between launches:
+two launches on one ``Segments`` must not run at once (use one stream). The
+sum of a row is the same from run to run, whichever warp merges it.
 
 :func:`segsum` runs :func:`segsum_plain` when its tensors lie on the CPU and
-launches the kernels on CUDA tensors, or raises. It adds one to
-``runtime.LAUNCHES["segsum"]`` and ``["segsum_merge"]`` per launch.
+launches the kernel on CUDA tensors, or raises. It adds one to
+``runtime.LAUNCHES["segsum"]`` per launch.
 """
 from typing import NamedTuple, Optional
 
@@ -31,7 +38,7 @@ import torch
 from .runtime import LAUNCHES, check, launch, on_cuda
 
 __all__ = ["Segments", "build_segments", "segsum", "segsum_plain",
-           "segsum_merge", "segsum_merge_plain", "SEGMENT_EDGES", "MAX_DIM"]
+           "segsum_merge_plain", "SEGMENT_EDGES", "MAX_DIM"]
 
 SEGMENT_EDGES = 128          # most edges one warp walks
 MAX_DIM = 256                # widest feature row the kernel takes
@@ -40,15 +47,17 @@ MSG_DTYPES = (torch.float32, torch.bfloat16)
 
 class Segments(NamedTuple):
     """One direction of a graph, laid out for the kernel (E edges, R rows,
-    S segments, M rows of several segments)."""
+    S segments, M rows of several segments, P partial slots)."""
     src: torch.Tensor        # (E,) int32 source row, edges sorted by dst
-    dst: torch.Tensor        # (E,) int32 destination row (ascending)
+    dst: torch.Tensor        # (E,) int32 destination row
     weight: torch.Tensor     # (E,) f32
     orig: torch.Tensor       # (E,) int32 original edge id (edge_mask index)
     seg_ptr: torch.Tensor    # (S + 1,) int32 first edge of each segment
     seg_dst: torch.Tensor    # (S,) int32 row written, or -(partial slot + 1)
     merge_row: torch.Tensor  # (M,) int32 rows summed from partial slots
     merge_ptr: torch.Tensor  # (M + 1,) int32 first partial slot of each
+    part_merge: torch.Tensor   # (P,) int32 merged row (index < M) of a slot
+    merge_count: torch.Tensor  # (M,) int32 arrival counters, 0 at rest
     num_nodes: int           # R, rows of the output
     num_src_nodes: int       # rows of x
     num_partials: int        # partial slots of one launch
@@ -56,7 +65,7 @@ class Segments(NamedTuple):
 
     def to(self, device) -> "Segments":
         return self._replace(**{f: getattr(self, f).to(device)
-                                for f in self._fields[:8]})
+                                for f in self._fields[:10]})
 
 
 def build_segments(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
@@ -64,8 +73,12 @@ def build_segments(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
                    seg_edges: int = SEGMENT_EDGES) -> Segments:
     """Lay out COO edges (any order; ``orig`` their original ids) for
     :func:`segsum`: CSR by destination (a stable sort, so edges into one row
-    keep their given order), then segments of at most ``seg_edges`` edges.
-    CPU tensors; ``.to(device)`` moves them."""
+    keep their given order), then segments of at most ``seg_edges`` edges,
+    reordered with their edges: the segments of rows of several segments
+    first (the rows of most segments first, each row's segments in order),
+    then the other rows in row order. Partial slots number the rows of
+    several segments in row order. CPU tensors; ``.to(device)`` moves
+    them."""
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     weight = np.asarray(weight, np.float32)
@@ -94,13 +107,25 @@ def build_segments(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
     seg_dst[multi] = -1 - np.arange(n_part)
     merge_rows = np.flatnonzero(per_row > 1)
     merge_ptr = np.concatenate([[0], np.cumsum(per_row[merge_rows])])
+    part_merge = np.repeat(np.arange(len(merge_rows)), per_row[merge_rows])
+    # rows of several segments first, most segments first (a stable sort)
+    seg_order = np.argsort(np.where(multi, -per_row[seg_row], 0),
+                           kind="stable")
+    lens = np.diff(seg_ptr)[seg_order]
+    new_ptr = np.concatenate([[0], np.cumsum(lens)])
+    edges = (np.arange(e) - np.repeat(new_ptr[:-1], lens)
+             + np.repeat(seg_ptr[:-1][seg_order], lens))
+    src, dst, weight, orig = src[edges], dst[edges], weight[edges], orig[edges]
+    seg_ptr, seg_dst = new_ptr, seg_dst[seg_order]
 
     def i32(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
     return Segments(i32(src), i32(dst), torch.from_numpy(weight), i32(orig),
                     i32(seg_ptr), i32(seg_dst), i32(merge_rows),
-                    i32(merge_ptr), int(num_nodes), int(num_src_nodes),
+                    i32(merge_ptr), i32(part_merge),
+                    torch.zeros(len(merge_rows), dtype=torch.int32),
+                    int(num_nodes), int(num_src_nodes),
                     n_part, int(deg.max()) if num_nodes else 0)
 
 
@@ -153,48 +178,25 @@ def segsum(seg: Segments, x: torch.Tensor,
     out = torch.empty((seg.num_nodes, d), dtype=torch.float32, device=x.device)
     partial = torch.empty((seg.num_partials, d), dtype=torch.float32,
                           device=x.device)
+    merge = ((seg.part_merge, seg.merge_row, seg.merge_ptr, seg.merge_count)
+             if seg.num_partials else (None,) * 4)
     if seg.num_nodes:
         launch("skrx_segsum", x.device, x, d, seg.seg_ptr, seg.seg_dst,
                seg.seg_dst.shape[0], seg.src, seg.weight, seg.orig, edge_mask,
-               int(msg_dtype == torch.bfloat16), out, partial)
+               int(msg_dtype == torch.bfloat16), out, partial, *merge)
         LAUNCHES["segsum"] += 1
-    if seg.num_partials:
-        segsum_merge(partial, seg.merge_row, seg.merge_ptr, out)
     return out
 
 
 def segsum_merge_plain(partial: torch.Tensor, merge_row: torch.Tensor,
                        merge_ptr: torch.Tensor, out: torch.Tensor) -> None:
+    """The merge step of the kernel: write into ``out`` (R, D), for each i,
+    row ``merge_row[i]`` as the sum of partial rows ``merge_ptr[i] ..
+    merge_ptr[i + 1] - 1`` of ``partial`` (P, D); other rows are left as
+    they are."""
     counts = (merge_ptr[1:] - merge_ptr[:-1]).long()
     slot_row = torch.repeat_interleave(
         torch.arange(merge_row.shape[0], device=partial.device), counts)
     sums = torch.zeros((merge_row.shape[0], partial.shape[1]),
                        dtype=partial.dtype, device=partial.device)
     out[merge_row.long()] = sums.index_add_(0, slot_row, partial)
-
-
-def segsum_merge(partial: torch.Tensor, merge_row: torch.Tensor,
-                 merge_ptr: torch.Tensor, out: torch.Tensor) -> None:
-    """Write into ``out`` (R, D) f32, for each i, row ``merge_row[i]`` as the
-    sum of partial rows ``merge_ptr[i] .. merge_ptr[i + 1] - 1`` of
-    ``partial`` (P, D) f32, in that order. Other rows are left as they
-    are."""
-    check(partial, "partial", torch.float32, 2)
-    check(out, "out", torch.float32, 2)
-    check(merge_row, "merge_row", torch.int32, 1)
-    check(merge_ptr, "merge_ptr", torch.int32, 1)
-    d = partial.shape[1]
-    if (out.shape[1] != d or not 1 <= d <= MAX_DIM or not out.is_contiguous()
-            or merge_ptr.shape[0] != merge_row.shape[0] + 1):
-        raise ValueError(f"need partial (P, D), out (R, D) contiguous, 1 <= "
-                         f"D <= {MAX_DIM} and merge_ptr (M + 1,); got "
-                         f"{tuple(partial.shape)}, {tuple(out.shape)}, "
-                         f"{tuple(merge_ptr.shape)}")
-    if not on_cuda(partial, merge_row, merge_ptr, out):
-        segsum_merge_plain(partial, merge_row, merge_ptr, out)
-        return
-    if merge_row.shape[0]:
-        launch("skrx_segsum_merge", out.device, partial.contiguous(), d,
-               merge_row.contiguous(), merge_ptr.contiguous(),
-               merge_row.shape[0], out)
-        LAUNCHES["segsum_merge"] += 1

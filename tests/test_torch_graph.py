@@ -217,7 +217,7 @@ def test_edge_dropout_keep_rate_and_scaling():
 
 def _emulate_kernel(seg, x, mask=None):
     """The CUDA kernel's plan in numpy: each segment's sum over its edges,
-    written to its row or to a partial slot, then the merge."""
+    written to its row or to a partial slot, then the merge step."""
     w = seg.weight.numpy().copy()
     if mask is not None:
         w *= mask[seg.orig.numpy()]
@@ -232,8 +232,8 @@ def _emulate_kernel(seg, x, mask=None):
         else:
             part[-1 - sdst[s]] = acc
     out_t = torch.from_numpy(out)
-    ss.segsum_merge(torch.from_numpy(part), seg.merge_row, seg.merge_ptr,
-                    out_t)
+    ss.segsum_merge_plain(torch.from_numpy(part), seg.merge_row,
+                          seg.merge_ptr, out_t)
     return out_t.numpy()
 
 
@@ -276,6 +276,73 @@ def test_segment_layout_covers_every_edge_once(case):
                                   None if m is None else torch.from_numpy(m))
             np.testing.assert_allclose(_emulate_kernel(seg, x, m),
                                        ref.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["hubs", "rows of 2 to 4 segments",
+                                  "rectangular", "no hub rows", "empty"])
+def test_merge_fields_map_every_partial_slot_to_its_row(case):
+    """build_segments' merge table: partial slot p of merged row m lies in
+    merge_ptr[m] .. merge_ptr[m + 1] - 1 (part_merge[p] == m), the slots of
+    a row are its segments in order, the counts are merge_ptr's differences,
+    and every arrival counter starts at 0; a graph without rows of several
+    segments, and the empty graph, have none of these."""
+    rng = np.random.default_rng(12)
+    e = ss.SEGMENT_EDGES
+    if case == "hubs":
+        deg = np.array([3 * e + 1, 5, 0, e, e + 1, 40 * e])
+    elif case == "rows of 2 to 4 segments":
+        deg = rng.integers(e + 1, 4 * e + 1, 12)
+    elif case == "rectangular":
+        deg = np.array([0, 2 * e + 7, 9, e + 1])
+    elif case == "no hub rows":
+        deg = rng.integers(0, e + 1, 30)
+    else:
+        deg = np.zeros(7, np.int64)
+    dst = np.repeat(np.arange(len(deg)), deg)
+    n_src = 300 if case == "rectangular" else len(deg) + 50
+    seg = tg.graph_from_coo(rng.integers(0, n_src, len(dst)), dst,
+                            rng.random(len(dst)), len(deg),
+                            num_src_nodes=n_src).fwd
+    per_row = np.maximum(1, -(-deg // e))
+    multi = np.flatnonzero(per_row > 1)
+    part_merge, merge_ptr = seg.part_merge.numpy(), seg.merge_ptr.numpy()
+    assert seg.part_merge.dtype == seg.merge_count.dtype == torch.int32
+    np.testing.assert_array_equal(seg.merge_row.numpy(), multi)
+    np.testing.assert_array_equal(np.diff(merge_ptr), per_row[multi])
+    assert len(part_merge) == seg.num_partials == merge_ptr[-1]
+    for m in range(len(multi)):
+        assert (part_merge[merge_ptr[m]:merge_ptr[m + 1]] == m).all()
+    np.testing.assert_array_equal(np.bincount(part_merge,
+                                              minlength=len(multi)),
+                                  np.diff(merge_ptr))
+    assert seg.merge_count.shape == (len(multi),)
+    assert not seg.merge_count.any()
+    # the segments of rows of several segments come first, the rows of
+    # most segments first, each row's segments side by side writing its
+    # slots in order; then the other rows in row order
+    sdst = seg.seg_dst.numpy()
+    n_multi = seg.num_partials
+    assert (sdst[:n_multi] < 0).all() and (sdst[n_multi:] >= 0).all()
+    np.testing.assert_array_equal(sdst[n_multi:],
+                                  np.flatnonzero(per_row == 1))
+    slots = -1 - sdst[:n_multi]
+    want = [np.arange(merge_ptr[m], merge_ptr[m + 1])
+            for m in np.argsort(-np.diff(merge_ptr), kind="stable")]
+    np.testing.assert_array_equal(
+        slots, np.concatenate(want) if want else np.zeros(0, slots.dtype))
+    ptr, dst_e = seg.seg_ptr.numpy(), seg.dst.numpy()
+    rows = np.where(sdst >= 0, sdst, seg.merge_row.numpy()[
+        part_merge[np.maximum(-1 - sdst, 0)]] if n_multi else sdst)
+    for sg in range(len(sdst)):           # a segment's edges go to its row
+        assert (dst_e[ptr[sg]:ptr[sg + 1]] == rows[sg]).all()
+    rows_of_slots = np.repeat(multi, per_row[multi])
+    np.testing.assert_array_equal(seg.merge_row.numpy()[part_merge],
+                                  rows_of_slots)
+    if case in ("no hub rows", "empty"):
+        assert seg.num_partials == 0 and len(multi) == 0
+        assert seg.merge_ptr.tolist() == [0]
+    moved = seg.to("cpu")
+    assert moved.part_merge is not None and not moved.merge_count.any()
 
 
 def test_segsum_refuses_what_the_kernel_does_not_take():

@@ -17,7 +17,8 @@ NEVER = {"jax", "jaxlib", "skrx", "pandas"}
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "chip_ab.py")]
+             os.path.join(ROOT, "chip_ab.py"),
+             os.path.join(ROOT, "experiments", "segsum_merge_variants.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
@@ -213,27 +214,28 @@ def test_launch_types_every_argument_and_raises_on_a_cuda_error(
         calls.append(args)
         return 700 if len(calls) > 1 else 0
     monkeypatch.setattr(_build, "load", lambda stem: types.SimpleNamespace(
-        skrx_segsum_merge=fn))
+        skrx_segsum=fn))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
-    part = torch.zeros(3, 4)
-    runtime.launch("skrx_segsum_merge", "cuda", part, 4, None, part, 1, part)
-    assert fn.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p]
-    assert calls[0] == (part.data_ptr(), 4, None, part.data_ptr(), 1,
-                        part.data_ptr(), 0)
+    t = torch.zeros(3, 4)
+    args = (t, 4, t, t, 3, t, t, t, None, 1, t, t, t, t, t, t)
+    runtime.launch("skrx_segsum", "cuda", *args)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert fn.argtypes == [P, I, P, P, I, P, P, P, P, I, P, P, P, P, P, P, P]
+    assert calls[0] == tuple(a.data_ptr() if isinstance(a, torch.Tensor)
+                             else a for a in args) + (0,)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        runtime.launch("skrx_segsum_merge", "cuda", part, 4, None, part, 1,
-                       part)
+        runtime.launch("skrx_segsum", "cuda", *args)
 
 
 def test_segsum_on_a_cuda_tensor_never_reaches_the_plain_version(
         monkeypatch):
-    """With the device check answering 'cuda', segsum and the merge go to
-    their launches, and a failed launch raises instead of falling back."""
+    """With the device check answering 'cuda', segsum goes to one launch
+    that also merges the rows of several segments (the Segments' merge
+    table and counters passed; null pointers for a graph without such
+    rows), and a failed launch raises instead of falling back."""
     from skrx_torch.ops.graph import graph_from_coo
     from skrx_torch.ops.kernels import runtime
     from skrx_torch.ops.kernels import segsum as ss
@@ -253,9 +255,18 @@ def test_segsum_on_a_cuda_tensor_never_reaches_the_plain_version(
     runtime.reset_launches()
     mask = torch.ones(hub)
     ss.segsum(g.fwd, torch.zeros((hub, 64)), mask, torch.bfloat16)
-    assert [c[0] for c in calls] == ["skrx_segsum", "skrx_segsum_merge"]
+    assert [c[0] for c in calls] == ["skrx_segsum"]
     assert calls[0][1][8] is mask and calls[0][1][9] == 1     # mask, bf16
-    assert runtime.LAUNCHES["segsum"] == runtime.LAUNCHES["segsum_merge"] == 1
+    merge = calls[0][1][12:]
+    assert all(a is b for a, b in zip(merge, (
+        g.fwd.part_merge, g.fwd.merge_row, g.fwd.merge_ptr,
+        g.fwd.merge_count))) and len(merge) == 4
+    assert calls[0][1][11].shape == (3, 64)                  # partial rows
+    assert runtime.LAUNCHES["segsum"] == 1
+    # the backward direction has no row of several segments
+    ss.segsum(g.bwd, torch.zeros((2, 64)))
+    assert calls[1][0] == "skrx_segsum" and calls[1][1][12:] == (None,) * 4
+    assert runtime.LAUNCHES["segsum"] == 2
 
     def failed(name, dev, *a):
         raise RuntimeError(f"{name} launch failed: CUDA error 1")
@@ -308,7 +319,7 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
                                 "pruned_merge": 2, "rank_count": 0,
                                 "rank_lookup_count": 0, "direct_rank": 0,
                                 "dot_submax": 0, "dot_extract": 0,
-                                "segsum": 0, "segsum_merge": 0}
+                                "segsum": 0}
 
 
 @pytest.mark.cuda
@@ -445,6 +456,64 @@ def test_cuda_kth_largest_matches_plain_version(w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 50])
+def test_cuda_extract_matches_plain_version_at_survivor_boundaries(k):
+    """extract where a block holds 0, 1, 31, 32, 33, k - 1, k, k + 1, F and
+    F + 1 survivors (F: the most it ranks directly), a block whose every
+    column equals tau, and +-0.0 ties, against its plain version on CPU
+    copies: values as int32 and ids equal (needs a card, as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    s, mask, tau, _ = _chip_smoke().extract_rows(np.random.default_rng(k), k)
+    cpu = [torch.from_numpy(x) for x in (s, mask, tau)]
+    runtime.reset_launches()
+    v, i = ttb.extract(cpu[0].cuda(), cpu[2].cuda(), k, cpu[1].cuda())
+    rv, ri = ttb.extract_plain(cpu[0], cpu[1], cpu[2], k, 4096)
+    assert torch.equal(v.cpu().view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(i.cpu(), ri)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["extract"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("msg", ["f32", "bf16"])
+def test_cuda_segsum_merges_the_same_rows_in_every_launch(msg):
+    """One Segments launched three times in a row gives the same bits each
+    time and leaves every arrival counter at 0; the graph puts many rows of
+    several segments into one thread block (rows of 2 to 4 segments side
+    by side) beside a hub of 40 segments (needs a card, as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.graph import graph_from_coo
+    from skrx_torch.ops.kernels import segsum as ss
+    rng = np.random.default_rng(5)
+    deg = np.concatenate([rng.integers(129, 4 * 128 + 1, 30), [40 * 128],
+                          rng.integers(0, 50, 30)])
+    dst = np.repeat(np.arange(len(deg)), deg)
+    src = rng.integers(0, 900, len(dst))
+    g = graph_from_coo(src, dst, rng.random(len(dst)), len(deg),
+                       num_src_nodes=900, device="cuda")
+    seg = g.fwd
+    assert seg.merge_row.shape[0] == 31 and seg.num_partials > 100
+    dtype = torch.float32 if msg == "f32" else torch.bfloat16
+    x = torch.randn((900, 64), device="cuda")
+    outs = [ss.segsum(seg, x, None, dtype) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert not seg.merge_count.any()
+    for out in outs[1:]:
+        assert torch.equal(out.view(torch.int32), outs[0].view(torch.int32))
+    ref = ss.segsum_plain(g.to("cpu").fwd, x.cpu().double(), None, dtype)
+    scale = ss.segsum_plain(g.to("cpu").fwd, x.cpu().abs().double(), None,
+                            dtype)
+    assert bool(((outs[0].cpu().double() - ref).abs()
+                 <= 1e-5 * scale + 1e-30).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 7, 33])
 @pytest.mark.parametrize("d", [8, 60, 64, 128, 512])
 def test_cuda_dot_submax_matches_plain_version(b, d):
@@ -528,10 +597,11 @@ def _segsum_case(case: str, rng):
 @pytest.mark.parametrize("d", [8, 64, 100, 128])
 @pytest.mark.parametrize("msg", ["f32", "bf16"])
 def test_cuda_segsum_matches_its_float64_plain_version(case, d, msg):
-    """segsum and its merge on the card against segsum_plain in float64 on
-    CPU copies, both directions, with and without an edge mask: per row
-    |kernel - ref| <= 1e-5 * sum|msg| (exact zeros where a row has no kept
-    edge); the gradient of propagate likewise. Needs a card, as above."""
+    """segsum (its merge pass included) on the card against segsum_plain in
+    float64 on CPU copies, both directions, with and without an edge mask:
+    per row |kernel - ref| <= 1e-5 * sum|msg| (exact zeros where a row has
+    no kept edge), every arrival counter back at 0; the gradient of
+    propagate likewise. Needs a card, as above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
@@ -570,8 +640,7 @@ def test_cuda_segsum_matches_its_float64_plain_version(case, d, msg):
             assert bool((err <= 1e-5 * scale + 1e-30).all()), \
                 f"{case} {direction}: max err {float(err.max())}"
             assert runtime.LAUNCHES["segsum"] == (1 if seg.num_nodes else 0)
-            assert runtime.LAUNCHES["segsum_merge"] == \
-                (1 if seg.num_partials else 0)
+            assert not seg.merge_count.any(), "a counter left set"
     if bad:
         return
     x = torch.from_numpy(rng.standard_normal((n_src, d)).astype(np.float32))

@@ -203,6 +203,68 @@ def test_extract_candidates_match_oracle(name):
     np.testing.assert_array_equal(i.numpy(), ref_i)
 
 
+def _survivor_case(name):
+    """(scores, mask table, k, block_n, survivors per (row, block)): B=4,
+    N=2,048 in blocks of 512. "counts": k=50, survivors are columns at
+    tau = 1.0 (a few above it, under 50 group maxima, so tau stays 1.0;
+    two more a block masked away), the rest below or -inf; the 16 blocks
+    hold 0, 1, 31, 32, 33, 49, 50, 51, 256, 257 (F = 256 is the most the
+    kernel ranks directly), a block whose every column equals tau, and a
+    few. "tau ties": k=10, a row whose every column equals tau, a row of
+    +-0.0 over negatives, a row of values rounded to quarters."""
+    rng = np.random.default_rng(77)
+    b, n, block_n = 4, 2048, 512
+    if name == "counts":
+        counts = [[0, 1, 31, 32], [33, 49, 50, 51], [256, 257, 3, 7],
+                  [512, 2, 5, 0]]
+        s = rng.uniform(-3.0, 0.99, (b, n)).astype(np.float32)
+        s[rng.random((b, n)) < 0.2] = -np.inf
+        table = np.full((b, 8), n, np.int32)
+        for r, row in enumerate(counts):
+            for j, f in enumerate(row):
+                extra = min(2, block_n - f)
+                cols = j * block_n + rng.choice(block_n, f + extra,
+                                                replace=False)
+                s[r, cols] = 1.0
+                if f < block_n:                   # a few above tau
+                    s[r, cols[extra:extra + 3]] = 1.5
+                table[r, 2 * j:2 * j + extra] = cols[:extra]
+        return s, table, 50, block_n, np.array(counts)
+    s = np.round(rng.standard_normal((b, n)) * 4).astype(np.float32) / 4
+    s[0] = 0.75                                        # every column = tau
+    s[1] = -1.0 - rng.random(n).astype(np.float32)
+    s[1, rng.choice(n, 300, replace=False)] = np.where(
+        rng.random(300) < 0.5, -0.0, 0.0)
+    table = np.full((b, 6), n, np.int32)
+    table[:, :3] = rng.integers(0, n, (b, 3))
+    return s, table, 10, block_n, None
+
+
+@pytest.mark.parametrize("name", ["counts", "tau ties"])
+def test_blockwise_topk_at_survivor_boundaries_matches_jax(name):
+    """Blocks whose survivor counts sit at every boundary of the kernel's
+    selection (one warp, k, F), whole blocks equal to tau and +-0.0 ties:
+    the plain route against JAX's blockwise_topk in interpret mode, and
+    extract's candidates against the numpy oracle."""
+    s, table, k, block_n, found = _survivor_case(name)
+    ref_v, ref_i = jtb.blockwise_topk(jnp.asarray(s), k, block_n=block_n,
+                                      interpret=True,
+                                      mask_table=jnp.asarray(table))
+    v, i = ttb.blockwise_topk(_t(s), k, block_n=block_n, mask_table=_t(table))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(ref_v))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
+    _, _, tau = ttb.blockwise_candidates(_t(s), k, block_n, _t(table))
+    cv, ci = ttb.extract(_t(s), tau, k, _t(table), block_n)
+    ov, oi = _extract_oracle(s, table, tau.numpy(), k, block_n)
+    np.testing.assert_array_equal(cv.numpy().view(np.int32), ov.view(np.int32))
+    np.testing.assert_array_equal(ci.numpy(), oi)
+    if found is not None:                 # the survivors the case meant
+        assert (tau.numpy() == 1.0).all()
+        masked = ttb._masked_padded(_t(s), _t(table), block_n)
+        got = (masked >= 1.0).reshape(4, -1, block_n).sum(2).numpy()
+        np.testing.assert_array_equal(got, found)
+
+
 def test_submax_layout_matches_jax_fold():
     """Group l of block j is column j*128 + l: the layout JAX's threshold
     pass writes (checked through its own fold of the same scores)."""
