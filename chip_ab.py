@@ -6,32 +6,50 @@ Usage, from the root of a checkout, on a machine with a card:
     git archive <parent> skrx_torch/ops/kernels/csrc | tar -x -C build/parent
     python3 chip_ab.py --parent build/parent/skrx_torch/ops/kernels/csrc
 
-``--parent`` names a directory holding the parent's ``segsum.cu`` and
-``topk_blocks.cu`` (keep it under ``build/``, which git ignores). The script
-builds them with nvcc beside this tree's kernels and calls each of their C
-launchers with the argument types of its own C declaration
-(:func:`c_argtypes`), so the parent's signatures need not be this tree's;
-this tree's kernels run through the package's wrappers, as a user calls
-them. Every time is device time
-per call (``chip_smoke.device_ms``: torch.profiler, the summed durations of
-the kernels a call launches, over 50 calls after warm-up), so a kernel
-shorter than a host launch is not timed by the host's launch rate. On the
-synthetic Gowalla-scale data of ``chip_smoke.py`` (seed 2021) it then:
+``--parent`` names a directory holding the parent's ``segsum.cu``,
+``topk_blocks.cu`` and ``rank_counts.cu`` (keep it under ``build/``, which
+git ignores). The script builds them with nvcc beside this tree's kernels
+and calls each of their C launchers with the argument types of its own C
+declaration (:func:`c_argtypes`), so the parent's signatures need not be
+this tree's; this tree's kernels run through the package's wrappers, as a
+user calls them. Every time is device time per call
+(``chip_smoke.device_ms``: torch.profiler, the summed durations of the
+kernels a call launches, over 50 calls after warm-up), so a kernel shorter
+than a host launch is not timed by the host's launch rate.
+Each phase first holds this tree's kernel equal to the parent's bit for bit
+(values as int32 views, ids and counts), then times them in turns: parent,
+new, new, parent. On the synthetic Gowalla-scale data of ``chip_smoke.py``
+(seed 2021), BPRMF at n_dim=64:
 
-1. propagation on the LightGCN graph (D=64), forward (A) and backward
-   (A^T), f32 and bf16 messages, with and without a 0.8 dropout mask: this
-   tree's segsum (one launch; the last warp to finish a row of several
-   segments merges it; such rows' segments first) against the parent's
-   pair (``skrx_segsum``, then ``skrx_segsum_merge`` on its partial rows)
-   on its own layout (:func:`row_order`), the outputs equal bit for bit,
-   then timed in turns: parent, new, new, parent;
+1. (only for a parent with the two-launch propagation, whose segsum.cu
+   declares skrx_segsum_merge; skipped with a line otherwise) propagation
+   on the LightGCN graph (D=64), forward (A) and backward (A^T), f32 and
+   bf16 messages, with and without a 0.8 dropout mask: this tree's segsum
+   (one launch; the last warp to finish a row of several segments merges
+   it; such rows' segments first) against the parent's pair
+   (``skrx_segsum``, then ``skrx_segsum_merge`` on its partial rows) on
+   its own layout (:func:`row_order`);
 2. extract at the evaluation shape (B=64 test users, k=50, the evaluator's
    train table) and the serving shape (B=1,024 users, k=10, the seen
-   table), on BPRMF's scores and the tau of submax + kth_largest: first the
-   distribution of ``found`` per (row, column block), the survivors a block
-   selects from (:func:`found_stats`), then this tree's kernel and the
-   parent's equal bit for bit (values as int32, ids), then timed in turns:
-   parent, new, new, parent.
+   table), on the tau of submax + kth_largest, after the distribution of
+   ``found`` per (row, column block), the survivors a block selects from
+   (:func:`found_stats`);
+3. pruned_merge: first which lane of a repeated (value, id) pair the
+   parent writes, on ``chip_smoke.merge_rows`` against pruned_merge_plain
+   (the (row, slot) where they differ); then the chunked evaluate()'s merge
+   (B=64 test users, W=100, k=50, tau = -inf: the running best after the
+   first 8,192-item chunk beside the second chunk's top 50,
+   :func:`chunk_merge_input`) and the serving merge (B=1,024, W=110, k=10,
+   the tau of submax + kth_largest), with the survivors a row there
+   (:func:`merge_survivors`) and one torch.topk on the same input; then
+   rows of F and F + 1 distinct survivors (F = MERGE_CAP, the most the new
+   kernel ranks directly) at k = 10 and 50;
+4. rank_count at the evaluation batch (B=64 test users, the candidates of
+   blockwise_candidates at k=50, W=550, the evaluator's test table, T=416,
+   the probes as masked_topk_ranks gives them), at B=1,024, and at B=64
+   with the empty slots' ids made distinct (no two adjacent keys equal,
+   the new kernel's worst case), each after the segments of equal keys a
+   row (``chip_smoke.rank_segments``).
 
 Prints one line per measurement with the card's name, power limit and SM
 clock, and writes every number to ``chiprun_out/chip_ab.json``. Exits 2
@@ -50,24 +68,32 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import RANK_CAP, card_line, device_ms
+from chip_smoke import (CHUNK, MERGE_CAP, RANK_CAP, card_line, device_ms,
+                        merge_rows, rank_segments)
 from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.io import synthetic
 from skrx_torch.ops.kernels import _build
 from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.kernels import topk_blocks as tb
+from skrx_torch.ops.metrics import topk_scores_and_indices
 from skrx_torch.serve import TopKRecommender
 
 USERS, ITEMS, RATINGS, DIM, SEED = 29_858, 40_981, 1_027_370, 64, 2021
 BLOCK_N = 4096
 
 
+def c_declarations(path: str) -> dict:
+    """{name: parameter list} of every ``int skrx_...(...)`` that ``path``
+    declares at the start of a line."""
+    with open(path) as f:
+        return dict(re.findall(r"^int (skrx_\w+)\(([^)]*)\)", f.read(), re.M))
+
+
 def c_argtypes(path: str, fn_name: str) -> list:
     """ctypes argument types of ``int fn_name(...)`` as ``path`` declares it
     at the start of a line: c_void_p for a pointer or the stream, c_int
     otherwise."""
-    with open(path) as f:
-        decls = dict(re.findall(r"^int (skrx_\w+)\(([^)]*)\)", f.read(), re.M))
+    decls = c_declarations(path)
     if fn_name not in decls:
         raise KeyError(f"{path} declares no {fn_name}")
     return [ctypes.c_void_p if "*" in p or "cudaStream_t" in p
@@ -166,11 +192,82 @@ def in_turns(fns: dict, order) -> dict:
     return times
 
 
+PARENT_SOURCES = {"parent_segsum": "segsum.cu",
+                  "parent_topk": "topk_blocks.cu",
+                  "parent_rank": "rank_counts.cu"}
+
+
+def merge_survivors(vals: torch.Tensor, tau: torch.Tensor, k: int) -> dict:
+    """The survivors pruned_merge lists in each row (v >= tau, v != -inf;
+    repeated pairs counted each time): their mean and largest count, and
+    the share of rows with at most 32, with at least k and with more than
+    MERGE_CAP."""
+    found = ((vals >= tau[:, None]) & (vals != float("-inf"))).sum(1)
+    found = found.double()
+    return {"rows": int(found.numel()), "mean": float(found.mean()),
+            "max": int(found.max()),
+            "share_le_32": float((found <= 32).double().mean()),
+            "share_ge_k": float((found >= k).double().mean()),
+            "share_gt_cap": float((found > MERGE_CAP).double().mean())}
+
+
+def chunk_merge_input(model, users, train_t: torch.Tensor, k: int,
+                      num_items: int, chunk: int = CHUNK):
+    """(vals (B, 2k), ids): the second merge of the chunked evaluate() for
+    these users, as RankingEvaluator.evaluate_chunked builds it: the running
+    best after the first chunk beside the second chunk's masked top-k
+    (ids offset by the chunk's start)."""
+    b = len(users)
+    best_v = torch.full((b, k), float("-inf"), device=train_t.device)
+    best_i = torch.full((b, k), num_items + 1, dtype=torch.int32,
+                        device=train_t.device)
+    for lo in (0, chunk):
+        hi = min(lo + chunk, num_items)
+        scores = model.predict_chunk(users, lo, hi).float()
+        shifted = train_t - lo
+        shifted = torch.where(shifted < 0, hi - lo, shifted)
+        vals, idx = topk_scores_and_indices(scores, min(k, hi - lo),
+                                            mask_table=shifted)
+        cat_v = torch.cat([best_v, vals], 1).contiguous()
+        cat_i = torch.cat([best_i, idx + lo], 1).contiguous()
+        if lo == 0:
+            best_v, best_i = tb.vmem_topk(cat_v, cat_i, k)
+    return cat_v, cat_i
+
+
+def rank_count_cases(model, user_batches) -> list:
+    """[(note, cand_v, cand_i, s_t, probes)]: rank_count's inputs as
+    masked_topk_ranks gives them in an evaluation batch of each of
+    ``user_batches`` (the candidates of blockwise_candidates at k=50 with
+    the evaluator's train table, the test table's ids and their scores),
+    then the first batch again with every empty slot's id made its own, so
+    that no two adjacent candidate keys are equal."""
+    ev = model.evaluator
+    n = model.num_items
+    cases = []
+    for users in user_batches:
+        tr, te, _ = ev._tables_for(users, n)
+        dev = model.user_emb.device
+        tr, te = (torch.from_numpy(x).to(dev) for x in (tr, te))
+        scores = model.predict(users)
+        cand_v, cand_i, _ = tb.blockwise_candidates(scores, 50, BLOCK_N, tr)
+        safe = torch.where((te >= 0) & (te < n), te, 0).contiguous()
+        s_t = scores.gather(1, safe.long()).contiguous()
+        cases.append(("", cand_v, cand_i, s_t, safe))
+    _, cand_v, cand_i, s_t, safe = cases[0]
+    lane = torch.arange(cand_i.shape[1], device=cand_i.device,
+                        dtype=torch.int32)
+    cases.append((", no repeated keys", cand_v, torch.where(
+        cand_i == tb.SENTINEL, tb.SENTINEL + 1 + lane, cand_i).contiguous(),
+        s_t, safe))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
-                    help="directory with the parent's segsum.cu and "
-                    "topk_blocks.cu")
+                    help="directory with the parent's segsum.cu, "
+                    "topk_blocks.cu and rank_counts.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_ab: torch.cuda.is_available() is False", file=sys.stderr)
@@ -179,8 +276,8 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     here = os.path.dirname(os.path.abspath(__file__))
-    src = {"parent_segsum": os.path.join(args.parent, "segsum.cu"),
-           "parent_topk": os.path.join(args.parent, "topk_blocks.cu")}
+    src = {name: os.path.join(args.parent, f)
+           for name, f in PARENT_SOURCES.items()}
     t0 = time.perf_counter()
     libs, logs = build(src, os.path.join(here, "build", "chip_ab"))
     _build.load("segsum")                     # builds every csrc/*.cu
@@ -199,6 +296,16 @@ def main() -> int:
             f"{k} {np.mean(v)} ms {v}" for k, v in times.items())
             + f"  [{card}; SM clock after the turns {sm_clock()}]", flush=True)
 
+    def equal(what: str, got, ref) -> None:
+        """Values as int32 views, ids and counts as they are."""
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if g.dtype == torch.float32:
+                g, r = g.view(torch.int32), r.view(torch.int32)
+            if not torch.equal(g, r):
+                raise AssertionError(f"{what}: not equal to the parent's "
+                                     "kernel")
+
     # ------------------------------------------------------------ data
     root = os.path.join(here, "build", "chip_ab_data")
     shutil.rmtree(root, ignore_errors=True)
@@ -206,85 +313,87 @@ def main() -> int:
                                       num_ratings=RATINGS, seed=SEED)
     reg = ModelRegistry()
     reg.load_skrx_model("BPRMF")
-    reg.load_skrx_model("LightGCN")
     bpr_cls, _ = reg.get_model("BPRMF")
-    gcn_cls, _ = reg.get_model("LightGCN")
     bpr = bpr_cls(RunConfig(recommender="BPRMF", data_dir=path, seed=SEED),
                   {"n_dim": DIM, "epochs": 1})
-    gcn = gcn_cls(RunConfig(recommender="LightGCN", data_dir=path,
-                            seed=SEED), {"epochs": 1})
-
-    # ----------------------------------------------------- propagation
-    parent_segsum = c_fn(libs["parent_segsum"], src["parent_segsum"],
-                         "skrx_segsum")
-    parent_merge = c_fn(libs["parent_segsum"], src["parent_segsum"],
-                        "skrx_segsum_merge")
-    graph = gcn.graph
-    ego = torch.cat([gcn.user_emb, gcn.item_emb]).detach().contiguous()
-    keep = torch.rand(graph.num_edges, device=dev,
-                      generator=torch.Generator(dev).manual_seed(SEED)) < 0.8
-    drop = keep.float() / 0.8
-    for direction in ("fwd", "bwd"):
-        seg = getattr(graph, direction)
-        pseg = row_order(seg)
-        nseg, n_merge = seg.seg_dst.shape[0], seg.merge_row.shape[0]
-        out = torch.empty((seg.num_nodes, DIM), device=dev)
-        partial = torch.empty((seg.num_partials, DIM), device=dev)
-        print(f"{direction}: {seg.num_nodes} rows, {nseg} segments, {n_merge} "
-              f"rows merged from {seg.num_partials} partials, largest "
-              f"in-degree {seg.max_degree}", flush=True)
-        for msg, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            for tag, m in (("no mask", None), ("dropout 0.8", drop)):
-                bf16 = int(dtype == torch.bfloat16)
-
-                def run_parent(m=m, bf16=bf16):
-                    parent_segsum(ptr(ego), DIM, ptr(pseg.seg_ptr),
-                                  ptr(pseg.seg_dst), nseg, ptr(pseg.src),
-                                  ptr(pseg.weight), ptr(pseg.orig), ptr(m),
-                                  bf16, ptr(out), ptr(partial))
-                    parent_merge(ptr(partial), DIM, ptr(pseg.merge_row),
-                                 ptr(pseg.merge_ptr), n_merge, ptr(out))
-
-                def run_new(m=m, dtype=dtype):
-                    return ss.segsum(seg, ego, m, dtype)
-                run_parent()
-                ref = out.clone()
-                for rep in range(3):        # the counters are back at 0
-                    got = run_new()
-                    torch.cuda.synchronize()
-                    if not torch.equal(got.view(torch.int32),
-                                       ref.view(torch.int32)):
-                        raise AssertionError(f"segsum {direction} {msg} {tag}"
-                                             f" (call {rep}): not equal to "
-                                             "the parent's pair")
-                    if int(seg.merge_count.abs().sum()):
-                        raise AssertionError("segsum left a counter set")
-                report(f"propagate {direction} {msg} {tag}",
-                       in_turns({"parent": run_parent, "new": run_new},
-                                ["parent", "new", "new", "parent"]))
-
-    # --------------------------------------------------------- extract
-    parent_extract = c_fn(libs["parent_topk"], src["parent_topk"],
-                          "skrx_extract")
     ev = bpr.evaluator
     rng = np.random.default_rng(SEED)
     test_users = np.fromiter(ev.user_pos_test, np.int64)
     u64 = rng.choice(test_users, 64, replace=False)
     u1k = torch.as_tensor(rng.integers(0, USERS, 1024), device=dev)
     seen = TopKRecommender(bpr, k=10)._seen
+
+    # ----------------------------------------------------- propagation
+    if "skrx_segsum_merge" not in c_declarations(src["parent_segsum"]):
+        print("phase 1 skipped: the parent's segsum.cu has no two-launch "
+              "propagation (skrx_segsum_merge)", flush=True)
+    else:
+        reg.load_skrx_model("LightGCN")
+        gcn_cls, _ = reg.get_model("LightGCN")
+        gcn = gcn_cls(RunConfig(recommender="LightGCN", data_dir=path,
+                                seed=SEED), {"epochs": 1})
+        parent_segsum = c_fn(libs["parent_segsum"], src["parent_segsum"],
+                             "skrx_segsum")
+        parent_merge = c_fn(libs["parent_segsum"], src["parent_segsum"],
+                            "skrx_segsum_merge")
+        graph = gcn.graph
+        ego = torch.cat([gcn.user_emb, gcn.item_emb]).detach().contiguous()
+        keep = torch.rand(graph.num_edges, device=dev,
+                          generator=torch.Generator(dev).manual_seed(SEED)
+                          ) < 0.8
+        drop = keep.float() / 0.8
+        for direction in ("fwd", "bwd"):
+            seg = getattr(graph, direction)
+            pseg = row_order(seg)
+            nseg, n_merge = seg.seg_dst.shape[0], seg.merge_row.shape[0]
+            out = torch.empty((seg.num_nodes, DIM), device=dev)
+            partial = torch.empty((seg.num_partials, DIM), device=dev)
+            print(f"{direction}: {seg.num_nodes} rows, {nseg} segments, "
+                  f"{n_merge} rows merged from {seg.num_partials} partials, "
+                  f"largest in-degree {seg.max_degree}", flush=True)
+            for msg, dtype in (("f32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+                for tag, m in (("no mask", None), ("dropout 0.8", drop)):
+                    bf16 = int(dtype == torch.bfloat16)
+
+                    def run_parent(m=m, bf16=bf16):
+                        parent_segsum(ptr(ego), DIM, ptr(pseg.seg_ptr),
+                                      ptr(pseg.seg_dst), nseg, ptr(pseg.src),
+                                      ptr(pseg.weight), ptr(pseg.orig),
+                                      ptr(m), bf16, ptr(out), ptr(partial))
+                        parent_merge(ptr(partial), DIM, ptr(pseg.merge_row),
+                                     ptr(pseg.merge_ptr), n_merge, ptr(out))
+
+                    def run_new(m=m, dtype=dtype):
+                        return ss.segsum(seg, ego, m, dtype)
+                    run_parent()
+                    ref = out.clone()
+                    for rep in range(3):    # the counters are back at 0
+                        equal(f"segsum {direction} {msg} {tag} (call {rep})",
+                              [run_new()], [ref])
+                        if int(seg.merge_count.abs().sum()):
+                            raise AssertionError("segsum left a counter set")
+                    report(f"propagate {direction} {msg} {tag}",
+                           in_turns({"parent": run_parent, "new": run_new},
+                                    ["parent", "new", "new", "parent"]))
+
+    # --------------------------------------------------------- extract
+    parent_extract = c_fn(libs["parent_topk"], src["parent_topk"],
+                          "skrx_extract")
     cases = {"B=64 k=50 (evaluation)": (
                  bpr.predict(u64),
-                 torch.from_numpy(ev._tables_for(u64, ITEMS)[0]).to(dev), 50),
+                 torch.from_numpy(ev._tables_for(u64, ITEMS)[0]).to(dev),
+                 50),
              "B=1024 k=10 (serving)": (bpr.predict(u1k), seen[u1k], 10)}
     for tag, (scores, mask, k) in cases.items():
         scores, mask = scores.contiguous(), mask.contiguous()
         b, n = scores.shape
-        tau = tb.kth_largest(tb.fold_submaxes(tb.submax(scores, mask, BLOCK_N),
-                                              k).contiguous(), k)
+        tau = tb.kth_largest(tb.fold_submaxes(
+            tb.submax(scores, mask, BLOCK_N), k).contiguous(), k)
         stats = found_stats(scores, mask, tau, k)
         results[f"found {tag}"] = stats
-        print(f"found per (row, block) at {tag}, L={mask.shape[1]}: {stats}",
-              flush=True)
+        print(f"found per (row, block) at {tag}, L={mask.shape[1]}: "
+              f"{stats}", flush=True)
         w = -(-n // BLOCK_N) * k
         pv = torch.empty((b, w), device=dev)
         pi = torch.empty((b, w), device=dev, dtype=torch.int32)
@@ -296,15 +405,111 @@ def main() -> int:
         def run_new():
             return tb.extract(scores, tau, k, mask, BLOCK_N)
         run_parent()
-        nv, ni = run_new()
-        torch.cuda.synchronize()
-        if not (torch.equal(pv.view(torch.int32), nv.view(torch.int32))
-                and torch.equal(pi, ni)):
-            raise AssertionError(f"extract {tag}: not equal to the parent's "
-                                 "kernel")
-        report(f"extract {tag}", in_turns({"parent": run_parent,
-                                           "new": run_new},
-                                          ["parent", "new", "new", "parent"]))
+        equal(f"extract {tag}", run_new(), [pv, pi])
+        report(f"extract {tag}", in_turns(
+            {"parent": run_parent, "new": run_new},
+            ["parent", "new", "new", "parent"]))
+
+    # ---------------------------------------------------- pruned_merge
+    parent_pm = c_fn(libs["parent_topk"], src["parent_topk"],
+                     "skrx_pruned_merge")
+
+    def merge_fns(vals, ids, tau, k):
+        b, w = vals.shape
+        pv = torch.empty((b, k), device=dev)
+        pi = torch.empty((b, k), device=dev, dtype=torch.int32)
+
+        def run_parent():
+            parent_pm(ptr(vals), ptr(ids), b, w, ptr(tau), k, ptr(pv),
+                      ptr(pi))
+            return pv, pi
+
+        def run_new():
+            return tb.pruned_merge(vals, ids, k, tau)
+        return run_parent, run_new
+
+    # which lane of a repeated (value, id) pair the parent writes:
+    # pruned_merge_plain (and the new kernel) write the lowest lane's
+    for k in (10, 50):
+        vals, ids, tau, founds = merge_rows(np.random.default_rng(k), k)
+        cpu = [torch.from_numpy(x) for x in (vals, ids, tau)]
+        run_parent, run_new = merge_fns(*(x.to(dev) for x in cpu), k)
+        ref = tb.pruned_merge_plain(cpu[0], cpu[1], k, cpu[2])
+        got = [x.cpu() for x in run_parent()]
+        bad = ((got[0].view(torch.int32) != ref[0].view(torch.int32))
+               | (got[1] != ref[1])).nonzero().tolist()
+        results[f"parent vs plain, merge_rows k={k}"] = bad
+        print(f"parent pruned_merge on merge_rows k={k} (survivors "
+              f"{founds}, then repeated pairs below and above F, NaN): "
+              f"(row, slot) where its values (as int32) or ids differ "
+              f"from pruned_merge_plain: {bad}"
+              + "".join(f"; row {r} slot {q}: parent ({got[0][r, q]}, "
+                        f"{got[1][r, q]}), plain ({ref[0][r, q]}, "
+                        f"{ref[1][r, q]})" for r, q in bad[:4]),
+              flush=True)
+    tr64 = torch.from_numpy(ev._tables_for(u64, ITEMS)[0]).to(dev)
+    c_v, c_i = chunk_merge_input(bpr, u64, tr64, 50, ITEMS)
+    s1k, m1k = bpr.predict(u1k), seen[u1k]
+    cv, ci, tau1k = tb.blockwise_candidates(s1k, 10, BLOCK_N, m1k)
+    stats = merge_survivors(cv, tau1k, 10)
+    results["merge survivors B=1024 k=10"] = stats
+    print(f"survivors a row at the serving merge (B=1,024, W="
+          f"{cv.shape[1]}, k=10): {stats}", flush=True)
+    neg = torch.full((64,), float("-inf"), device=dev)
+    cases = {f"B=64 W={c_v.shape[1]} k=50 (chunked merge)":
+                 (c_v, c_i, neg, 50),
+             f"B=1024 W={cv.shape[1]} k=10 (serving)": (cv, ci, tau1k, 10)}
+    for tag, (vals, ids, tau, k) in cases.items():
+        run_parent, run_new = merge_fns(vals, ids, tau, k)
+        equal(f"pruned_merge {tag}", run_new(),
+              [x.clone() for x in run_parent()])
+        times = in_turns({"parent": run_parent, "new": run_new},
+                         ["parent", "new", "new", "parent"])
+        times["torch.topk"] = [device_ms(
+            lambda: torch.topk(vals, k, dim=1))]
+        report(f"pruned_merge {tag}", times)
+    # F: rows whose every candidate survives, at F and F + 1 (the
+    # rounds) distinct pairs
+    for k in (10, 50):
+        for w in (MERGE_CAP, MERGE_CAP + 1):
+            vals = torch.randn((64, w), device=dev,
+                               generator=torch.Generator(dev).manual_seed(
+                                   SEED + w))
+            ids = torch.argsort(torch.rand((64, w), device=dev), 1).to(
+                torch.int32)
+            run_parent, run_new = merge_fns(vals, ids, neg, k)
+            equal(f"pruned_merge W={w} k={k}", run_new(),
+                  [x.clone() for x in run_parent()])
+            report(f"pruned_merge B=64 W={w} k={k}, all survive",
+                   in_turns({"parent": run_parent, "new": run_new},
+                            ["parent", "new", "new", "parent"]))
+
+    # ------------------------------------------------------ rank_count
+    parent_rc = c_fn(libs["parent_rank"], src["parent_rank"],
+                     "skrx_rank_count")
+    cases = rank_count_cases(
+        bpr, [u64, rng.choice(test_users, 1024, replace=False)])
+    for note, cand_v, cand_i, s_t, safe in cases:
+        b, w = cand_v.shape
+        t = safe.shape[1]
+        out = torch.empty((b, t), device=dev, dtype=torch.int32)
+        segs = rank_segments(cand_v, cand_i).double()
+        print(f"rank_count B={b}{note}: segments of equal keys a row, "
+              f"mean {float(segs.mean())}, max {int(segs.max())}",
+              flush=True)
+
+        def run_parent():
+            parent_rc(ptr(cand_v), ptr(cand_i), b, w, ptr(s_t), ptr(safe),
+                      t, ptr(out))
+
+        def run_new():
+            return tb.rank_count(cand_v, cand_i, s_t, safe)
+        run_parent()
+        tag = f"B={b} W={w} T={t} k=50{note}"
+        equal(f"rank_count {tag}", [run_new()], [out])
+        report(f"rank_count {tag}", in_turns(
+            {"parent": run_parent, "new": run_new},
+            ["parent", "new", "new", "parent"]))
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)

@@ -24,9 +24,17 @@ skrx_torch fails and it exits 1):
    negatives only, fewer than k finite entries (its bits equal the plain
    version's); extract at k = 10 and 50 on blocks of 0, 1, 31, 32, 33, k-1,
    k, k+1, F and F+1 survivors (F = 256, the most it ranks directly), a
-   block whose every column equals tau and +-0.0 ties (values as int32).
-   Selection and counting do no arithmetic, so values, ids and ranks must
-   be equal.
+   block whose every column equals tau and +-0.0 ties (values as int32);
+   pruned_merge at k = 10 and 50 on rows of the same survivor counts (its
+   own F = 256) in a row of 549 lanes, repeated (value, id) pairs with
+   +-0.0 of one id below and above F, value ties across ids, NaN
+   candidates, and vmem_topk on the chunked evaluation's merge (a chunk of
+   8,192 and the last chunk's 21 items beside the running best), values as
+   int32; rank_count on +-0.0 ties between probe and candidate, NaN
+   candidates and probes, -inf candidates with the sentinel id against
+   -inf probes, negative ids, probes equal to a candidate pair, runs of
+   repeated keys, W in {37, 2,349} and T in {1, 129, 416}. Selection and
+   counting do no arithmetic, so values, ids and ranks must be equal.
 3. Serving: Gowalla-scale synthetic data (29,858 users, 40,981 items,
    1,027,370 interactions), BPRMF at its defaults (n_dim=64, random weights
    from a seed) built by name on cuda, TopKRecommender.recommend for
@@ -166,6 +174,9 @@ MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
 # F, the most survivors of a block that extract ranks directly
 # (csrc/topk_blocks.cu kRankCap)
 RANK_CAP = 256
+# F of pruned_merge, the most survivors of a row it ranks directly
+# (csrc/topk_blocks.cu kMergeCap)
+MERGE_CAP = 256
 # H100 SXM data sheet: f32 outside the tensor cores, device-memory bytes/s
 F32_OPS = 67e12
 MEM_RATE = 3.35e12
@@ -273,6 +284,7 @@ def adversarial(dev, errs: dict) -> None:
                  errs, "pruned_merge")
     kth_adversarial(dev, errs)
     extract_adversarial(dev, errs)
+    merge_adversarial(dev, errs)
 
 
 def kth_rows(rng, w: int) -> np.ndarray:
@@ -369,6 +381,150 @@ def extract_adversarial(dev, errs: dict) -> None:
                               max_err(got[0], ref[0]))
 
 
+def merge_rows(rng, k: int, w: int = 2 * MERGE_CAP + 37):
+    """(vals (R, w), ids (R, w), tau (R,), founds): rows built to break
+    pruned_merge's selection, w not a multiple of its block. Row r <
+    len(founds) holds exactly founds[r] survivors (>= tau = 1.0, value ties
+    across distinct ids) among values below tau and -inf: 0, 1, 31, 32, 33
+    (one warp and past it), k - 1, k, k + 1, F and F + 1 (F = MERGE_CAP,
+    the most it ranks directly). Then, at tau = -inf: a row of repeated
+    (value, id) pairs with fewer than F survivors and one with more, each
+    repeating one pair in 20 lanes and holding (+0.0, 7) and (-0.0, 7) as
+    one pair (the lowest lane's sign bit is written), (-0.0, 8) before
+    (+0.0, 8), and (+0.0, 9) in lane 1 before (-0.0, 9) in lane 16 (a
+    shuffle reduction that keeps its own lane on a tie picks lane 16); and
+    a row with NaN candidates. The tests of pruned_merge use them too (the
+    JAX parity tests the rows of k to F + 1 survivors)."""
+    founds = sorted({0, 1, 31, 32, 33, k - 1, k, k + 1, MERGE_CAP,
+                     MERGE_CAP + 1})
+    rows = len(founds) + 3
+    vals = rng.uniform(-3.0, 0.99, (rows, w)).astype(np.float32)
+    ids = np.stack([rng.permutation(w) for _ in range(rows)]).astype(np.int32)
+    tau = np.ones(rows, np.float32)
+    for r, f in enumerate(founds):
+        cols = rng.choice(w, f + 40, replace=False)
+        vals[r, cols[:f]] = 1.0 + np.round(rng.random(f) * 4) / 4
+        vals[r, cols[f:]] = NEG_INF
+    for r, n_fin in ((len(founds), MERGE_CAP - 20), (len(founds) + 1, w)):
+        tau[r] = NEG_INF
+        vals[r] = -np.round(rng.random(w) * 8) / 4 - 0.25   # below +-0.0
+        vals[r, n_fin:] = NEG_INF
+        vals[r, 10:30], ids[r, 10:30] = 0.5, 3           # one pair, 20 lanes
+        vals[r, [2, 40, 90]], ids[r, [2, 40, 90]] = [0.0, -0.0, 0.0], 7
+        vals[r, [4, 60]], ids[r, [4, 60]] = [-0.0, 0.0], 8
+        vals[r, [1, 16]], ids[r, [1, 16]] = [0.0, -0.0], 9   # one warp
+    r = len(founds) + 2
+    tau[r] = NEG_INF
+    vals[r, rng.random(w) < 0.3] = np.nan
+    return vals, ids, tau, founds
+
+
+def chunk_rows(rng, k: int, chunk_w: int, n: int = 40_981):
+    """(vals (4, k + min(k, chunk_w)), ids): the chunked evaluation's merge
+    input, the running best (sorted, empty slots (-inf, n + 1)) beside one
+    chunk's sorted top-k (ids offset, empty slots (-inf, SENTINEL)). Row 0
+    is the first chunk (the running best empty), row 1 a later one, row 2
+    ties across the halves, row 3 a chunk with fewer than k finite items."""
+    kc = min(k, chunk_w)
+    best_v = -np.sort(-rng.standard_normal((4, k)).astype(np.float32), 1)
+    best_i = np.stack([rng.choice(n // 2, k, replace=False)
+                       for _ in range(4)]).astype(np.int32)
+    chunk_v = -np.sort(-rng.standard_normal((4, kc)).astype(np.float32), 1)
+    chunk_i = (n // 2 + np.stack([rng.choice(chunk_w, kc, replace=False)
+                                  for _ in range(4)])).astype(np.int32)
+    best_v[0], best_i[0] = NEG_INF, n + 1
+    best_v[2] = np.round(best_v[2])
+    chunk_v[2] = np.round(chunk_v[2])
+    chunk_v[3, kc // 2:], chunk_i[3, kc // 2:] = NEG_INF, tb.SENTINEL
+    return (np.concatenate([best_v, chunk_v], 1),
+            np.concatenate([best_i, chunk_i], 1))
+
+
+def merge_adversarial(dev, errs: dict) -> None:
+    """pruned_merge on merge_rows (k = 10 and 50) and vmem_topk on the
+    chunked merge (k = 50 beside a chunk of 8,192 and of the last 21 items,
+    k = 10): values (as int32, so signed zeros count) and ids equal to
+    pruned_merge_plain's."""
+    rng = np.random.default_rng(SEED + 7)
+    cases = []
+    for k in (K, K_EVAL):
+        vals, ids, tau, founds = merge_rows(rng, k)
+        got = ((torch.from_numpy(vals) >= torch.from_numpy(tau)[:, None])
+               & (torch.from_numpy(vals) != NEG_INF)).sum(1)
+        require(got[:len(founds)].tolist() == founds,
+                f"merge rows: {got.tolist()} survivors")
+        cases.append((f"k={k}, survivors {founds}", vals, ids, tau, k))
+    for k, chunk_w in ((K_EVAL, CHUNK), (K_EVAL, 21), (K, CHUNK)):
+        vals, ids = chunk_rows(rng, k, chunk_w)
+        cases.append((f"chunked merge k={k}, chunk {chunk_w}", vals, ids,
+                      np.full(4, NEG_INF, np.float32), k))
+    for what, vals, ids, tau, k in cases:
+        cpu = [torch.from_numpy(x) for x in (vals, ids, tau)]
+        got = tb.pruned_merge(*(x.to(dev) for x in cpu[:2]), k,
+                              cpu[2].to(dev))
+        ref = tb.pruned_merge_plain(cpu[0], cpu[1], k, cpu[2])
+        require(torch.equal(got[0].cpu().view(torch.int32),
+                            ref[0].view(torch.int32))
+                and torch.equal(got[1].cpu(), ref[1]),
+                f"pruned_merge {what}: kernel != plain")
+        errs["pruned_merge"] = max(errs.get("pruned_merge", 0.0),
+                                   max_err(got[0], ref[0]))
+
+
+def rank_rows(rng, w: int, t_count: int):
+    """(vals (4, w), ids, s_t (4, t_count), t_ids): candidates and probes
+    built to break rank_count's packed key and its segments of equal
+    keys. Candidate values from +-0.0, +-inf, NaN, +-1e-40, +-FLT_MAX, 0.5,
+    -0.5 and 1.0; ids random in [-40, 40] (negative ids, duplicates), the
+    -inf ones with the sentinel id where extract puts it; row 2 repeats
+    each pair up to 40 times in a row (+-0.0 of one id one key), row 3 has
+    extract's empty slots in every block of 50. Probes: candidate pairs as
+    they are, the same pairs with the sign of a zero flipped, NaN, -inf
+    with ids either side of the sentinel, and random values and ids."""
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40,
+                     3.4028235e38, -3.4028235e38, 0.5, -0.5, 1.0], np.float32)
+    vals = pool[rng.integers(0, len(pool), (4, w))]
+    ids = rng.integers(-40, 41, (4, w)).astype(np.int32)
+    ids[:, : w // 3] = np.where(vals[:, : w // 3] == NEG_INF, tb.SENTINEL,
+                                ids[:, : w // 3])
+    # row 2: each pair repeated 1-40 times in a row (a zero's sign flipped
+    # on every other copy); row 3: blocks of 50 whose last 40 slots are
+    # extract's empty (-inf, SENTINEL)
+    reps = rng.integers(1, 41, w)
+    at = np.repeat(np.arange(w), reps)[:w]
+    vals[2], ids[2] = vals[2, at], ids[2, at]
+    vals[2, 1::2] = np.where(vals[2, 1::2] == 0.0, -vals[2, 1::2],
+                             vals[2, 1::2])
+    empty = np.arange(w) % 50 >= 10
+    vals[3, empty], ids[3, empty] = NEG_INF, tb.SENTINEL
+    pick = rng.integers(0, w, (4, t_count))
+    s_t = np.take_along_axis(vals, pick, 1)
+    t_ids = np.take_along_axis(ids, pick, 1)
+    kind = rng.integers(0, 5, (4, t_count))
+    s_t = np.where((kind == 1) & (s_t == 0.0), -s_t, s_t)
+    s_t = np.where(kind == 2, np.nan, s_t).astype(np.float32)
+    s_t = np.where(kind == 3, NEG_INF, s_t).astype(np.float32)
+    t_ids = np.where(kind == 3,
+                     tb.SENTINEL + rng.integers(-1, 2, (4, t_count)), t_ids)
+    rand = kind == 4
+    s_t[rand] = pool[rng.integers(0, len(pool), int(rand.sum()))]
+    t_ids[rand] = rng.integers(-2 ** 31, 2 ** 31 - 1, int(rand.sum()))
+    return vals, ids, s_t, t_ids.astype(np.int32)
+
+
+def rank_adversarial(dev, errs: dict) -> None:
+    """rank_count on rank_rows at w = 37 and 2,349 (no multiple of any
+    tile, two key tiles) and T in {1, 129, 416}: equal to
+    rank_count_plain."""
+    rng = np.random.default_rng(SEED + 8)
+    for w in (37, 2349):
+        for t_count in (1, 129, 416):
+            cpu = [torch.from_numpy(x) for x in rank_rows(rng, w, t_count)]
+            got = tb.rank_count(*(x.to(dev) for x in cpu))
+            require(torch.equal(got.cpu(), tb.rank_count_plain(*cpu)),
+                    f"rank_count W={w} T={t_count}: kernel != plain")
+
+
 def rank_case(rng, n: int, b: int, width: int, t_count: int, k: int):
     """Scores, mask table and probes for the rank kernels: a tie storm, a
     row of ties, a row with fewer than k finite items, one with fewer than
@@ -437,6 +593,7 @@ def adversarial_ranks(dev, errs: dict) -> None:
         check_ranks(f"adversarial N={n} no mask",
                     torch.from_numpy(s).to(dev), None,
                     torch.from_numpy(probes).to(dev), K_EVAL, errs)
+    rank_adversarial(dev, errs)
 
 
 def check_segsum(seg, x, mask, msg: str, errs: dict):
@@ -787,6 +944,18 @@ def select_ops(found: torch.Tensor, k: int) -> int:
     rank = found <= RANK_CAP
     return int((found * found)[rank].sum()
                + (found.clamp(max=k) * found)[~rank].sum())
+
+
+def rank_segments(vals: torch.Tensor, ids: torch.Tensor,
+                  tile: int = 2048) -> torch.Tensor:
+    """(B,) segments rank_count counts over in each row: maximal runs of
+    equal adjacent packed keys (tb.rank_key) within each tile of ``tile``
+    candidates (csrc/rank_counts.cu kKeyTile)."""
+    key = tb.rank_key(vals, ids)
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[:, 1:] = key[:, 1:] != key[:, :-1]
+    new[:, ::tile] = True
+    return new.sum(1)
 
 
 def evaluate_as(m, mode: str, chunk_size: int = 0):
@@ -1291,9 +1460,9 @@ def main() -> int:
         "extract": (4 * (b * n + b * seen_w + b) + 8 * b * w_c,
                     b * n + select_ops(found, K)),
         "pruned_merge": (8 * b * w_c + 4 * b + 8 * b * K, 2 * K * b * w_c),
-        # a compare and an add per (probe, candidate) pair
+        # a compare and an add per (probe, segment of equal keys) pair
         "rank_count": (8 * be * w_r + 12 * be * t_eval,
-                       2 * be * t_eval * w_r),
+                       2 * t_eval * int(rank_segments(e_cv, e_ci).sum())),
         # a compare and an add per (found probe, column) pair
         "direct_rank": (4 * (bm_ * ML_ITEMS + bm_ * lm_ + 2 * bm_ * tm_),
                         2 * m_valid * ML_ITEMS),

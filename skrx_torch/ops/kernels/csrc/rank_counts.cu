@@ -12,60 +12,191 @@
 // All count, for each probe (score s, id t) of a row, the row's elements
 // (v, i) with v > s or (v == s and i < t): the probe's 0-based position in
 // the row's (value desc, id asc) order. The TPU kernels take at most 128
-// probes (one unrolled round each, lane-padded); here any number: one thread
-// owns one probe and keeps its count in a register, and the block walks the
-// row in shared-memory tiles that all its threads read by broadcast. Grid
-// (B, ceil(T / 128)), so a batch of 64 rows with a few hundred probes each
-// still fills the card.
+// probes (one unrolled round each, lane-padded); here any number. The block
+// walks the row in shared-memory tiles that all its threads read by
+// broadcast; in rank_lookup_count and direct_rank one thread owns one probe
+// and keeps its count in a register, in rank_count a lane holds several
+// probes as packed keys and the block's warps split each tile's segments
+// of equal keys. Grids (B,
+// probe blocks), so a batch of 64 rows with a few hundred probes each still
+// fills the card.
 //
 // Plain C interface (launch on the caller's stream, return
 // cudaGetLastError()); the wrappers in ../topk_blocks.py check shapes, types
 // and devices, allocate the outputs and count launches.
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 
 namespace {
 
 constexpr int kThreads = 128;   // probes per block
 constexpr int kTile = 2048;     // row elements staged per round
+// rank_count: probe keys a lane holds, warps that split a tile between
+// them, probes a block, candidates a tile (its segments take 24 KB)
+constexpr int kCountProbes = 4;
+constexpr int kCountWarps = 8;
+constexpr int kCountBlockProbes = 32 * kCountProbes;
+constexpr int kKeyTile = 2048;
+
+// rank_count's packed key: candidate c ranks before probe p (v_c > s_p, or
+// v_c == s_p and i_c < t_p, as floats and signed ints) exactly when
+// rank_key(c) < rank_key(p) as unsigned 64-bit integers. The high word is a
+// descending order map of the value with -0.0 and +0.0 made one (so equal
+// values fall to the id), the low word the id biased by 0x80000000 (so the
+// signed order holds). A NaN candidate gets the largest key, which no key
+// exceeds, so it is never counted; a NaN probe gets 0 (rank_probe_key),
+// below every key, so it counts nothing. Integer operations only: no flush
+// of subnormals can touch the order. topk_blocks.py's rank_key is the same
+// map in plain PyTorch (with the top bit flipped, to order as int64).
+__device__ __forceinline__ unsigned long long rank_key(float v, int id) {
+  unsigned u = __float_as_uint(v);
+  const unsigned mag = u & 0x7FFFFFFFu;
+  if (mag > 0x7F800000u) return ~0ull;              // NaN
+  if (mag == 0u) u = 0u;                            // -0.0 -> +0.0
+  const unsigned asc = u ^ ((u >> 31) ? 0xFFFFFFFFu : 0x80000000u);
+  return ((unsigned long long)~asc << 32) | (unsigned)(id ^ INT_MIN);
+}
+
+__device__ __forceinline__ unsigned long long rank_probe_key(float s, int t) {
+  return (__float_as_uint(s) & 0x7FFFFFFFu) > 0x7F800000u ? 0ull
+                                                          : rank_key(s, t);
+}
 
 // Replaces _rank_count_kernel. Counts over a (B, W) candidate set with the
-// probes' scores given. Bound: operations (one lexicographic compare and an
-// add per (probe, candidate) pair, from shared memory); the bytes are the
+// probes' scores given. The parent ran one probe a thread over the whole
+// row, ~8 instructions a (probe, candidate) pair (two shared loads, three
+// compares, two logic ops and an add), so it was bound by its compares.
+// Here each candidate and probe is one packed key (rank_key), so a pair is
+// one unsigned 64-bit compare; and equal neighbouring keys are counted
+// once: a tile of the row becomes a list of segments (key, multiplicity),
+// each a maximal run of equal adjacent keys, and a probe adds the
+// multiplicity of every segment whose key is below its own (a tile without
+// repeats counts 1 a key and reads no multiplicity). The count stays exact
+// for any input; it is cheap where the row repeats keys, as extract's
+// candidates do (a column block's empty slots are all (-inf, sentinel): at
+// the evaluation batch, B=64, W=550, ~61 segments a row).
+// A block holds 32 * kCountProbes probes, kCountProbes probe keys a lane
+// in registers (one 8-byte shared broadcast of a segment key feeds that
+// many compares, with independent counts); its kCountWarps warps hold the
+// same probes. Per tile, warp w loads its chunk of the row into registers
+// (lanes on consecutive positions), finds the segment starts against the
+// key before each position (a shuffle; lane 0 carries the last key of the
+// step before), and the block lists the segments in order in shared memory
+// (one scan over the warps); then warp w counts its share of the segments
+// and the warps' partial counts are summed through shared memory. Grid (B,
+// ceil(T / (32 * kCountProbes))): at the evaluation batch (T=416) 256
+// blocks of 8 warps. Bound: operations (a compare and an add per (probe,
+// segment) pair, and building a key per candidate); the bytes are the
 // candidates, read once per probe block, and the probes.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCountWarps * 32)
 rank_count_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
                   int w, const float* __restrict__ st,
                   const int* __restrict__ tid, int t_count,
                   int* __restrict__ out) {
-  __shared__ float sv[kTile];
-  __shared__ int si[kTile];
+  constexpr int kSteps = kKeyTile / (kCountWarps * 32);   // a warp's steps
+  __shared__ unsigned long long seg_key[kKeyTile];
+  __shared__ int seg_start[kKeyTile + 1];
+  __shared__ int part[kCountWarps][kCountBlockProbes];
+  __shared__ int warp_segs[kCountWarps];
   const long long b = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
-  const bool has = p < t_count;
-  const float s = has ? st[b * t_count + p] : 0.f;
-  const int t = has ? tid[b * t_count + p] : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p0 = blockIdx.y * kCountBlockProbes;
   const float* rv = vals + b * w;
   const int* ri = ids + b * w;
-  int cnt = 0;
-  for (int lo = 0; lo < w; lo += kTile) {
-    const int width = min(kTile, w - lo);
-    for (int e = threadIdx.x; e < width; e += kThreads) {
-      sv[e] = __ldg(rv + lo + e);
-      si[e] = __ldg(ri + lo + e);
+  unsigned long long pk[kCountProbes];
+  int cnt[kCountProbes];
+#pragma unroll
+  for (int q = 0; q < kCountProbes; ++q) {
+    const int p = p0 + lane + 32 * q;
+    pk[q] = p < t_count ? rank_probe_key(__ldg(st + b * t_count + p),
+                                         __ldg(tid + b * t_count + p))
+                        : 0ull;
+    cnt[q] = 0;
+  }
+  // probe slots of this block that hold a probe (the last block's may not)
+  const int nq = min(kCountProbes, (t_count - p0 + 31) / 32);
+  for (int lo = 0; lo < w; lo += kKeyTile) {
+    const int width = min(kKeyTile, w - lo);
+    const int chunk = ((width + kCountWarps - 1) / kCountWarps + 31) & ~31;
+    const int c0 = warp * chunk, c1 = min(width, c0 + chunk);
+    float v[kSteps];
+    int id[kSteps];
+#pragma unroll
+    for (int it = 0; it < kSteps; ++it) {
+      const int e = c0 + 32 * it + lane;
+      v[it] = e < c1 ? __ldg(rv + lo + e) : 0.f;
+      id[it] = e < c1 ? __ldg(ri + lo + e) : 0;
     }
+    unsigned long long carry = 0ull;      // the key before the step
+    if (lane == 0 && c0 > 0 && c0 < c1)
+      carry = rank_key(__ldg(rv + lo + c0 - 1), __ldg(ri + lo + c0 - 1));
+    unsigned long long key[kSteps];
+    unsigned starts[kSteps];
+    int n_mine = 0;
+#pragma unroll
+    for (int it = 0; it < kSteps; ++it) {
+      const int e = c0 + 32 * it + lane;
+      key[it] = rank_key(v[it], id[it]);
+      unsigned long long prev = __shfl_up_sync(0xffffffffu, key[it], 1);
+      if (lane == 0) prev = carry;
+      carry = __shfl_sync(0xffffffffu, key[it], 31);
+      starts[it] = __ballot_sync(0xffffffffu,
+                                 e < c1 && (e == 0 || prev != key[it]));
+      n_mine += __popc(starts[it]);
+    }
+    if (lane == 0) warp_segs[warp] = n_mine;
     __syncthreads();
-    if (has) {
-#pragma unroll 8
-      for (int e = 0; e < width; ++e) {
-        const float v = sv[e];
-        cnt += (v > s) | ((v == s) & (si[e] < t));
+    int base = 0, n_seg = 0;
+#pragma unroll
+    for (int u = 0; u < kCountWarps; ++u) {
+      base += u < warp ? warp_segs[u] : 0;
+      n_seg += warp_segs[u];
+    }
+#pragma unroll
+    for (int it = 0; it < kSteps; ++it) {
+      if ((starts[it] >> lane) & 1u) {
+        const int i = base + __popc(starts[it] & ((1u << lane) - 1u));
+        seg_key[i] = key[it];
+        seg_start[i] = c0 + 32 * it + lane;
+      }
+      base += __popc(starts[it]);
+    }
+    if (threadIdx.x == 0) seg_start[n_seg] = width;
+    __syncthreads();
+    const int per = (n_seg + kCountWarps - 1) / kCountWarps;
+    const int end = min(n_seg, (warp + 1) * per);
+    if (n_seg == width) {                 // no key repeats: each counts 1
+      for (int i = warp * per; i < end; ++i) {
+        const unsigned long long kc = seg_key[i];
+#pragma unroll
+        for (int q = 0; q < kCountProbes; ++q)
+          if (q < nq) cnt[q] += kc < pk[q];
+      }
+    } else {
+      for (int i = warp * per; i < end; ++i) {
+        const unsigned long long kc = seg_key[i];
+        const int m = seg_start[i + 1] - seg_start[i];
+#pragma unroll
+        for (int q = 0; q < kCountProbes; ++q)
+          if (q < nq) cnt[q] += kc < pk[q] ? m : 0;
       }
     }
     __syncthreads();
   }
-  if (has) out[b * t_count + p] = cnt;
+#pragma unroll
+  for (int q = 0; q < kCountProbes; ++q) part[warp][lane + 32 * q] = cnt[q];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kCountBlockProbes; i += kCountWarps * 32) {
+    const int p = p0 + i;
+    if (p < t_count) {
+      int total = 0;
+#pragma unroll
+      for (int u = 0; u < kCountWarps; ++u) total += part[u][i];
+      out[b * t_count + p] = total;
+    }
+  }
 }
 
 // Replaces _rank_lookup_count_kernel. As rank_count_kernel, but the probe
@@ -194,8 +325,9 @@ int skrx_rank_counts_abi_version() { return 1; }
 int skrx_rank_count(const float* vals, const int* ids, int b, int w,
                     const float* st, const int* tid, int t, int* out,
                     cudaStream_t stream) {
-  const dim3 grid(b, (t + kThreads - 1) / kThreads);
-  rank_count_kernel<<<grid, kThreads, 0, stream>>>(vals, ids, w, st, tid, t, out);
+  const dim3 grid(b, (t + kCountBlockProbes - 1) / kCountBlockProbes);
+  rank_count_kernel<<<grid, kCountWarps * 32, 0, stream>>>(vals, ids, w, st,
+                                                            tid, t, out);
   return (int)cudaGetLastError();
 }
 

@@ -37,11 +37,23 @@ constexpr int kExtractCols = kMaxBlockN / kExtractThreads;
 // shared-memory reads, about the cost of two or three rounds.
 constexpr int kRankCap = kExtractThreads;
 constexpr int kMaskBatch = 8;                 // mask ids a thread loads at once
-constexpr int kMergeThreads = 128;
+constexpr int kMergeThreads = 256;
+// Most survivors of a row that pruned_merge ranks directly (F), one a
+// thread; above it a tie storm takes k argmax rounds. The chunked merge at
+// k <= 128 (W = 2k) stays below it. On an H100 (chip_ab.py, B=64 rows of
+// distinct survivors) the rank pass at F took 0.005-0.006 ms, the rounds
+// at F + 1 0.0095 ms at k = 10 and 0.042 at k = 50.
+constexpr int kMergeCap = kMergeThreads;
 
 struct Pair {
   float v;
   int id;
+};
+
+struct Cand {       // a candidate of pruned_merge with its lane in the row
+  float v;
+  int id;
+  int lane;
 };
 
 // true when (av, aid) ranks before (bv, bid): value desc, then id asc
@@ -53,29 +65,46 @@ __device__ __forceinline__ Pair better(Pair a, Pair b) {
   return before(b.v, b.id, a.v, a.id) ? b : a;
 }
 
-__device__ __forceinline__ Pair warp_best(Pair p) {
-  for (int off = 16; off > 0; off >>= 1) {
-    Pair o;
-    o.v = __shfl_xor_sync(0xffffffffu, p.v, off);
-    o.id = __shfl_xor_sync(0xffffffffu, p.id, off);
-    p = better(p, o);
-  }
+// b replaces a when it ranks before a, or when it is the same pair (value
+// ==, id ==) from a lower lane
+__device__ __forceinline__ Cand better(Cand a, Cand b) {
+  const bool take = before(b.v, b.id, a.v, a.id) ||
+                    (b.v == a.v && b.id == a.id && b.lane < a.lane);
+  return take ? b : a;
+}
+
+__device__ __forceinline__ Pair shfl_xor(Pair p, int off) {
+  return Pair{__shfl_xor_sync(0xffffffffu, p.v, off),
+              __shfl_xor_sync(0xffffffffu, p.id, off)};
+}
+
+__device__ __forceinline__ Cand shfl_xor(Cand p, int off) {
+  return Cand{__shfl_xor_sync(0xffffffffu, p.v, off),
+              __shfl_xor_sync(0xffffffffu, p.id, off),
+              __shfl_xor_sync(0xffffffffu, p.lane, off)};
+}
+
+template <class P>
+__device__ __forceinline__ P warp_best(P p) {
+  for (int off = 16; off > 0; off >>= 1) p = better(p, shfl_xor(p, off));
   return p;
 }
 
-// Best pair of the block, returned to every thread. sh holds 33 pairs.
-__device__ Pair block_best(Pair p, Pair* sh) {
+// Best of the block's P, returned to every thread. sh holds 33; none is
+// what a warp past the block's last holds.
+template <class P>
+__device__ P block_best(P p, P* sh, P none) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   p = warp_best(p);
   if (lane == 0) sh[wid] = p;
   __syncthreads();
   if (wid == 0) {
-    Pair q = lane < (int)(blockDim.x >> 5) ? sh[lane] : Pair{-INFINITY, INT_MAX};
+    P q = lane < (int)(blockDim.x >> 5) ? sh[lane] : none;
     q = warp_best(q);
     if (lane == 0) sh[32] = q;
   }
   __syncthreads();
-  const Pair r = sh[32];
+  const P r = sh[32];
   __syncthreads();
   return r;
 }
@@ -290,7 +319,7 @@ extract_kernel(const float* __restrict__ scores, int n, int block_n,
         if (((keep >> q) & 1u) && (r == 0 || before(prev.v, prev.id, p.v, p.id)))
           best = better(best, p);
       }
-      best = block_best(best, sh);
+      best = block_best(best, sh, Pair{-INFINITY, INT_MAX});
       if (tid == 0) {
         ov[r] = best.v;
         oi[r] = lo + best.id;
@@ -304,40 +333,126 @@ extract_kernel(const float* __restrict__ scores, int n, int block_n,
   }
 }
 
+__device__ __forceinline__ Pair unpack(float2 p) {
+  return Pair{p.x, __float_as_int(p.y)};
+}
+
 // Replaces _pruned_merge_kernel (and, with tau = -inf, _vmem_topk_kernel).
-// One block per row: round r takes the best (value, id) pair >= tau that
-// ranks strictly after round r-1's pick, so a pair repeated across lanes is
-// taken once; the first -inf pick ends the row and the remaining slots get
-// (-inf, sentinel). Bound: bytes of the (B, W) candidates; k compares per
-// lane, from L1 (W is n_blocks * k, a few hundred lanes on the serving path).
+// One block a row. A survivor is a candidate with v >= tau and v != -inf
+// (NaN fails >=). The block lists the row's survivors in shared memory with
+// their lanes (one shared atomic a warp and a step of the row), then ranks
+// them in one pass, as extract does: thread i counts the survivors that
+// rank before survivor i by (value desc, id asc), reading the list as
+// shared-memory broadcasts, and writes survivor i to slot rank_i when
+// rank_i < k. The same pass counts the survivors that hold survivor i's
+// pair (value ==, id ==). When some pair repeats (rare: the main path's
+// candidates are distinct), a second pass takes only the first of each
+// pair, the one from the lowest lane (so -0.0 and +0.0 of one id are one
+// pair with the lowest lane's sign bit, as in pruned_merge_plain), and
+// ranks it among the first ones. Either way the ranks are a permutation of
+// distinct pairs and need no barrier between them; the slots from
+// min(k, #distinct) to k get (-inf, sentinel). At the chunked evaluation's
+// merge (W=100, every candidate a survivor) that is one row load and ~100
+// shared reads a thread where the parent ran k = 50 block-wide argmax
+// rounds. Above kMergeCap survivors (a tie storm, a wide row, up to W =
+// 16,984 in the tests) the list would cost O(found^2); the row takes k
+// argmax rounds instead, each the best (value, id, lane) after the last
+// pick, read from global memory, so its cost stays bounded by k. Bound:
+// bytes of the (B, W) candidates and the (B, k) output.
 __global__ void __launch_bounds__(kMergeThreads)
 pruned_merge_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
                     int w, const float* __restrict__ tau, int k,
                     float* __restrict__ out_v, int* __restrict__ out_i) {
-  __shared__ Pair sh[33];
+  __shared__ float2 sp[kMergeCap];   // (value, id bits): one 8-byte read
+  __shared__ int sl[kMergeCap];
+  __shared__ bool sfirst[kMergeCap];
+  __shared__ Cand sh[33];
+  __shared__ int found_sh;
   const long long b = blockIdx.x;
   const float* rv = vals + b * w;
   const int* ri = ids + b * w;
-  const float t = tau[b];
+  const float t = __ldg(tau + b);
   float* ov = out_v + b * k;
   int* oi = out_i + b * k;
-  Pair prev{INFINITY, INT_MIN};
-  int r = 0;
-  for (; r < k; ++r) {
-    Pair best{-INFINITY, INT_MAX};
-    for (int e = threadIdx.x; e < w; e += blockDim.x) {
-      const Pair p{__ldg(rv + e), __ldg(ri + e)};
-      if (p.v >= t && (r == 0 || before(prev.v, prev.id, p.v, p.id))) best = better(best, p);
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) found_sh = 0;
+  __syncthreads();
+  for (int e0 = 0; e0 < w; e0 += kMergeThreads) {
+    const int e = e0 + tid;
+    const Pair p = e < w ? Pair{__ldg(rv + e), __ldg(ri + e)}
+                         : Pair{-INFINITY, kSentinel};
+    const bool ok = p.v >= t && p.v != -INFINITY;
+    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+    if (ballot != 0u) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(&found_sh, __popc(ballot));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      const int q = base + __popc(ballot & ((1u << lane) - 1u));
+      if (ok && q < kMergeCap) {
+        sp[q] = make_float2(p.v, __int_as_float(p.id));
+        sl[q] = e;
+      }
     }
-    best = block_best(best, sh);
-    if (best.v == -INFINITY) break;
-    if (threadIdx.x == 0) {
-      ov[r] = best.v;
-      oi[r] = best.id;
-    }
-    prev = best;
   }
-  for (int q = r + threadIdx.x; q < k; q += blockDim.x) {
+  __syncthreads();
+  const int found = found_sh;
+  int distinct;
+  if (found <= kMergeCap) {
+    bool mine = tid < found;
+    const Pair me = mine ? unpack(sp[tid]) : Pair{0.f, 0};
+    int rank = 0, same = 0;
+    if (mine) {
+      for (int j = 0; j < found; ++j) {
+        const Pair o = unpack(sp[j]);
+        rank += before(o.v, o.id, me.v, me.id);
+        same += (o.v == me.v) & (o.id == me.id);
+      }
+    }
+    distinct = found;
+    if (__syncthreads_or(same > 1)) {   // a pair repeats: rank distinct pairs
+      if (mine) {
+        const int my_lane = sl[tid];
+        for (int j = 0; j < found; ++j) {
+          const Pair o = unpack(sp[j]);
+          if (o.v == me.v && o.id == me.id && sl[j] < my_lane) mine = false;
+        }
+        sfirst[tid] = mine;
+      }
+      distinct = __syncthreads_count(mine);
+      if (mine) {
+        rank = 0;
+        for (int j = 0; j < found; ++j) {
+          const Pair o = unpack(sp[j]);
+          rank += sfirst[j] && before(o.v, o.id, me.v, me.id);
+        }
+      }
+    }
+    if (mine && rank < k) {
+      ov[rank] = me.v;
+      oi[rank] = me.id;
+    }
+  } else {
+    Cand prev{INFINITY, INT_MIN, -1};
+    int r = 0;
+    for (; r < k; ++r) {
+      Cand best{-INFINITY, INT_MAX, INT_MAX};
+      for (int e = tid; e < w; e += kMergeThreads) {
+        const Cand p{__ldg(rv + e), __ldg(ri + e), e};
+        if (p.v >= t && p.v != -INFINITY &&
+            (r == 0 || before(prev.v, prev.id, p.v, p.id)))
+          best = better(best, p);
+      }
+      best = block_best(best, sh, Cand{-INFINITY, INT_MAX, INT_MAX});
+      if (best.v == -INFINITY) break;     // no survivor after prev
+      if (tid == 0) {
+        ov[r] = best.v;
+        oi[r] = best.id;
+      }
+      prev = best;
+    }
+    distinct = r;
+  }
+  for (int q = min(k, distinct) + tid; q < k; q += kMergeThreads) {
     ov[q] = -INFINITY;
     oi[q] = kSentinel;
   }

@@ -44,8 +44,8 @@ __all__ = ["blockwise_topk", "blockwise_candidates", "kth_largest",
            "pruned_merge", "vmem_topk", "submax", "extract",
            "submax_plain", "kth_largest_plain", "extract_plain",
            "pruned_merge_plain", "fold_submaxes", "order_key", "rank_count",
-           "rank_count_plain", "rank_lookup_count", "rank_lookup_count_plain",
-           "direct_rank", "direct_rank_plain",
+           "rank_count_plain", "rank_key", "rank_lookup_count",
+           "rank_lookup_count_plain", "direct_rank", "direct_rank_plain",
            "masked_topk_ranks", "masked_topk_ranks_small", "SENTINEL",
            "MAX_BLOCK_N"]
 
@@ -319,6 +319,27 @@ def rank_count_plain(vals: torch.Tensor, ids: torch.Tensor,
         above = (v > s) | ((v == s) & (i < ti))
         out[:, lo:lo + 64] = above.sum(2, dtype=torch.int32)
     return out
+
+
+def rank_key(vals: torch.Tensor, ids: torch.Tensor,
+             probe: bool = False) -> torch.Tensor:
+    """int64 keys of ``csrc/rank_counts.cu``'s packed key (``rank_key``,
+    and ``rank_probe_key`` with ``probe``), top bit flipped so that they
+    order as signed int64: a candidate (v, i) counts before a probe (s, t)
+    in :func:`rank_count_plain` exactly when key(v, i) < key(s, t, probe).
+    High word: a descending order map of the value, -0.0 and +0.0 one;
+    low word: the id biased by 2**31. A NaN candidate gets the largest key,
+    a NaN probe the smallest. The kernel's map in plain PyTorch; the
+    kernel's wrapper does not use it."""
+    u = vals.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = u & 0x7FFFFFFF
+    u = torch.where(mag == 0, 0, u)
+    asc = torch.where(u >= 2 ** 31, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+    hi = 0xFFFFFFFF - asc
+    key = (hi - 2 ** 31) * 2 ** 32 + (ids.to(torch.int64) + 2 ** 31)
+    nan = torch.iinfo(torch.int64).min if probe else torch.iinfo(
+        torch.int64).max
+    return torch.where(mag > 0x7F800000, nan, key)
 
 
 def rank_count(vals: torch.Tensor, ids: torch.Tensor, s_t: torch.Tensor,

@@ -239,3 +239,190 @@ def test_chip_ab_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr("sys.argv", ["chip_ab.py", "--parent", "."])
     assert mod.main() == 2
+
+
+@pytest.mark.parametrize("source,has_merge", [("parent", True),
+                                               ("this tree", False)])
+def test_phase_1_runs_for_a_parent_with_the_two_launch_propagation(
+        tmp_path, source, has_merge):
+    """chip_ab.py runs phase 1 when the parent's segsum.cu declares
+    skrx_segsum_merge (the two-launch propagation), as PARENT_DECLS does
+    and this tree's segsum.cu does not."""
+    path = tmp_path / "segsum.cu"
+    path.write_text(PARENT_DECLS)
+    if source == "this tree":
+        path = os.path.join(CSRC, "segsum.cu")
+    decls = _chip_ab().c_declarations(str(path))
+    assert "skrx_segsum" in decls
+    assert ("skrx_segsum_merge" in decls) == has_merge
+
+
+@pytest.mark.parametrize("case", ["random", "tau -inf", "repeated pairs",
+                                  "NaN", "wide"])
+def test_merge_survivors_count_each_rows_survivors(case):
+    """The survivors pruned_merge lists a row, against a numpy loop: v >=
+    tau and finite from below (NaN fails), repeated pairs each time."""
+    rng = np.random.default_rng(12)
+    b, w, k = 6, 110, 10
+    vals = rng.standard_normal((b, w)).astype(np.float32)
+    tau = np.quantile(vals, 0.85, axis=1).astype(np.float32)
+    vals[0, :30] = -np.inf
+    if case == "tau -inf":
+        tau[:] = -np.inf
+    elif case == "repeated pairs":
+        vals[:, :20] = 9.0
+    elif case == "NaN":
+        vals[:, ::3] = np.nan
+    elif case == "wide":
+        w = 600
+        vals = rng.standard_normal((b, w)).astype(np.float32)
+        tau[:] = -1.0
+    found = np.array([int(((row >= t) & (row != -np.inf)).sum())
+                      for row, t in zip(vals, tau)])
+    mod = _chip_ab()
+    got = mod.merge_survivors(torch.from_numpy(vals), torch.from_numpy(tau),
+                              k)
+    assert got["rows"] == b and got["max"] == found.max()
+    np.testing.assert_allclose(got["mean"], found.mean())
+    for key, share in (("share_le_32", found <= 32),
+                       ("share_ge_k", found >= k),
+                       ("share_gt_cap", found > mod.MERGE_CAP)):
+        np.testing.assert_allclose(got[key], share.mean())
+    with open(os.path.join(CSRC, "topk_blocks.cu")) as f:   # F, as built
+        src = f.read()
+    assert "constexpr int kMergeCap = kMergeThreads;" in src
+    assert f"constexpr int kMergeThreads = {mod.MERGE_CAP};" in src
+
+
+@pytest.mark.parametrize("chunk", [256, 300])
+def test_chunk_merge_input_is_the_evaluators_second_merge(tmp_path,
+                                                          monkeypatch,
+                                                          chunk):
+    """chunk_merge_input builds the chunked evaluate()'s second merge: the
+    running best after the first chunk beside the second chunk's masked
+    top-k, so merging it gives the masked top-k of the first two chunks;
+    the first half is sorted, with (-inf, N + 1) only where a row has
+    fewer than k items."""
+    from skrx_torch import ModelRegistry, RunConfig
+    from skrx_torch.io import synthetic
+    from skrx_torch.ops import metrics
+    from skrx_torch.ops.kernels import topk_blocks as tb
+    monkeypatch.chdir(tmp_path)
+    data = synthetic.make_dataset_dir(str(tmp_path), num_users=40,
+                                      num_items=700, num_ratings=2500, seed=3)
+    reg = ModelRegistry()
+    reg.load_skrx_model("BPRMF")
+    cls, _ = reg.get_model("BPRMF")
+    m = cls(RunConfig(data_dir=data, seed=3), dict(n_dim=8, epochs=1),
+            device="cpu")
+    users = np.arange(7)
+    n, k = m.num_items, 10
+    train_t = torch.from_numpy(m.evaluator._tables_for(users, n)[0])
+    vals, ids = _chip_ab().chunk_merge_input(m, users, train_t, k, n, chunk)
+    assert vals.shape == ids.shape == (7, 2 * k)
+    got = tb.vmem_topk(vals, ids, k)
+    scores = m.predict_chunk(users, 0, 2 * chunk)
+    mask = torch.where(train_t < 2 * chunk, train_t, 2 * chunk)
+    ref = tb.pruned_merge_plain(
+        metrics.mask_items(scores, mask),
+        torch.arange(2 * chunk, dtype=torch.int32).expand(7, -1).contiguous(),
+        k, torch.full((7,), float("-inf")))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    best = vals[:, :k]
+    assert (best == torch.sort(best, 1, descending=True)[0]).all()
+
+
+@pytest.mark.parametrize("case", ["random", "empty slots", "repeats",
+                                  "signed zeros", "NaN", "two tiles"])
+def test_rank_segments_count_runs_of_equal_keys(case):
+    """The segments rank_count counts over, against a numpy loop: a new
+    segment at every tile start and wherever the (value, id) pair changes,
+    -0.0 and +0.0 of one id one key, every NaN candidate one key whatever
+    its id."""
+    rng = np.random.default_rng(14)
+    b, w, tile = 3, 300, 2048
+    vals = rng.standard_normal((b, w)).astype(np.float32)
+    ids = rng.integers(0, 1000, (b, w)).astype(np.int32)
+    if case == "empty slots":
+        vals[:, np.arange(w) % 50 >= 5] = -np.inf
+        ids[:, np.arange(w) % 50 >= 5] = 2 ** 30 - 1
+    elif case == "repeats":
+        at = np.repeat(np.arange(w), 7)[:w]
+        vals, ids = vals[:, at], ids[:, at]
+    elif case == "signed zeros":
+        vals[:] = np.where(np.arange(w) % 2, 0.0, -0.0)
+        ids[:] = 4
+    elif case == "NaN":
+        vals[:, 100:200] = np.nan
+    elif case == "two tiles":
+        w, tile = 300, 128
+        vals[:] = 1.0
+        ids[:] = 2
+    want = []
+    for r in range(b):
+        pairs = [("nan", 0) if np.isnan(x) else (0.0 if x == 0 else float(x),
+                                                 int(j))
+                 for x, j in zip(vals[r], ids[r])]
+        want.append(sum(e % tile == 0 or pairs[e] != pairs[e - 1]
+                        for e in range(w)))
+    smoke = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(smoke)
+    smoke.loader.exec_module(mod)
+    got = mod.rank_segments(torch.from_numpy(vals), torch.from_numpy(ids),
+                            tile)
+    assert got.tolist() == want
+    with open(os.path.join(CSRC, "rank_counts.cu")) as f:   # the tile, built
+        assert "constexpr int kKeyTile = 2048;" in f.read()
+
+
+def test_rank_count_cases_are_masked_topk_ranks_inputs(tmp_path,
+                                                      monkeypatch):
+    """rank_count_cases gives rank_count what masked_topk_ranks gives it in
+    an evaluation batch (so the counts are its ranks wherever the test item
+    is valid), and the last case the first one's candidates with the empty
+    slots' ids made distinct: no two adjacent keys equal."""
+    from skrx_torch import ModelRegistry, RunConfig
+    from skrx_torch.io import synthetic
+    from skrx_torch.ops.kernels import topk_blocks as tb
+    monkeypatch.chdir(tmp_path)
+    data = synthetic.make_dataset_dir(str(tmp_path), num_users=30,
+                                      num_items=6500, num_ratings=7000,
+                                      seed=4)
+    reg = ModelRegistry()
+    reg.load_skrx_model("BPRMF")
+    cls, _ = reg.get_model("BPRMF")
+    m = cls(RunConfig(data_dir=data, seed=4), dict(n_dim=8, epochs=1),
+            device="cpu")
+    users = np.fromiter(m.evaluator.user_pos_test, np.int64)[:6]
+    cases = _chip_ab().rank_count_cases(m, [users])
+    assert [c[0] for c in cases] == ["", ", no repeated keys"]
+    _, cand_v, cand_i, s_t, probes = cases[0]
+    tr, te, _ = (torch.from_numpy(x)
+                 for x in m.evaluator._tables_for(users, m.num_items))
+    want = tb.masked_topk_ranks(m.predict(users), 50, te, tr)
+    got = tb.rank_count(cand_v, cand_i, s_t, probes)
+    assert torch.equal(torch.where(want < 50, got, want), want)
+    _, v2, i2, s2, p2 = cases[1]
+    assert v2 is cand_v and s2 is s_t and p2 is probes
+    assert torch.equal(i2 == cand_i, cand_i != tb.SENTINEL)
+    key = tb.rank_key(v2, i2)
+    assert bool((key[:, 1:] != key[:, :-1]).all())
+
+
+def test_rank_count_designs_need_a_card(monkeypatch):
+    spec = importlib.util.spec_from_file_location(
+        "rank_count_designs",
+        os.path.join(ROOT, "experiments", "rank_count_designs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main() == 2
+    with open(os.path.join(ROOT, "experiments",
+                           "rank_count_designs.cu")) as f:
+        src = f.read()
+    for name in mod.DESIGNS:           # each launcher typed from its source
+        assert _chip_ab().c_argtypes(
+            mod.SOURCE, f"skrx_rank_count_{name}") == \
+            runtime._SIGNATURES["skrx_rank_count"][1] + [P]
+        assert f"int skrx_rank_count_{name}(" in src

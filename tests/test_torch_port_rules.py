@@ -18,7 +18,8 @@ NEVER = {"jax", "jaxlib", "skrx", "pandas"}
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "chip_ab.py"),
-             os.path.join(ROOT, "experiments", "segsum_merge_variants.py")]
+             os.path.join(ROOT, "experiments", "segsum_merge_variants.py"),
+             os.path.join(ROOT, "experiments", "rank_count_designs.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
@@ -476,6 +477,60 @@ def test_cuda_extract_matches_plain_version_at_survivor_boundaries(k):
     assert torch.equal(i.cpu(), ri)
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["extract"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 50])
+def test_cuda_pruned_merge_matches_plain_version_at_survivor_boundaries(k):
+    """pruned_merge where a row holds 0, 1, 31, 32, 33, k - 1, k, k + 1, F
+    and F + 1 survivors (F: the most it ranks directly), repeated pairs
+    with +-0.0 on both sides of F, NaN candidates, and vmem_topk on the
+    chunked evaluation's merge (a chunk of 8,192 items and the last 21),
+    against pruned_merge_plain on CPU copies: values as int32 and ids equal
+    (needs a card, as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(k)
+    vals, ids, tau, _ = smoke.merge_rows(rng, k)
+    cases = [(vals, ids, tau)] + [
+        smoke.chunk_rows(rng, k, chunk_w) + (np.full(4, -np.inf, np.float32),)
+        for chunk_w in (8192, 21)]
+    runtime.reset_launches()
+    for vals, ids, tau in cases:
+        cpu = [torch.from_numpy(x) for x in (vals, ids, tau)]
+        v, i = ttb.pruned_merge(cpu[0].cuda(), cpu[1].cuda(), k, cpu[2].cuda())
+        rv, ri = ttb.pruned_merge_plain(cpu[0], cpu[1], k, cpu[2])
+        assert torch.equal(v.cpu().view(torch.int32), rv.view(torch.int32))
+        assert torch.equal(i.cpu(), ri)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["pruned_merge"] == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [37, 2349])
+@pytest.mark.parametrize("t", [1, 129, 416])
+def test_cuda_rank_count_matches_plain_version_on_adversarial_keys(w, t):
+    """rank_count on +-0.0 ties between probe and candidate, NaN candidates
+    and probes, -inf candidates with the sentinel id against -inf probes,
+    negative ids and probes equal to a candidate pair, W not a multiple of
+    any tile, against rank_count_plain on CPU copies (needs a card, as
+    above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    rows = _chip_smoke().rank_rows(np.random.default_rng(w + t), w, t)
+    cpu = [torch.from_numpy(x) for x in rows]
+    runtime.reset_launches()
+    got = ttb.rank_count(*(x.cuda() for x in cpu))
+    assert torch.equal(got.cpu(), ttb.rank_count_plain(*cpu))
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["rank_count"] == 1
 
 
 @pytest.mark.cuda

@@ -377,6 +377,76 @@ def test_vmem_topk_matches_jax(seed, w, k):
     np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("k,chunk_w", [(50, 8192), (50, 21), (10, 8192)])
+def test_chunked_merge_matches_jax(k, chunk_w):
+    """The chunked evaluation's merge (the running best, sorted, empty
+    slots (-inf, N + 1), beside one chunk's sorted top-k, empty slots
+    (-inf, SENTINEL); the last Gowalla chunk has 21 items): vmem_topk
+    against JAX's vmem_topk in interpret mode."""
+    vals, ids = _chip_smoke().chunk_rows(np.random.default_rng(k + chunk_w),
+                                         k, chunk_w)
+    ref_v, ref_i = jtb.vmem_topk(jnp.asarray(vals), jnp.asarray(ids), k,
+                                 interpret=True)
+    v, i = ttb.vmem_topk(_t(vals), _t(ids), k)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(ref_v))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
+
+
+@pytest.mark.parametrize("k", [10, 50])
+def test_merge_at_survivor_boundaries_matches_jax(k):
+    """Rows of k, k + 1, F and F + 1 survivors (F: the most survivors the
+    kernel ranks directly, above it k argmax rounds) at tau = 1.0, a valid
+    bound: pruned_merge against JAX's pruned_merge, and vmem_topk on the
+    same rows against JAX's vmem_topk, in interpret mode (no signed zeros
+    or NaN: JAX orders them otherwise)."""
+    vals, ids, tau, founds = _chip_smoke().merge_rows(
+        np.random.default_rng(k), k)
+    cap = _chip_smoke().MERGE_CAP
+    rows = [founds.index(f) for f in (k, k + 1, cap, cap + 1)]
+    vals, ids, tau = vals[rows], ids[rows], tau[rows]
+    assert ((vals >= 1.0).sum(1) == [k, k + 1, cap, cap + 1]).all()
+    ref_v, ref_i = jtb.pruned_merge(jnp.asarray(vals), jnp.asarray(ids), k,
+                                    jnp.asarray(tau), interpret=True)
+    v, i = ttb.pruned_merge(_t(vals), _t(ids), k, _t(tau))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(ref_v))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
+    ref_v, ref_i = jtb.vmem_topk(jnp.asarray(vals), jnp.asarray(ids), k,
+                                 interpret=True)
+    v, i = ttb.vmem_topk(_t(vals), _t(ids), k)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(ref_v))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
+
+
+def test_rank_key_orders_as_rank_count_plain():
+    """The kernel's packed key in plain PyTorch: key(c) < key(p, probe)
+    exactly when rank_count_plain counts candidate c before probe p, on
+    every pair drawn from +-0.0, +-inf, NaN, subnormals, +-FLT_MAX and ids
+    {INT_MIN, -1, 0, 1, INT_MAX // 2, INT_MAX}; and counting with it gives
+    rank_count_plain's counts."""
+    fmax = np.finfo(np.float32).max
+    values = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-45,
+                       -1e-45, 1e-40, -1e-40, fmax, -fmax, 1.0, -1.0],
+                      np.float32)
+    id_set = np.array([-2 ** 31, -1, 0, 1, 2 ** 31 // 2 - 1, 2 ** 31 - 1],
+                      np.int32)
+    v, i = (x.ravel() for x in np.meshgrid(values, id_set, indexing="ij"))
+    v, i = _t(v), _t(i)
+    got = ttb.rank_key(v, i)[:, None] < ttb.rank_key(v, i, probe=True)[None]
+    want = (v[:, None] > v[None]) | ((v[:, None] == v[None])
+                                     & (i[:, None] < i[None]))
+    assert torch.equal(got, want)
+    counts = ttb.rank_count_plain(v[None], i[None], v[None], i[None])
+    assert torch.equal(counts[0], got.sum(0, dtype=torch.int32))
+
+
 # ------------------------------------------------------ topk_scores_and_indices
 
 @pytest.mark.parametrize("b,n,k,masked", [(7, 300, 10, True),
