@@ -49,7 +49,20 @@ new, new, parent. On the synthetic Gowalla-scale data of ``chip_smoke.py``
    the probes as masked_topk_ranks gives them), at B=1,024, and at B=64
    with the empty slots' ids made distinct (no two adjacent keys equal,
    the new kernel's worst case), each after the segments of equal keys a
-   row (``chip_smoke.rank_segments``).
+   row (``chip_smoke.rank_segments``);
+5. submax at the evaluation shape (B=64 test users, the evaluator's train
+   table) and the serving shape (B=1,024 users, the seen table): equal to
+   the parent's as int32 views, the (row, group) printed wherever a signed
+   zero differs (:func:`sign_flips`), and equal to submax_plain;
+6. rank_lookup_count on fused evaluate()'s inputs (B=64 test users, the
+   candidates of dot_topk_candidates at k=50, W=550, the evaluator's test
+   table as the probe ids, T=416), then the same with every empty slot
+   given a distinct finite value below its row's smallest (no -inf lane:
+   the new kernel's lookup list as long as the row, its worst case), each
+   after the segments of equal keys and the lanes not -inf a row
+   (:func:`lookup_cases`); then the NaN row, a NaN at a found probe's id
+   in each row: the new kernel against rank_lookup_count_plain, and the
+   (row, probe) where the parent differs from it.
 
 Prints one line per measurement with the card's name, power limit and SM
 clock, and writes every number to ``chiprun_out/chip_ab.json``. Exits 2
@@ -73,6 +86,7 @@ from chip_smoke import (CHUNK, MERGE_CAP, RANK_CAP, card_line, device_ms,
 from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.io import synthetic
 from skrx_torch.ops.kernels import _build
+from skrx_torch.ops.kernels import dot_topk as dt
 from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.kernels import topk_blocks as tb
 from skrx_torch.ops.metrics import topk_scores_and_indices
@@ -263,6 +277,56 @@ def rank_count_cases(model, user_batches) -> list:
     return cases
 
 
+def sign_flips(got: torch.Tensor, ref: torch.Tensor) -> list:
+    """[(row, column)] where f32 ``got`` and ``ref`` are equal as floats
+    but not as int32 views: the signed zeros on which they differ."""
+    got, ref = got.cpu(), ref.cpu()
+    return ((got == ref) & (got.view(torch.int32) != ref.view(torch.int32))
+            ).nonzero().tolist()
+
+
+def lookup_cases(model, users, k: int = 50) -> list:
+    """[(note, cand_v, cand_i, probes)]: rank_lookup_count's inputs in the
+    fused evaluate() of these users, as RankingEvaluator.evaluate_fused
+    gives them (the candidates of dot_topk_candidates at k with the
+    evaluator's train table as the mask, the test table's ids as the
+    probes); then the same with every empty slot (-inf) given a distinct
+    finite value below its row's smallest, so that no lane is -inf (a found
+    probe keeps its rank); then the NaN row: in each row the first probe
+    made the id of the row's first candidate that is not -inf, and the
+    first empty slot (NaN, that id), a repeated id whose looked-up score is
+    NaN, so that the probe is not found and ranks 0."""
+    ev = model.evaluator
+    u_all, i_all = model._chunk_embeddings()
+    bias = model._chunk_bias() if hasattr(model, "_chunk_bias") else None
+    dev = u_all.device
+    tr, te, _ = (torch.from_numpy(x).to(dev)
+                 for x in ev._tables_for(users, model.num_items))
+    cand_v, cand_i, _ = dt.dot_topk_candidates(
+        u_all.detach()[torch.as_tensor(users, device=dev)], None, None, k, tr,
+        packed=dt.pack_items(i_all.detach(), None if bias is None
+                             else bias.detach()))
+    probes = te.to(torch.int32).contiguous()
+    cases = [("", cand_v, cand_i, probes)]
+    empty = cand_v == float("-inf")
+    low = torch.where(empty, float("inf"), cand_v).amin(1, keepdim=True)
+    low = torch.where(torch.isfinite(low), low, 0.0)
+    lane = torch.arange(1, cand_v.shape[1] + 1, device=dev)
+    fill = low - lane * (low.abs() + 1.0) * 2.0 ** -12
+    cases.append((", no -inf lane",
+                  torch.where(empty, fill, cand_v).contiguous(), cand_i,
+                  probes))
+    nan_v, nan_i, nan_p = cand_v.clone(), cand_i.clone(), probes.clone()
+    for r in range(cand_v.shape[0]):
+        real, slot = (~empty[r]).nonzero(), empty[r].nonzero()
+        if len(real) and len(slot):
+            nan_p[r, 0] = cand_i[r, real[0, 0]]
+            nan_v[r, slot[0, 0]] = float("nan")
+            nan_i[r, slot[0, 0]] = cand_i[r, real[0, 0]]
+    cases.append((", NaN row", nan_v, nan_i, nan_p))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
@@ -380,12 +444,13 @@ def main() -> int:
     # --------------------------------------------------------- extract
     parent_extract = c_fn(libs["parent_topk"], src["parent_topk"],
                           "skrx_extract")
-    cases = {"B=64 k=50 (evaluation)": (
-                 bpr.predict(u64),
-                 torch.from_numpy(ev._tables_for(u64, ITEMS)[0]).to(dev),
-                 50),
-             "B=1024 k=10 (serving)": (bpr.predict(u1k), seen[u1k], 10)}
-    for tag, (scores, mask, k) in cases.items():
+    select_cases = {"B=64 k=50 (evaluation)": (
+                        bpr.predict(u64),
+                        torch.from_numpy(ev._tables_for(u64, ITEMS)[0]).to(dev),
+                        50),
+                    "B=1024 k=10 (serving)": (bpr.predict(u1k), seen[u1k],
+                                              10)}
+    for tag, (scores, mask, k) in select_cases.items():
         scores, mask = scores.contiguous(), mask.contiguous()
         b, n = scores.shape
         tau = tb.kth_largest(tb.fold_submaxes(
@@ -508,6 +573,77 @@ def main() -> int:
         tag = f"B={b} W={w} T={t} k=50{note}"
         equal(f"rank_count {tag}", [run_new()], [out])
         report(f"rank_count {tag}", in_turns(
+            {"parent": run_parent, "new": run_new},
+            ["parent", "new", "new", "parent"]))
+
+    # ---------------------------------------------------------- submax
+    parent_sm = c_fn(libs["parent_topk"], src["parent_topk"], "skrx_submax")
+    for tag, (scores, mask, _) in select_cases.items():
+        scores, mask = scores.contiguous(), mask.contiguous()
+        b, n = scores.shape
+        out = torch.empty((b, -(-n // BLOCK_N) * tb.GROUPS), device=dev)
+
+        def run_parent():
+            parent_sm(ptr(scores), b, n, BLOCK_N, ptr(mask), mask.shape[1],
+                      ptr(out))
+
+        def run_new():
+            return tb.submax(scores, mask, BLOCK_N)
+        run_parent()
+        got = run_new()
+        flips = sign_flips(got, out)
+        results[f"submax {tag}: signed zeros unlike the parent's"] = flips
+        print(f"submax {tag}: (row, group) where a signed zero differs from "
+              f"the parent's: {flips}", flush=True)
+        if not flips:
+            equal(f"submax {tag}", [got], [out])
+        equal(f"submax {tag} vs submax_plain", [got],
+              [tb.submax_plain(scores, mask, BLOCK_N)])
+        report(f"submax {tag}", in_turns(
+            {"parent": run_parent, "new": run_new},
+            ["parent", "new", "new", "parent"]))
+
+    # ----------------------------------------------- rank_lookup_count
+    parent_rl = c_fn(libs["parent_rank"], src["parent_rank"],
+                     "skrx_rank_lookup_count")
+    for note, cand_v, cand_i, probes in lookup_cases(bpr, u64):
+        b, w = cand_v.shape
+        t = probes.shape[1]
+        out = torch.empty((b, t), device=dev, dtype=torch.int32)
+        fnd = torch.empty((b, t), device=dev, dtype=torch.bool)
+        segs = rank_segments(cand_v, cand_i).double()
+        listed = (cand_v != float("-inf")).sum(1).double()
+        print(f"rank_lookup_count B={b}{note}: a row's segments of equal "
+              f"keys mean {float(segs.mean())}, max {int(segs.max())}; its "
+              f"lanes not -inf mean {float(listed.mean())}, max "
+              f"{int(listed.max())}", flush=True)
+
+        def run_parent():
+            parent_rl(ptr(cand_v), ptr(cand_i), b, w, ptr(probes), t,
+                      ptr(out), ptr(fnd))
+
+        def run_new():
+            return tb.rank_lookup_count(cand_v, cand_i, probes)
+        run_parent()
+        tag = f"B={b} W={w} T={t} k=50{note}"
+        if note == ", NaN row":
+            plain = tb.rank_lookup_count_plain(cand_v.cpu(), cand_i.cpu(),
+                                               probes.cpu())
+            equal(f"rank_lookup_count {tag} vs rank_lookup_count_plain",
+                  run_new(), [x.to(dev) for x in plain])
+            bad = ((out.cpu() != plain[0]) | (fnd.cpu() != plain[1])
+                   ).nonzero().tolist()
+            results[f"parent vs plain, rank_lookup_count {tag}"] = bad
+            print(f"parent rank_lookup_count {tag}: (row, probe) where its "
+                  f"rank or found differs from rank_lookup_count_plain: "
+                  f"{bad}" + "".join(
+                      f"; row {r} probe {q}: parent ({int(out[r, q])}, "
+                      f"{bool(fnd[r, q])}), plain ({int(plain[0][r, q])}, "
+                      f"{bool(plain[1][r, q])})" for r, q in bad[:4]),
+                  flush=True)
+            continue
+        equal(f"rank_lookup_count {tag}", run_new(), [out, fnd])
+        report(f"rank_lookup_count {tag}", in_turns(
             {"parent": run_parent, "new": run_new},
             ["parent", "new", "new", "parent"]))
 

@@ -33,8 +33,13 @@ skrx_torch fails and it exits 1):
    int32; rank_count on +-0.0 ties between probe and candidate, NaN
    candidates and probes, -inf candidates with the sentinel id against
    -inf probes, negative ids, probes equal to a candidate pair, runs of
-   repeated keys, W in {37, 2,349} and T in {1, 129, 416}. Selection and
-   counting do no arithmetic, so values, ids and ranks must be equal.
+   repeated keys, W in {37, 2,349} and T in {1, 129, 416}; submax at
+   block_n in {4,096, 256, 128}, N in {40,981, 1,000}, with and without a
+   mask, on groups of +0.0 before -0.0, -0.0 before +0.0, -0.0 only, NaN
+   of either sign, +inf beside NaN and a fully masked row (its max as
+   jnp.maximum folds: NaN when the group holds one, -0.0 below +0.0; values
+   as int32). Selection and counting do no arithmetic, so values, ids and
+   ranks must be equal (NaN equal to NaN by isnan, not by payload).
 3. Serving: Gowalla-scale synthetic data (29,858 users, 40,981 items,
    1,027,370 interactions), BPRMF at its defaults (n_dim=64, random weights
    from a seed) built by name on cuda, TopKRecommender.recommend for
@@ -84,8 +89,12 @@ skrx_torch fails and it exits 1):
    60, 128, 512}, no bias, probes masked, out of range, padding,
    duplicated, one or more than 128 a row; dot_submax alone at B=1, 7 and
    33 (each block split over 8 CTAs) with mask ids in every CTA's slice,
-   repeated columns and a zero user vector over a +-0.0 bias, d in {8, 60,
-   64, 128, 512} (bits equal, torch.equal of the int32 views).
+   repeated columns, a zero user vector over a +-0.0 bias and a NaN bias
+   on a few items, d in {8, 60, 64, 128, 512} (the int32 views equal, NaN
+   by isnan); rank_lookup_count on rows whose ids repeat with NaN, -inf
+   and finite copies, rows of extract's empty slots, a row with no -inf
+   lane, probes equal to the sentinel, W in {37, 550, 2,049, 5,000} (up to
+   three tiles) and T in {1, 129, 416}.
    TopKRecommender(fused="always") for BPRMF and LightGCN at 1, 64 and
    1,024 users: equal to dot_topk's plain version on CPU copies, no seen
    item, within 1e-5 of the score-matrix route (ids equal where its values
@@ -181,6 +190,7 @@ MERGE_CAP = 256
 F32_OPS = 67e12
 MEM_RATE = 3.35e12
 NEG_INF = float("-inf")
+INT_MIN = -2 ** 31                      # -0.0 as int32
 
 
 def card_line() -> str:
@@ -196,22 +206,42 @@ def require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def same(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """got == ref entrywise, NaN equal to NaN (by isnan, not by payload:
+    JAX's and the kernels' NaN bits are their own)."""
+    eq = got == ref
+    return eq | (got.isnan() & ref.isnan()) if got.is_floating_point() else eq
+
+
+def same_bits(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """f32 tensors equal as int32 views (so -0.0 differs from +0.0), NaN
+    equal to NaN by isnan."""
+    got, ref = got.cpu(), ref.cpu()
+    nan = ref.isnan()
+    return (torch.equal(got.isnan(), nan)
+            and torch.equal(got.view(torch.int32)[~nan],
+                            ref.view(torch.int32)[~nan]))
+
+
 def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """Largest |got - ref| with equal entries (-inf included) counted 0."""
+    """Largest |got - ref| with equal entries (-inf and NaN included)
+    counted 0."""
     got, ref = got.cpu().double(), ref.cpu().double()
-    diff = torch.where(got == ref, torch.zeros_like(got), (got - ref).abs())
+    diff = torch.where(same(got, ref), torch.zeros_like(got),
+                       (got - ref).abs())
     return float(diff.max()) if diff.numel() else 0.0
 
 
 def expect_equal(what: str, got, ref, errs: dict, key: str) -> None:
-    """Values (and int ids) of the kernel equal the plain version's."""
+    """Values (and int ids) of the kernel equal the plain version's, NaN
+    equal to NaN by isnan."""
     for g, r in zip(got, ref):
         g = g.cpu()
         require(g.shape == r.shape and g.dtype == r.dtype,
                 f"{what}: {g.shape} {g.dtype} != {r.shape} {r.dtype}")
         # == on floats: -inf equals -inf, -0.0 equals +0.0 (ids decide ties)
-        require(bool((g == r).all()), f"{what}: kernel != plain (max abs "
-                                      f"err {max_err(g, r)})")
+        require(bool(same(g, r).all()), f"{what}: kernel != plain (max abs "
+                                        f"err {max_err(g, r)})")
         if g.dtype == torch.float32:
             errs[key] = max(errs.get(key, 0.0), max_err(g, r))
 
@@ -285,6 +315,65 @@ def adversarial(dev, errs: dict) -> None:
     kth_adversarial(dev, errs)
     extract_adversarial(dev, errs)
     merge_adversarial(dev, errs)
+    submax_nan_adversarial(dev, errs)
+
+
+def submax_rows(rng, n: int, block_n: int):
+    """(scores (8, n), mask table (8, n)): rows built to break submax's max
+    as JAX's fold (jnp.maximum) takes it, NaN when a group holds one and
+    -0.0 below +0.0. With t a column's place in its group ((c % block_n) //
+    128): row 0 +0.0 at t = 0 and -0.0 after it, row 1 -0.0 before a +0.0
+    at the last t, row 2 -0.0 only, row 3 zeros of either sign among
+    negatives, row 4 NaN of either sign in one column in 500 (at least 4),
+    row 5 +inf at t = 0 and NaN at the last t, row 6 normals and -inf, row
+    7 fully masked. Mask rows 0-6: 40 ids of [-3, n + 3) (out of range
+    ids, duplicates), then padding (n)."""
+    s = rng.standard_normal((8, n)).astype(np.float32)
+    c = np.arange(n)
+    t = (c % block_n) // 128
+    # the column at its group's last place (its block may be narrower)
+    last = c % block_n + 128 >= np.minimum(block_n, n - c // block_n * block_n)
+    s[0] = np.where(t == 0, 0.0, -0.0)
+    s[1] = np.where(last, 0.0, -0.0)
+    s[2] = -0.0
+    zero = rng.random(n) < 0.3
+    s[3] = np.where(zero, np.where(rng.random(n) < 0.5, 0.0, -0.0),
+                    -np.abs(s[3]))
+    nan = rng.choice(n, max(4, n // 500), replace=False)
+    s[4, nan] = np.where(rng.random(len(nan)) < 0.5, np.nan, -np.nan)
+    s[5, t == 0] = np.inf
+    s[5, last] = np.nan
+    s[6, rng.random(n) < 0.5] = NEG_INF
+    mask = np.full((8, n), n, np.int32)
+    mask[:7, :40] = rng.integers(-3, n + 3, (7, 40))
+    mask[7] = np.arange(n)
+    return s, mask
+
+
+def submax_nan_adversarial(dev, errs: dict) -> None:
+    """submax on submax_rows at block_n in {4,096, 256, 128} over the
+    Gowalla catalog (a last block of 21 columns at 4,096) and N = 1,000,
+    with and without the mask table: equal to submax_plain as int32 views
+    (signed zeros count), NaN by isnan."""
+    rng = np.random.default_rng(SEED + 9)
+    for n in (ITEMS, 1000):
+        for block_n in (BLOCK_N, 256, 128):
+            s, mask = (torch.from_numpy(x) for x in submax_rows(rng, n,
+                                                                 block_n))
+            for m in (mask, None):
+                got = tb.submax(s.to(dev), None if m is None else m.to(dev),
+                                block_n)
+                ref = tb.submax_plain(s, m, block_n)
+                require(same_bits(got, ref),
+                        f"submax N={n} block_n={block_n} mask="
+                        f"{m is not None}: kernel != plain")
+                require(bool((ref[1].view(torch.int32) == 0).any())
+                        and bool((ref[2].view(torch.int32) == INT_MIN).any())
+                        and bool(ref[4].isnan().any())
+                        and bool(ref[5].isnan().any()),
+                        "submax rows hold +0.0, -0.0 and NaN groups")
+                errs["submax"] = max(errs.get("submax", 0.0),
+                                     max_err(got, ref))
 
 
 def kth_rows(rng, w: int) -> np.ndarray:
@@ -764,6 +853,51 @@ def lookup_probes(rng, ids, mask, n: int, t_count: int) -> np.ndarray:
     return p[:, :t_count].astype(np.int32)
 
 
+def lookup_rows(rng, w: int, t_count: int):
+    """(vals (4, w), ids, t_ids (4, t_count)): candidates and probe ids
+    built to break rank_lookup_count's lookup. Values from rank_rows' pool
+    (+-0.0, +-inf, NaN, +-1e-40, +-FLT_MAX, 0.5, -0.5, 1.0); ids of [-40,
+    40], so that an id repeats in a row with NaN, -inf and finite copies;
+    row 1 in blocks of 50 whose last 40 slots are extract's empty (-inf,
+    SENTINEL) (fused evaluation's candidates); row 2 with no -inf and no
+    NaN lane (the lookup's list as long as the row, every probe's score the
+    max of its finite copies); row 3 ids of [0, w // 2), about two copies
+    an id (a NaN beside a finite copy). Probes: ids of the row, the
+    sentinel and its neighbours, -1, +-2**31 extremes and ids of [-42, 42]
+    (some among no candidate), duplicated."""
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40,
+                     3.4028235e38, -3.4028235e38, 0.5, -0.5, 1.0], np.float32)
+    vals = pool[rng.integers(0, len(pool), (4, w))]
+    ids = rng.integers(-40, 41, (4, w)).astype(np.int32)
+    empty = np.arange(w) % 50 >= 10
+    vals[1, empty], ids[1, empty] = NEG_INF, tb.SENTINEL
+    bad = ~np.isfinite(vals[2]) & (vals[2] != np.inf)
+    vals[2, bad] = rng.standard_normal(int(bad.sum()))
+    ids[3] = rng.integers(0, max(w // 2, 1), w)
+    pick = rng.integers(0, w, (4, t_count))
+    t_ids = np.take_along_axis(ids, pick, 1)
+    kind = rng.integers(0, 6, (4, t_count))
+    t_ids = np.where(kind == 1, tb.SENTINEL + rng.integers(-1, 2, (4, t_count)),
+                     t_ids)
+    t_ids = np.where(kind == 2, rng.choice([-1, -2 ** 31, 2 ** 31 - 1],
+                                           (4, t_count)), t_ids)
+    t_ids = np.where(kind == 3, rng.integers(-42, 43, (4, t_count)), t_ids)
+    t_ids[:, 1::7] = t_ids[:, :1]                      # duplicated
+    return vals, ids, t_ids.astype(np.int32)
+
+
+def lookup_adversarial(dev, errs: dict) -> None:
+    """rank_lookup_count on lookup_rows at W in {37, 550, 2,049, 5,000}
+    (one tile, then two and three: the row read twice) and T in {1, 129,
+    416}: ranks and found equal to rank_lookup_count_plain's."""
+    rng = np.random.default_rng(SEED + 10)
+    for w in (37, 550, 2049, 5000):
+        for t_count in (1, 129, 416):
+            cpu = [torch.from_numpy(x) for x in lookup_rows(rng, w, t_count)]
+            check_lookup(f"lookup rows W={w} T={t_count}",
+                         *(x.to(dev) for x in cpu), errs)
+
+
 def fused_adversarial(dev, items, errs: dict) -> None:
     """The fused kernels on inputs built to break them."""
     rng = np.random.default_rng(SEED + 4)
@@ -830,6 +964,7 @@ def fused_adversarial(dev, items, errs: dict) -> None:
         check_lookup(f"d={d} N={n}", cv, ci, t(lookup_probes(
             rng, ci.cpu().numpy(), mask, n, 300)), errs)
     submax_adversarial(dev, items, errs)
+    lookup_adversarial(dev, errs)
     try:
         dt.pack_items(torch.zeros((10, dt.MAX_DIM + 1), device=dev))
     except ValueError:
@@ -841,18 +976,25 @@ def fused_adversarial(dev, items, errs: dict) -> None:
 def submax_adversarial(dev, items, errs: dict) -> None:
     """dot_submax where a 4,096-column block is split over a cluster of 8
     CTAs (B = 1, 7 and 33 over the Gowalla catalog), bit for bit against
-    its plain version on CPU copies (torch.equal of the int32 views): item
-    columns repeated every 512 (equal group maxima in every CTA's slice),
-    mask ids in every slice of every block, a fully masked row, a zero user
-    vector over a bias of +-0.0 (zero maxima are +0.0); then d in {8, 60,
-    128, 512} on smaller catalogs, N not a multiple of the block."""
+    its plain version on CPU copies (the int32 views equal, NaN by isnan):
+    item columns repeated every 512 (equal group maxima in every CTA's
+    slice), mask ids in every slice of every block, a fully masked row, a
+    zero user vector over a bias of +-0.0 (zero maxima are +0.0), a NaN bias
+    on a few items (NaN maxima); then d in {8, 60, 128, 512} on smaller
+    catalogs, N not a multiple of the block."""
     rng = np.random.default_rng(SEED + 6)
     tied = items.clone()
     for blk in range(0, ITEMS - BLOCK_N, BLOCK_N):
         tied[blk + 512: blk + BLOCK_N] = tied[blk: blk + 512].repeat(7, 1)
     zeros = torch.from_numpy(np.where(rng.random(ITEMS) < 0.5, -0.0, 0.0)
                              .astype(np.float32)).to(dev)
-    cases = [(dt.pack_items(tied, zeros), DIM)]
+    # a NaN bias on a few items: their scores are NaN in every row, so
+    # their groups' maxima are NaN, as jnp.maximum folds them
+    nan_bias = torch.from_numpy(np.where(rng.random(ITEMS) < 0.002, np.nan,
+                                         rng.standard_normal(ITEMS))
+                                .astype(np.float32)).to(dev)
+    cases = [(dt.pack_items(tied, zeros), DIM),
+             (dt.pack_items(items, nan_bias), DIM)]
     for d, n in ((8, 9000), (60, 9000), (128, 5000), (512, 6000)):
         cases.append((dt.pack_items(torch.randn((n, d), device=dev),
                                     torch.randn(n, device=dev)), d))
@@ -872,8 +1014,7 @@ def submax_adversarial(dev, items, errs: dict) -> None:
                 ref = tb.submax_plain(dt.dot_scores_plain(uv.cpu(), pc),
                                       None if m is None else m.cpu(),
                                       pc.block_n)
-                require(torch.equal(got.view(torch.int32),
-                                    ref.view(torch.int32)),
+                require(same_bits(got, ref),
                         f"dot_submax B={b} d={d} N={n}: kernel != plain")
                 errs["dot_submax"] = max(errs.get("dot_submax", 0.0),
                                          max_err(got, ref))
@@ -1479,11 +1620,13 @@ def main() -> int:
                        2 * b * n * DIM),
         "dot_extract": (4 * (b * DIM + n * DIM + n + b * seen_w + b)
                         + 8 * b * w_c, 2 * b * n * DIM),
-        # the candidates and probes once, ranks and found written; per
-        # (probe, candidate) pair a compare and a max (lookup), a compare
-        # and an add (count)
+        # the candidates and probes once, ranks and found written; a
+        # compare and an add per (probe, segment of equal keys) pair (the
+        # count), a compare per (probe, candidate whose value is not -inf)
+        # pair (the lookup: only those can give a score above -inf)
         "rank_lookup_count": (8 * be * w_l + 4 * be * t_eval + 5 * be * t_eval,
-                              4 * be * t_eval * w_l),
+                              t_eval * (2 * int(rank_segments(l_cv, l_ci).sum())
+                                        + int((l_cv != NEG_INF).sum()))),
     }
     # the whole propagate as a user calls it: x, the CSR arrays (row
     # offsets, source ids, weights) and the output
@@ -1533,8 +1676,10 @@ def main() -> int:
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:
         shapes[kname] = f"B={b}, N={n}, d={DIM}, k={K}, L={seen_w}"
-    shapes["rank_lookup_count"] = (f"B={be}, N={ITEMS}, k={K_EVAL}, W={w_l}, "
-                                   f"T={t_eval}")
+    shapes["rank_lookup_count"] = (
+        f"B={be}, N={ITEMS}, k={K_EVAL}, W={w_l}, T={t_eval}; a row "
+        f"{float(rank_segments(l_cv, l_ci).double().mean())} segments, "
+        f"{float((l_cv != NEG_INF).sum(1).double().mean())} lanes not -inf")
     shapes["rank_count"] = (f"B={be}, N={ITEMS}, k={K_EVAL}, W={w_r}, "
                             f"T={t_eval}")
     shapes["direct_rank"] = (f"B={bm_}, N={ML_ITEMS}, k={K_EVAL}, L={lm_}, "

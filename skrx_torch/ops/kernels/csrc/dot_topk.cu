@@ -125,6 +125,15 @@ __device__ __forceinline__ float dot_one(const float4* __restrict__ u4, int dq,
   return acc;
 }
 
+// jnp.maximum as dot_submax needs it: NaN when either is NaN (max.NaN,
+// sm_80+); no score is -0.0 (see dot_submax_kernel), so no signed-zero tie
+// needs ordering.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 __device__ __forceinline__ bool masked_at(const unsigned* row_bits, int c) {
   return (row_bits[c >> 5] >> (c & 31)) & 1u;
 }
@@ -330,9 +339,10 @@ __device__ __forceinline__ void scan_mask(const int* __restrict__ mask, int L,
 // slice's stripes and leaves them in the CTA's partial maxima [TR][128];
 // after a cluster barrier CTA `rank` takes every cl-th entry of the tile,
 // folds the cl CTAs' partials in rank order (distributed shared memory)
-// and writes it. Max is exact in any order; no score is -0.0 (acc starts
-// at +0.0, and a rounded sum is -0.0 only when both terms are), so a zero
-// maximum is +0.0.
+// and writes it. Max is exact in any order and keeps NaN, as jnp.maximum
+// does (a NaN score makes its group's max NaN); no score is -0.0 (acc
+// starts at +0.0, and a rounded sum is -0.0 only when both terms are), so a
+// zero maximum is +0.0.
 template <int TR, int kDQ>
 __global__ void __launch_bounds__(kXThreads, TR == 16 ? 3 : 2)
 dot_submax_kernel(const float* __restrict__ uv, int b, int dq_arg,
@@ -371,7 +381,7 @@ dot_submax_kernel(const float* __restrict__ uv, int b, int dq_arg,
 #pragma unroll
       for (int j = 0; j < S::kCT; ++j) m[i][j] = -INFINITY;
     st.score([&](int i, int j, int r, int c, float v) {
-      if (mask == nullptr || !masked_at(bits[r], c)) m[i][j] = fmaxf(m[i][j], v);
+      if (mask == nullptr || !masked_at(bits[r], c)) m[i][j] = max_nan(m[i][j], v);
     });
     const int rg = warp / S::kParts;
 #pragma unroll
@@ -389,7 +399,7 @@ dot_submax_kernel(const float* __restrict__ uv, int b, int dq_arg,
     if (row >= b) break;
     float v = part[e];
     for (int q = 0; q < cl; ++q)
-      if (q != rank) v = fmaxf(v, cluster.map_shared_rank(part, q)[e]);
+      if (q != rank) v = max_nan(v, cluster.map_shared_rank(part, q)[e]);
     out[row * out_w + (long long)j_blk * kLanes + e % kLanes] = v;
   }
   cluster.sync();            // no CTA leaves while another reads its partials

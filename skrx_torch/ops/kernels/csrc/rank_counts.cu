@@ -14,12 +14,11 @@
 // the row's (value desc, id asc) order. The TPU kernels take at most 128
 // probes (one unrolled round each, lane-padded); here any number. The block
 // walks the row in shared-memory tiles that all its threads read by
-// broadcast; in rank_lookup_count and direct_rank one thread owns one probe
-// and keeps its count in a register, in rank_count a lane holds several
+// broadcast; in direct_rank one thread owns one probe and keeps its count
+// in a register, in rank_count and rank_lookup_count a lane holds several
 // probes as packed keys and the block's warps split each tile's segments
-// of equal keys. Grids (B,
-// probe blocks), so a batch of 64 rows with a few hundred probes each still
-// fills the card.
+// of equal keys. Grids (B, probe blocks), so a batch of 64 rows with a few
+// hundred probes each still fills the card.
 //
 // Plain C interface (launch on the caller's stream, return
 // cudaGetLastError()); the wrappers in ../topk_blocks.py check shapes, types
@@ -31,10 +30,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // probes per block
-constexpr int kTile = 2048;     // row elements staged per round
-// rank_count: probe keys a lane holds, warps that split a tile between
-// them, probes a block, candidates a tile (its segments take 24 KB)
+constexpr int kThreads = 128;   // direct_rank: probes per block
+constexpr int kTile = 2048;     // direct_rank: row elements staged per round
+// rank_count and rank_lookup_count: probe keys a lane holds, warps that
+// split a tile between them, probes a block, candidates a tile (its
+// segments take 24 KB, rank_lookup_count's list of it 16 KB more)
 constexpr int kCountProbes = 4;
 constexpr int kCountWarps = 8;
 constexpr int kCountBlockProbes = 32 * kCountProbes;
@@ -64,6 +64,154 @@ __device__ __forceinline__ unsigned long long rank_probe_key(float s, int t) {
                                                           : rank_key(s, t);
 }
 
+// The order key of f32 values under which jnp.max takes its max: -inf
+// lowest, -0.0 below +0.0, every NaN (either sign) above +inf; the largest
+// key maps back (key_value) to a NaN.
+__device__ __forceinline__ int max_key(float v) {
+  const int i = __float_as_int(v);
+  return (i & 0x7FFFFFFF) > 0x7F800000 ? INT_MAX : i ^ ((i >> 31) & 0x7FFFFFFF);
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7FFFFFFF));
+}
+
+// One tile of a row's candidates (rv, ri: the tile's first), staged by the
+// block's kCountWarps warps as rank_count counts over it. Warp w loads its
+// chunk of the tile into registers (lanes on consecutive positions), finds
+// the segment starts against the key before each position (a shuffle; lane
+// 0 carries the last key of the step before), and the block lists the
+// segments in order in shared memory (one scan over the warps' counts):
+// seg_key[i] and seg_start[i], seg_start[n_seg] = width. With kList the
+// same pass lists the tile's lanes whose value is not -inf (NaN included)
+// as (max_key, id) in `listed`, in tile order, their number in n_listed:
+// the only lanes whose value can be a looked-up score above -inf.
+// warp_n holds 2 * kCountWarps counts. Returns n_seg; ends with a barrier.
+template <bool kList>
+__device__ __forceinline__ int stage_tile(const float* __restrict__ rv,
+                                          const int* __restrict__ ri, int width,
+                                          unsigned long long* seg_key,
+                                          int* seg_start, int* warp_n,
+                                          int2* listed, int& n_listed) {
+  constexpr int kSteps = kKeyTile / (kCountWarps * 32);   // a warp's steps
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunk = ((width + kCountWarps - 1) / kCountWarps + 31) & ~31;
+  const int c0 = warp * chunk, c1 = min(width, c0 + chunk);
+  float v[kSteps];
+  int id[kSteps];
+#pragma unroll
+  for (int it = 0; it < kSteps; ++it) {
+    const int e = c0 + 32 * it + lane;
+    v[it] = e < c1 ? __ldg(rv + e) : 0.f;
+    id[it] = e < c1 ? __ldg(ri + e) : 0;
+  }
+  unsigned long long carry = 0ull;      // the key before the step
+  if (lane == 0 && c0 > 0 && c0 < c1)
+    carry = rank_key(__ldg(rv + c0 - 1), __ldg(ri + c0 - 1));
+  unsigned long long key[kSteps];
+  unsigned starts[kSteps], live[kSteps];
+  int n_mine = 0, l_mine = 0;
+#pragma unroll
+  for (int it = 0; it < kSteps; ++it) {
+    const int e = c0 + 32 * it + lane;
+    key[it] = rank_key(v[it], id[it]);
+    unsigned long long prev = __shfl_up_sync(0xffffffffu, key[it], 1);
+    if (lane == 0) prev = carry;
+    carry = __shfl_sync(0xffffffffu, key[it], 31);
+    starts[it] = __ballot_sync(0xffffffffu,
+                               e < c1 && (e == 0 || prev != key[it]));
+    n_mine += __popc(starts[it]);
+    if (kList) {
+      live[it] = __ballot_sync(0xffffffffu, e < c1 && v[it] != -INFINITY);
+      l_mine += __popc(live[it]);
+    }
+  }
+  if (lane == 0) {
+    warp_n[warp] = n_mine;
+    if (kList) warp_n[kCountWarps + warp] = l_mine;
+  }
+  __syncthreads();
+  int base = 0, n_seg = 0, lbase = 0;
+  n_listed = 0;
+#pragma unroll
+  for (int u = 0; u < kCountWarps; ++u) {
+    base += u < warp ? warp_n[u] : 0;
+    n_seg += warp_n[u];
+    if (kList) {
+      lbase += u < warp ? warp_n[kCountWarps + u] : 0;
+      n_listed += warp_n[kCountWarps + u];
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int it = 0; it < kSteps; ++it) {
+    if ((starts[it] >> lane) & 1u) {
+      const int i = base + __popc(starts[it] & below);
+      seg_key[i] = key[it];
+      seg_start[i] = c0 + 32 * it + lane;
+    }
+    base += __popc(starts[it]);
+    if (kList) {
+      if ((live[it] >> lane) & 1u)
+        listed[lbase + __popc(live[it] & below)] = make_int2(max_key(v[it]), id[it]);
+      lbase += __popc(live[it]);
+    }
+  }
+  if (threadIdx.x == 0) seg_start[n_seg] = width;
+  __syncthreads();
+  return n_seg;
+}
+
+// Warp w's share of a staged tile's n_seg segments (seg_start[n_seg] =
+// width): each probe key pk[q] (q < nq) adds the multiplicity of every
+// segment whose key is below its own (a tile without repeats, n_seg ==
+// width, counts 1 a key and reads no multiplicity).
+__device__ __forceinline__ void count_segments(
+    const unsigned long long* seg_key, const int* seg_start, int n_seg,
+    int width, const unsigned long long (&pk)[kCountProbes],
+    int (&cnt)[kCountProbes], int nq) {
+  const int warp = threadIdx.x >> 5;
+  const int per = (n_seg + kCountWarps - 1) / kCountWarps;
+  const int end = min(n_seg, (warp + 1) * per);
+  if (n_seg == width) {
+    for (int i = warp * per; i < end; ++i) {
+      const unsigned long long kc = seg_key[i];
+#pragma unroll
+      for (int q = 0; q < kCountProbes; ++q)
+        if (q < nq) cnt[q] += kc < pk[q];
+    }
+  } else {
+    for (int i = warp * per; i < end; ++i) {
+      const unsigned long long kc = seg_key[i];
+      const int m = seg_start[i + 1] - seg_start[i];
+#pragma unroll
+      for (int q = 0; q < kCountProbes; ++q)
+        if (q < nq) cnt[q] += kc < pk[q] ? m : 0;
+    }
+  }
+}
+
+// The warps' partial counts of the block's probes summed through `part` and
+// written to out (the row's). The caller's last barrier has freed `part`.
+__device__ __forceinline__ void write_counts(int (*part)[kCountBlockProbes],
+                                             const int (&cnt)[kCountProbes],
+                                             int* __restrict__ out, int p0,
+                                             int t_count) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < kCountProbes; ++q) part[warp][lane + 32 * q] = cnt[q];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kCountBlockProbes; i += kCountWarps * 32) {
+    const int p = p0 + i;
+    if (p < t_count) {
+      int total = 0;
+#pragma unroll
+      for (int u = 0; u < kCountWarps; ++u) total += part[u][i];
+      out[p] = total;
+    }
+  }
+}
+
 // Replaces _rank_count_kernel. Counts over a (B, W) candidate set with the
 // probes' scores given. The parent ran one probe a thread over the whole
 // row, ~8 instructions a (probe, candidate) pair (two shared loads, three
@@ -71,21 +219,16 @@ __device__ __forceinline__ unsigned long long rank_probe_key(float s, int t) {
 // Here each candidate and probe is one packed key (rank_key), so a pair is
 // one unsigned 64-bit compare; and equal neighbouring keys are counted
 // once: a tile of the row becomes a list of segments (key, multiplicity),
-// each a maximal run of equal adjacent keys, and a probe adds the
-// multiplicity of every segment whose key is below its own (a tile without
-// repeats counts 1 a key and reads no multiplicity). The count stays exact
-// for any input; it is cheap where the row repeats keys, as extract's
-// candidates do (a column block's empty slots are all (-inf, sentinel): at
-// the evaluation batch, B=64, W=550, ~61 segments a row).
-// A block holds 32 * kCountProbes probes, kCountProbes probe keys a lane
-// in registers (one 8-byte shared broadcast of a segment key feeds that
-// many compares, with independent counts); its kCountWarps warps hold the
-// same probes. Per tile, warp w loads its chunk of the row into registers
-// (lanes on consecutive positions), finds the segment starts against the
-// key before each position (a shuffle; lane 0 carries the last key of the
-// step before), and the block lists the segments in order in shared memory
-// (one scan over the warps); then warp w counts its share of the segments
-// and the warps' partial counts are summed through shared memory. Grid (B,
+// each a maximal run of equal adjacent keys (stage_tile), and a probe adds
+// the multiplicity of every segment whose key is below its own
+// (count_segments). The count stays exact for any input; it is cheap where
+// the row repeats keys, as extract's candidates do (a column block's empty
+// slots are all (-inf, sentinel): at the evaluation batch, B=64, W=550,
+// ~61 segments a row). A block holds 32 * kCountProbes probes,
+// kCountProbes probe keys a lane in registers (one 8-byte shared broadcast
+// of a segment key feeds that many compares, with independent counts); its
+// kCountWarps warps hold the same probes, split each tile's segments and
+// sum their partial counts through shared memory. Grid (B,
 // ceil(T / (32 * kCountProbes))): at the evaluation batch (T=416) 256
 // blocks of 8 warps. Bound: operations (a compare and an add per (probe,
 // segment) pair, and building a key per candidate); the bytes are the
@@ -95,13 +238,12 @@ rank_count_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
                   int w, const float* __restrict__ st,
                   const int* __restrict__ tid, int t_count,
                   int* __restrict__ out) {
-  constexpr int kSteps = kKeyTile / (kCountWarps * 32);   // a warp's steps
   __shared__ unsigned long long seg_key[kKeyTile];
   __shared__ int seg_start[kKeyTile + 1];
   __shared__ int part[kCountWarps][kCountBlockProbes];
-  __shared__ int warp_segs[kCountWarps];
+  __shared__ int warp_n[2 * kCountWarps];
   const long long b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int p0 = blockIdx.y * kCountBlockProbes;
   const float* rv = vals + b * w;
   const int* ri = ids + b * w;
@@ -117,138 +259,106 @@ rank_count_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
   }
   // probe slots of this block that hold a probe (the last block's may not)
   const int nq = min(kCountProbes, (t_count - p0 + 31) / 32);
+  int n_listed;
   for (int lo = 0; lo < w; lo += kKeyTile) {
     const int width = min(kKeyTile, w - lo);
-    const int chunk = ((width + kCountWarps - 1) / kCountWarps + 31) & ~31;
-    const int c0 = warp * chunk, c1 = min(width, c0 + chunk);
-    float v[kSteps];
-    int id[kSteps];
-#pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      const int e = c0 + 32 * it + lane;
-      v[it] = e < c1 ? __ldg(rv + lo + e) : 0.f;
-      id[it] = e < c1 ? __ldg(ri + lo + e) : 0;
-    }
-    unsigned long long carry = 0ull;      // the key before the step
-    if (lane == 0 && c0 > 0 && c0 < c1)
-      carry = rank_key(__ldg(rv + lo + c0 - 1), __ldg(ri + lo + c0 - 1));
-    unsigned long long key[kSteps];
-    unsigned starts[kSteps];
-    int n_mine = 0;
-#pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      const int e = c0 + 32 * it + lane;
-      key[it] = rank_key(v[it], id[it]);
-      unsigned long long prev = __shfl_up_sync(0xffffffffu, key[it], 1);
-      if (lane == 0) prev = carry;
-      carry = __shfl_sync(0xffffffffu, key[it], 31);
-      starts[it] = __ballot_sync(0xffffffffu,
-                                 e < c1 && (e == 0 || prev != key[it]));
-      n_mine += __popc(starts[it]);
-    }
-    if (lane == 0) warp_segs[warp] = n_mine;
-    __syncthreads();
-    int base = 0, n_seg = 0;
-#pragma unroll
-    for (int u = 0; u < kCountWarps; ++u) {
-      base += u < warp ? warp_segs[u] : 0;
-      n_seg += warp_segs[u];
-    }
-#pragma unroll
-    for (int it = 0; it < kSteps; ++it) {
-      if ((starts[it] >> lane) & 1u) {
-        const int i = base + __popc(starts[it] & ((1u << lane) - 1u));
-        seg_key[i] = key[it];
-        seg_start[i] = c0 + 32 * it + lane;
-      }
-      base += __popc(starts[it]);
-    }
-    if (threadIdx.x == 0) seg_start[n_seg] = width;
-    __syncthreads();
-    const int per = (n_seg + kCountWarps - 1) / kCountWarps;
-    const int end = min(n_seg, (warp + 1) * per);
-    if (n_seg == width) {                 // no key repeats: each counts 1
-      for (int i = warp * per; i < end; ++i) {
-        const unsigned long long kc = seg_key[i];
-#pragma unroll
-        for (int q = 0; q < kCountProbes; ++q)
-          if (q < nq) cnt[q] += kc < pk[q];
-      }
-    } else {
-      for (int i = warp * per; i < end; ++i) {
-        const unsigned long long kc = seg_key[i];
-        const int m = seg_start[i + 1] - seg_start[i];
-#pragma unroll
-        for (int q = 0; q < kCountProbes; ++q)
-          if (q < nq) cnt[q] += kc < pk[q] ? m : 0;
-      }
-    }
+    const int n_seg = stage_tile<false>(rv + lo, ri + lo, width, seg_key,
+                                        seg_start, warp_n, nullptr, n_listed);
+    count_segments(seg_key, seg_start, n_seg, width, pk, cnt, nq);
     __syncthreads();
   }
-#pragma unroll
-  for (int q = 0; q < kCountProbes; ++q) part[warp][lane + 32 * q] = cnt[q];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kCountBlockProbes; i += kCountWarps * 32) {
-    const int p = p0 + i;
-    if (p < t_count) {
-      int total = 0;
-#pragma unroll
-      for (int u = 0; u < kCountWarps; ++u) total += part[u][i];
-      out[b * t_count + p] = total;
-    }
-  }
+  write_counts(part, cnt, out + b * t_count, p0, t_count);
 }
 
 // Replaces _rank_lookup_count_kernel. As rank_count_kernel, but the probe
-// arrives as an id alone: its score is looked up among the row's candidates
-// (the max value over the lanes that hold its id; -inf when none does), so
-// the fused route never recomputes a score outside its kernels. Two walks
-// over the candidate tiles: the lookup, then the count. found = the
-// looked-up score is finite; a probe whose id is masked, out of range or
-// padding is among no candidates and is not found. Bound: operations (two
-// compares per (probe, candidate) pair in each walk).
-__global__ void __launch_bounds__(kThreads)
+// arrives as an id t alone: its score s is looked up among the row's
+// candidates, the max value (as jnp.max takes it: NaN when any is NaN) over
+// the lanes that hold id t, -inf when none does, so the fused route never
+// recomputes a score outside its kernels. found = s is finite; a probe
+// whose id is masked, out of range or padding is among no candidates and
+// is not found. The block is rank_count's (8 warps, 4 probe keys a lane,
+// grid (B, ceil(T / 128))) and shares its staging: while a tile collapses
+// into segments, the block lists the lanes whose value is not -inf,
+// (max_key, id), in shared memory. Only those can give a probe a score
+// above -inf (a probe found only among -inf lanes gets -inf either way),
+// and fused evaluation fills a block's empty slots with (-inf, sentinel):
+// ~51 of a row's 550 lanes are listed at B=64. Each warp compares its share
+// of the list with its lane's 4 probe ids, the warps' partial maxima meet
+// in shared memory as keys (NaN the largest), and the probe's packed key is
+// rank_probe_key(s, t): 0 for a NaN s, which counts nothing, exactly the
+// plain version's (v > NaN) | (v == NaN & ...) = 0. Then the count runs
+// over the segments as in rank_count. A row of one tile (W <= kKeyTile) is
+// read once; a wider row needs every tile's list before any count, so it
+// is read twice (the lookup, then the count). Bound: operations (a compare
+// and an add per (probe, segment) pair, a compare per (probe, listed
+// lane)); the bytes are the candidates and the probes.
+__global__ void __launch_bounds__(kCountWarps * 32)
 rank_lookup_count_kernel(const float* __restrict__ vals,
                          const int* __restrict__ ids, int w,
                          const int* __restrict__ tid, int t_count,
                          int* __restrict__ out, bool* __restrict__ found) {
-  __shared__ float sv[kTile];
-  __shared__ int si[kTile];
+  __shared__ unsigned long long seg_key[kKeyTile];
+  __shared__ int seg_start[kKeyTile + 1];
+  __shared__ int2 listed[kKeyTile];
+  __shared__ int part[kCountWarps][kCountBlockProbes];
+  __shared__ int warp_n[2 * kCountWarps];
   const long long b = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
-  const bool has = p < t_count;
-  const int t = has ? tid[b * t_count + p] : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p0 = blockIdx.y * kCountBlockProbes;
   const float* rv = vals + b * w;
   const int* ri = ids + b * w;
-  float s = -INFINITY;
-  int cnt = 0;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int lo = 0; lo < w; lo += kTile) {
-      const int width = min(kTile, w - lo);
-      for (int e = threadIdx.x; e < width; e += kThreads) {
-        sv[e] = __ldg(rv + lo + e);
-        si[e] = __ldg(ri + lo + e);
-      }
-      __syncthreads();
-      if (has && pass == 0) {
-#pragma unroll 8
-        for (int e = 0; e < width; ++e) {
-          if (si[e] == t) s = fmaxf(s, sv[e]);
-        }
-      } else if (has) {
-#pragma unroll 8
-        for (int e = 0; e < width; ++e) {
-          const float v = sv[e];
-          cnt += (v > s) | ((v == s) & (si[e] < t));
-        }
-      }
+  int t[kCountProbes], sk[kCountProbes], cnt[kCountProbes];
+#pragma unroll
+  for (int q = 0; q < kCountProbes; ++q) {
+    const int p = p0 + lane + 32 * q;
+    t[q] = p < t_count ? __ldg(tid + b * t_count + p) : 0;
+    sk[q] = max_key(-INFINITY);
+    cnt[q] = 0;
+  }
+  const int nq = min(kCountProbes, (t_count - p0 + 31) / 32);
+  const bool one_tile = w <= kKeyTile;
+  int n_seg = 0, width = 0, n_listed;
+  for (int lo = 0; lo < w; lo += kKeyTile) {      // the lookup
+    width = min(kKeyTile, w - lo);
+    n_seg = stage_tile<true>(rv + lo, ri + lo, width, seg_key, seg_start,
+                             warp_n, listed, n_listed);
+    const int per = (n_listed + kCountWarps - 1) / kCountWarps;
+    const int end = min(n_listed, (warp + 1) * per);
+    for (int i = warp * per; i < end; ++i) {
+      const int2 e = listed[i];
+#pragma unroll
+      for (int q = 0; q < kCountProbes; ++q)
+        if (e.y == t[q]) sk[q] = max(sk[q], e.x);
+    }
+    if (!one_tile) __syncthreads();     // the next tile overwrites the list
+  }
+#pragma unroll
+  for (int q = 0; q < kCountProbes; ++q) part[warp][lane + 32 * q] = sk[q];
+  __syncthreads();
+  unsigned long long pk[kCountProbes];
+#pragma unroll
+  for (int q = 0; q < kCountProbes; ++q) {
+    int k = part[0][lane + 32 * q];
+#pragma unroll
+    for (int u = 1; u < kCountWarps; ++u) k = max(k, part[u][lane + 32 * q]);
+    const float s = key_value(k);
+    pk[q] = rank_probe_key(s, t[q]);
+    const int p = p0 + lane + 32 * q;
+    if (warp == 0 && p < t_count) found[b * t_count + p] = isfinite(s);
+  }
+  if (one_tile) {           // the tile's segments are still staged
+    count_segments(seg_key, seg_start, n_seg, width, pk, cnt, nq);
+    __syncthreads();
+  } else {
+    for (int lo = 0; lo < w; lo += kKeyTile) {    // the count
+      width = min(kKeyTile, w - lo);
+      n_seg = stage_tile<false>(rv + lo, ri + lo, width, seg_key, seg_start,
+                                warp_n, nullptr, n_listed);
+      count_segments(seg_key, seg_start, n_seg, width, pk, cnt, nq);
       __syncthreads();
     }
   }
-  if (has) {
-    out[b * t_count + p] = cnt;
-    found[b * t_count + p] = isfinite(s);
-  }
+  write_counts(part, cnt, out + b * t_count, p0, t_count);
 }
 
 // Replaces _direct_rank_kernel. Counts over the whole masked score row, so
@@ -334,9 +444,9 @@ int skrx_rank_count(const float* vals, const int* ids, int b, int w,
 int skrx_rank_lookup_count(const float* vals, const int* ids, int b, int w,
                            const int* tid, int t, int* out, bool* found,
                            cudaStream_t stream) {
-  const dim3 grid(b, (t + kThreads - 1) / kThreads);
-  rank_lookup_count_kernel<<<grid, kThreads, 0, stream>>>(vals, ids, w, tid, t,
-                                                           out, found);
+  const dim3 grid(b, (t + kCountBlockProbes - 1) / kCountBlockProbes);
+  rank_lookup_count_kernel<<<grid, kCountWarps * 32, 0, stream>>>(
+      vals, ids, w, tid, t, out, found);
   return (int)cudaGetLastError();
 }
 

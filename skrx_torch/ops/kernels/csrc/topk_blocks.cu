@@ -109,18 +109,52 @@ __device__ P block_best(P p, P* sh, P none) {
   return r;
 }
 
-// Bit c of bits = 1 when column lo + c of this row is in its mask row.
-// Ids outside [lo, lo + width) (other blocks, padding, out of range) are
-// ignored; duplicates are harmless. Ends with a barrier.
-__device__ void load_mask_bits(unsigned* bits, const int* __restrict__ mask_row,
-                               int L, int lo, int width) {
-  for (int w = threadIdx.x; w < kMaskWords; w += blockDim.x) bits[w] = 0u;
-  __syncthreads();
-  for (int e = threadIdx.x; e < L; e += blockDim.x) {
-    const long long rel = (long long)mask_row[e] - lo;
-    if (rel >= 0 && rel < width) atomicOr(&bits[rel >> 5], 1u << (rel & 31));
+// Thread t's columns t + 256 q (q < kExtractCols) of a column block of
+// ``width`` columns starting at row, -inf past the block, loaded in one
+// batch: a block of kExtractThreads threads issues the whole block's scores
+// before it waits on anything.
+__device__ __forceinline__ void load_columns(float (&v)[kExtractCols],
+                                             const float* __restrict__ row,
+                                             int width) {
+#pragma unroll
+  for (int q = 0; q < kExtractCols; ++q) {
+    const int c = threadIdx.x + kExtractThreads * q;
+    v[q] = c < width ? __ldg(row + c) : -INFINITY;
   }
+}
+
+// Ids e0 + 256 u (u < kMaskBatch) of a mask row, -1 past L: one batch of
+// scan_mask_bits, the first loaded where the caller wants it in flight.
+__device__ __forceinline__ void load_mask_batch(int (&id)[kMaskBatch],
+                                                const int* __restrict__ mask_row,
+                                                int L, int e0) {
+#pragma unroll
+  for (int u = 0; u < kMaskBatch; ++u) {
+    const int e = e0 + u * kExtractThreads;
+    id[u] = e < L ? __ldg(mask_row + e) : -1;
+  }
+}
+
+// Bit c of bits = 1 when column lo + c of this row is in its mask row. `id`
+// holds the thread's first batch (load_mask_batch at e0 = threadIdx.x);
+// the rest of the row follows kMaskBatch ids a thread at once (one batch
+// for L <= 2,048 with kExtractThreads threads). Ids outside [lo, lo +
+// width) (other blocks, padding, out of range) are ignored; duplicates are
+// harmless. The caller's next barrier completes the bitmap.
+__device__ __forceinline__ void scan_mask_bits(unsigned* bits,
+                                               const int* __restrict__ mask_row,
+                                               int L, int lo, int width,
+                                               int (&id)[kMaskBatch]) {
+  for (int w = threadIdx.x; w < kMaskWords; w += kExtractThreads) bits[w] = 0u;
   __syncthreads();
+  for (int e0 = threadIdx.x; e0 < L; e0 += kMaskBatch * kExtractThreads) {
+    if (e0 != (int)threadIdx.x) load_mask_batch(id, mask_row, L, e0);
+#pragma unroll
+    for (int u = 0; u < kMaskBatch; ++u) {
+      const long long rel = (long long)id[u] - lo;
+      if (rel >= 0 && rel < width) atomicOr(&bits[rel >> 5], 1u << (rel & 31));
+    }
+  }
 }
 
 __device__ __forceinline__ bool is_masked(const unsigned* bits, int c) {
@@ -133,29 +167,58 @@ __device__ __forceinline__ int order_key(int i) {
   return i ^ ((i >> 31) & 0x7FFFFFFF);
 }
 
-// Replaces _submax_kernel. Grid (B, column blocks), one thread per strided
-// group: thread l of block j takes the max of columns j*block_n + l + 128*t
-// of the masked row. The 128 threads read 512 contiguous bytes per step.
-// Bound: bytes (one read of the scores and the mask table, B x 128 maxima
-// per block written); one compare per element.
-__global__ void __launch_bounds__(kLanes)
+// The key under which jnp.maximum takes its max: order_key, with every NaN
+// (either sign) above +inf. order_key maps the largest key back to a NaN.
+__device__ __forceinline__ int max_key(float v) {
+  const int i = __float_as_int(v);
+  return (i & 0x7FFFFFFF) > 0x7F800000 ? INT_MAX : order_key(i);
+}
+
+// Replaces _submax_kernel. Grid (B, column blocks) of kExtractThreads
+// threads: out[b, j*128 + l] = the max of the masked columns l + 128 t of
+// block j, as jnp.maximum folds them (NaN when the group holds one, -0.0
+// below +0.0). A block's time is latency, a mask read and a score read,
+// not bytes; so thread t loads its first 8 mask ids and then columns t +
+// 256 q (q < 16) into registers before the mask scan (extract's load and
+// scan, the same device functions), and both reads are in flight together,
+// the ids first so that the scan's loads do not queue behind the scores'
+// (experiments/submax_variants.py times the other order). Its 16 columns
+// all belong to group t % 128: a thread takes their max as order keys (one
+// integer max a column), threads t and t + 128 meet in shared memory, and
+// 128 threads write. Held to 6 blocks an SM, or with the scores staged in
+// shared memory to run 8, it was slower (the same script). Bound: bytes
+// (one read of the scores and the mask table, B x 128 maxima per block
+// written).
+__global__ void __launch_bounds__(kExtractThreads)
 submax_kernel(const float* __restrict__ scores, int n, int block_n,
               const int* __restrict__ mask, int L, float* __restrict__ out,
               int out_w) {
   __shared__ unsigned bits[kMaskWords];
+  __shared__ int upper[kLanes];
   const long long b = blockIdx.x;
   const int j = blockIdx.y;
   const int lo = j * block_n;
   const int width = min(block_n, n - lo);
-  const float* row = scores + b * n + lo;
-  if (mask != nullptr) load_mask_bits(bits, mask + b * L, L, lo, width);
-  float m = -INFINITY;
-#pragma unroll 8
-  for (int c = threadIdx.x; c < width; c += kLanes) {
-    const float v = __ldg(row + c);
-    if (mask == nullptr || !is_masked(bits, c)) m = fmaxf(m, v);
+  const int tid = threadIdx.x;
+  int id[kMaskBatch];
+  if (mask != nullptr) load_mask_batch(id, mask + b * L, L, tid);
+  float v[kExtractCols];
+  load_columns(v, scores + b * n + lo, width);
+  if (mask != nullptr) {
+    scan_mask_bits(bits, mask + b * L, L, lo, width, id);
+    __syncthreads();
   }
-  out[b * out_w + (long long)j * kLanes + threadIdx.x] = m;
+  int m = order_key(__float_as_int(-INFINITY));
+#pragma unroll
+  for (int q = 0; q < kExtractCols; ++q) {
+    if (mask == nullptr || !is_masked(bits, tid + kExtractThreads * q))
+      m = max(m, max_key(v[q]));
+  }
+  if (tid >= kLanes) upper[tid - kLanes] = m;
+  __syncthreads();
+  if (tid < kLanes)
+    out[b * out_w + (long long)j * kLanes + tid] =
+        __int_as_float(order_key(max(m, upper[tid])));
 }
 
 // Replaces _kth_largest_kernel. One warp per row, kKthWarps rows a block:
@@ -249,30 +312,13 @@ extract_kernel(const float* __restrict__ scores, int n, int block_n,
   const float* row = scores + b * n + lo;
   const int tid = threadIdx.x, lane = tid & 31;
   float v[kExtractCols];
-#pragma unroll
-  for (int q = 0; q < kExtractCols; ++q) {
-    const int c = tid + kExtractThreads * q;
-    v[q] = c < width ? __ldg(row + c) : -INFINITY;
-  }
+  load_columns(v, row, width);
   const float t = __ldg(tau + b);
   if (tid == 0) found_sh = 0;
   if (mask != nullptr) {
-    for (int w = tid; w < kMaskWords; w += kExtractThreads) bits[w] = 0u;
-    __syncthreads();
-    const int* mask_row = mask + b * L;
-    for (int e0 = tid; e0 < L; e0 += kMaskBatch * kExtractThreads) {
-      int id[kMaskBatch];
-#pragma unroll
-      for (int u = 0; u < kMaskBatch; ++u) {
-        const int e = e0 + u * kExtractThreads;
-        id[u] = e < L ? __ldg(mask_row + e) : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < kMaskBatch; ++u) {
-        const long long rel = (long long)id[u] - lo;
-        if (rel >= 0 && rel < width) atomicOr(&bits[rel >> 5], 1u << (rel & 31));
-      }
-    }
+    int id[kMaskBatch];
+    load_mask_batch(id, mask + b * L, L, tid);
+    scan_mask_bits(bits, mask + b * L, L, lo, width, id);
   }
   __syncthreads();
   unsigned keep = 0u;                 // bit q: column tid + 256 q survives
@@ -467,7 +513,7 @@ int skrx_topk_abi_version() { return 1; }
 int skrx_submax(const float* scores, int b, int n, int block_n, const int* mask,
                 int L, float* out, cudaStream_t stream) {
   const int n_blocks = (n + block_n - 1) / block_n;
-  submax_kernel<<<dim3(b, n_blocks), kLanes, 0, stream>>>(
+  submax_kernel<<<dim3(b, n_blocks), kExtractThreads, 0, stream>>>(
       scores, n, block_n, mask, L, out, n_blocks * kLanes);
   return (int)cudaGetLastError();
 }

@@ -88,18 +88,28 @@ def _masked_padded(scores: torch.Tensor, mask_table: Optional[torch.Tensor],
 
 # ------------------------------------------------------------- kernel 1
 
+def _jax_amax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Max of f32 ``x`` over ``dim`` as ``jnp.max`` and ``jnp.maximum`` take
+    it: NaN where any is NaN, otherwise the largest in the order -inf < ...
+    < -0.0 < +0.0 (``amax`` and ``torch.maximum`` may return -0.0 beside
+    +0.0)."""
+    m = order_key(order_key(x).amax(dim=dim).contiguous()).view(torch.float32)
+    return torch.where(x.isnan().any(dim=dim), float("nan"), m)
+
+
 def submax_plain(scores: torch.Tensor, mask_table: Optional[torch.Tensor],
                  block_n: int) -> torch.Tensor:
     b = scores.shape[0]
     s = _masked_padded(scores, mask_table, block_n)
     s = s.reshape(b, -1, block_n // GROUPS, GROUPS)
-    return s.amax(dim=2).reshape(b, -1)
+    return _jax_amax(s, 2).reshape(b, -1)
 
 
 def submax(scores: torch.Tensor, mask_table: Optional[torch.Tensor] = None,
            block_n: int = 4096) -> torch.Tensor:
     """(B, n_blocks * 128) masked strided-group maxima of (B, N) f32
-    ``scores``: column j * 128 + l is the max of block j's group l."""
+    ``scores``: column j * 128 + l is the max of block j's group l, as
+    JAX's fold takes it (NaN when the group holds one, -0.0 below +0.0)."""
     _check(scores, "scores", torch.float32, 2)
     mask_table = _check_mask(mask_table, scores.shape[0])
     _check_block_n(block_n)
@@ -255,8 +265,8 @@ def vmem_topk(vals: torch.Tensor, idx: torch.Tensor, k: int
 
 def fold_submaxes(bm: torch.Tensor, k: int) -> torch.Tensor:
     """Fold (B, n_sub) group maxima to width <= max(4096, 2 * k rounded up
-    to 128) by pairwise maxima of halves (odd 128-lane counts padded with
-    -inf), as the JAX package does: still a partition of the columns, so tau
+    to 128) by pairwise maxima of halves as jnp.maximum takes them (odd
+    128-lane counts padded with -inf), as the JAX package does: still a partition of the columns, so tau
     stays a lower bound, and the width stays >= k."""
     max_w = max(_TAU_MAX_W, 2 * (-(-k // GROUPS) * GROUPS))
     w = bm.shape[1]
@@ -265,7 +275,7 @@ def fold_submaxes(bm: torch.Tensor, k: int) -> torch.Tensor:
             bm = torch.nn.functional.pad(bm, (0, GROUPS), value=float("-inf"))
             w += GROUPS
         half = w // 2
-        bm = torch.maximum(bm[:, :half], bm[:, half:])
+        bm = _jax_amax(torch.stack([bm[:, :half], bm[:, half:]]), 0)
         w = half
     return bm
 

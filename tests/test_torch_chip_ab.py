@@ -410,6 +410,79 @@ def test_rank_count_cases_are_masked_topk_ranks_inputs(tmp_path,
     assert bool((key[:, 1:] != key[:, :-1]).all())
 
 
+@pytest.mark.parametrize("case", ["equal", "+0 vs -0", "-0 vs +0",
+                                  "values differ"])
+def test_sign_flips_name_the_signed_zeros_that_differ(case):
+    """sign_flips lists the (row, column) where two f32 tensors are equal
+    as floats but not as int32 views, and nothing else."""
+    ref = torch.tensor([[1.0, 0.0, -0.0], [float("-inf"), 0.5, 0.0]])
+    got = ref.clone()
+    want = []
+    if case == "+0 vs -0":
+        got[0, 1], want = -0.0, [[0, 1]]
+    elif case == "-0 vs +0":
+        got[0, 2], got[1, 2], want = 0.0, -0.0, [[0, 2], [1, 2]]
+    elif case == "values differ":
+        got[1, 1] = 0.25
+    assert _chip_ab().sign_flips(got, ref) == want
+
+
+def test_lookup_cases_are_fused_evaluations_inputs(tmp_path, monkeypatch):
+    """lookup_cases gives rank_lookup_count what dot_topk_ranks gives it in
+    a fused evaluation batch (so its ranks are the fused route's wherever
+    the item is found); then the candidates with no -inf lane, every empty
+    slot below its row's smallest value (found probes keep their ranks);
+    then a NaN at a found probe's id in each row (that probe not found,
+    rank 0)."""
+    from skrx_torch import ModelRegistry, RunConfig
+    from skrx_torch.io import synthetic
+    from skrx_torch.ops.kernels import dot_topk as dt
+    from skrx_torch.ops.kernels import topk_blocks as tb
+    monkeypatch.chdir(tmp_path)
+    # 10 column blocks, so that a block's k = 50 slots are mostly empty
+    data = synthetic.make_dataset_dir(str(tmp_path), num_users=30,
+                                      num_items=40_000, num_ratings=41_000,
+                                      seed=4)
+    reg = ModelRegistry()
+    reg.load_skrx_model("BPRMF")
+    cls, _ = reg.get_model("BPRMF")
+    m = cls(RunConfig(data_dir=data, seed=4), dict(n_dim=8, epochs=1),
+            device="cpu")
+    users = np.fromiter(m.evaluator.user_pos_test, np.int64)[:6]
+    cases = _chip_ab().lookup_cases(m, users)
+    assert [c[0] for c in cases] == ["", ", no -inf lane", ", NaN row"]
+    _, cand_v, cand_i, probes = cases[0]
+    tr, te, _ = (torch.from_numpy(x)
+                 for x in m.evaluator._tables_for(users, m.num_items))
+    assert torch.equal(probes, te)
+    ranks, found = tb.rank_lookup_count(cand_v, cand_i, probes)
+    u_all, i_all = m._chunk_embeddings()
+    want = dt.dot_topk_ranks(u_all.detach()[torch.from_numpy(users)], None,
+                             None, 50, te, tr, packed=dt.pack_items(
+                                 i_all.detach(), m._chunk_bias().detach()))
+    assert torch.equal(torch.where(found, ranks, 50), want)
+    assert bool(found.any()) and bool((cand_v == float("-inf")).any())
+    _, v2, i2, p2 = cases[1]
+    assert i2 is cand_i and p2 is probes
+    assert bool(torch.isfinite(v2).all())
+    filled = cand_v == float("-inf")
+    assert bool((v2[filled] < torch.where(filled, float("inf"), cand_v).amin(
+        1, keepdim=True).expand_as(v2)[filled]).all())
+    key = tb.rank_key(v2, i2)
+    assert bool((key[:, 1:] != key[:, :-1]).all())
+    r2, f2 = tb.rank_lookup_count(v2, i2, p2)
+    assert torch.equal(f2, found) and torch.equal(r2[found], ranks[found])
+    _, v3, i3, p3 = cases[2]
+    nan = v3.isnan()                  # one a row, at the first probe's id
+    assert torch.equal(nan.sum(1), torch.ones(len(users), dtype=torch.long))
+    assert bool((cand_v[nan] == float("-inf")).all())
+    assert torch.equal(p3[:, 1:], probes[:, 1:])
+    assert torch.equal(p3[:, 0], i3[nan])
+    assert bool(((cand_i == p3[:, :1]) & torch.isfinite(cand_v)).any(1).all())
+    r3, f3 = tb.rank_lookup_count(v3, i3, p3)
+    assert not bool(f3[:, 0].any()) and not bool(r3[:, 0].any())
+
+
 def test_rank_count_designs_need_a_card(monkeypatch):
     spec = importlib.util.spec_from_file_location(
         "rank_count_designs",
@@ -426,3 +499,19 @@ def test_rank_count_designs_need_a_card(monkeypatch):
             mod.SOURCE, f"skrx_rank_count_{name}") == \
             runtime._SIGNATURES["skrx_rank_count"][1] + [P]
         assert f"int skrx_rank_count_{name}(" in src
+
+
+def test_submax_variants_need_a_card(monkeypatch):
+    spec = importlib.util.spec_from_file_location(
+        "submax_variants",
+        os.path.join(ROOT, "experiments", "submax_variants.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main() == 2
+    with open(mod.SOURCE) as f:
+        src = f.read()
+    for name in mod.VARIANTS:          # each launcher typed from its source
+        assert _chip_ab().c_argtypes(mod.SOURCE, f"skrx_submax_{name}") == \
+            runtime._SIGNATURES["skrx_submax"][1] + [P]
+        assert f"int skrx_submax_{name}(" in src

@@ -137,8 +137,14 @@ def test_dot_topk_ranks_match_jax(t):
         np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("seed,b,w,t", [(0, 8, 550, 128), (1, 5, 130, 3)])
-def test_rank_lookup_count_plain_matches_jax(seed, b, w, t):
+@pytest.mark.parametrize("seed,b,w,t,repeats", [(0, 8, 550, 128, False),
+                                                (1, 5, 130, 3, False),
+                                                (2, 6, 300, 40, True)])
+def test_rank_lookup_count_plain_matches_jax(seed, b, w, t, repeats):
+    """With ``repeats`` probe ids 1-3 of every row repeat among the
+    candidates: one copy NaN beside a finite one (the score is NaN: not
+    found, rank 0), one copy -inf beside a finite one, two finite copies
+    (the larger is the score)."""
     rng = np.random.default_rng(seed)
     vals = np.round(rng.standard_normal((b, w)) * 2).astype(np.float32)
     ids = np.stack([rng.permutation(4 * w)[:w] for _ in range(b)]
@@ -147,12 +153,20 @@ def test_rank_lookup_count_plain_matches_jax(seed, b, w, t):
     probes = np.take_along_axis(ids, rng.integers(0, w, (b, t)), 1)
     probes[:, 0] = 4 * w + 1                    # among no candidates
     probes[0, -1] = ids[0, -1]                  # a -inf lane: not found
+    if repeats:
+        ids[:, 2], vals[:, 2] = ids[:, 1], np.nan
+        ids[:, 4], vals[:, 4] = ids[:, 3], -np.inf
+        ids[:, 6], vals[:, 6] = ids[:, 5], vals[:, 5] + 1.5
+        probes[:, 1:4] = ids[:, [1, 3, 5]]
     ref_r, ref_f = jtb._rank_lookup_counts(_j(vals), _j(ids), _j(probes),
                                            interpret=True)
     got_r, got_f = ttb.rank_lookup_count(_t(vals), _t(ids), _t(probes))
     np.testing.assert_array_equal(got_r.numpy(), np.asarray(ref_r))
     np.testing.assert_array_equal(got_f.numpy(), np.asarray(ref_f))
     assert got_f.dtype == torch.bool and not got_f[:, 0].any()
+    if repeats:
+        assert not got_f[:, 1].any() and not got_r[:, 1].any()
+        assert bool(got_f[:, 2:4].all())
 
 
 def test_rank_lookup_count_any_t_equals_rank_count_of_the_looked_up_scores():

@@ -19,7 +19,8 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "chip_ab.py"),
              os.path.join(ROOT, "experiments", "segsum_merge_variants.py"),
-             os.path.join(ROOT, "experiments", "rank_count_designs.py")]
+             os.path.join(ROOT, "experiments", "rank_count_designs.py"),
+             os.path.join(ROOT, "experiments", "submax_variants.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
@@ -531,6 +532,57 @@ def test_cuda_rank_count_matches_plain_version_on_adversarial_keys(w, t):
     assert torch.equal(got.cpu(), ttb.rank_count_plain(*cpu))
     torch.cuda.synchronize()
     assert runtime.LAUNCHES["rank_count"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [40_981, 1000])
+@pytest.mark.parametrize("block_n", [4096, 256, 128])
+def test_cuda_submax_matches_plain_version_on_signed_zeros_and_nan(n,
+                                                                   block_n):
+    """submax on groups of +0.0 before -0.0, -0.0 before +0.0, -0.0 only,
+    NaN of either sign, +inf beside NaN and a fully masked row, with and
+    without the mask table (a last block of 21 columns at N = 40,981 and
+    block_n 4,096), against submax_plain on CPU copies: the int32 views
+    equal, NaN by isnan (needs a card, as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    smoke = _chip_smoke()
+    s, mask = (torch.from_numpy(x) for x in smoke.submax_rows(
+        np.random.default_rng(n + block_n), n, block_n))
+    runtime.reset_launches()
+    for m in (mask, None):
+        got = ttb.submax(s.cuda(), None if m is None else m.cuda(), block_n)
+        assert smoke.same_bits(got, ttb.submax_plain(s, m, block_n))
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["submax"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [37, 550, 2049, 5000])
+@pytest.mark.parametrize("t", [1, 129, 416])
+def test_cuda_rank_lookup_count_matches_plain_version_on_adversarial_rows(
+        w, t):
+    """rank_lookup_count on ids repeated with NaN, -inf and finite copies,
+    rows of extract's empty slots, a row with no -inf lane, probes equal to
+    the sentinel, out of range and duplicated, W up to three tiles, against
+    rank_lookup_count_plain on CPU copies (needs a card, as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from skrx_torch.ops.kernels import runtime
+    from skrx_torch.ops.kernels import topk_blocks as ttb
+    rows = _chip_smoke().lookup_rows(np.random.default_rng(w + t), w, t)
+    cpu = [torch.from_numpy(x) for x in rows]
+    runtime.reset_launches()
+    ranks, found = ttb.rank_lookup_count(*(x.cuda() for x in cpu))
+    ref_r, ref_f = ttb.rank_lookup_count_plain(*cpu)
+    assert torch.equal(ranks.cpu(), ref_r) and torch.equal(found.cpu(), ref_f)
+    assert found.dtype == torch.bool
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["rank_lookup_count"] == 1
 
 
 @pytest.mark.cuda

@@ -265,21 +265,71 @@ def test_blockwise_topk_at_survivor_boundaries_matches_jax(name):
         np.testing.assert_array_equal(got, found)
 
 
-def test_submax_layout_matches_jax_fold():
+def _assert_same_max(got, ref):
+    """Non-NaN values equal as int32 views (so -0.0 differs from +0.0); NaN
+    where the reference is NaN, by isnan: JAX's NaN bits are the
+    backend's."""
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.int32)[~nan],
+                                  ref.view(np.int32)[~nan])
+
+
+# column t of a 2-column group (block_n 256) in rows 0 and 1 of the case
+SUBMAX_GROUPS = {"random": None, "+0, -0": (0.0, -0.0), "-0, +0": (-0.0, 0.0),
+                 "-0, -0": (-0.0, -0.0), "NaN": (np.nan, 1.0)}
+
+
+@pytest.mark.parametrize("case", list(SUBMAX_GROUPS))
+def test_submax_layout_matches_jax_fold(case):
     """Group l of block j is column j*128 + l: the layout JAX's threshold
-    pass writes (checked through its own fold of the same scores)."""
+    pass writes (checked through its own fold of the same scores), with its
+    max: NaN when the group holds one, otherwise -0.0 below +0.0 (a plain
+    amax keeps whichever zero comes first)."""
     rng = np.random.default_rng(8)
     b, n, block_n = 3, 1000, 256
     s = rng.standard_normal((b, n)).astype(np.float32)
     table = _mask_table(rng, b, n, 30)
+    if SUBMAX_GROUPS[case] is not None:
+        first, second = SUBMAX_GROUPS[case]
+        half = (np.arange(n) % block_n) // 128
+        s[:2] = np.where(half == 0, first, second)
+        s[1, ::3] = -1.0                   # groups of one zero or NaN
+        s[2, ::7] = first                  # a few among normals
     masked = np.asarray(jmetrics.mask_items(jnp.asarray(s), jnp.asarray(table)))
     pad = np.full((b, 4 * block_n), -np.inf, np.float32)
     pad[:, :n] = masked
     ref = np.concatenate([np.asarray(jtb._fold(jnp.asarray(
         pad[:, j * block_n:(j + 1) * block_n]), jnp.maximum))
         for j in range(4)], axis=1)
-    got = ttb.submax(_t(s), _t(table), block_n)
-    np.testing.assert_array_equal(got.numpy(), ref)
+    got = ttb.submax(_t(s), _t(table), block_n).numpy()
+    _assert_same_max(got, ref)
+    if case == "NaN":
+        assert np.isnan(ref[0]).sum() > 400
+    elif case != "random":                 # the pair's max is in row 0
+        want = np.float32(0.0 if "+0" in case else -0.0).view(np.int32)
+        assert (ref[0].view(np.int32) == want).sum() > 400
+
+
+@pytest.mark.parametrize("case", ["signed zeros", "NaN"])
+def test_fold_submaxes_matches_jax(case):
+    """fold_submaxes folds as JAX's _fold_submaxes (jnp.maximum): -0.0
+    below +0.0 (torch.maximum(-0.0, +0.0) is -0.0), NaN kept; odd 128-lane
+    counts padded with -inf."""
+    rng = np.random.default_rng(9)
+    bm = rng.standard_normal((4, 128 * 75)).astype(np.float32)
+    if case == "signed zeros":
+        bm[:, ::2] = np.where(rng.random((4, 128 * 75 // 2)) < 0.5, -0.0, 0.0)
+        bm[:, 1::2] = np.where(rng.random((4, 128 * 75 // 2)) < 0.5, -0.0, 0.0)
+        bm[2] = -0.0
+    else:
+        bm[:, ::97] = np.nan
+    for k in (10, 50, 3000):
+        ref = np.asarray(jtb._fold_submaxes(
+            jnp.asarray(bm), max(4096, 2 * (-(-k // 128) * 128))))
+        got = ttb.fold_submaxes(_t(bm), k).numpy()
+        assert got.shape == ref.shape
+        _assert_same_max(got, ref)
 
 
 # -------------------------------------------------- pruned_merge and vmem_topk
