@@ -62,7 +62,19 @@ new, new, parent. On the synthetic Gowalla-scale data of ``chip_smoke.py``
    after the segments of equal keys and the lanes not -inf a row
    (:func:`lookup_cases`); then the NaN row, a NaN at a found probe's id
    in each row: the new kernel against rank_lookup_count_plain, and the
-   (row, probe) where the parent differs from it.
+   (row, probe) where the parent differs from it;
+7. direct_rank on evaluation batches of 64 test users with the evaluator's
+   own padding of the train (mask) and test (probe) tables
+   (:func:`direct_rank_cases`): MovieLens-1M scale (N=3,706, the main
+   path's shape), the same rows with T cut to 128 (JAX's limit),
+   MovieLens-100k scale (N=1,682), N=12,799 (the top of the route at
+   k=50), and B=7 rows of N=51,000 with one probe at k=200, each after its
+   found probes (m_valid, and a row's mean and largest); beside the turns,
+   each kernel by CUDA events over 1,000 back-to-back calls and as the
+   median of one call between events; then the ML-1M batch with NaN
+   scores (each row's first probe on a NaN column): the new kernel against
+   direct_rank_plain, and how many (row, probe) pairs of the parent's
+   differ from it.
 
 Prints one line per measurement with the card's name, power limit and SM
 clock, and writes every number to ``chiprun_out/chip_ab.json``. Exits 2
@@ -81,8 +93,9 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import (CHUNK, MERGE_CAP, RANK_CAP, card_line, device_ms,
-                        merge_rows, rank_segments)
+from chip_smoke import (CHUNK, MERGE_CAP, ML_ITEMS, ML_RATINGS, ML_USERS,
+                        RANK_CAP, card_line, device_ms, launches_ms,
+                        merge_rows, rank_segments, time_ms)
 from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.io import synthetic
 from skrx_torch.ops.kernels import _build
@@ -325,6 +338,68 @@ def lookup_cases(model, users, k: int = 50) -> list:
             nan_i[r, slot[0, 0]] = cand_i[r, real[0, 0]]
     cases.append((", NaN row", nan_v, nan_i, nan_p))
     return cases
+
+
+# (name, users, items, ratings) of the synthetic datasets whose evaluation
+# batches phase 7 ranks: MovieLens-1M's and MovieLens-100k's published
+# counts, and a catalog at the top of direct_rank's route at k=50 (the
+# evaluator takes it while n // 128 < 2k)
+DIRECT_DATA = (("ML-1M", ML_USERS, ML_ITEMS, ML_RATINGS),
+               ("ML-100k", 943, 1_682, 100_000),
+               ("top of the route at k=50", ML_USERS, 12_799, ML_RATINGS))
+
+
+def direct_rank_cases(root: str, dev) -> list:
+    """[(tag, scores, mask, probes, k)]: direct_rank's inputs in an
+    evaluation batch (64 test users, BPRMF at n_dim=64 as built, seed 2021)
+    of each of DIRECT_DATA, the evaluator's train table as the mask and its
+    test table as the probes, both padded as the evaluator pads them (to
+    the longest list of any user), k=50; the first batch (ML-1M's) again
+    with T cut to 128, the most JAX's kernel takes; then 7 rows of 51,000 random scores
+    with 300 random mask ids and one random probe each, k=200 (a row wider
+    than any tile of the parent's)."""
+    reg = ModelRegistry()
+    reg.load_skrx_model("BPRMF")
+    cls, _ = reg.get_model("BPRMF")
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for name, users, items, ratings in DIRECT_DATA:
+        path = synthetic.make_dataset_dir(os.path.join(root, str(items)),
+                                          num_users=users, num_items=items,
+                                          num_ratings=ratings, seed=SEED)
+        model = cls(RunConfig(recommender="BPRMF", data_dir=path, seed=SEED),
+                    {"n_dim": DIM, "epochs": 1}, device=dev)
+        ev = model.evaluator
+        u = rng.choice(np.fromiter(ev.user_pos_test, np.int64), 64,
+                       replace=False)
+        tr, te, _ = ev._tables_for(u, items)
+        mask, probes = (torch.from_numpy(x).to(dev) for x in (tr, te))
+        scores = model.predict(u).contiguous()
+        cases.append((f"{name} B=64 N={items} L={tr.shape[1]} "
+                      f"T={te.shape[1]} k=50", scores, mask, probes, 50))
+        if len(cases) == 1:
+            cut = probes[:, :128].contiguous()
+            cases.append((f"{name} B=64 N={items} L={tr.shape[1]} "
+                          f"T={cut.shape[1]} k=50", scores, mask, cut, 50))
+    n = 51_000
+    s, table, probes = (rng.standard_normal((7, n)).astype(np.float32),
+                        rng.integers(-2, n + 2, (7, 300)).astype(np.int32),
+                        rng.integers(0, n, (7, 1)).astype(np.int32))
+    cases.append((f"B=7 N={n} L=300 T=1 k=200",
+                  *(torch.from_numpy(x).to(dev) for x in (s, table, probes)),
+                  200))
+    return cases
+
+
+def found_probes(scores: torch.Tensor, mask: torch.Tensor,
+                 probes: torch.Tensor) -> torch.Tensor:
+    """(B,) the probes a row that direct_rank counts for: id in [0, N), not
+    in the row's mask, score finite (the others only get k written)."""
+    n = scores.shape[1]
+    safe = probes.clamp(0, n - 1)
+    ok = ((probes >= 0) & (probes < n)
+          & torch.isfinite(scores.gather(1, safe.long())))
+    return (ok & ~tb._in_rows(mask, safe)).sum(1)
 
 
 def main() -> int:
@@ -646,6 +721,59 @@ def main() -> int:
         report(f"rank_lookup_count {tag}", in_turns(
             {"parent": run_parent, "new": run_new},
             ["parent", "new", "new", "parent"]))
+
+    # ----------------------------------------------------- direct_rank
+    parent_dr = c_fn(libs["parent_rank"], src["parent_rank"],
+                     "skrx_direct_rank")
+    cases = direct_rank_cases(os.path.join(root, "direct"), dev)
+    # ML-1M's batch with NaN scores: every 17th column, and each row's
+    # first probe made the id of a NaN column
+    _, sc, mask, probes, k = cases[0]
+    sc, probes = sc.clone(), probes.clone()
+    sc[:, 5::17] = float("nan")
+    probes[:, 0] = 5 + 17 * torch.arange(64, device=dev, dtype=torch.int32)
+    cases.append((cases[0][0] + ", NaN scores", sc, mask, probes, k))
+    for tag, scores, mask, probes, k in cases:
+        b, n = scores.shape
+        t, width = probes.shape[1], mask.shape[1]
+        out = torch.empty((b, t), device=dev, dtype=torch.int32)
+        per_row = found_probes(scores, mask, probes).double()
+
+        def run_parent():
+            parent_dr(ptr(scores), b, n, ptr(mask), width, ptr(probes), t, k,
+                      ptr(out))
+
+        def run_new():
+            return tb.direct_rank(scores, probes, k, mask)
+        run_parent()
+        print(f"direct_rank {tag}: found probes (m_valid) "
+              f"{int(per_row.sum())}, a row mean {float(per_row.mean())}, "
+              f"max {int(per_row.max())}", flush=True)
+        if tag.endswith("NaN scores"):
+            plain = tb.direct_rank_plain(scores.cpu(), mask.cpu(),
+                                         probes.cpu(), k)
+            equal(f"direct_rank {tag} vs direct_rank_plain", [run_new()],
+                  [plain.to(dev)])
+            bad = (out.cpu() != plain).nonzero().tolist()
+            results[f"parent vs plain, direct_rank {tag}"] = len(bad)
+            print(f"parent direct_rank {tag}: {len(bad)} (row, probe) pairs "
+                  f"differ from direct_rank_plain" + "".join(
+                      f"; row {r} probe {q}: parent {int(out[r, q])}, plain "
+                      f"{int(plain[r, q])}" for r, q in bad[:4]), flush=True)
+            continue
+        equal(f"direct_rank {tag}", [run_new()], [out])
+        report(f"direct_rank {tag}", in_turns(
+            {"parent": run_parent, "new": run_new},
+            ["parent", "new", "new", "parent"]))
+        events = {name: {"1,000 back-to-back calls": launches_ms(fn, 1000),
+                         "one call": time_ms(fn)}
+                  for name, fn in (("parent", run_parent), ("new", run_new))}
+        results[f"direct_rank {tag}: CUDA events"] = events
+        print(f"direct_rank {tag} by CUDA events, ms a call over 1,000 "
+              f"back-to-back calls / median of one call: " + ", ".join(
+                  f"{name} {e['1,000 back-to-back calls']} / "
+                  f"{e['one call']}" for name, e in events.items())
+              + f"  [{card}]", flush=True)
 
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)

@@ -18,7 +18,9 @@ skrx_torch fails and it exits 1):
    evaluator's real test-table width T); and adversarial inputs: tie
    storms, fully masked rows, -inf rows, duplicate candidates, signed
    zeros; probes that are masked, out of range, duplicated or scored -inf,
-   T=1 and T>128, rows with fewer than k unmasked items; kth_largest at
+   T=1 and T>128, rows with fewer than k unmasked items; direct_rank also
+   on a row with NaN at every 7th id (probes on and beside them) and a row
+   of +0.0 and -0.0 at alternate ids; kth_largest at
    W in {128, 256, 1,408, 4,096, 5,000} and k in {1, 10, 50, W} on ties
    across the k-th place, all -inf rows, signed zeros and subnormals,
    negatives only, fewer than k finite entries (its bits equal the plain
@@ -113,8 +115,9 @@ skrx_torch fails and it exits 1):
    selection kernels (submax, kth_largest, extract, dot_submax,
    dot_extract) again at the evaluation shape (B=64, k=50) with their
    bounds (and torch.kthvalue beside kth_largest); vmem_topk at chunked
-   evaluate()'s merge (B=64, W=100, k=50, beside torch.topk); direct_rank by the profiler and by CUDA events over 1,000
-   back-to-back calls; recommend's p50 per batch size with the
+   evaluate()'s merge (B=64, W=100, k=50, beside torch.topk); direct_rank at
+   the ML-1M evaluation shape with its found probes, by the profiler, by
+   CUDA events over 1,000 back-to-back calls and for one call; recommend's p50 per batch size with the
    card's busy share during it (torch.profiler), for the score-matrix and
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
@@ -682,6 +685,21 @@ def adversarial_ranks(dev, errs: dict) -> None:
         check_ranks(f"adversarial N={n} no mask",
                     torch.from_numpy(s).to(dev), None,
                     torch.from_numpy(probes).to(dev), K_EVAL, errs)
+    # direct_rank's route (N // 128 < 2k) on a NaN row, a NaN at every 7th
+    # id and probes on and beside them (a NaN never counts above a probe, a
+    # probe scored NaN gets k, as in JAX), and a row of +0.0 and -0.0 at
+    # alternate ids (they tie: the lower id first)
+    s, mask, probes = rank_case(rng, ML_ITEMS, 16, 300, 424, K_EVAL)
+    s[4, 1::7] = np.nan
+    probes[4, :8] = (1, 2, 7, 8, 9, 15, 16, 100)
+    s[5] = np.where(np.arange(ML_ITEMS) % 2, 0.0, -0.0)
+    probes[5, :8] = (0, 1, 2, 3, 40, 41, 1000, 1001)
+    ref = check_ranks("adversarial NaN and signed-zero rows",
+                      *(torch.from_numpy(x).to(dev) for x in (s, mask,
+                                                              probes)),
+                      K_EVAL, errs)
+    require(int((ref[4] < K_EVAL).sum()) > 0 and int((ref[5] < K_EVAL).sum())
+            > 0, "the NaN and signed-zero rows hold hits")
     rank_adversarial(dev, errs)
 
 
@@ -1828,7 +1846,8 @@ def main() -> int:
               f"{None if lib is None else device_ms(lib)} ms; 200 "
               f"back-to-back calls between CUDA events {launches_ms(fn)} ms "
               f"a call  [{card}]", flush=True)
-    print(f"direct_rank at the ML-1M evaluation shape: {device_ms(kernel_fns['direct_rank'][0])} "
+    print(f"direct_rank at the ML-1M evaluation shape ({m_valid} found "
+          f"probes of {bm_ * tm_} slots): {device_ms(kernel_fns['direct_rank'][0])} "
           f"ms of device time (torch.profiler, the table's number), "
           f"{launches_ms(kernel_fns['direct_rank'][0], 1000)} ms a call over "
           f"1,000 back-to-back calls between CUDA events (the host's launch "

@@ -11,27 +11,42 @@
 //
 // All count, for each probe (score s, id t) of a row, the row's elements
 // (v, i) with v > s or (v == s and i < t): the probe's 0-based position in
-// the row's (value desc, id asc) order. The TPU kernels take at most 128
-// probes (one unrolled round each, lane-padded); here any number. The block
-// walks the row in shared-memory tiles that all its threads read by
-// broadcast; in direct_rank one thread owns one probe and keeps its count
-// in a register, in rank_count and rank_lookup_count a lane holds several
-// probes as packed keys and the block's warps split each tile's segments
-// of equal keys. Grids (B, probe blocks), so a batch of 64 rows with a few
-// hundred probes each still fills the card.
+// the row's (value desc, id asc) order, as one compare of packed 64-bit
+// keys (rank_key). The TPU kernels take at most 128 probes (one unrolled
+// round each, lane-padded); here any number. In rank_count and
+// rank_lookup_count a lane holds several probes' keys and the block's warps
+// split each tile's segments of equal keys, grid (B, probe blocks); in
+// direct_rank a CTA sorts its row's found probes and each column finds its
+// place among them, the row's columns split over a cluster, grid (B * cl,
+// probe blocks). So a batch of 64 rows with a few hundred probes each still
+// fills the card.
 //
 // Plain C interface (launch on the caller's stream, return
 // cudaGetLastError()); the wrappers in ../topk_blocks.py check shapes, types
 // and devices, allocate the outputs and count launches.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cmath>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;   // direct_rank: probes per block
-constexpr int kTile = 2048;     // direct_rank: row elements staged per round
+// direct_rank: probe slots a CTA (one a thread), mask bitmap words (a
+// window of kWinCols columns), columns a thread searches at once, mask ids
+// a thread loads up front, the fewest columns a CTA of a split row takes,
+// most CTAs a row's columns are split over (a portable cluster)
+constexpr int kRankThreads = 512;
+constexpr int kRankWarps = kRankThreads / 32;
+constexpr int kBitWords = 2048;
+constexpr int kWinCols = 32 * kBitWords;
+constexpr int kColUnroll = 4;
+constexpr int kMaskUnroll = 8;
+constexpr int kClusterCols = 1024;
+constexpr int kMaxCluster = 8;
 // rank_count and rank_lookup_count: probe keys a lane holds, warps that
 // split a tile between them, probes a block, candidates a tile (its
 // segments take 24 KB, rank_lookup_count's list of it 16 KB more)
@@ -361,69 +376,289 @@ rank_lookup_count_kernel(const float* __restrict__ vals,
   write_counts(part, cnt, out + b * t_count, p0, t_count);
 }
 
-// Replaces _direct_rank_kernel. Counts over the whole masked score row, so
-// the rank is exact at any depth. A probe's score is the row's score at its
-// id; an id out of [0, n) or in the row's (B, L) mask table, or a score
-// that is not finite, makes the probe miss and its rank k. The row is tiled:
-// per tile the block builds a shared-memory bitmap of the masked columns
-// from the mask row (ids outside the tile, padding included, are ignored)
-// and stages the scores with masked columns at -inf, which never count
-// above a finite probe. Bound: operations (T compares per score); the bytes
-// are one read of the scores and of the mask row per probe block.
-__global__ void __launch_bounds__(kThreads)
+// direct_rank's pieces. A CTA holds kRankThreads probe slots of one row,
+// one a thread; the row's columns are split over a cluster of cl CTAs.
+
+// Sets bits[] to the columns [lo, lo + width) of the row that its mask row
+// (L ids, unsorted, duplicates allowed) lists; ids outside, padding
+// included, are ignored. Starts and ends with a barrier of the CTA.
+__device__ __forceinline__ void build_bits(unsigned* bits,
+                                           const int* __restrict__ mrow, int L,
+                                           int lo, int width) {
+  __syncthreads();                        // the previous window is read
+  for (int e = threadIdx.x; e < (width + 31) >> 5; e += kRankThreads) bits[e] = 0u;
+  __syncthreads();
+  for (int e = threadIdx.x; e < L; e += kRankThreads) {
+    const unsigned rel = (unsigned)__ldg(mrow + e) - (unsigned)lo;
+    if (rel < (unsigned)width) atomicOr(&bits[rel >> 5], 1u << (rel & 31));
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ bool bit_set(const unsigned* bits, unsigned rel) {
+  return (bits[rel >> 5] >> (rel & 31)) & 1u;
+}
+
+// Where sorted key e is kept: e + e / 16. Unskewed, 8-byte keys 16 apart
+// share a pair of banks, and the first levels of a binary search read keys
+// 16 * 2^i apart, so its lanes would wait on each other there.
+__device__ __forceinline__ int skewed(int e) { return e + (e >> 4); }
+
+// The count, inverted: each column c of [c0, c1) (bits[] holds the mask of
+// the window starting at lo, when has_mask) finds its bin among the sorted
+// probe keys, sorted[skewed(0 .. ps)) (ps a power of two, padded with ~0):
+// j = the number of probe keys <= its rank_key. The column ranks before
+// exactly the probes of sorted place >= j, so it adds 1 to hist[j], and a
+// prefix sum over the bins gives each probe its count. A masked column, or
+// a NaN one (the largest key), lands past every probe and counts for none.
+// A thread takes kColUnroll columns at once, so that their loads and
+// searches overlap; with `loaded`, ck holds the keys of the first columns
+// already (their loads were issued before the probes were listed).
+__device__ __forceinline__ void count_columns(
+    const float* __restrict__ row, const unsigned* bits, bool has_mask, int lo,
+    int c0, int c1, const unsigned long long* sorted, int ps, int n_found,
+    int* hist, unsigned long long (&ck)[kColUnroll], bool loaded) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int base = c0 + warp * 32; base < c1; base += kColUnroll * kRankThreads) {
+    if (!loaded || base != c0 + warp * 32) {
+#pragma unroll
+      for (int u = 0; u < kColUnroll; ++u) {
+        const int c = base + u * kRankThreads + lane;
+        ck[u] = c < c1 ? rank_key(__ldg(row + c), c) : ~0ull;
+      }
+    }
+    int j[kColUnroll];
+#pragma unroll
+    for (int u = 0; u < kColUnroll; ++u) {
+      const int c = base + u * kRankThreads + lane;
+      if (c < c1 && has_mask && bit_set(bits, (unsigned)(c - lo))) ck[u] = ~0ull;
+      j[u] = 0;
+    }
+    for (int half = ps >> 1; half > 0; half >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kColUnroll; ++u)
+        j[u] += sorted[skewed(j[u] + half - 1)] <= ck[u] ? half : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kColUnroll; ++u) {
+      j[u] += sorted[skewed(j[u])] <= ck[u];
+      if (j[u] < n_found) atomicAdd(&hist[j[u]], 1);
+    }
+  }
+}
+
+// Inclusive prefix sum of h over the CTA's threads (warp_sum: kRankWarps
+// ints, free). Ends after a barrier.
+__device__ __forceinline__ int block_scan(int h, int* warp_sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, h, d);
+    if (lane >= d) h += o;
+  }
+  if (lane == 31) warp_sum[warp] = h;
+  __syncthreads();
+  for (int u = 0; u < warp; ++u) h += warp_sum[u];
+  return h;
+}
+
+// The cluster barrier split in two (cg's sync() is both): arrive releases
+// this thread's writes, wait acquires every CTA's that arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Replaces _direct_rank_kernel. The exact rank of each probe id t of a row
+// over the whole masked row of scores: the columns (v, c) with v > s or
+// (v == s and c < t), s = row[t]; an id out of [0, n) or in the row's (B,
+// L) mask table, or a score that is not finite, makes the probe miss and its
+// rank k. As JAX's kernel, a NaN column never counts (neither compare holds).
+// The parent ran one thread a probe slot over the whole row: padding slots
+// worked as much as found probes, each slot scanned the mask row for its
+// id, and a found probe's count was one lane's serial walk over all n
+// columns, on the few SMs whose blocks held found probes (latency: 0.045 ms
+// at B=64, N=3,706, T=488 on an H100). Here the work is per column, not per
+// probe. The CTA issues every load first (its mask ids, its probe ids and
+// their scores, its first columns), builds the row's mask as a bitmap once,
+// lists its found probes (id in range, not masked, score finite) as packed
+// keys (rank_key: one 64-bit compare a pair), gives each its place among
+// them by counting the smaller keys (a handful to a few hundred a row), and
+// inverts the count (count_columns): a binary search a column and one
+// shared add, O(n log T_found) a row whatever its padding. Slots that hold
+// no found probe only write k. Where the batch leaves SMs free, a row of
+// at least 2 * kClusterCols columns is split over a cluster of cl CTAs
+// (each lists and ranks the same probes); each adds its bins into the
+// leader's histogram through distributed shared memory, and the leader
+// (rank 0) prefix-sums them and writes the counts. Grid (B * cl,
+// ceil(T / kRankThreads)),
+// clusters of (cl, 1, 1) with kCluster. Rows wider than kWinCols build the
+// bitmap a window at a time (twice: the list, then the count). Bound: bytes
+// (the row, the mask row and the probes read once); the parent's work, a
+// compare and an add per (found probe, column), takes less time still.
+template <bool kCluster>
+__global__ void __launch_bounds__(kRankThreads)
 direct_rank_kernel(const float* __restrict__ scores, int n,
                    const int* __restrict__ mask, int L,
                    const int* __restrict__ tid, int t_count, int k,
                    int* __restrict__ out) {
-  __shared__ float sv[kTile];
-  __shared__ int sm[kTile];
-  __shared__ unsigned bits[kTile / 32];
-  const long long b = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
-  const bool has = p < t_count;
-  const int t = has ? tid[b * t_count + p] : -1;
+  __shared__ unsigned bits[kBitWords];
+  __shared__ unsigned long long listed[kRankThreads];
+  __shared__ unsigned long long sorted[kRankThreads + kRankThreads / 16];
+  __shared__ int hist[kRankThreads];
+  __shared__ int warp_n[kRankWarps];
+  const int cl = kCluster ? (int)cg::this_cluster().num_blocks() : 1;
+  const int rank = kCluster ? (int)cg::this_cluster().block_rank() : 0;
+  const long long b = blockIdx.x / cl;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float* row = scores + b * n;
   const int* mrow = mask + b * L;   // L == 0 without a mask
-  // is the probe's id in the mask row? (unsorted, duplicates allowed)
+  int* out_row = out + b * t_count;
+  const bool one_window = n <= kWinCols;
+  // every load first, so that their latencies overlap
+  const int p = blockIdx.y * kRankThreads + threadIdx.x;
+  const int t = p < t_count ? __ldg(tid + b * t_count + p) : -1;
+  int m[kMaskUnroll];
+#pragma unroll
+  for (int u = 0; u < kMaskUnroll; ++u) {
+    const int e = u * kRankThreads + threadIdx.x;
+    m[u] = one_window && e < L ? __ldg(mrow + e) : -1;
+  }
+  const int per = ((n + cl - 1) / cl + 31) & ~31;
+  const int c0 = min(n, rank * per), c1 = min(n, c0 + per);
+  unsigned long long ck[kColUnroll];
+#pragma unroll
+  for (int u = 0; u < kColUnroll; ++u) {
+    const int c = c0 + warp * 32 + u * kRankThreads + lane;
+    ck[u] = one_window && c < c1 ? rank_key(__ldg(row + c), c) : ~0ull;
+  }
+  const bool in_row = t >= 0 && t < n;
+  const float s = in_row ? __ldg(row + t) : 0.f;
+  if (one_window)
+    for (int e = threadIdx.x; e < (n + 31) >> 5; e += kRankThreads) bits[e] = 0u;
+  hist[threadIdx.x] = 0;
+  __syncthreads();
+  if (kCluster) cluster_arrive();        // this CTA's histogram is zeroed
   bool masked = false;
-  for (int lo = 0; lo < L; lo += kTile) {
-    const int width = min(kTile, L - lo);
-    for (int e = threadIdx.x; e < width; e += kThreads) sm[e] = __ldg(mrow + lo + e);
-    __syncthreads();
-    if (has) {
-      for (int e = 0; e < width; ++e) masked |= sm[e] == t;
+  if (one_window) {
+#pragma unroll
+    for (int u = 0; u < kMaskUnroll; ++u)
+      if ((unsigned)m[u] < (unsigned)n) atomicOr(&bits[m[u] >> 5], 1u << (m[u] & 31));
+    for (int e = kMaskUnroll * kRankThreads + threadIdx.x; e < L; e += kRankThreads) {
+      const unsigned id = (unsigned)__ldg(mrow + e);
+      if (id < (unsigned)n) atomicOr(&bits[id >> 5], 1u << (id & 31));
     }
     __syncthreads();
-  }
-  const float s = (has && t >= 0 && t < n && !masked) ? __ldg(row + t) : -INFINITY;
-  const bool valid = isfinite(s);
-  int cnt = 0;
-  if (__syncthreads_or(valid)) {
-    for (int lo = 0; lo < n; lo += kTile) {
-      const int width = min(kTile, n - lo);
-      for (int e = threadIdx.x; e < kTile / 32; e += kThreads) bits[e] = 0u;
-      __syncthreads();
-      for (int e = threadIdx.x; e < L; e += kThreads) {
-        const long long rel = (long long)__ldg(mrow + e) - lo;
-        if (rel >= 0 && rel < width) atomicOr(&bits[rel >> 5], 1u << (rel & 31));
-      }
-      __syncthreads();
-      for (int c = threadIdx.x; c < width; c += kThreads) {
-        sv[c] = ((bits[c >> 5] >> (c & 31)) & 1u) ? -INFINITY : __ldg(row + lo + c);
-      }
-      __syncthreads();
-      if (valid) {
-        const int rel_t = t - lo;   // column c of the tile ranks before t iff c < rel_t
-#pragma unroll 8
-        for (int c = 0; c < width; ++c) {
-          const float v = sv[c];
-          cnt += (v > s) | ((v == s) & (c < rel_t));
-        }
-      }
-      __syncthreads();
+    masked = in_row && L > 0 && bit_set(bits, (unsigned)t);
+  } else {
+    for (int lo = 0; L > 0 && lo < n; lo += kWinCols) {
+      const int width = min(kWinCols, n - lo);
+      build_bits(bits, mrow, L, lo, width);
+      const unsigned rel = (unsigned)t - (unsigned)lo;
+      if (in_row && rel < (unsigned)width) masked = bit_set(bits, rel);
     }
   }
-  if (has) out[b * t_count + p] = valid ? cnt : k;
+  // the found probes, listed in slot order as packed keys
+  const bool found = in_row && !masked && isfinite(s);
+  if (p < t_count && !found && rank == 0) out_row[p] = k;
+  const unsigned ballot = __ballot_sync(0xffffffffu, found);
+  if (lane == 0) warp_n[warp] = __popc(ballot);
+  __syncthreads();
+  int pos = __popc(ballot & ((1u << lane) - 1u)), n_found = 0;
+#pragma unroll
+  for (int u = 0; u < kRankWarps; ++u) {
+    pos += u < warp ? warp_n[u] : 0;
+    n_found += warp_n[u];
+  }
+  const unsigned long long pk = found ? rank_key(s, t) : 0ull;
+  if (found) listed[pos] = pk;
+  __syncthreads();
+  if (n_found == 0) {                    // the same in every CTA of the cluster
+    if (kCluster) cluster_wait();
+    return;
+  }
+  // each found probe's place among them: the smaller keys, ties by slot
+  int ps = 1;
+  while (ps < n_found) ps <<= 1;
+  int r = 0;
+  if (found) {
+    int j = 0;
+    for (; j + 4 <= n_found; j += 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned long long kj = listed[j + q];
+        r += (kj < pk) | ((kj == pk) & (j + q < pos));
+      }
+    }
+    for (; j < n_found; ++j) {
+      const unsigned long long kj = listed[j];
+      r += (kj < pk) | ((kj == pk) & (j < pos));
+    }
+    sorted[skewed(r)] = pk;
+  }
+  if ((int)threadIdx.x >= n_found && (int)threadIdx.x < ps)
+    sorted[skewed(threadIdx.x)] = ~0ull;
+  __syncthreads();
+  if (one_window) {
+    count_columns(row, bits, L > 0, 0, c0, c1, sorted, ps, n_found, hist, ck, true);
+  } else {
+    for (int lo = 0; lo < n; lo += kWinCols) {
+      const int a = max(c0, lo), e = min(c1, lo + kWinCols);
+      if (a >= e) continue;          // the same in every thread of the CTA
+      if (L > 0) build_bits(bits, mrow, L, lo, min(kWinCols, n - lo));
+      count_columns(row, bits, L > 0, lo, a, e, sorted, ps, n_found, hist, ck, false);
+    }
+  }
+  __syncthreads();                       // this CTA's histogram is complete
+  if (kCluster) {
+    cluster_wait();                      // every CTA's histogram was zeroed
+    if (rank != 0 && (int)threadIdx.x < n_found && hist[threadIdx.x])
+      atomicAdd(cg::this_cluster().map_shared_rank(hist, 0) + threadIdx.x,
+                hist[threadIdx.x]);
+    cg::this_cluster().sync();           // the leader's histogram is complete
+  }
+  if (rank == 0) {
+    const int h = block_scan((int)threadIdx.x < n_found ? hist[threadIdx.x] : 0,
+                             warp_n);
+    hist[threadIdx.x] = h;
+    __syncthreads();
+    if (found) out_row[p] = hist[r];
+  }
+}
+
+// CTAs a row's columns are split over: at least kClusterCols columns each,
+// B * cl within the SM count, at most kMaxCluster (1: no cluster).
+int direct_rank_cluster(int b, int n, int sms) {
+  return std::max(1, std::min({sms / std::max(b, 1), n / kClusterCols, kMaxCluster}));
+}
+
+int launch_direct_rank(const float* scores, int b, int n, const int* mask, int L,
+                       const int* tid, int t, int k, int* out, int cl,
+                       cudaStream_t stream) {
+  const int slices = (t + kRankThreads - 1) / kRankThreads;
+  if ((long long)b * cl > INT_MAX || slices > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(b * cl), (unsigned)slices);
+  cfg.blockDim = dim3(kRankThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = cl > 1 ? 1 : 0;         // one CTA a row: no cluster
+  const cudaError_t err =
+      cl > 1 ? cudaLaunchKernelEx(&cfg, direct_rank_kernel<true>, scores, n, mask, L,
+                                  tid, t, k, out)
+             : cudaLaunchKernelEx(&cfg, direct_rank_kernel<false>, scores, n, mask, L,
+                                  tid, t, k, out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -453,10 +688,17 @@ int skrx_rank_lookup_count(const float* vals, const int* ids, int b, int w,
 int skrx_direct_rank(const float* scores, int b, int n, const int* mask, int L,
                      const int* tid, int t, int k, int* out,
                      cudaStream_t stream) {
-  const dim3 grid(b, (t + kThreads - 1) / kThreads);
-  direct_rank_kernel<<<grid, kThreads, 0, stream>>>(scores, n, mask, L, tid, t,
-                                                     k, out);
-  return (int)cudaGetLastError();
+  static int sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_direct_rank(scores, b, n, mask, L, tid, t, k, out,
+                            direct_rank_cluster(b, n, sms[dev]), stream);
 }
 
 }  // extern "C"

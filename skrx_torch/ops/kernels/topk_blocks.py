@@ -463,20 +463,25 @@ def masked_topk_ranks(scores: torch.Tensor, k: int, test_table: torch.Tensor,
 def direct_rank_plain(scores: torch.Tensor, mask_table: Optional[torch.Tensor],
                       t_ids: torch.Tensor, k: int) -> torch.Tensor:
     b, n = scores.shape
-    s = scores if mask_table is None else _masked_padded(scores, mask_table,
-                                                         max(n, 1))
-    # position of every column in the row's (value desc, id asc) order
-    order = torch.sort(s, dim=1, descending=True, stable=True).indices
-    pos = torch.empty_like(order)
-    pos.scatter_(1, order, torch.arange(n, device=s.device).expand(b, n))
+    out = torch.full_like(t_ids, k)
+    if not n:
+        return out
+    s = scores if mask_table is None else _masked_padded(scores, mask_table, n)
     valid = (t_ids >= 0) & (t_ids < n)
-    safe = torch.where(valid, t_ids, 0).long()
-    if n:
-        valid &= torch.isfinite(s.gather(1, safe))
-        ranks = pos.gather(1, safe).to(torch.int32)
-    else:
-        ranks = torch.zeros_like(t_ids)
-    return torch.where(valid, ranks, k)
+    s_t = s.gather(1, torch.where(valid, t_ids, 0).long())
+    rows, cols = (valid & torch.isfinite(s_t)).nonzero(as_tuple=True)
+    # each found probe counts the columns whose packed key is below its own
+    # (a NaN column has the largest key, so it never counts), in slices of
+    # probes that compare at most 2**20 keys at once
+    keys = rank_key(s, torch.arange(n, dtype=torch.int32,
+                                    device=s.device).expand(b, n))
+    probes = rank_key(s_t[rows, cols], t_ids[rows, cols], probe=True)
+    step = max(1, 2 ** 20 // n)
+    for lo in range(0, rows.numel(), step):
+        r = rows[lo:lo + step]
+        out[r, cols[lo:lo + step]] = (keys[r] < probes[lo:lo + step, None]
+                                      ).sum(1, dtype=torch.int32)
+    return out
 
 
 def direct_rank(scores: torch.Tensor, t_ids: torch.Tensor, k: int,

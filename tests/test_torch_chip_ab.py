@@ -515,3 +515,81 @@ def test_submax_variants_need_a_card(monkeypatch):
         assert _chip_ab().c_argtypes(mod.SOURCE, f"skrx_submax_{name}") == \
             runtime._SIGNATURES["skrx_submax"][1] + [P]
         assert f"int skrx_submax_{name}(" in src
+
+
+@pytest.mark.parametrize("case", ["evaluator tables", "no probe found",
+                                  "NaN and out of range"])
+def test_found_probes_count_what_direct_rank_counts(case):
+    """found_probes gives, per row, the probes that direct_rank counts for
+    (id in [0, N), not in the mask row, finite score): those whose rank
+    is not k in a row where every such probe ranks below k."""
+    rng = np.random.default_rng(7)
+    b, n, k = 5, 300, 1000
+    s = rng.standard_normal((b, n)).astype(np.float32)
+    mask = rng.integers(-2, n + 2, (b, 40)).astype(np.int32)
+    probes = rng.integers(-3, n + 3, (b, 30)).astype(np.int32)
+    if case == "no probe found":
+        probes[:] = n
+    elif case == "NaN and out of range":
+        s[:, ::4] = np.nan
+        s[1, 1::4] = np.inf
+        probes[:, :5] = (0, 4, -1, n, 1)
+    want = [sum(0 <= t < n and t not in set(mask[r]) and np.isfinite(s[r, t])
+                for t in probes[r]) for r in range(b)]
+    got = _chip_ab().found_probes(*(torch.from_numpy(x)
+                                    for x in (s, mask, probes)))
+    assert got.tolist() == want
+    from skrx_torch.ops.kernels import topk_blocks as tb
+    ranks = tb.direct_rank(*(torch.from_numpy(x) for x in (s, probes)), k,
+                           torch.from_numpy(mask))
+    assert (ranks < k).sum(1).tolist() == want
+
+
+def test_direct_rank_cases_are_evaluation_batches(tmp_path, monkeypatch):
+    """direct_rank_cases gives each dataset's evaluation batch as the
+    evaluator pads it (train table as the mask, test table as the probes),
+    the first one again with T cut to 128, then 7 rows of 51,000 columns
+    with one probe at k=200."""
+    ab = _chip_ab()
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(ab, "DIRECT_DATA", (("A", 80, 700, 9000),
+                                            ("B", 70, 300, 4000)))
+    cases = ab.direct_rank_cases(str(tmp_path), "cpu")
+    assert len(cases) == 4
+    for tag, scores, mask, probes, k in cases[:3]:
+        assert scores.shape[0] == mask.shape[0] == probes.shape[0] == 64
+        assert f"N={scores.shape[1]} L={mask.shape[1]} T={probes.shape[1]}" \
+            in tag and k == 50
+        n = scores.shape[1]
+        assert bool(((mask >= 0) & (mask <= n)).all())
+        assert bool(((probes >= 0) & (probes <= n)).all())
+        # each row's train and test items apart, padding (n) at the end
+        for r in range(64):
+            tr, te = set(mask[r].tolist()) - {n}, set(probes[r].tolist()) - {n}
+            assert te and not (tr & te)
+    assert cases[0][0].startswith("A B=64 N=700")
+    assert torch.equal(cases[1][3], cases[0][3][:, :128])
+    assert cases[1][0].endswith(f"T={cases[1][3].shape[1]} k=50")
+    assert cases[2][0].startswith("B B=64 N=300")
+    tag, scores, mask, probes, k = cases[3]
+    assert (tuple(scores.shape), tuple(mask.shape), tuple(probes.shape), k) \
+        == ((7, 51_000), (7, 300), (7, 1), 200)
+
+
+def test_direct_rank_designs_need_a_card(monkeypatch):
+    spec = importlib.util.spec_from_file_location(
+        "direct_rank_designs",
+        os.path.join(ROOT, "experiments", "direct_rank_designs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main() == 2
+    with open(mod.SOURCE) as f:
+        src = f.read()
+    want = runtime._SIGNATURES["skrx_direct_rank"][1]
+    for name in mod.DESIGNS:           # each launcher typed from its source
+        assert _chip_ab().c_argtypes(
+            mod.SOURCE, f"skrx_direct_rank_{name}") == want + [P]
+        assert f"int skrx_direct_rank_{name}(" in src
+    assert _chip_ab().c_argtypes(mod.SOURCE, "skrx_direct_rank_cl") == \
+        want + [I, P]

@@ -101,18 +101,76 @@ def test_masked_topk_ranks_matches_jax(t):
 
 # ------------------------------------ kernel 8: masked_topk_ranks_small
 
-@pytest.mark.parametrize("seed,n,t,masked", [(0, 300, 40, True),
-                                             (1, 1000, 128, True),
-                                             (2, 257, 9, False)])
-def test_masked_topk_ranks_small_matches_jax(seed, n, t, masked):
+def _special_rows(s, probes, special):
+    """NaN, signed zeros or +inf written into rows 0 and 3, each beside a
+    NaN of row 4 (a NaN anywhere in a row once moved every rank of it)."""
+    s[4, 1::9] = np.nan
+    if special == "nan":
+        s[0, 2::5] = np.nan
+        s[3, 1] = np.nan
+        probes[0, 0] = 7                        # a probe scored NaN
+        probes[3, :4] = (0, 3, 6, 7)
+    elif special == "signed zeros":
+        s[0, 10:30] = np.where(np.arange(20) % 2, 0.0, -0.0)
+        s[3, 40:46] = (0.0, -0.0, 0.0, -0.0, 0.0, -0.0)
+        probes[0, :6] = (10, 11, 16, 17, 28, 29)
+        probes[3, :6] = np.arange(40, 46)
+    else:                                       # +inf
+        s[0, 3:30:4] = np.inf
+        s[3, 50] = np.inf
+        probes[0, :3] = (3, 4, 5)               # one scored +inf
+        probes[3, :2] = (50, 51)
+    probes[4, 7:10] = (1, 2, 3)                 # a NaN and its neighbours
+
+
+@pytest.mark.parametrize("seed,n,t,masked,special", [
+    pytest.param(0, 300, 40, True, None, id="0-300-40-True"),
+    pytest.param(1, 1000, 128, True, None, id="1-1000-128-True"),
+    pytest.param(2, 257, 9, False, None, id="2-257-9-False"),
+    (3, 128, 12, False, "nan"),
+    (4, 300, 40, True, "nan"),
+    (5, 300, 40, True, "signed zeros"),
+    (6, 257, 40, False, "+inf"),
+])
+def test_masked_topk_ranks_small_matches_jax(seed, n, t, masked, special):
     k = 20
     s, mask, probes = _probe_case(seed, 5, n, t, 30)
+    if special:
+        _special_rows(s, probes, special)
     ref = np.asarray(jtb.masked_topk_ranks_small(
         jnp.asarray(s), k, jnp.asarray(probes),
         mask_table=jnp.asarray(mask) if masked else None, interpret=True))
     got = ttb.masked_topk_ranks_small(_t(s), k, _t(probes),
                                       _t(mask) if masked else None).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def test_direct_rank_plain_is_exact_on_rows_wider_than_its_slices():
+    """A row of more than 2**20 columns (one probe a slice) and 300 probes:
+    every found probe's exact position in the row's (value desc, id asc)
+    order, NaN columns left out, as numpy's lexsort gives it."""
+    rng = np.random.default_rng(9)
+    b, n, t, k = 2, 2 ** 20 + 3, 300, 50
+    s = np.round(rng.standard_normal((b, n)) * 4).astype(np.float32)
+    s[:, 3::1001] = np.nan
+    s[0, 5::7] = -0.0
+    mask = rng.integers(0, n, (b, 64)).astype(np.int32)
+    probes = rng.integers(-2, n + 2, (b, t)).astype(np.int32)
+    probes[:, 0], probes[:, 1], probes[0, 2] = 3, mask[:, 0], 5
+    got = ttb.direct_rank_plain(_t(s), _t(mask), _t(probes), k).numpy()
+    for r in range(b):
+        v = s[r].copy()
+        v[mask[r]] = -np.inf
+        v = np.where(v == 0.0, 0.0, v)                 # -0.0 ties +0.0
+        keep = ~np.isnan(v)
+        order = np.lexsort((np.arange(n)[keep], -v[keep]))
+        pos = np.full(n, -1)
+        pos[np.flatnonzero(keep)[order]] = np.arange(keep.sum())
+        for q, i in enumerate(probes[r]):
+            hit = 0 <= i < n and np.isfinite(v[i])
+            assert got[r, q] == (pos[i] if hit else k), (r, q)
+    assert (got[:, :2] == k).all() and got[0, 2] != k
+    assert (got > k).sum() > 200
 
 
 def test_direct_rank_any_t_equals_the_blockwise_route_below_k():

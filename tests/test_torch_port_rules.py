@@ -20,7 +20,8 @@ def _port_files():
              os.path.join(ROOT, "chip_ab.py"),
              os.path.join(ROOT, "experiments", "segsum_merge_variants.py"),
              os.path.join(ROOT, "experiments", "rank_count_designs.py"),
-             os.path.join(ROOT, "experiments", "submax_variants.py")]
+             os.path.join(ROOT, "experiments", "submax_variants.py"),
+             os.path.join(ROOT, "experiments", "direct_rank_designs.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
@@ -325,17 +326,25 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,k,t,width", [
-    (64, 40981, 50, 424, 1472),            # the evaluation shape, Gowalla
-    (64, 3706, 50, 464, 2600),             # the evaluation shape, ML-1M
-    (7, 51000, 200, 1, 300),               # one probe, a row of 25 tiles
-    (9, 5000, 10, 130, 0),                 # T > 128, no mask
-    (5, 2100, 5, 40, 2100),                # fully masked rows
+@pytest.mark.parametrize("b,n,k,t,width,nan", [
+    pytest.param(64, 40981, 50, 424, 1472, False,
+                 id="64-40981-50-424-1472"),    # the evaluation shape, Gowalla
+    pytest.param(64, 3706, 50, 464, 2600, False,
+                 id="64-3706-50-464-2600"),     # the evaluation shape, ML-1M
+    pytest.param(7, 51000, 200, 1, 300, False,
+                 id="7-51000-200-1-300"),       # one probe, a wide row
+    pytest.param(9, 5000, 10, 130, 0, False,
+                 id="9-5000-10-130-0"),         # T > 128, no mask
+    pytest.param(5, 2100, 5, 40, 2100, False,
+                 id="5-2100-5-40-2100"),        # fully masked rows
+    (64, 3706, 50, 488, 1712, True),            # ML-1M with NaN scores
+    (5, 70001, 600, 600, 300, False),           # two bitmap windows, slices
 ])
-def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width):
+def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width, nan):
     """rank_count and direct_rank against their plain versions on CPU
     copies of the same inputs: ties, masked, out-of-range, duplicated,
-    -inf and +inf probes (needs a card, as the sweep above)."""
+    -inf and +inf probes, and NaN scores, some at probes' ids (needs a
+    card, as the sweep above)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import numpy as np
@@ -354,6 +363,9 @@ def test_cuda_rank_kernels_match_plain_versions(b, n, k, t, width):
     probes[3, 0] = 5                       # the +inf column
     if width and t > 4:
         probes[:, 1:4] = table[:, :3]      # masked probes
+    if nan:
+        s[:, 7::13] = np.nan
+        probes[:, 4:8] = (7, 8, 20, 21)    # NaN ids and their neighbours
     cpu = [torch.from_numpy(x) for x in (s, table, probes)]
     gpu = [x.cuda() for x in cpu]
     mask_c, mask_g = (cpu[1], gpu[1]) if width else (None, None)
