@@ -107,7 +107,31 @@ skrx_torch fails and it exits 1):
    full route's. A catalog of 1,048,576 items (d=64, B=256, random factors
    and seen table from the seed): dot_topk equal to its plain version, and
    the peak memory of both routes.
-8. Times on the card: each kernel, its plain version and a library call
+8. The rest of fit() and three more models, on the phase-3 data.
+   BPRMF with optimizer="lazy_adam" (BPRMFConfig defaults otherwise):
+   fit() for 2 epochs with a checkpoint after each (under build/): losses
+   finite and falling, submax, kth_largest, extract and rank_count
+   launched, no table gradient formed. Epoch 0 run alone from fit()'s
+   starting state equals fit()'s checkpoint of epoch 0 bit for bit (two
+   runs from one seed). One lazy step on the card against the same step
+   on CPU copies of the batch and state: touched rows of the three
+   tables, their moments within 1e-5 of each tensor's largest magnitude,
+   counts equal; untouched rows, moments and counts bit-unchanged. A new
+   model with resume=True and epochs=3 starts at epoch 2 with parameters,
+   moments, counts and early stopping bit-equal to checkpoint 1, and its
+   loss is finite. The same model with profile_dir writes a trace of its
+   second epoch that names the port's kernels. evaluate_group(): four
+   groups whose metrics, weighted by their test users, equal evaluate()'s
+   within 1e-6. Pop: fit() (nothing trained, one evaluation), per-user
+   metrics of 1,024 users card vs plain within 1e-6, the items tied at
+   the k-th place and the survivors of a column block at tau. AOBPR at its
+   defaults (embed 64, batch 1,024, alpha 6,682): one epoch with a re-sort
+   inside it, loss finite; evaluate() fused vs full within 1e-4 with
+   dot_submax, dot_extract and rank_lookup_count launched. CML at its
+   defaults (batch 256, dns 10): one epoch, loss finite, every trained
+   user and item row within clip_norm, per-user metrics card vs plain
+   within 1e-6. The phase prints its seconds.
+9. Times on the card: each kernel, its plain version and a library call
    where one computes the same function, as device time per call
    (torch.profiler, 50 calls after warm-up) and as the median time of one
    call between CUDA events (host launch gaps included), and per call of
@@ -121,7 +145,10 @@ skrx_torch fails and it exits 1):
    card's busy share during it (torch.profiler), for the score-matrix and
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
-   kernels of one epoch and one evaluate(), for BPRMF and LightGCN.
+   kernels of one epoch and one evaluate(), for BPRMF (dense and lazy
+   Adam), LightGCN, Pop, AOBPR and CML; one BPRMF step with dense and
+   with lazy Adam at the same batch, and dedup_rows at the step's 2,048
+   item rows.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -137,7 +164,9 @@ import numpy as np
 import torch
 
 from skrx_torch import ModelRegistry, RunConfig
+from skrx_torch.eval import EarlyStopping
 from skrx_torch.io import synthetic
+from skrx_torch.models.BPRMF import bprmf_lazy_train_step
 from skrx_torch.models.LightGCN import lightgcn_loss
 from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
@@ -146,7 +175,9 @@ from skrx_torch.ops.kernels import _build, runtime
 from skrx_torch.ops.kernels import dot_topk as dt
 from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.kernels import topk_blocks as tb
+from skrx_torch.ops.optim import LazyAdam, dedup_rows
 from skrx_torch.serve import TopKRecommender
+from skrx_torch.utils.checkpoint import Checkpointer
 
 USERS, ITEMS, RATINGS, DIM, K = 29_858, 40_981, 1_027_370, 64, 10
 # MovieLens-1M's published counts: the small-catalog route
@@ -157,6 +188,7 @@ B_EVAL = 64                       # RunConfig.test_batch_size default
 K_EVAL = 50                       # max of RunConfig.top_k default
 EPOCHS = 2
 BLOCK_N = 4096
+BPRMF_TABLES = ("user_emb", "item_emb", "item_bias")
 SEED = 2021
 REPS = 50
 SERVING = ("submax", "kth_largest", "extract", "pruned_merge")
@@ -1129,6 +1161,49 @@ def evaluate_as(m, mode: str, chunk_size: int = 0):
         ev.eval_mode, ev.chunk_size = saved
 
 
+def metrics_card_vs_plain(m, u) -> float:
+    """Largest difference between the per-user metrics of users ``u`` on
+    the card and on the plain route (CPU copies of the same scores and
+    tables); fails above 1e-6."""
+    ev = m.evaluator
+    tr, te, tl = ev._tables_for(u, m.num_items)
+    tables = [torch.from_numpy(x) for x in (tr, te, np.maximum(tl, 1))]
+    sc = m.predict(u)
+    got = ev.per_user_metrics(sc, *(x.to(sc.device) for x in tables))
+    ref = ev.per_user_metrics(sc.cpu(), *tables)
+    err = float((got.cpu() - ref).abs().max())
+    require(err <= 1e-6, f"{type(m).__name__}: per-user metrics card vs "
+            f"plain differ by {err}")
+    return err
+
+
+def cpu_copy(state):
+    """A nested training state with every tensor copied to the CPU."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().clone()
+    if isinstance(state, dict):
+        return {k: cpu_copy(v) for k, v in state.items()}
+    return state
+
+
+def flat(state, prefix: str = "") -> dict:
+    """The tensors of a nested training state by path."""
+    if isinstance(state, torch.Tensor):
+        return {prefix: state}
+    out = {}
+    if isinstance(state, dict):
+        for key, value in state.items():
+            out.update(flat(value, f"{prefix}/{key}"))
+    return out
+
+
+def bit_equal_states(a: dict, b: dict) -> bool:
+    """The same tensors by path, equal bit for bit (-0.0 is not +0.0)."""
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].numpy().tobytes() == b[k].numpy().tobytes() for k in a)
+
+
 def time_ms(fn, reps: int = REPS) -> float:
     """Median device time of fn() over reps launches (CUDA events)."""
     for _ in range(5):
@@ -1201,7 +1276,8 @@ def busy_share(fn, reps: int = 20, warm: bool = True, top: int = 0):
     torch.profiler over the wall time; the profiler slows the host, so this
     is a lower bound), and the ``top`` device kernels by time as (name,
     ms, calls). The share is None when the profiler records no device
-    time."""
+    time. The profiler's raw events are summed directly: building its
+    per-op tables (``key_averages``) for a whole epoch takes minutes."""
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
@@ -1213,12 +1289,25 @@ def busy_share(fn, reps: int = 20, warm: bool = True, top: int = 0):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = sorted(_device_events(prof),
-                    key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in events)
-    heads = [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-             for e in events[:top]]
+    by_name: dict = {}
+    for name, ns in _raw_device_events(prof):
+        total, calls = by_name.get(name, (0, 0))
+        by_name[name] = (total + ns, calls + 1)
+    busy_us = sum(total for total, _ in by_name.values()) / 1e3
+    heads = [(name[:60], total / 1e6, calls) for name, (total, calls)
+             in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]]
     return (busy_us / wall_us if busy_us > 0 else None), heads
+
+
+def _raw_device_events(prof):
+    """(name, nanoseconds) of the kernels and copies a profile recorded,
+    user annotations left out (as ``_device_events``)."""
+    from torch.autograd import DeviceType
+    for e in prof.profiler.kineto_results.events():
+        annotation = getattr(e, "is_user_annotation", lambda: False)()
+        if (e.device_type() == DeviceType.CUDA and not annotation
+                and "#" not in e.name()):
+            yield e.name(), e.duration_ns()
 
 
 def timed(fn):
@@ -1240,11 +1329,265 @@ def counted(fn):
     return out, dict(runtime.LAUNCHES)
 
 
+def phase_fit_and_models(root, path, reg, model_cls, dev, rng, test_users):
+    """Phase 8 (the module docstring): lazy-Adam BPRMF with checkpoints,
+    its step against the plain version, two runs from one seed, resume,
+    the profiler trace and evaluate_group(); then Pop, AOBPR and CML at
+    Gowalla scale. Returns the models and the launch counts of each
+    main-path run."""
+    t_phase = time.perf_counter()
+    ck_dir = os.path.join(root, "checkpoints")
+    prof_dir = os.path.join(root, "profile")
+    lazy_cfg = {"n_dim": DIM, "epochs": EPOCHS, "early_stop": EPOCHS,
+                "optimizer": "lazy_adam"}
+
+    def lazy_run(**over):
+        return RunConfig(recommender="BPRMF", data_dir=path, seed=SEED,
+                         checkpoint_dir=ck_dir, checkpoint_every=1, **over)
+    lazy = model_cls(lazy_run(), dict(lazy_cfg))
+    require(isinstance(lazy.optimizer, LazyAdam), "lazy Adam built")
+    # 1. epoch 0 alone, from the state fit() then starts from
+    start = cpu_copy(lazy._train_state())
+    lazy._train_epoch(0)
+    alone = cpu_copy(lazy._train_state())
+    lazy._load_train_state(start)
+    require(bit_equal_states(flat(cpu_copy(lazy._train_state())),
+                             flat(start)), "the state restored in place")
+    lazy_best, lazy_launches = counted(lazy.fit)
+    lazy_losses = [h["loss"] for h in lazy.history]
+    print(f"launches during lazy-Adam BPRMF fit() ({EPOCHS} epochs + "
+          f"{EPOCHS} evaluations): {lazy_launches}")
+    require(len(lazy_losses) == EPOCHS
+            and bool(np.isfinite(lazy_losses).all())
+            and lazy_losses[1] < lazy_losses[0],
+            f"lazy Adam losses finite and falling: {lazy_losses}")
+    for kname in ("submax", "kth_largest", "extract", "rank_count"):
+        require(lazy_launches[kname] >= 1,
+                f"{kname} never launched in lazy-Adam fit()")
+    require(all(getattr(lazy, k).grad is None for k in BPRMF_TABLES),
+            "lazy Adam formed a table gradient")
+    ckpt = Checkpointer(os.path.join(ck_dir, "BPRMF"))
+    require(ckpt._steps() == [0, 1], f"checkpoints {ckpt._steps()}")
+    saved0, _, _ = ckpt.restore(0, map_location="cpu")
+    saved1, extra1, _ = ckpt.restore(1, map_location="cpu")
+    # 2. two runs of epoch 0 from one seed: alone, and inside fit() (its
+    # checkpoint of epoch 0)
+    run_diff = max(float((t.double() - flat(saved0)[k].double()).abs()
+                         .max()) for k, t in flat(alone).items())
+    print(f"two runs of epoch 0 from seed {SEED}: bit-equal "
+          f"{bit_equal_states(flat(alone), flat(saved0))}, largest "
+          f"difference {run_diff} (rows summed in an order the rows fix, no "
+          f"atomics)", flush=True)
+    require(bit_equal_states(flat(alone), flat(saved0)),
+            "two runs of one epoch from one seed differ")
+    # 3. one lazy step on the card against the same step on CPU copies
+    batch = next(lazy.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    before = cpu_copy(lazy._train_state())
+    cpu_step, cpu_opt = bprmf_lazy_train_step(
+        {k: v.clone() for k, v in before["params"].items()}, lazy.config.lr,
+        lazy.config.reg)
+    cpu_opt.load_state_dict(cpu_copy(before["optimizer"]))
+    versions = [getattr(lazy, k)._version for k in BPRMF_TABLES]
+    loss_card = lazy.train_step(batch)
+    loss_cpu = cpu_step(tuple(t.cpu() for t in batch))
+    # the tables are written as themselves: caches keyed on their version
+    # counters (serving's packed table) see the step
+    require(all(getattr(lazy, k)._version > v
+                for k, v in zip(BPRMF_TABLES, versions)),
+            "a lazy step left a table's version counter")
+    after = cpu_copy(lazy._train_state())
+    users_b, pos_b, neg_b = (t.cpu() for t in batch[:3])
+    hit = {"user_emb": torch.unique(users_b),
+           "item_emb": torch.unique(torch.cat([pos_b, neg_b[:, 0]]))}
+    hit["item_bias"] = hit["item_emb"]
+    step_errs = {}
+    for k in BPRMF_TABLES:
+        touched = torch.zeros(before["params"][k].shape[0], dtype=torch.bool)
+        touched[hit[k]] = True
+        pairs = [(after["params"][k], cpu_opt.tables[k],
+                  before["params"][k])]
+        pairs += [(after["optimizer"][k][f], getattr(cpu_opt.states[k], f),
+                   before["optimizer"][k][f]) for f in ("m", "v", "counts")]
+        for name_, (card_t, plain_t, old_t) in zip(
+                ("table", "m", "v", "counts"), pairs):
+            require(card_t[~touched].numpy().tobytes()
+                    == old_t[~touched].numpy().tobytes(),
+                    f"{k} {name_}: an untouched row changed")
+            err = float((card_t[touched].double()
+                         - plain_t[touched].double()).abs().max())
+            scale = float(plain_t[touched].double().abs().max())
+            step_errs[f"{k}.{name_}"] = err
+            require(err <= 1e-5 * scale + 1e-30,
+                    f"{k} {name_}: touched rows card vs plain {err} "
+                    f"(scale {scale})")
+    print(f"one lazy step card vs plain on CPU copies (touched rows within "
+          f"1e-5 of each tensor's largest magnitude, untouched rows, moments "
+          f"and counts bit-unchanged): loss {float(loss_card)} vs "
+          f"{float(loss_cpu)}, max abs err {step_errs}", flush=True)
+    # 4. resume: a new model starts after the last checkpoint, its state
+    # bit-equal to what was saved
+    restored, es_states = [], []
+    set_state = EarlyStopping.set_state
+
+    def spy_set_state(self_, state):
+        set_state(self_, state)
+        es_states.append(self_.get_state())
+    EarlyStopping.set_state = spy_set_state
+    try:
+        resumed = model_cls(lazy_run(resume=True), dict(lazy_cfg, epochs=3))
+        first_epoch = resumed._train_epoch
+
+        def snapshot_then_train(epoch):
+            restored.append(cpu_copy(resumed._train_state()))
+            resumed._train_epoch = first_epoch
+            return first_epoch(epoch)
+        resumed._train_epoch = snapshot_then_train
+        _, resume_launches = counted(resumed.fit)
+    finally:
+        EarlyStopping.set_state = set_state
+    require([h["epoch"] for h in resumed.history] == [2],
+            f"resumed epochs {[h['epoch'] for h in resumed.history]}")
+    require(bit_equal_states(flat(restored[0]), flat(saved1)),
+            "the restored state differs from the saved one")
+    require(json.loads(json.dumps(es_states[0]))
+            == extra1["early_stopping"], "early stopping not restored")
+    require(bool(np.isfinite(resumed.history[0]["loss"])),
+            "resumed loss finite")
+    print(f"resume: started at epoch 2, parameters, moments, counts and "
+          f"early stopping ({es_states[0]['counter']} without a gain) "
+          f"bit-equal to checkpoint 1; loss {resumed.history[0]['loss']}",
+          flush=True)
+    # 5. the profiler trace of the same model's second epoch
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    resumed.run_config.resume = False
+    resumed.run_config.checkpoint_every = 0
+    resumed.run_config.profile_dir = prof_dir
+    resumed.config.epochs = 2
+    (_, prof_sec), prof_launches = counted(lambda: timed(resumed.fit))
+    (trace_name,) = os.listdir(prof_dir)
+    trace_path = os.path.join(prof_dir, trace_name)
+    with open(trace_path) as f:
+        trace = json.load(f)
+    kernel_names = {e["name"] for e in trace.get("traceEvents", ())
+                    if e.get("cat") == "kernel"}
+    ours = sorted({k for k in ("submax", "extract", "rank_count")
+                   if any(k in n for n in kernel_names)})
+    print(f"profile_dir: {trace_name}, {os.path.getsize(trace_path)} bytes, "
+          f"{len(kernel_names)} kernel names, the port's {ours}; fit() with "
+          f"the trace {prof_sec} s", flush=True)
+    require(os.path.getsize(trace_path) > 0 and ours,
+            "the trace shows none of the port's kernels")
+    del trace
+    # 6. evaluate_group(): the groups' means, weighted by their test users
+    (group_reports, group_launches) = counted(lazy.evaluate_group)
+    test_set = set(lazy.evaluator.user_pos_test)
+    counts = [sum(int(u) in test_set for u in g.users)
+              for g in lazy._user_groups]
+    covered = [int(u) for g in lazy._user_groups for u in g.users
+               if int(u) in test_set]
+    missing = len(test_set) - len(covered)
+    whole = lazy.evaluate() if missing == 0 else lazy.evaluate(covered)
+    mean = sum(c * np.array(list(r.values()))
+               for c, (_, r) in zip(counts, group_reports)) / sum(counts)
+    group_diff = float(np.abs(mean - np.array(list(whole.values()))).max())
+    print(f"evaluate_group(): {[(lbl, c) for (lbl, _), c in zip(group_reports, counts)]}"
+          f" (label, test users); {missing} test users in no group; "
+          f"weighted mean vs evaluate() largest difference {group_diff}",
+          flush=True)
+    require(len(group_reports) == 4 and group_diff <= 1e-6,
+            f"group means off by {group_diff}")
+    # 7. Pop: whole-catalog ties
+    reg.load_skrx_model("Pop")
+    pop = reg.get_model("Pop")[0](RunConfig(recommender="Pop", data_dir=path,
+                                            seed=SEED), {})
+    pop_best, pop_launches = counted(pop.fit)
+    require(pop.history[0]["loss"] is None and "report" in pop.history[0],
+            "Pop: nothing trained, one evaluation")
+    for kname in ("submax", "kth_largest", "extract", "rank_count"):
+        require(pop_launches[kname] >= 1, f"{kname} never launched in Pop")
+    n_check = min(B_KERNEL, len(test_users))
+    u = rng.choice(test_users, n_check, replace=False)
+    pop_err = metrics_card_vs_plain(pop, u)
+    p_sc = pop.predict(u)
+    p_tr = torch.from_numpy(pop.evaluator._tables_for(u, pop.num_items)[0]
+                            ).to(dev)
+    p_masked = metrics.mask_items(p_sc, p_tr)
+    kth = torch.topk(p_masked, K_EVAL, dim=1).values[:, -1]
+    ties = (p_masked == kth[:, None]).sum(1).double()
+    _, _, p_tau = tb.blockwise_candidates(p_sc, K_EVAL, BLOCK_N, p_tr)
+    p_pad = tb._masked_padded(p_sc, p_tr, BLOCK_N).reshape(n_check, -1,
+                                                           BLOCK_N)
+    p_found = ((p_pad >= p_tau[:, None, None]) & (p_pad != NEG_INF)).sum(2)
+    del p_pad, p_masked
+    print(f"Pop: NDCG@10 {pop_best['NDCG@10']}; per-user metrics of "
+          f"{n_check} users card vs plain max abs err {pop_err}; items tied "
+          f"at the k-th place (k={K_EVAL}) a row: min {float(ties.min())}, "
+          f"median {float(ties.median())}, max {float(ties.max())}; "
+          f"survivors of a 4,096-column block at tau: max "
+          f"{int(p_found.max())}, {int((p_found > RANK_CAP).sum())} blocks "
+          f"above F={RANK_CAP}; launches {pop_launches}", flush=True)
+    # 8. AOBPR at its defaults, one epoch with a re-sort inside it
+    reg.load_skrx_model("AOBPR")
+    ao = reg.get_model("AOBPR")[0](RunConfig(recommender="AOBPR",
+                                             data_dir=path, seed=SEED),
+                                   {"epochs": 1, "early_stop": 1})
+    require(ao.config.embed_size == DIM
+            and 0 < ao.resort_every < ao.num_batches,
+            f"AOBPR re-sorts at step {ao.resort_every} of {ao.num_batches}")
+    ao_best, ao_launches = counted(ao.fit)
+    require(bool(np.isfinite(ao.history[0]["loss"])), "AOBPR loss finite")
+    ao_runs = {}
+    for mode in ("full", "fused"):
+        (rep, sec), launched = counted(lambda: evaluate_as(ao, mode))
+        ao_runs[mode] = (rep, sec, launched)
+    ao_diff = float(np.abs(np.array(list(ao_runs["fused"][0].values()))
+                           - np.array(list(ao_runs["full"][0].values())))
+                    .max())
+    for kname in FUSED + ("rank_lookup_count",):
+        require(ao_runs["fused"][2][kname] >= 1,
+                f"{kname} never launched in AOBPR's fused evaluate()")
+    require(ao_diff <= 1e-4, f"AOBPR fused vs full metrics off by {ao_diff}")
+    print(f"AOBPR: {ao.num_batches} steps, re-sort every "
+          f"{ao.resort_every}; loss {ao.history[0]['loss']}, NDCG@10 "
+          f"{ao_best['NDCG@10']}; fused vs full largest metric difference "
+          f"{ao_diff}; fused launches {ao_runs['fused'][2]}", flush=True)
+    # 9. CML at its defaults, one epoch
+    reg.load_skrx_model("CML")
+    cml = reg.get_model("CML")[0](RunConfig(recommender="CML", data_dir=path,
+                                            seed=SEED),
+                                  {"epochs": 1, "early_stop": 1})
+    cml_best, cml_launches = counted(cml.fit)
+    require(bool(np.isfinite(cml.history[0]["loss"])), "CML loss finite")
+    for kname in ("submax", "kth_largest", "extract", "rank_count"):
+        require(cml_launches[kname] >= 1, f"{kname} never launched in CML")
+    pairs = cml.dataset.train_data.to_user_item_pairs()
+    norms = [float(torch.linalg.vector_norm(
+        t.detach()[torch.as_tensor(np.unique(col), device=dev)], dim=1).max())
+        for t, col in ((cml.user_emb, pairs[:, 0]), (cml.item_emb,
+                                                     pairs[:, 1]))]
+    require(max(norms) <= cml.config.clip_norm * (1 + 1e-5),
+            f"CML touched rows above clip_norm: {norms}")
+    cml_err = metrics_card_vs_plain(
+        cml, rng.choice(test_users, n_check, replace=False))
+    print(f"CML: {cml.pipeline.num_batches} steps of {cml.config.batch_size}"
+          f" (dns {cml.config.dns}); loss {cml.history[0]['loss']}, NDCG@10 "
+          f"{cml_best['NDCG@10']}; largest norm of a trained user / item row "
+          f"{norms} (clip_norm {cml.config.clip_norm}); per-user metrics card "
+          f"vs plain max abs err {cml_err}", flush=True)
+    print(f"phase 8 took {time.perf_counter() - t_phase} s", flush=True)
+    return {"lazy": lazy, "pop": pop, "ao": ao, "cml": cml,
+            "runs": [lazy_launches, resume_launches, prof_launches,
+                     group_launches, pop_launches, ao_launches,
+                     *(r[2] for r in ao_runs.values()), cml_launches]}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1291,6 +1634,7 @@ def main() -> int:
           flush=True)
 
     # ------------------------------------------- phase 2: kernels vs plain
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 2", flush=True)
     rng = np.random.default_rng(SEED + 1)
     errs: dict = {}
     users = torch.as_tensor(rng.integers(0, USERS, B_KERNEL), device=dev)
@@ -1313,6 +1657,7 @@ def main() -> int:
           f"tables: train width {l_eval}, test width T={t_eval}", flush=True)
 
     # ---------------------------------------------------- phase 3: serving
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 3", flush=True)
     served = []
 
     def serve_all():
@@ -1339,6 +1684,7 @@ def main() -> int:
           "predict within 1e-6 + 1e-5|ref| of float64", flush=True)
 
     # ---------------------------------------- phase 4: training at Gowalla
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 4", flush=True)
     ndcg0 = model.evaluate()["NDCG@10"]
     best, fit_launches = counted(model.fit)
     losses = [h["loss"] for h in model.history]
@@ -1350,20 +1696,15 @@ def main() -> int:
         require(fit_launches[kname] >= 1, f"{kname} never launched in fit()")
     require(best["NDCG@10"] > ndcg0,
             f"NDCG@10 {best['NDCG@10']} not above the untrained {ndcg0}")
-    u = rng.choice(test_users, B_KERNEL, replace=False)
-    tr, te, tl = ev._tables_for(u, ITEMS)
-    tables = [torch.from_numpy(x) for x in (tr, te, np.maximum(tl, 1))]
-    sc = model.predict(u)
-    got = ev.per_user_metrics(sc, *(x.to(dev) for x in tables))
-    ref = ev.per_user_metrics(sc.cpu(), *tables)
-    metric_err = float((got.cpu() - ref).abs().max())
-    require(metric_err <= 1e-6, f"per-user metrics differ by {metric_err}")
+    metric_err = metrics_card_vs_plain(
+        model, rng.choice(test_users, B_KERNEL, replace=False))
     print(f"fit(): losses {losses}, NDCG@10 {ndcg0} untrained -> "
           f"{best['NDCG@10']} (Recall@10 {best['Recall@10']}); per-user "
           f"metrics of {B_KERNEL} users card vs plain route: max abs err "
           f"{metric_err}", flush=True)
 
     # ------------------------------------------ phase 5: ML-1M-scale catalog
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 5", flush=True)
     ml_root = os.path.join(root, "ml1m")
     t0 = time.perf_counter()
     ml_path = synthetic.make_dataset_dir(ml_root, num_users=ML_USERS,
@@ -1394,6 +1735,7 @@ def main() -> int:
           f"T={te.shape[1]}, L={tr.shape[1]}", flush=True)
 
     # ----------------------------------------- phase 6: LightGCN at Gowalla
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 6", flush=True)
     t0 = time.perf_counter()
     reg.load_skrx_model("LightGCN")
     gcn_cls, _ = reg.get_model("LightGCN")
@@ -1490,6 +1832,7 @@ def main() -> int:
           "item", flush=True)
 
     # ------------------------- phase 7: fused score-and-select and chunked
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 7", flush=True)
     # 1. the kernels against their plain versions
     packed_s = dt.pack_items(model.item_emb, model.item_bias)
     uv_s = model.user_emb.detach()[users]
@@ -1577,7 +1920,14 @@ def main() -> int:
     require(big_fused_peak < 4 * BIG_B * BIG_ITEMS,
             "the fused route must allocate less than one score matrix")
 
-    # ------------------------------------------------------ phase 8: times
+    # ----------------------- phase 8: the rest of fit(); Pop, AOBPR and CML
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 8", flush=True)
+    p8 = phase_fit_and_models(root, path, reg, model_cls, dev, rng,
+                              test_users)
+    lazy, pop, ao, cml = p8["lazy"], p8["pop"], p8["ao"], p8["cml"]
+
+    # ------------------------------------------------------ phase 9: times
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
     s_masked = tb._masked_padded(scores, mask, BLOCK_N).reshape(b, -1, BLOCK_N)
     found = ((s_masked >= tau[:, None, None]) & (s_masked != NEG_INF)).sum(2)
@@ -1686,10 +2036,11 @@ def main() -> int:
     }
     # launches over every main-path run of this script: serving, both
     # fit()s at Gowalla, the ML-1M-scale fit(), LightGCN serving, fused
-    # serving, and the fused and chunked evaluate() calls
+    # serving, the fused and chunked evaluate() calls, and phase 8's fit()s
+    # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML)
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
-                 *(r[2] for r in eval_runs.values())]
+                 *(r[2] for r in eval_runs.values()), *p8["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:
@@ -1877,16 +2228,45 @@ def main() -> int:
                   f" ms  max {lat[-1]} ms  device busy "
                   f"{'not measured' if busy is None else busy}  [{card}]")
     # training and evaluation, end to end
-    for tag, m in (("Gowalla", model), ("LightGCN Gowalla", gcn)):
-        steps = m.pipeline.num_batches
+    print(f"[{time.perf_counter() - t_main:.1f} s] training and evaluation "
+          f"times", flush=True)
+    trained = (("Gowalla", model), ("LightGCN Gowalla", gcn),
+               ("lazy-Adam BPRMF Gowalla", lazy), ("AOBPR Gowalla", ao),
+               ("CML Gowalla", cml))
+    for tag, m in trained:
+        steps = getattr(m, "pipeline", m).num_batches
         for h in m.history:
             print(f"{tag} epoch {h['epoch']}: train {h['train_seconds']} s "
                   f"({steps / h['train_seconds']} steps/s of batch "
                   f"{m.config.batch_size}), evaluate() {h['eval_seconds']} "
                   f"s  [{card}]")
+    # dense against lazy Adam (BPRMF), one step at the same batch; the
+    # lazy step's duplicate-row sums at its 2,048 item rows
+    batch = next(model.pipeline.batches(epoch_generator(SEED + 9, 0, dev)))
+    step_ms = {tag: (device_ms(lambda: m.train_step(batch)),
+                     time_ms(lambda: m.train_step(batch)))
+               for tag, m in (("dense", model), ("lazy", lazy))}
+    item_rows = torch.cat([batch[1], batch[2][:, 0]])
+    g_rows = torch.randn((item_rows.shape[0], DIM), device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED))
+    print(f"BPRMF Gowalla one train step, dense Adam {step_ms['dense'][0]} "
+          f"ms of device time ({step_ms['dense'][1]} ms between CUDA "
+          f"events), lazy Adam {step_ms['lazy'][0]} ms "
+          f"({step_ms['lazy'][1]}); epochs dense "
+          f"{[h['train_seconds'] for h in model.history]} s, lazy "
+          f"{[h['train_seconds'] for h in lazy.history]} s; dedup_rows of "
+          f"{item_rows.shape[0]} rows (d={DIM}) "
+          f"{device_ms(lambda: dedup_rows(item_rows, g_rows, ITEMS))} ms of "
+          f"device time ({time_ms(lambda: dedup_rows(item_rows, g_rows, ITEMS))}"
+          f" between CUDA events)  [{card}]", flush=True)
     for tag, m, n_users in (("Gowalla", model, len(test_users)),
                             ("ML-1M", ml, len(ml_test)),
-                            ("LightGCN Gowalla", gcn, len(test_users))):
+                            ("LightGCN Gowalla", gcn, len(test_users)),
+                            ("lazy-Adam BPRMF Gowalla", lazy,
+                             len(test_users)),
+                            ("Pop Gowalla", pop, len(test_users)),
+                            ("AOBPR Gowalla", ao, len(test_users)),
+                            ("CML Gowalla", cml, len(test_users))):
         _, sec = timed(m.evaluate)
         _, per_eval = counted(m.evaluate)
         print(f"{tag} evaluate(): {sec} s, {n_users / sec} users/s, "
@@ -1894,7 +2274,8 @@ def main() -> int:
         busy, heads = busy_share(m.evaluate, reps=1, warm=False, top=6)
         print(f"{tag} evaluate() device busy {busy}; top device kernels "
               f"(ms): {heads}")
-        modes = {model: ("fused", "chunked"), gcn: ("fused",)}.get(m, ())
+        modes = {model: ("fused", "chunked"), gcn: ("fused",),
+                 ao: ("fused",)}.get(m, ())
         for mode in modes:
             (_, sec) = evaluate_as(m, mode, CHUNK)
             busy, heads = busy_share(lambda: evaluate_as(m, mode, CHUNK),
@@ -1902,13 +2283,15 @@ def main() -> int:
             print(f"{tag} evaluate() eval_mode={mode!r}: {sec} s, "
                   f"{n_users / sec} users/s; device busy {busy}; top device "
                   f"kernels (ms): {heads}  [{card}]")
-        busy, heads = busy_share(lambda: m._train_epoch(99), reps=1,
-                                 warm=False, top=6)
-        print(f"{tag} train epoch device busy {busy}; top device kernels "
-              f"(ms): {heads}")
+        if m is not pop:                  # nothing to train
+            busy, heads = busy_share(lambda: m._train_epoch(99), reps=1,
+                                     warm=False, top=6)
+            print(f"{tag} train epoch device busy {busy}; top device "
+                  f"kernels (ms): {heads}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} "
           f"GiB")
     shutil.rmtree(root, ignore_errors=True)
+    print(f"[{time.perf_counter() - t_main:.1f} s] done", flush=True)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

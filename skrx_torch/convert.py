@@ -9,8 +9,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["bprmf_params_from_jax", "lightgcn_params_from_jax",
-           "adam_state_from_jax"]
+__all__ = ["bprmf_params_from_jax", "two_tables_from_jax",
+           "adam_state_from_jax", "lazy_adam_state_from_jax",
+           "adagrad_state_from_jax"]
 
 
 def _tensors(params: Dict[str, np.ndarray], keys: Tuple[str, ...]
@@ -35,16 +36,18 @@ def bprmf_params_from_jax(params: Dict[str, np.ndarray]
     return out
 
 
-def lightgcn_params_from_jax(params: Dict[str, np.ndarray]
-                             ) -> Dict[str, torch.Tensor]:
-    """``{"user_emb": (U, d), "item_emb": (N, d)}`` f32 CPU tensors from a
-    JAX LightGCN's ``params`` (the ego embeddings)."""
+def two_tables_from_jax(params: Dict[str, np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """``{"user_emb": (U, d), "item_emb": (N, d)}`` f32 CPU tensors from
+    the ``params`` of a JAX LightGCN (its ego embeddings), AOBPR or CML
+    (Pop has none)."""
     out = _tensors(params, ("user_emb", "item_emb"))
     u, i = out["user_emb"], out["item_emb"]
     if u.dim() != 2 or i.dim() != 2 or u.shape[1] != i.shape[1]:
         raise ValueError(f"inconsistent shapes: user_emb {tuple(u.shape)}, "
                          f"item_emb {tuple(i.shape)}")
     return out
+
 
 
 def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
@@ -73,4 +76,38 @@ def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
             "exp_avg_sq": torch.from_numpy(
                 nu[lo:lo + size].reshape(shapes[key]).copy())}
         lo += size
+    return out
+
+
+def lazy_adam_state_from_jax(m: np.ndarray, v: np.ndarray,
+                             counts: np.ndarray) -> Dict[str, torch.Tensor]:
+    """One table's lazy Adam state (``skrx_torch.ops.optim.LazyAdam``'s
+    ``m``, ``v`` f32 and ``counts`` int32, CPU tensors) from a JAX
+    ``LazyAdamState`` (m, v, counts)."""
+    m = np.array(m, dtype=np.float32)
+    v = np.array(v, dtype=np.float32)
+    counts = np.array(counts, dtype=np.int32)
+    if m.shape != v.shape or counts.shape != m.shape[:1]:
+        raise ValueError(f"inconsistent lazy Adam state: m {m.shape}, v "
+                         f"{v.shape}, counts {counts.shape}")
+    return {"m": torch.from_numpy(m), "v": torch.from_numpy(v),
+            "counts": torch.from_numpy(counts)}
+
+
+def adagrad_state_from_jax(sum_of_squares: Dict[str, np.ndarray],
+                           shapes: Dict[str, Tuple[int, ...]]
+                           ) -> Dict[str, torch.Tensor]:
+    """Per-parameter ``OptaxAdagrad`` accumulators (f32 CPU tensors) from
+    the ``sum_of_squares`` of an ``optax.adagrad`` state over a JAX model's
+    params dict; ``shapes`` gives each parameter's shape."""
+    if set(sum_of_squares) != set(shapes):
+        raise ValueError(f"expected accumulators of {sorted(shapes)}, got "
+                         f"{sorted(sum_of_squares)}")
+    out = {}
+    for key, shape in shapes.items():
+        acc = np.array(sum_of_squares[key], dtype=np.float32)
+        if acc.shape != tuple(shape):
+            raise ValueError(f"{key}: accumulator {acc.shape}, parameter "
+                             f"{tuple(shape)}")
+        out[key] = torch.from_numpy(acc)
     return out

@@ -171,6 +171,26 @@ class RankingEvaluator:
         self._table_key = None
         self._lru: "OrderedDict[tuple, list]" = OrderedDict()
 
+    def set_train_data(self, user_train_dict: Optional[
+            Dict[int, np.ndarray]] = None) -> None:
+        """Mask these training items from now on; the padded tables and the
+        device batches built from the old ones are dropped."""
+        self.user_pos_train = user_train_dict if user_train_dict is not None \
+            else {}
+        self._drop_tables()
+
+    def set_test_data(self, user_test_dict: Dict[int, np.ndarray]) -> None:
+        """Rank these test items from now on; the padded tables and the
+        device batches built from the old ones are dropped."""
+        if not user_test_dict:
+            raise ValueError("'user_test_dict' cannot be empty.")
+        self.user_pos_test = user_test_dict
+        self._drop_tables()
+
+    def _drop_tables(self) -> None:
+        self._table_key = None
+        self._lru.clear()
+
     @property
     def metrics_list(self) -> List[str]:
         return [f"{ID2METRIC[mid]}@{k}" for mid in self.metrics

@@ -1,5 +1,6 @@
-from .dataset import CFData, ImplicitFeedback, PaddedPositives, RSDataset
+from .dataset import (CFData, ImplicitFeedback, PaddedPositives, RSDataset,
+                      UserGroup, group_users_by_interactions)
 from . import synthetic
 
 __all__ = ["CFData", "ImplicitFeedback", "PaddedPositives", "RSDataset",
-           "synthetic"]
+           "UserGroup", "group_users_by_interactions", "synthetic"]

@@ -7,12 +7,13 @@ and training slices use. The JAX package's pickle view cache is not carried.
 """
 import os
 import warnings
-from collections import OrderedDict
-from typing import Dict, Optional
+from collections import OrderedDict, defaultdict
+from typing import Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "RSDataset"]
+__all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "RSDataset",
+           "UserGroup", "group_users_by_interactions"]
 
 _COLUMN_SETS = {"UI": ("user", "item"),
                 "UIR": ("user", "item", "rating"),
@@ -219,3 +220,64 @@ class RSDataset:
     num_items = property(lambda self: self.cf_data.num_items)
     num_ratings = property(lambda self: self.cf_data.num_ratings)
     statistic_info = property(lambda self: self.cf_data.statistic_info)
+
+
+class UserGroup:
+    """Users of one activity band: ``users`` (int64), their total training
+    interactions, the distinct activities (interaction counts) in the band,
+    and its label."""
+
+    def __init__(self, users: np.ndarray, num_interactions: int,
+                 activities: np.ndarray, label: str):
+        self.label = label
+        self.users = users
+        self.num_users = len(users)
+        self.num_interactions = num_interactions
+        self.activities = activities
+
+
+def group_users_by_interactions(dataset: RSDataset, num_groups: int = 4
+                                ) -> List[UserGroup]:
+    """Split the training users into ``num_groups`` bands of about equal
+    total interactions, ordered by activity, as the JAX package does: a
+    greedy cut at 1/(groups left) of the remaining interactions, labels
+    ``< a``, ``[a, b)``, ``>= b`` (``all`` for one band); within a band,
+    users by activity, then in ``to_user_dict`` order."""
+    users_by_activity = defaultdict(list)
+    for user, items in dataset.train_data.to_user_dict().items():
+        users_by_activity[len(items)].append(user)
+    activities = np.array(sorted(users_by_activity))
+    if len(activities) == 0:
+        return []
+    n_users = np.array([len(users_by_activity[a]) for a in activities])
+    interactions = activities * n_users
+
+    split_points: List[int] = []
+    start = 0
+    for g in range(num_groups - 1):
+        rest = interactions[start:]
+        if len(rest) <= 1:
+            break
+        target = rest.sum() / (num_groups - g)
+        cum = np.cumsum(rest)
+        idx = max(int(np.searchsorted(cum, target)), 1)
+        if idx < len(cum) and target - cum[idx - 1] >= cum[idx] - target:
+            idx += 1
+        split_points.append(start + idx)
+        start += idx
+
+    boundaries = activities[split_points]
+    if len(boundaries):
+        labels = ([f"< {boundaries[0]}"]
+                  + [f"[{lo}, {hi})" for lo, hi in zip(boundaries[:-1],
+                                                       boundaries[1:])]
+                  + [f">= {boundaries[-1]}"])
+    else:
+        labels = ["all"]
+    groups = []
+    for label, chunk in zip(labels, np.split(np.arange(len(activities)),
+                                             split_points)):
+        users = [u for a in activities[chunk] for u in users_by_activity[a]]
+        groups.append(UserGroup(np.array(users), int(interactions[chunk].sum()),
+                                activities[chunk], label))
+    return groups

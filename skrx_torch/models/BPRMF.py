@@ -5,29 +5,35 @@ Same config fields and defaults, same parameters (``user_emb`` (U, d) and
 ``item_emb`` (N, d) drawn from N(0, 0.01^2), ``item_bias`` (N,) zeros).
 Training: per step the summed BPR loss of the batch plus
 ``reg * 0.5 * sum(w * (|ue|^2 + |pe|^2 + |ne|^2 + bp^2 + bn^2))`` over its
-gathered rows (padded rows weigh 0), then one dense Adam step; epochs come
-from :class:`PairwiseEpochPipeline` with one negative per pair.
+gathered rows (padded rows weigh 0), then one dense Adam step, or with
+``optimizer="lazy_adam"`` one row-wise lazy Adam step
+(:func:`bprmf_lazy_train_step`, built on ``make_lazy_train_step``): the loss
+is taken over the gathered rows as leaf tensors, ``user_emb`` is updated on
+the batch's users and ``item_emb`` and ``item_bias`` on ``cat([pos, neg])``,
+and no (N, d) gradient or moment is formed; epochs come from
+:class:`PairwiseEpochPipeline` with one negative per pair.
 ``predict`` is one f32 ``torch.matmul`` plus the bias, outside any kernel as
 in the JAX package; it assumes PyTorch's default of TF32 off for f32
 matmuls (``torch.backends.cuda.matmul.allow_tf32`` False).
 """
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..convert import bprmf_params_from_jax
+from ..convert import bprmf_params_from_jax, lazy_adam_state_from_jax
 from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
+from ..ops.optim import LazyAdam, make_lazy_train_step
 from ..run_config import RunConfig
 from ..utils import ModelConfig
-from .base import TorchRecommender
-from .common import (ChunkedDotPredictMixin, as_user_tensor, make_optimizer,
-                     make_train_step)
-from .pipeline import PairwiseEpochPipeline, epoch_generator
+from .common import (ChunkedDotPredictMixin, EpochTrainedRecommender,
+                     as_user_tensor, make_optimizer, make_train_step)
+from .pipeline import PairwiseEpochPipeline
 
-__all__ = ["BPRMF", "BPRMFConfig"]
+__all__ = ["BPRMF", "BPRMFConfig", "bprmf_gathered_loss",
+           "bprmf_lazy_train_step"]
 
 
 class BPRMFConfig(ModelConfig):
@@ -51,7 +57,42 @@ class BPRMFConfig(ModelConfig):
             raise ValueError(f"invalid BPRMF config: {self}")
 
 
-class BPRMF(ChunkedDotPredictMixin, TorchRecommender):
+def bprmf_gathered_loss(ue, pe, ne, bp, bn, w, reg: float) -> torch.Tensor:
+    """The batch's summed BPR loss plus the weighted L2 of its rows, from
+    the gathered rows (user, positive and negative item rows and biases)."""
+    y_pos = torch.sum(ue * pe, dim=-1) + bp
+    y_neg = torch.sum(ue * ne, dim=-1) + bn
+    loss = torch.sum(bpr_loss(y_pos, y_neg) * w)
+    reg_term = 0.5 * torch.sum(
+        (torch.sum(ue ** 2 + pe ** 2 + ne ** 2, dim=-1) + bp ** 2 + bn ** 2)
+        * w)
+    return loss + reg * reg_term
+
+
+# the rows a lazy step gathers from each table, in the loss's argument
+# order; a table's row sets are concatenated into one update
+_LAZY_GATHERS = (("user_emb", lambda b: b[0]), ("item_emb", lambda b: b[1]),
+                 ("item_emb", lambda b: b[2][:, 0]),
+                 ("item_bias", lambda b: b[1]),
+                 ("item_bias", lambda b: b[2][:, 0]))
+
+
+def bprmf_lazy_train_step(params: Dict[str, torch.Tensor], lr: float,
+                          reg: float) -> Tuple[Callable, LazyAdam]:
+    """``(train_step, optimizer)``: BPRMF's lazy Adam step over ``params``
+    (``user_emb``, ``item_emb``, ``item_bias``, updated in place) and its
+    :class:`LazyAdam`. ``train_step(batch)`` takes the gradients of the
+    gathered rows only, updates ``user_emb`` on the users and ``item_emb``
+    and ``item_bias`` on ``cat([pos, neg])``, and returns the loss before
+    the step."""
+    def loss_fn(gathered, dense, batch):
+        return bprmf_gathered_loss(*gathered, batch[3], reg)
+    train_step, (optimizer, _) = make_lazy_train_step(lr, _LAZY_GATHERS,
+                                                      loss_fn, params)
+    return train_step, optimizer
+
+
+class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb", "item_bias")
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
@@ -65,35 +106,41 @@ class BPRMF(ChunkedDotPredictMixin, TorchRecommender):
         self.item_emb = nn.Parameter(
             normal((self.num_items, d), gen).to(self.device))
         self.item_bias = nn.Parameter(zeros((self.num_items,)).to(self.device))
-        self.optimizer = make_optimizer(
-            self.config.optimizer,
-            [self.user_emb, self.item_emb, self.item_bias], self.config.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        tables = {name: getattr(self, name) for name in self._JAX_PARAMS}
+        if self.config.optimizer == "lazy_adam":
+            self.train_step, self.optimizer = bprmf_lazy_train_step(
+                tables, self.config.lr, self.config.reg)
+        else:
+            self.optimizer = make_optimizer("adam", tables, self.config.lr)
+            self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, self.config.batch_size, self.device,
             num_neg=1)
 
     def _loss(self, users, pos, neg, w) -> torch.Tensor:
         neg = neg[:, 0]
-        ue = self.user_emb[users]
-        pe, ne = self.item_emb[pos], self.item_emb[neg]
-        bp, bn = self.item_bias[pos], self.item_bias[neg]
-        y_pos = torch.sum(ue * pe, dim=-1) + bp
-        y_neg = torch.sum(ue * ne, dim=-1) + bn
-        loss = torch.sum(bpr_loss(y_pos, y_neg) * w)
-        reg_term = 0.5 * torch.sum(
-            (torch.sum(ue ** 2 + pe ** 2 + ne ** 2, dim=-1) + bp ** 2
-             + bn ** 2) * w)
-        return loss + self.config.reg * reg_term
-
-    def _train_epoch(self, epoch: int) -> float:
-        gen = epoch_generator(self.run_config.seed + 1, epoch, self.device)
-        return self.pipeline.run_epoch(gen, self.train_step)
+        return bprmf_gathered_loss(
+            self.user_emb[users], self.item_emb[pos], self.item_emb[neg],
+            self.item_bias[pos], self.item_bias[neg], w, self.config.reg)
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX BPRMF's ``params`` (arrays taken with ``np.asarray``)
         into this model."""
         self._copy_params(bprmf_params_from_jax(params))
+
+    def load_jax_opt_state(self, *state) -> None:
+        """Dense Adam: ``(count, mu, nu)``, as the base class. Lazy Adam:
+        JAX's ``opt_state``, one ``LazyAdamState`` (m, v, counts) per table
+        of ``_JAX_PARAMS``, in that order."""
+        if self.config.optimizer != "lazy_adam":
+            super().load_jax_opt_state(*state)
+            return
+        if len(state) != len(self._JAX_PARAMS):
+            raise ValueError(f"expected {len(self._JAX_PARAMS)} lazy Adam "
+                             f"states, got {len(state)}")
+        self.optimizer.load_state_dict(
+            {name: lazy_adam_state_from_jax(*s)
+             for name, s in zip(self._JAX_PARAMS, state)})
 
     def _chunk_embeddings(self):
         return self.user_emb, self.item_emb

@@ -21,16 +21,16 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from ..convert import lightgcn_params_from_jax
+from ..convert import two_tables_from_jax
 from ..ops.graph import Graph, propagate_layers
 from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
 from ..run_config import RunConfig
 from ..utils import ModelConfig, normalize_adj_matrix
-from .base import TorchRecommender
-from .common import (GRAPH_IMPLS, ChunkedDotPredictMixin, as_user_tensor,
+from .common import (GRAPH_IMPLS, ChunkedDotPredictMixin,
+                     EpochTrainedRecommender, as_user_tensor,
                      build_prop_graph, make_optimizer, make_train_step)
-from .pipeline import PairwiseEpochPipeline, epoch_generator
+from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["LightGCN", "LightGCNConfig", "build_bipartite_adj",
            "lightgcn_embeddings", "lightgcn_loss"]
@@ -112,7 +112,7 @@ def lightgcn_loss(graph: Graph, user_emb: torch.Tensor,
     return loss + reg * reg_term / batch_size
 
 
-class LightGCN(ChunkedDotPredictMixin, TorchRecommender):
+class LightGCN(ChunkedDotPredictMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb")
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
@@ -127,8 +127,9 @@ class LightGCN(ChunkedDotPredictMixin, TorchRecommender):
             init((self.num_users, cfg.embed_size), gen).to(self.device))
         self.item_emb = nn.Parameter(
             init((self.num_items, cfg.embed_size), gen).to(self.device))
-        self.optimizer = make_optimizer("adam", [self.user_emb,
-                                                 self.item_emb], cfg.lr)
+        self.optimizer = make_optimizer("adam", {"user_emb": self.user_emb,
+                                                 "item_emb": self.item_emb},
+                                        cfg.lr)
         self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
@@ -154,8 +155,7 @@ class LightGCN(ChunkedDotPredictMixin, TorchRecommender):
 
     def _train_epoch(self, epoch: int) -> float:
         self._final_emb = None            # the parameters move
-        gen = epoch_generator(self.run_config.seed + 1, epoch, self.device)
-        return self.pipeline.run_epoch(gen, self.train_step)
+        return super()._train_epoch(epoch)
 
     @torch.no_grad()
     def _freeze(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -183,5 +183,5 @@ class LightGCN(ChunkedDotPredictMixin, TorchRecommender):
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX LightGCN's ``params`` (arrays taken with
         ``np.asarray``) into this model."""
-        self._copy_params(lightgcn_params_from_jax(params))
+        self._copy_params(two_tables_from_jax(params))
         self._final_emb = None

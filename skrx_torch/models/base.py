@@ -4,13 +4,18 @@ port of ``skrx.models.base`` (``AbstractRecommender`` and
 
 A model holds its run config, dataset, device (``cuda:<gpu_id>`` unless
 given; absent CUDA raises), logger (``log/<data>/<model>/<run_id>.log``
-under the working directory) and ``RankingEvaluator``. ``fit()`` runs one
-epoch at a time and evaluates every ``verbose`` epochs, stops early on
-NDCG@10 after ``early_stop`` evaluations without a gain, and stops on a
-non-finite loss. Subclasses implement ``_train_epoch(epoch) -> loss`` and
-``predict``; a model trained by ``self.optimizer`` names in ``_JAX_PARAMS``
-the parameters a JAX model of its kind carries over. Checkpoint and resume, the profiler trace and evaluation by
-user group are not ported yet (ROADMAP.md, Queue 1).
+under the working directory), ``RankingEvaluator`` and user groups by
+activity (``evaluate_group``). ``fit()`` runs one epoch at a time and
+evaluates every ``verbose`` epochs, stops early on NDCG@10 after
+``early_stop`` evaluations without a gain, and stops on a non-finite loss.
+With ``RunConfig.checkpoint_dir`` and ``checkpoint_every`` it saves the
+training state (``_train_state``: parameters, optimizer state) and early
+stopping; ``resume`` restarts after the latest save. ``profile_dir`` writes
+a ``torch.profiler`` trace of epoch ``start + 1`` and its evaluation.
+Predict caches are cleared after every epoch. Subclasses implement
+``_train_epoch(epoch) -> loss`` (None: nothing to train) and ``predict``;
+a model trained by ``self.optimizer`` names in ``_JAX_PARAMS`` the
+parameters a JAX model of its kind carries over.
 """
 import os
 import platform
@@ -23,9 +28,10 @@ from torch import nn
 
 from ..convert import adam_state_from_jax
 from ..eval import EarlyStopping, MetricReport, RankingEvaluator
-from ..io import RSDataset
+from ..io import RSDataset, group_users_by_interactions
 from ..run_config import RunConfig
 from ..utils import Config, Logger, resolve_device, slugify
+from ..utils.checkpoint import Checkpointer
 from ..version import __version__
 
 __all__ = ["TorchRecommender", "resolve_eval_batch_size"]
@@ -83,6 +89,7 @@ class TorchRecommender(nn.Module):
                             f"{type(self).__name__} (its predict has no "
                             f"compatible factorization); use eval_mode="
                             f"'auto' or 'full'")
+        self._user_groups = group_users_by_interactions(self.dataset)
         # one entry per fit() epoch: epoch, loss, train_seconds and, where
         # it evaluated, eval_seconds and the MetricReport
         self.history: List[dict] = []
@@ -109,9 +116,65 @@ class TorchRecommender(nn.Module):
                  ) -> MetricReport:
         return self.evaluator.evaluate(self, test_users)
 
+    def evaluate_group(self) -> List[Tuple[str, MetricReport]]:
+        """``(label, report)`` for each user group by training activity
+        (``group_users_by_interactions``)."""
+        return [(g.label, self.evaluate(g.users)) for g in self._user_groups]
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # derived predict state (propagated embeddings, user vectors), cleared
+    # after every training epoch so that predict never serves stale state
+    _PREDICT_CACHE_ATTRS = ("_final_emb", "_uv_cache")
+
+    def _invalidate_predict_cache(self) -> None:
+        for attr in self._PREDICT_CACHE_ATTRS:
+            if getattr(self, attr, None) is not None:
+                setattr(self, attr, None)
+
+    def _checkpointer(self) -> Optional[Checkpointer]:
+        rc = self.run_config
+        if not rc.checkpoint_dir or rc.checkpoint_every <= 0:
+            return None
+        return Checkpointer(os.path.join(rc.checkpoint_dir,
+                                         type(self).__name__))
+
+    def _train_state(self) -> Dict:
+        """What a checkpoint holds: the parameters and the optimizer's
+        state; a model with more state across epochs extends it."""
+        state: Dict = {"params": {name: p.detach() for name, p
+                                  in self.named_parameters()}}
+        optimizer = getattr(self, "optimizer", None)
+        if optimizer is not None:
+            state["optimizer"] = optimizer.state_dict()
+        return state
+
+    def _load_train_state(self, state: Dict) -> None:
+        self._copy_params(state["params"])
+        if "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
+        self._invalidate_predict_cache()
+
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof, epoch: int) -> None:
+        self._sync()
+        prof.stop()
+        profile_dir = self.run_config.profile_dir
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"{type(self).__name__}_epoch"
+                            f"{epoch}_{os.getpid()}.trace.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace written to {path}")
 
     def fit(self) -> MetricReport:
         """Train ``config.epochs`` epochs with per-epoch evaluation and early
@@ -121,34 +184,72 @@ class TorchRecommender(nn.Module):
         early_stopping = EarlyStopping(metric="NDCG@10",
                                        patience=self.config.early_stop)
         eval_every = max(1, int(getattr(self.config, "verbose", 1)))
+        rc = self.run_config
+        ckpt = self._checkpointer()
+        start_epoch = 0
+        if ckpt is not None and rc.resume:
+            state, extra, step = ckpt.restore(map_location=self.device)
+            if step is not None:
+                self._load_train_state(state)
+                early_stopping.set_state(extra.get("early_stopping", {}))
+                start_epoch = extra.get("epoch", step) + 1
+                self.logger.info(f"resumed from checkpoint at epoch {step}")
+
+        def save(epoch):
+            ckpt.save(epoch, self._train_state(),
+                      {"epoch": epoch,
+                       "early_stopping": early_stopping.get_state()})
+
+        prof = None
         epoch_start = time.perf_counter()
-        for epoch in range(self.config.epochs):
-            t0 = time.perf_counter()
-            loss = self._train_epoch(epoch)
-            self._sync()
-            record = {"epoch": epoch, "loss": loss,
-                      "train_seconds": time.perf_counter() - t0}
-            self.history.append(record)
-            if loss is not None and not np.isfinite(loss):
-                self.logger.error(f"epoch {epoch}: non-finite loss ({loss}); "
-                                  f"stopping")
-                break
-            if ((epoch + 1) % eval_every != 0
-                    and epoch != self.config.epochs - 1):
-                continue                  # the last epoch always evaluates
-            t0 = time.perf_counter()
-            cur_result = self.evaluate()
-            record.update(eval_seconds=time.perf_counter() - t0,
-                          report=cur_result)
-            elapsed = time.perf_counter() - epoch_start
-            epoch_start = time.perf_counter()
-            loss_str = (f"loss={loss:.5f} [{elapsed:.2f}s]"
-                        if loss is not None else "")
-            self.logger.info(f"epoch {epoch}:".ljust(12)
-                             + f"\t{cur_result.values_str}\t{loss_str}")
-            if early_stopping(cur_result):
-                self.logger.info("early stop")
-                break
+        try:
+            for epoch in range(start_epoch, self.config.epochs):
+                # the second epoch: the first pays for one-time set-up
+                if rc.profile_dir and epoch == start_epoch + 1:
+                    prof = self._start_trace()
+                t0 = time.perf_counter()
+                loss = self._train_epoch(epoch)
+                self._sync()
+                self._invalidate_predict_cache()
+                record = {"epoch": epoch, "loss": loss,
+                          "train_seconds": time.perf_counter() - t0}
+                self.history.append(record)
+                if loss is not None and not np.isfinite(loss):
+                    self.logger.error(f"epoch {epoch}: non-finite loss "
+                                      f"({loss}); stopping")
+                    break
+                skip_eval = ((epoch + 1) % eval_every != 0
+                             and epoch != self.config.epochs - 1)
+                if skip_eval:           # the last epoch always evaluates
+                    if prof is not None:
+                        self._stop_trace(prof, epoch)
+                        prof = None
+                    if ckpt is not None and \
+                            (epoch + 1) % rc.checkpoint_every == 0:
+                        save(epoch)
+                    continue
+                t0 = time.perf_counter()
+                cur_result = self.evaluate()
+                record.update(eval_seconds=time.perf_counter() - t0,
+                              report=cur_result)
+                if prof is not None:
+                    self._stop_trace(prof, epoch)
+                    prof = None
+                elapsed = time.perf_counter() - epoch_start
+                epoch_start = time.perf_counter()
+                loss_str = (f"loss={loss:.5f} [{elapsed:.2f}s]"
+                            if loss is not None else "")
+                self.logger.info(f"epoch {epoch}:".ljust(12)
+                                 + f"\t{cur_result.values_str}\t{loss_str}")
+                stop = early_stopping(cur_result)
+                if ckpt is not None and (epoch + 1) % rc.checkpoint_every == 0:
+                    save(epoch)
+                if stop:
+                    self.logger.info("early stop")
+                    break
+        finally:
+            if prof is not None:        # a stop or an error mid-trace
+                prof.stop()
         self.logger.info("best:".ljust(12)
                          + f"\t{early_stopping.best_result.values_str}")
         return early_stopping.best_result
@@ -169,7 +270,8 @@ class TorchRecommender(nn.Module):
     def load_jax_opt_state(self, count: int, mu: np.ndarray,
                            nu: np.ndarray) -> None:
         """Set the Adam state from the flat ``optax.adam`` state of a JAX
-        model of this kind (``count`` and the raveled ``mu``, ``nu``)."""
+        model of this kind (``count`` and the raveled ``mu``, ``nu``); a
+        model with another optimizer overrides this."""
         shapes = {name: tuple(getattr(self, name).shape)
                   for name in self._JAX_PARAMS}
         for name, state in adam_state_from_jax(count, mu, nu,

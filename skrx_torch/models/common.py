@@ -1,34 +1,52 @@
-"""Shared model helpers: the optimizer and train-step factory, chunked
-scoring for dot-product models, and the lowering of a model's adjacency for
-propagation (the port of the parts of ``skrx.models.common`` that BPRMF and
-LightGCN use)."""
-from typing import Callable, Iterable, Optional, Tuple
+"""Shared model helpers: the optimizer and train-step factory, the base of
+models trained by an epoch pipeline, chunked scoring for dot-product models
+and for models with a per-user encoder, and the lowering of a model's
+adjacency for propagation (the port of ``skrx.models.common``; the
+tensor-parallel parts wait for ``parallel/``)."""
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..ops.graph import Graph, graph_from_sp_matrix
+from ..ops.optim import LazyAdam
+from .base import TorchRecommender
+from .pipeline import epoch_generator
 
-__all__ = ["ChunkedDotPredictMixin", "as_user_tensor", "make_optimizer",
-           "make_train_step", "make_sharded_train_step", "GRAPH_IMPLS",
-           "resolve_graph_impl", "mxu_msg_dtype", "build_prop_graph"]
+__all__ = ["ChunkedDotPredictMixin", "CachedUserVecChunkMixin",
+           "EpochTrainedRecommender", "as_user_tensor", "make_optimizer",
+           "adam_l2", "make_train_step", "make_sharded_train_step",
+           "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
+           "build_prop_graph"]
 
 GRAPH_IMPLS = ("auto", "segment", "mxu", "mxu_bf16")
 
 
-def make_optimizer(name: str, params: Iterable[torch.nn.Parameter],
-                   lr: float) -> torch.optim.Optimizer:
-    """Dense Adam (``optax.adam``'s constants) over ``params``. The JAX
-    package runs it over the raveled parameter vector; Adam is elementwise,
-    so per-parameter state computes the same update. ``lazy_adam`` (row-wise
-    sparse updates) is not ported yet."""
+def make_optimizer(name: str, params: Dict[str, torch.nn.Parameter],
+                   lr: float, weight_decay: float = 0.0
+                   ) -> Union[torch.optim.Optimizer, LazyAdam]:
+    """The optimizer of a model's named parameters. "adam": dense Adam
+    (``optax.adam``'s constants, :func:`adam_l2`); the JAX package runs it
+    over the raveled parameter vector, and Adam is elementwise, so
+    per-parameter state computes the same update. "lazy_adam": row-wise
+    lazy Adam (:class:`~skrx_torch.ops.optim.LazyAdam`), updated by a step
+    over the rows a batch gathers
+    (:func:`~skrx_torch.ops.optim.make_lazy_train_step`); it has no dense
+    step."""
     if name == "lazy_adam":
-        raise NotImplementedError("optimizer='lazy_adam' is not ported yet "
-                                  "(ROADMAP.md, Queue 1); use 'adam'")
+        return LazyAdam(params, lr, weight_decay=weight_decay)
     if name != "adam":
         raise ValueError(f"unknown optimizer {name!r}")
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return adam_l2(list(params.values()), lr, weight_decay)
+
+
+def adam_l2(params, lr: float, weight_decay: float = 0.0
+            ) -> torch.optim.Adam:
+    """``torch.optim.Adam`` with ``weight_decay`` added to the gradient
+    before the moments (L2, not AdamW): the JAX package's ``adam_l2``."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
 
 
 def make_train_step(optimizer: torch.optim.Optimizer,
@@ -91,6 +109,72 @@ class ChunkedDotPredictMixin:
         if bias is not None:
             scores = scores + bias[None, item_lo:item_hi]
         return scores
+
+
+class CachedUserVecChunkMixin:
+    """``predict_chunk`` for models whose predict factors into a per-user
+    encoder and a cheap per-item score: the user vectors are computed once
+    per (model state, user batch), and each catalog chunk is scored from
+    them, so chunked evaluation neither runs the encoder again per chunk
+    nor builds (B, N).
+
+    Subclasses implement ``_user_vectors(users) -> tensor`` and
+    ``_score_user_chunk(uv, item_lo, item_hi) -> (B, hi - lo)``. The cache
+    is keyed by the tensors of ``_uv_state_refs()`` (by default the
+    model's parameters), by identity and version counter (an optimizer step
+    updates them in place), and by the users; ``fit()`` also clears it
+    after every epoch. The tensor-parallel ``predict_topk`` waits for
+    ``parallel/``."""
+
+    _uv_cache = None
+
+    def _user_vectors(self, users: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _score_user_chunk(self, uv: torch.Tensor, item_lo: int,
+                          item_hi: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _uv_state_refs(self) -> tuple:
+        return tuple(self.parameters())
+
+    @torch.no_grad()
+    def _cached_user_vectors(self, users) -> torch.Tensor:
+        users = as_user_tensor(users, self.device)
+        refs = self._uv_state_refs()
+        key = ([t._version for t in refs], users.cpu().numpy().tobytes())
+        cached = self._uv_cache
+        if (cached is None or len(cached[0]) != len(refs)
+                or any(a is not b for a, b in zip(cached[0], refs))
+                or cached[1] != key):
+            # the references held keep the ids of the tensors from reuse
+            cached = (refs, key, self._user_vectors(users))
+            self._uv_cache = cached
+        return cached[2]
+
+    @torch.no_grad()
+    def predict_chunk(self, users, item_lo: int, item_hi: int
+                      ) -> torch.Tensor:
+        return self._score_user_chunk(self._cached_user_vectors(users),
+                                      item_lo, item_hi)
+
+    def predict_topk(self, users, k: int, train_table=None):
+        raise NotImplementedError("predict_topk (tensor-parallel top-k) is "
+                                  "not ported yet (ROADMAP.md, Queue 1, "
+                                  "parallel/)")
+
+
+class EpochTrainedRecommender(TorchRecommender):
+    """Base of models trained by an epoch pipeline: a subclass sets
+    ``self.optimizer``, ``self.pipeline`` (``run_epoch(generator,
+    train_step) -> loss``) and ``self.train_step``. Epoch ``e`` draws from
+    ``epoch_generator(seed + 1, e)``, as the JAX package folds the epoch
+    into its key, so a resumed run draws the batches of an uninterrupted
+    one."""
+
+    def _train_epoch(self, epoch: int) -> Optional[float]:
+        gen = epoch_generator(self.run_config.seed + 1, epoch, self.device)
+        return self.pipeline.run_epoch(gen, self.train_step)
 
 
 def resolve_graph_impl(graph_impl: str) -> str:

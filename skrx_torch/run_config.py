@@ -1,7 +1,7 @@
 """Run-level configuration (the port's own copy of ``skrx.run_config``,
-with the fields the serving, training and evaluation slices read; the JAX
-package's mesh, dtype, checkpoint, profiler and search options come with
-the slices that use them)."""
+with the fields the serving, training, checkpoint, profiler and evaluation
+slices read; the JAX package's mesh and dtype options come with the slices
+that use them)."""
 from typing import Tuple, Union
 
 from .utils.config import Config
@@ -38,6 +38,16 @@ class RunConfig(Config):
     eval_mode: str = "auto"
     eval_chunk_size: int = 65536
     eval_chunk_threshold: int = 131072
+    # checkpoint and resume: fit() saves the parameters, the optimizer's
+    # state and early stopping every checkpoint_every epochs under
+    # <checkpoint_dir>/<model class>/ (0: never); resume=True starts fit()
+    # after the latest checkpoint there
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    resume: bool = False
+    # write a torch.profiler trace (CPU and CUDA activities) of one training
+    # epoch and its evaluation to this directory; empty disables
+    profile_dir: str = ""
 
     def _validate(self):
         if not (isinstance(self.recommender, str) and self.recommender):
@@ -75,3 +85,11 @@ class RunConfig(Config):
         if not (self.eval_chunk_size > 0 and self.eval_chunk_threshold > 0):
             raise ValueError("eval_chunk_size and eval_chunk_threshold must "
                              "be > 0")
+        if not (isinstance(self.checkpoint_dir, str)
+                and isinstance(self.profile_dir, str)):
+            raise ValueError("checkpoint_dir and profile_dir must be strings")
+        if not (isinstance(self.checkpoint_every, int)
+                and self.checkpoint_every >= 0):
+            raise ValueError("checkpoint_every must be an int >= 0")
+        if not isinstance(self.resume, bool):
+            raise ValueError("resume must be a bool")

@@ -593,3 +593,36 @@ def test_direct_rank_designs_need_a_card(monkeypatch):
         assert f"int skrx_direct_rank_{name}(" in src
     assert _chip_ab().c_argtypes(mod.SOURCE, "skrx_direct_rank_cl") == \
         want + [I, P]
+
+
+def _dedup_designs():
+    spec = importlib.util.spec_from_file_location(
+        "dedup_rows_designs",
+        os.path.join(ROOT, "experiments", "dedup_rows_designs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_dedup_rows_designs_need_a_card(monkeypatch):
+    mod = _dedup_designs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main() == 2
+    assert mod.DESIGNS["segment_reduce"] is mod.optim.dedup_rows
+
+
+@pytest.mark.parametrize("shape", [(64, 8), (64,), (1, 3), (300, 4)])
+def test_replaced_dedup_design_sums_as_the_package(shape):
+    """The doubling design timed against the package's lists the same
+    distinct rows and the same sums (within f32 rounding: the order of the
+    additions differs), with repeated rows and dropped ids."""
+    mod = _dedup_designs()
+    rng = np.random.default_rng(shape[0])
+    drop = 20
+    rows = torch.from_numpy(rng.integers(0, drop + 1, shape[0]))
+    grads = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ref_u, ref_s = mod.optim.dedup_rows(rows, grads, drop)
+    got_u, got_s = mod.dedup_doubling(rows, grads, drop)
+    assert torch.equal(got_u, ref_u)
+    np.testing.assert_allclose(got_s.numpy(), ref_s.numpy(), rtol=1e-6,
+                               atol=1e-6)

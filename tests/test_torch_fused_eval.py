@@ -142,17 +142,15 @@ def test_fused_serving_equals_the_score_matrix_route_and_launches_nothing_here(
     assert all(v == 0 for v in runtime.LAUNCHES.values())   # CPU: plain
 
 
-def test_serving_cache_follows_training(tmp_path, monkeypatch):
-    """BPRMF's item table is a live parameter that Adam updates in place:
-    after fit() the fused route serves the new weights, packed once more,
-    and serves from the cache while they stay."""
+def _serving_follows_training(tmp_path, monkeypatch, optimizer):
     monkeypatch.chdir(tmp_path)
     data = jax_synthetic.make_dataset_dir(str(tmp_path), num_users=40,
                                           num_items=150, num_ratings=900,
                                           seed=2)
     m = BPRMF(RunConfig(data_dir=data, seed=3, top_k=(10,),
                         metric=("NDCG",)),
-              dict(n_dim=8, epochs=1, lr=0.05), device="cpu")
+              dict(n_dim=8, epochs=1, lr=0.05, optimizer=optimizer),
+              device="cpu")
     server = TopKRecommender(m, k=10, fused="always")
     users = np.arange(40)
     server.recommend(users)
@@ -170,6 +168,19 @@ def test_serving_cache_follows_training(tmp_path, monkeypatch):
     np.testing.assert_array_equal(vals, ref_v.numpy())
     server.recommend(users[:5])
     assert server._packed_cache[2] is after
+
+
+def test_serving_cache_follows_training(tmp_path, monkeypatch):
+    """BPRMF's item table is a live parameter that Adam updates in place:
+    after fit() the fused route serves the new weights, packed once more,
+    and serves from the cache while they stay."""
+    _serving_follows_training(tmp_path, monkeypatch, "adam")
+
+
+def test_serving_cache_follows_lazy_adam_training(tmp_path, monkeypatch):
+    """The same with lazy Adam, which writes the touched rows in place: the
+    step must move the table's version counter as dense Adam's does."""
+    _serving_follows_training(tmp_path, monkeypatch, "lazy_adam")
 
 
 def test_lightgcn_serving_follows_the_frozen_embeddings(models):

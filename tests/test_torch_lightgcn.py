@@ -15,7 +15,7 @@ from skrx import RunConfig as JaxRunConfig
 from skrx.io import synthetic as jax_synthetic
 from skrx.models.LightGCN import LightGCN as JaxLightGCN
 from skrx_torch import ModelRegistry, RunConfig
-from skrx_torch.convert import adam_state_from_jax, lightgcn_params_from_jax
+from skrx_torch.convert import adam_state_from_jax, two_tables_from_jax
 from skrx_torch.models.LightGCN import LightGCN, LightGCNConfig
 from skrx_torch.ops.kernels import runtime
 from .parity_utils import assert_parity, run_seed
@@ -169,11 +169,11 @@ def test_adam_state_conversion_follows_lightgcn_ravel_order():
         np.testing.assert_array_equal(state[key]["exp_avg_sq"].numpy(),
                                       -value)
         assert float(state[key]["step"]) == 3.0
-    assert set(lightgcn_params_from_jax(tree)) == set(tree)
+    assert set(two_tables_from_jax(tree)) == set(tree)
     with pytest.raises(ValueError):
-        lightgcn_params_from_jax(dict(tree, item_bias=np.zeros(5)))
+        two_tables_from_jax(dict(tree, item_bias=np.zeros(5)))
     with pytest.raises(ValueError):
-        lightgcn_params_from_jax(dict(tree, item_emb=np.zeros((5, 3))))
+        two_tables_from_jax(dict(tree, item_emb=np.zeros((5, 3))))
 
 
 def test_fit_lands_in_the_parity_band_of_jax_fit(tmp_path, monkeypatch):

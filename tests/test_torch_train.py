@@ -294,12 +294,7 @@ def test_train_step_matches_jax(small_data, monkeypatch):
                                        atol=1e-6)
 
 
-def test_lazy_adam_is_not_ported(small_data, monkeypatch):
-    root, data = small_data
-    monkeypatch.chdir(root)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BPRMF(RunConfig(data_dir=data), {"optimizer": "lazy_adam"},
-              device="cpu")
+def test_sharded_train_step_is_not_ported():
     from skrx_torch.models.common import make_sharded_train_step
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sharded_train_step()
