@@ -146,9 +146,27 @@ skrx_torch fails and it exits 1):
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
    kernels of one epoch and one evaluate(), for BPRMF (dense and lazy
-   Adam), LightGCN, Pop, AOBPR and CML; one BPRMF step with dense and
-   with lazy Adam at the same batch, and dedup_rows at the step's 2,048
-   item rows.
+   Adam), LightGCN, Pop, AOBPR, CML, LayerGCN, LightGCL and DENS; one
+   BPRMF step with dense and with lazy Adam at the same batch, and
+   dedup_rows at the step's 2,048 item rows.
+10. The three other pairwise graph models on the phase-3 data, each at
+   its published defaults (d=64, batch 2,048), each training through
+   segsum on a path of its own. LayerGCN (4 layers) with dropout=0.1:
+   the masks of epochs 0 (by degree) and 1 (at random) keep keep_len
+   pairs in each half of the symmetric graph; fit() for 2 epochs. LightGCL
+   (2 layers, SVD rank 5, rectangular R and R^T): fit() for one epoch.
+   DENS (3 hops, ns "dens", K=1, 6 candidates): fit() for one epoch. Each
+   fit(): losses finite, segsum launched exactly twice per propagation of
+   a step and once per propagation of an evaluation, the full route's
+   kernels launched. One train step of each model on the card against the
+   same step on CPU copies of its parameters, Adam state, batch and masks
+   (the masks drawn once; propagation through segsum's plain version):
+   LayerGCN under epoch 0's pruning mask, LightGCL with dropout 0.25,
+   DENS with edge and message dropout on; the loss within 1e-5 relative,
+   every updated parameter within 1e-5 of its largest magnitude.
+   evaluate(): finite metrics on the full route; LightGCL's and DENS's
+   fused route within 1e-4 of it. The phase prints its seconds. It runs
+   before phase 9, whose tables take its models.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -167,7 +185,11 @@ from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.eval import EarlyStopping
 from skrx_torch.io import synthetic
 from skrx_torch.models.BPRMF import bprmf_lazy_train_step
+from skrx_torch.models.DENS import dens_dropout_masks, dens_loss
+from skrx_torch.models.LayerGCN import layergcn_loss
+from skrx_torch.models.LightGCL import lightgcl_dropout_masks, lightgcl_loss
 from skrx_torch.models.LightGCN import lightgcn_loss
+from skrx_torch.models.common import make_train_step
 from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
 from skrx_torch.ops.graph import graph_from_coo
@@ -1582,6 +1604,179 @@ def phase_fit_and_models(root, path, reg, model_cls, dev, rng, test_users):
 
 
 
+def nested_cpu(x):
+    """Tensors in nested lists and tuples copied to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(nested_cpu(v) for v in x)
+    return x
+
+
+def step_card_vs_cpu(tag, m, cpu_loss, batch, masks) -> dict:
+    """One train step of model m on the card against the same step on CPU
+    copies of its parameters, Adam state, batch and masks:
+    ``cpu_loss(params, users, pos, neg, w, masks)`` is the model's loss
+    over CPU copies of its operators, whose propagation runs segsum's plain
+    version. The loss within 1e-5 relative, every updated parameter within
+    1e-5 of its largest magnitude."""
+    named = dict(m.named_parameters())
+    by_id = {id(p): n for n, p in named.items()}
+    order = [by_id[id(p)] for g in m.optimizer.param_groups
+             for p in g["params"]]
+    params = {n: named[n].detach().cpu().clone().requires_grad_(True)
+              for n in order}
+    cpu_opt = torch.optim.Adam([params[n] for n in order],
+                               **m.optimizer.defaults)
+    cpu_opt.load_state_dict(cpu_copy(m.optimizer.state_dict()))
+    cpu_step = make_train_step(cpu_opt,
+                               lambda *b: cpu_loss(params, *b))
+    loss_cpu = float(cpu_step((*nested_cpu(batch), nested_cpu(masks))))
+    loss_card = float(m.train_step((*batch, masks)))
+    errs = {"loss": abs(loss_card - loss_cpu) / abs(loss_cpu)}
+    require(errs["loss"] <= 1e-5, f"{tag}: loss card {loss_card} vs CPU "
+            f"{loss_cpu}")
+    for n in order:
+        err = float((named[n].detach().cpu().double()
+                     - params[n].detach().double()).abs().max())
+        scale = float(params[n].detach().abs().max())
+        errs[n] = err
+        require(err <= 1e-5 * scale + 1e-30,
+                f"{tag} {n}: card vs CPU after one step {err} (scale "
+                f"{scale})")
+    print(f"{tag}: one train step card vs CPU copies (segsum's plain "
+          f"version): loss {loss_card} vs {loss_cpu}; relative loss error "
+          f"and max abs parameter errors {errs}", flush=True)
+    return errs
+
+
+def fit_graph_model(m, steps_per_epoch: int, props: int, tag: str):
+    """fit() of a graph model with its launches counted: losses finite,
+    segsum launched exactly ``props`` propagations forward and backward a
+    step plus ``props`` an evaluation, the full route's kernels launched."""
+    best, launched = counted(m.fit)
+    losses = [h["loss"] for h in m.history]
+    evals = sum("report" in h for h in m.history)
+    expect = len(losses) * steps_per_epoch * 2 * props + props * evals
+    print(f"{tag} fit() ({len(losses)} epochs of {steps_per_epoch} steps, "
+          f"{evals} evaluations): losses {losses}, NDCG@10 "
+          f"{best['NDCG@10']}; launches {launched}; expected segsum "
+          f"{expect}", flush=True)
+    require(bool(np.isfinite(losses).all()), f"{tag} losses {losses}")
+    require(launched["segsum"] == expect,
+            f"{tag}: segsum {launched['segsum']} launches, not {expect}")
+    for kname in ("submax", "kth_largest", "extract", "rank_count"):
+        require(launched[kname] >= 1, f"{kname} never launched in {tag}")
+    return launched
+
+
+def evaluate_routes(m, tag: str, modes) -> dict:
+    """evaluate() on each route with its launches: finite metrics, every
+    other route within 1e-4 of the full route's."""
+    runs = {}
+    for mode in modes:
+        (rep, sec), launched = counted(lambda: evaluate_as(m, mode))
+        runs[mode] = (rep, sec, launched)
+    full = np.array(list(runs["full"][0].values()))
+    require(bool(np.isfinite(full).all()), f"{tag}: metrics {full}")
+    diffs = {mode: float(np.abs(np.array(list(runs[mode][0].values()))
+                                - full).max()) for mode in modes[1:]}
+    print(f"{tag} evaluate(): {[(mode, r[1]) for mode, r in runs.items()]} "
+          f"(route, s); NDCG@10 {runs['full'][0]['NDCG@10']}; largest "
+          f"metric difference to the full route {diffs}", flush=True)
+    for mode, diff in diffs.items():
+        require(diff <= 1e-4, f"{tag} {mode}: metrics off by {diff}")
+        for kname in FUSED + ("kth_largest", "rank_lookup_count"):
+            require(runs[mode][2][kname] >= 1,
+                    f"{kname} never launched in {mode} evaluate() of {tag}")
+    return runs
+
+
+def phase_graph_models(path, reg, dev):
+    """Phase 10 (the module docstring): LayerGCN, LightGCL and DENS at
+    Gowalla scale. Returns the models and the launch counts of each
+    main-path run."""
+    t_phase = time.perf_counter()
+
+    def build(name, cfg):
+        reg.load_skrx_model(name)
+        return reg.get_model(name)[0](
+            RunConfig(recommender=name, data_dir=path, seed=SEED), cfg)
+    # LayerGCN: epoch 0 pruned by degree, epoch 1 at random
+    lg = build("LayerGCN", {"dropout": 0.1, "epochs": EPOCHS,
+                            "early_stop": EPOCHS})
+    lcfg, e = lg.config, lg.num_pairs
+    require(lcfg.embed_dim == DIM and lg.user_emb.device == dev
+            and lg.graph.num_edges == 2 * e, "LayerGCN at full width")
+    masks = [lg.epoch_mask(epoch) for epoch in range(EPOCHS)]
+    base = lg._base
+    for epoch, mask in enumerate(masks):
+        kept = int((mask[:e] != 0).sum())
+        require(bool(torch.equal(mask[:e], mask[e:])) and kept == lg.keep_len,
+                f"LayerGCN epoch {epoch} keeps {kept} of {e}, not "
+                f"{lg.keep_len}")
+    print(f"LayerGCN: {e} pairs, {lg.graph.num_edges} edges, keep_len "
+          f"{lg.keep_len}; mean base weight of the kept pairs: by degree "
+          f"(epoch 0) {float(base[masks[0][:e] != 0].mean())}, at random "
+          f"(epoch 1) {float(base[masks[1][:e] != 0].mean())}, all "
+          f"{float(base.mean())}", flush=True)
+    lg_launches = fit_graph_model(lg, lg.pipeline.num_batches,
+                                  lcfg.n_layers, "LayerGCN")
+    batch = next(lg.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    g_cpu = lg.graph.to("cpu")
+    step_card_vs_cpu(
+        "LayerGCN (epoch 0's pruning mask)", lg,
+        lambda p, u, pos, neg, w, mask: layergcn_loss(
+            g_cpu, p, lcfg, u, pos, neg, w, mask), batch, masks[0])
+    lg_runs = evaluate_routes(lg, "LayerGCN", ("full",))
+    # LightGCL at its defaults; its step with dropout 0.25
+    gcl = build("LightGCL", {"epochs": 1, "early_stop": 1})
+    gcfg, ops = gcl.config, gcl.ops
+    require(gcfg.d == DIM and ops.u_mul_s.shape == (USERS, gcfg.svd_q)
+            and ops.r.num_nodes == USERS and ops.r.num_src_nodes == ITEMS,
+            "LightGCL at full width")
+    print(f"LightGCL: R {USERS} x {ITEMS}, {ops.r.num_edges} edges, SVD "
+          f"rank {gcfg.svd_q}; ready after {time.perf_counter() - t_phase} "
+          f"s of the phase", flush=True)
+    gcl_launches = fit_graph_model(gcl, gcl.pipeline.num_batches,
+                                   2 * gcfg.gnn_layer, "LightGCL")
+    batch = next(gcl.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    drop = lightgcl_dropout_masks(torch.Generator(dev).manual_seed(SEED),
+                                  ops.r.num_edges, gcfg.gnn_layer, 0.25)
+    ops_cpu = ops.to("cpu")
+    step_card_vs_cpu(
+        "LightGCL (dropout 0.25)", gcl,
+        lambda p, u, pos, neg, w, m_: lightgcl_loss(
+            ops_cpu, p, gcfg, u, pos, neg, w, m_), batch, drop)
+    gcl_runs = evaluate_routes(gcl, "LightGCL", ("full", "fused"))
+    # DENS at its defaults (ns "dens", K 1, 6 candidates); its step with
+    # edge and message dropout
+    dn = build("DENS", {"epochs": 1, "early_stop": 1})
+    dcfg = dn.config
+    require(dcfg.dim == DIM and dcfg.ns == "dens"
+            and dn.pipeline.num_neg == dcfg.K * dcfg.n_negs,
+            "DENS at its defaults")
+    dn_launches = fit_graph_model(dn, dn.pipeline.num_batches,
+                                  dcfg.context_hops, "DENS")
+    batch = next(dn.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    dcfg.edge_dropout = dcfg.mess_dropout = True       # for this step only
+    drop = dens_dropout_masks(torch.Generator(dev).manual_seed(SEED),
+                              dn.graph, dcfg.context_hops, dcfg.dim,
+                              dcfg.edge_dropout_rate, dcfg.mess_dropout_rate)
+    d_cpu = dn.graph.to("cpu")
+    step_card_vs_cpu(
+        "DENS (edge and message dropout 0.1)", dn,
+        lambda p, u, pos, neg, w, m_: dens_loss(
+            d_cpu, p, dcfg, u, pos, neg, w, dn.anneal, m_), batch, drop)
+    dcfg.edge_dropout = dcfg.mess_dropout = False
+    dn_runs = evaluate_routes(dn, "DENS", ("full", "fused"))
+    print(f"phase 10 took {time.perf_counter() - t_phase} s", flush=True)
+    return {"LayerGCN": lg, "LightGCL": gcl, "DENS": dn,
+            "runs": [lg_launches, gcl_launches, dn_launches,
+                     *(r[2] for runs in (lg_runs, gcl_runs, dn_runs)
+                       for r in runs.values())]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1926,6 +2121,11 @@ def main() -> int:
                               test_users)
     lazy, pop, ao, cml = p8["lazy"], p8["pop"], p8["ao"], p8["cml"]
 
+    # ------------------------ phase 10: LayerGCN, LightGCL and DENS (#11)
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 10", flush=True)
+    p10 = phase_graph_models(path, reg, dev)
+    lg, gcl, dn = p10["LayerGCN"], p10["LightGCL"], p10["DENS"]
+
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
@@ -2036,11 +2236,13 @@ def main() -> int:
     }
     # launches over every main-path run of this script: serving, both
     # fit()s at Gowalla, the ML-1M-scale fit(), LightGCN serving, fused
-    # serving, the fused and chunked evaluate() calls, and phase 8's fit()s
+    # serving, the fused and chunked evaluate() calls, phase 8's fit()s
     # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML)
+    # and phase 10's (LayerGCN, LightGCL, DENS)
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
-                 *(r[2] for r in eval_runs.values()), *p8["runs"]]
+                 *(r[2] for r in eval_runs.values()), *p8["runs"],
+                 *p10["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:
@@ -2232,7 +2434,8 @@ def main() -> int:
           f"times", flush=True)
     trained = (("Gowalla", model), ("LightGCN Gowalla", gcn),
                ("lazy-Adam BPRMF Gowalla", lazy), ("AOBPR Gowalla", ao),
-               ("CML Gowalla", cml))
+               ("CML Gowalla", cml), ("LayerGCN Gowalla", lg),
+               ("LightGCL Gowalla", gcl), ("DENS Gowalla", dn))
     for tag, m in trained:
         steps = getattr(m, "pipeline", m).num_batches
         for h in m.history:
@@ -2266,7 +2469,10 @@ def main() -> int:
                              len(test_users)),
                             ("Pop Gowalla", pop, len(test_users)),
                             ("AOBPR Gowalla", ao, len(test_users)),
-                            ("CML Gowalla", cml, len(test_users))):
+                            ("CML Gowalla", cml, len(test_users)),
+                            ("LayerGCN Gowalla", lg, len(test_users)),
+                            ("LightGCL Gowalla", gcl, len(test_users)),
+                            ("DENS Gowalla", dn, len(test_users))):
         _, sec = timed(m.evaluate)
         _, per_eval = counted(m.evaluate)
         print(f"{tag} evaluate(): {sec} s, {n_users / sec} users/s, "
@@ -2275,7 +2481,7 @@ def main() -> int:
         print(f"{tag} evaluate() device busy {busy}; top device kernels "
               f"(ms): {heads}")
         modes = {model: ("fused", "chunked"), gcn: ("fused",),
-                 ao: ("fused",)}.get(m, ())
+                 ao: ("fused",), gcl: ("fused",), dn: ("fused",)}.get(m, ())
         for mode in modes:
             (_, sec) = evaluate_as(m, mode, CHUNK)
             busy, heads = busy_share(lambda: evaluate_as(m, mode, CHUNK),

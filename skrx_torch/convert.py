@@ -10,8 +10,11 @@ import numpy as np
 import torch
 
 __all__ = ["bprmf_params_from_jax", "two_tables_from_jax",
-           "adam_state_from_jax", "lazy_adam_state_from_jax",
-           "adagrad_state_from_jax"]
+           "lightgcl_params_from_jax", "dens_params_from_jax",
+           "dens_port_name", "adam_state_from_jax",
+           "lazy_adam_state_from_jax", "adagrad_state_from_jax"]
+
+DENS_GATES = ("item_gate", "neg_gate", "pos_gate", "user_gate")
 
 
 def _tensors(params: Dict[str, np.ndarray], keys: Tuple[str, ...]
@@ -39,13 +42,59 @@ def bprmf_params_from_jax(params: Dict[str, np.ndarray]
 def two_tables_from_jax(params: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """``{"user_emb": (U, d), "item_emb": (N, d)}`` f32 CPU tensors from
-    the ``params`` of a JAX LightGCN (its ego embeddings), AOBPR or CML
-    (Pop has none)."""
-    out = _tensors(params, ("user_emb", "item_emb"))
-    u, i = out["user_emb"], out["item_emb"]
+    the ``params`` of a JAX LightGCN or LayerGCN (their ego embeddings),
+    AOBPR or CML (Pop has none)."""
+    return _two_tables(params, "user_emb", "item_emb")
+
+
+def _two_tables(params: Dict[str, np.ndarray], user: str, item: str
+                ) -> Dict[str, torch.Tensor]:
+    out = _tensors(params, (user, item))
+    u, i = out[user], out[item]
     if u.dim() != 2 or i.dim() != 2 or u.shape[1] != i.shape[1]:
-        raise ValueError(f"inconsistent shapes: user_emb {tuple(u.shape)}, "
-                         f"item_emb {tuple(i.shape)}")
+        raise ValueError(f"inconsistent shapes: {user} {tuple(u.shape)}, "
+                         f"{item} {tuple(i.shape)}")
+    return out
+
+
+def lightgcl_params_from_jax(params: Dict[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """``{"E_u_0": (U, d), "E_i_0": (N, d)}`` f32 CPU tensors from a JAX
+    LightGCL's ``params`` (its ego embeddings)."""
+    return _two_tables(params, "E_u_0", "E_i_0")
+
+
+def dens_port_name(key: str) -> Tuple[str, bool]:
+    """(the port's parameter name, transposed?) of a leaf of a JAX DENS's
+    params by its path: a gate ``x @ w + b`` is an ``nn.Linear``, which
+    holds ``w.T`` as ``weight`` and ``b`` as ``bias``."""
+    gate, _, leaf = key.partition("/")
+    if leaf == "w":
+        return f"{gate}.weight", True
+    if leaf == "b":
+        return f"{gate}.bias", False
+    return key, False
+
+
+def dens_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX DENS's nested ``params`` (``user_emb``, ``item_emb`` and the
+    gates ``{"w": (d, d), "b": (d,)}``) as f32 CPU tensors by the port's
+    parameter names (``user_gate.weight`` = ``w.T`` ...)."""
+    keys = ("user_emb", "item_emb") + DENS_GATES
+    if set(params) != set(keys):
+        raise ValueError(f"expected keys {keys}, got {sorted(params)}")
+    out = two_tables_from_jax({k: params[k] for k in ("user_emb",
+                                                      "item_emb")})
+    d = out["user_emb"].shape[1]
+    for gate in DENS_GATES:
+        leaves = _tensors(params[gate], ("w", "b"))
+        if leaves["w"].shape != (d, d) or leaves["b"].shape != (d,):
+            raise ValueError(f"{gate}: w {tuple(leaves['w'].shape)}, b "
+                             f"{tuple(leaves['b'].shape)}, tables of width "
+                             f"{d}")
+        for leaf, value in leaves.items():
+            name, transposed = dens_port_name(f"{gate}/{leaf}")
+            out[name] = value.T.contiguous() if transposed else value
     return out
 
 
@@ -58,8 +107,9 @@ def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
     over its raveled parameters: ``count`` and the flat ``mu`` and ``nu``.
     ``ravel_pytree`` concatenates a dict's leaves by sorted key (BPRMF:
     ``item_bias``, ``item_emb``, ``user_emb``; LightGCN: ``item_emb``,
-    ``user_emb``); ``shapes`` gives each leaf's shape. optax's count and
-    torch's step both count the updates taken."""
+    ``user_emb``; a nested dict by its leaves' paths, ``item_gate/b``
+    before ``item_gate/w``); ``shapes`` gives each leaf's shape. optax's
+    count and torch's step both count the updates taken."""
     mu = np.asarray(mu, dtype=np.float32).reshape(-1)
     nu = np.asarray(nu, dtype=np.float32).reshape(-1)
     total = sum(int(np.prod(s)) for s in shapes.values())

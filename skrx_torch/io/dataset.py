@@ -11,6 +11,7 @@ from collections import OrderedDict, defaultdict
 from typing import Dict, List, Optional
 
 import numpy as np
+import scipy.sparse as sp
 
 __all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "RSDataset",
            "UserGroup", "group_users_by_interactions"]
@@ -91,6 +92,22 @@ class ImplicitFeedback:
                 (int(u), part) for u, part in
                 zip(keys, np.split(items, starts[1:])))
         return self._views["user_dict"]
+
+    def to_csr_matrix(self) -> sp.csr_matrix:
+        """(num_users, num_items) f32 interaction counts: 1.0 a row, a pair
+        that repeats summed, as the JAX package builds it. Cached: do not
+        modify the returned matrix."""
+        if "csr" not in self._views:
+            ones = np.ones(self.num_ratings, dtype=np.float32)
+            self._views["csr"] = sp.csr_matrix(
+                (ones, (self._users, self._items)),
+                shape=(self.num_users, self.num_items))
+        return self._views["csr"]
+
+    def to_coo_matrix(self) -> sp.coo_matrix:
+        """:meth:`to_csr_matrix` as a new COO matrix, entries in row-major
+        order."""
+        return self.to_csr_matrix().tocoo()
 
     def to_padded_positive_table(self, bucket: int = 32,
                                  max_pos_cap: Optional[int] = None

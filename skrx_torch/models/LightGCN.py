@@ -27,9 +27,9 @@ from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
 from ..run_config import RunConfig
 from ..utils import ModelConfig, normalize_adj_matrix
-from .common import (GRAPH_IMPLS, ChunkedDotPredictMixin,
-                     EpochTrainedRecommender, as_user_tensor,
-                     build_prop_graph, make_optimizer, make_train_step)
+from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
+                     FrozenEmbeddingMixin, build_prop_graph, make_optimizer,
+                     make_train_step)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["LightGCN", "LightGCNConfig", "build_bipartite_adj",
@@ -112,7 +112,7 @@ def lightgcn_loss(graph: Graph, user_emb: torch.Tensor,
     return loss + reg * reg_term / batch_size
 
 
-class LightGCN(ChunkedDotPredictMixin, EpochTrainedRecommender):
+class LightGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb")
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
@@ -133,7 +133,6 @@ class LightGCN(ChunkedDotPredictMixin, EpochTrainedRecommender):
         self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
-        self._final_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def _load_adj_mat(self, adj_type: str) -> sp.csr_matrix:
         out_dir = os.path.join(self.dataset.data_dir,
@@ -153,32 +152,9 @@ class LightGCN(ChunkedDotPredictMixin, EpochTrainedRecommender):
                              cfg.n_layers, cfg.reg, cfg.batch_size, users,
                              pos, neg, w)
 
-    def _train_epoch(self, epoch: int) -> float:
-        self._final_emb = None            # the parameters move
-        return super()._train_epoch(epoch)
-
-    @torch.no_grad()
-    def _freeze(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        self._final_emb = lightgcn_embeddings(self.graph, self.user_emb,
-                                              self.item_emb,
-                                              self.config.n_layers)
-        return self._final_emb
-
-    def evaluate(self, test_users=None):
-        self._freeze()                    # propagated once per evaluation
-        return super().evaluate(test_users)
-
-    def _chunk_embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self._final_emb if self._final_emb is not None \
-            else self._freeze()
-
-    @torch.no_grad()
-    def predict(self, users) -> torch.Tensor:
-        """(B, N) f32 scores ``u_all[users] @ i_all.T`` of the frozen
-        propagated embeddings, on the model's device."""
-        u_all, i_all = self._chunk_embeddings()
-        users = as_user_tensor(users, self.device)
-        return torch.matmul(u_all[users], i_all.T)
+    def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return lightgcn_embeddings(self.graph, self.user_emb, self.item_emb,
+                                   self.config.n_layers)
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX LightGCN's ``params`` (arrays taken with

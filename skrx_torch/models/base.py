@@ -258,10 +258,11 @@ class TorchRecommender(nn.Module):
         raise NotImplementedError
 
     def _copy_params(self, tensors: Dict[str, torch.Tensor]) -> None:
-        """Copy CPU tensors into the parameters of the same names."""
+        """Copy CPU tensors into the parameters of the same names (dotted
+        for a submodule's, as ``named_parameters`` gives them)."""
         with torch.no_grad():
             for name, value in tensors.items():
-                target = getattr(self, name)
+                target = self.get_parameter(name)
                 if target.shape != value.shape:
                     raise ValueError(f"{name}: shape {tuple(value.shape)}, "
                                      f"model has {tuple(target.shape)}")

@@ -1,8 +1,9 @@
 """Shared model helpers: the optimizer and train-step factory, the base of
 models trained by an epoch pipeline, chunked scoring for dot-product models
-and for models with a per-user encoder, and the lowering of a model's
-adjacency for propagation (the port of ``skrx.models.common``; the
-tensor-parallel parts wait for ``parallel/``)."""
+(frozen embeddings for the graph models) and for models with a per-user
+encoder, and the lowering of a model's adjacency for propagation (the port
+of ``skrx.models.common``; the tensor-parallel parts wait for
+``parallel/``)."""
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -14,7 +15,8 @@ from ..ops.optim import LazyAdam
 from .base import TorchRecommender
 from .pipeline import epoch_generator
 
-__all__ = ["ChunkedDotPredictMixin", "CachedUserVecChunkMixin",
+__all__ = ["ChunkedDotPredictMixin", "FrozenEmbeddingMixin",
+           "CachedUserVecChunkMixin",
            "EpochTrainedRecommender", "as_user_tensor", "make_optimizer",
            "adam_l2", "make_train_step", "make_sharded_train_step",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
@@ -52,11 +54,19 @@ def adam_l2(params, lr: float, weight_decay: float = 0.0
 def make_train_step(optimizer: torch.optim.Optimizer,
                     loss_fn: Callable[..., torch.Tensor]) -> Callable:
     """``train_step(batch) -> loss``: the loss of ``loss_fn(*batch)`` before
-    the update, then one optimizer step. The loss stays on the device."""
+    the update, then one optimizer step. The loss stays on the device. A
+    parameter the loss does not reach (DENS's gates under ``rns``, ``dns``)
+    gets a zero gradient, so that Adam moves it by its moments, as optax
+    steps every leaf of a JAX model's params."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
     def train_step(batch):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(*batch)
         loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         optimizer.step()
         return loss.detach()
     return train_step
@@ -109,6 +119,45 @@ class ChunkedDotPredictMixin:
         if bias is not None:
             scores = scores + bias[None, item_lo:item_hi]
         return scores
+
+
+class FrozenEmbeddingMixin(ChunkedDotPredictMixin):
+    """Scoring for dot models whose embeddings are computed from their
+    parameters (graph propagation): ``evaluate()`` computes them once under
+    ``no_grad`` and freezes them; ``predict``, ``_chunk_embeddings`` and
+    serving reuse them until a training epoch moves the parameters
+    (``_train_epoch`` and ``fit()`` drop them). Subclasses implement
+    ``_embeddings() -> (u_all, i_all)``."""
+
+    _final_emb: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError
+
+    def _train_epoch(self, epoch: int):
+        self._final_emb = None            # the parameters move
+        return super()._train_epoch(epoch)
+
+    @torch.no_grad()
+    def _freeze(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        self._final_emb = self._embeddings()
+        return self._final_emb
+
+    def evaluate(self, test_users=None):
+        self._freeze()                    # computed once per evaluation
+        return super().evaluate(test_users)
+
+    def _chunk_embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._final_emb if self._final_emb is not None \
+            else self._freeze()
+
+    @torch.no_grad()
+    def predict(self, users) -> torch.Tensor:
+        """(B, N) f32 scores ``u_all[users] @ i_all.T`` of the frozen
+        embeddings, on the model's device."""
+        u_all, i_all = self._chunk_embeddings()
+        users = as_user_tensor(users, u_all.device)
+        return torch.matmul(u_all[users], i_all.T)
 
 
 class CachedUserVecChunkMixin:

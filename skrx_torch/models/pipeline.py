@@ -37,11 +37,16 @@ def pad_to_batches(arr: np.ndarray, batch_size: int
     return np.concatenate([arr, pad], axis=0), weights
 
 
-def epoch_generator(seed: int, epoch: int,
-                    device: torch.device) -> torch.Generator:
+def epoch_generator(seed: int, epoch: int, device: torch.device,
+                    stream: int = 0) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, epoch) (numpy's
-    SeedSequence mixes the pair)."""
-    state = np.random.SeedSequence([seed, epoch]).generate_state(2)
+    SeedSequence mixes the pair). ``stream`` > 0 gives another generator of
+    the same (seed, epoch), independent of stream 0 (the SeedSequence's
+    spawn key): a model draws its in-epoch randomness (edge pruning,
+    dropout) from stream 1 and leaves the pipeline's draws as they are."""
+    state = np.random.SeedSequence(
+        [seed, epoch], spawn_key=(stream,) if stream else ()
+    ).generate_state(2)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen

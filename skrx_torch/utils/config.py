@@ -60,5 +60,7 @@ class Config:
 
 
 class ModelConfig(Config):
-    """Per-model hyper-parameter config (the JAX package's search grid,
-    ``param_space``, comes with the port of hyper-parameter search)."""
+    """Per-model hyper-parameter config. A model's config defines the
+    classmethod ``param_space()``, its search grid, where the JAX package's
+    does; the hyper-parameter search that reads it comes with the CLI
+    slice."""

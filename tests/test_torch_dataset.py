@@ -81,3 +81,31 @@ def test_synthetic_rejects_impossible_sizes(tmp_path):
     with pytest.raises(ValueError):
         synthetic.make_interactions(num_users=100, num_items=50,
                                     num_ratings=200)
+
+
+def test_csr_and_coo_views_match_jax_with_repeated_pairs():
+    """to_csr_matrix / to_coo_matrix against the JAX dataset's on rows that
+    repeat (user, item) pairs: the repeats summed, f32, the COO entries in
+    the same (row-major) order; the CSR view built once."""
+    import pandas as pd
+    from skrx.io.dataset import ImplicitFeedback as JaxImplicitFeedback
+    from skrx_torch.io.dataset import ImplicitFeedback
+    rng = np.random.default_rng(0)
+    users = rng.integers(0, 12, 300)
+    items = rng.integers(0, 20, 300)
+    ref = JaxImplicitFeedback(pd.DataFrame({"user": users, "item": items}),
+                              13, 21)
+    got = ImplicitFeedback({"user": users, "item": items}, 13, 21)
+    csr, ref_csr = got.to_csr_matrix(), ref.to_csr_matrix()
+    assert csr.shape == ref_csr.shape == (13, 21)
+    assert csr.dtype == ref_csr.dtype == np.float32
+    assert csr.max() > 1 and csr.sum() == len(users)         # summed repeats
+    np.testing.assert_array_equal(csr.toarray(), ref_csr.toarray())
+    assert got.to_csr_matrix() is csr
+    coo, ref_coo = got.to_coo_matrix(), ref.to_coo_matrix()
+    for field in ("row", "col", "data"):
+        np.testing.assert_array_equal(getattr(coo, field),
+                                      getattr(ref_coo, field))
+    empty = ImplicitFeedback(None, 3, 4)
+    assert empty.to_csr_matrix().shape == (3, 4)
+    assert empty.to_coo_matrix().nnz == 0
