@@ -146,7 +146,8 @@ skrx_torch fails and it exits 1):
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
    kernels of one epoch and one evaluate(), for BPRMF (dense and lazy
-   Adam), LightGCN, Pop, AOBPR, CML, LayerGCN, LightGCL and DENS; one
+   Adam), LightGCN, Pop, AOBPR, CML, LayerGCN, LightGCL, DENS, SelfCF,
+   CDAE and MultVAE (fused and chunked too for the last three); one
    BPRMF step with dense and with lazy Adam at the same batch, and
    dedup_rows at the step's 2,048 item rows.
 10. The three other pairwise graph models on the phase-3 data, each at
@@ -167,6 +168,32 @@ skrx_torch fails and it exits 1):
    evaluate(): finite metrics on the full route; LightGCL's and DENS's
    fused route within 1e-4 of it. The phase prints its seconds. It runs
    before phase 9, whose tables take its models.
+11. SelfCF, CDAE and MultVAE on the phase-3 data, each at its published
+   defaults. SelfCF (d=64, 2 layers, dropout 0.5, batch 2,048) trains
+   through segsum under a fresh edge mask of random rate every step and
+   scores one 128-wide concatenated dot; CDAE (hidden 64, dropout 0.5,
+   num_neg 5, sigmoid, sigmoid cross-entropy, batch 256) and MultVAE
+   (p_dims [64], keep_prob 0.5, anneal cap 0.2 over 200,000 steps, batch
+   256) train on dense interaction rows built on the card and score as
+   towers (their ``_topk_factors``, with a bias). fit() for one epoch
+   each: losses finite, segsum launched exactly 2 x 2 x steps + 2 for
+   SelfCF and never for the others, the full route's kernels launched;
+   MultVAE's step count equal to its steps. One train step of each on
+   the card against the same step on CPU copies of its parameters, Adam
+   state, batch and draws (drawn once: SelfCF's edge mask at the first
+   seed whose rate is above 0.5, so that kept edges scale above 2, and
+   its target masks; CDAE's negatives and dropout mask; MultVAE's
+   dropout mask and eps at its anneal), the loss within 1e-5 relative,
+   every updated parameter within 1e-5 of its largest magnitude.
+   evaluate() full, fused and chunked (8,192 items a chunk) for each:
+   every route's kernels launched (dot_submax, dot_extract,
+   kth_largest and rank_lookup_count on the fused one, vmem_topk on the
+   chunked one), metrics within 1e-4 of the full route's. dot_submax and
+   dot_extract against their plain versions with check_fused at B=64,
+   k=50 on SelfCF's 128-wide factors and on CDAE's and MultVAE's tower
+   factors with their bias. recommend() for 64 test users of each model
+   equal to the plain top-k of its scores, no seen item. The phase prints
+   its seconds; it runs before phase 9, whose tables take its models.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -185,10 +212,13 @@ from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.eval import EarlyStopping
 from skrx_torch.io import synthetic
 from skrx_torch.models.BPRMF import bprmf_lazy_train_step
+from skrx_torch.models.CDAE import cdae_draws, cdae_loss
 from skrx_torch.models.DENS import dens_dropout_masks, dens_loss
 from skrx_torch.models.LayerGCN import layergcn_loss
 from skrx_torch.models.LightGCL import lightgcl_dropout_masks, lightgcl_loss
 from skrx_torch.models.LightGCN import lightgcn_loss
+from skrx_torch.models.MultVAE import multvae_draws, multvae_loss
+from skrx_torch.models.SelfCF import selfcf_draws, selfcf_loss
 from skrx_torch.models.common import make_train_step
 from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
@@ -1650,10 +1680,11 @@ def step_card_vs_cpu(tag, m, cpu_loss, batch, masks) -> dict:
     return errs
 
 
-def fit_graph_model(m, steps_per_epoch: int, props: int, tag: str):
-    """fit() of a graph model with its launches counted: losses finite,
-    segsum launched exactly ``props`` propagations forward and backward a
-    step plus ``props`` an evaluation, the full route's kernels launched."""
+def fit_counted(m, steps_per_epoch: int, props: int, tag: str):
+    """fit() of a model with its launches counted: losses finite, segsum
+    launched exactly ``props`` propagations forward and backward a step
+    plus ``props`` an evaluation (none for a model without a graph), the
+    full route's kernels launched."""
     best, launched = counted(m.fit)
     losses = [h["loss"] for h in m.history]
     evals = sum("report" in h for h in m.history)
@@ -1670,13 +1701,25 @@ def fit_graph_model(m, steps_per_epoch: int, props: int, tag: str):
     return launched
 
 
+# the kernels each evaluate() route must launch (a chunk of CHUNK items is
+# too narrow for the blockwise kernels at k=50: the chunked route merges
+# each chunk's top-k through vmem_topk, pruned_merge's kernel)
+ROUTE_KERNELS = {"full": ("submax", "kth_largest", "extract", "rank_count"),
+                 "fused": FUSED + ("kth_largest", "rank_lookup_count"),
+                 "chunked": ("pruned_merge",)}
+
+
 def evaluate_routes(m, tag: str, modes) -> dict:
-    """evaluate() on each route with its launches: finite metrics, every
-    other route within 1e-4 of the full route's."""
+    """evaluate() on each route (chunked at CHUNK items a chunk) with its
+    launches: finite metrics, every other route within 1e-4 of the full
+    route's, each route's kernels launched."""
     runs = {}
     for mode in modes:
-        (rep, sec), launched = counted(lambda: evaluate_as(m, mode))
+        (rep, sec), launched = counted(lambda: evaluate_as(m, mode, CHUNK))
         runs[mode] = (rep, sec, launched)
+        for kname in ROUTE_KERNELS[mode]:
+            require(launched[kname] >= 1,
+                    f"{kname} never launched in {mode} evaluate() of {tag}")
     full = np.array(list(runs["full"][0].values()))
     require(bool(np.isfinite(full).all()), f"{tag}: metrics {full}")
     diffs = {mode: float(np.abs(np.array(list(runs[mode][0].values()))
@@ -1686,9 +1729,6 @@ def evaluate_routes(m, tag: str, modes) -> dict:
           f"metric difference to the full route {diffs}", flush=True)
     for mode, diff in diffs.items():
         require(diff <= 1e-4, f"{tag} {mode}: metrics off by {diff}")
-        for kname in FUSED + ("kth_largest", "rank_lookup_count"):
-            require(runs[mode][2][kname] >= 1,
-                    f"{kname} never launched in {mode} evaluate() of {tag}")
     return runs
 
 
@@ -1720,7 +1760,7 @@ def phase_graph_models(path, reg, dev):
           f"(epoch 0) {float(base[masks[0][:e] != 0].mean())}, at random "
           f"(epoch 1) {float(base[masks[1][:e] != 0].mean())}, all "
           f"{float(base.mean())}", flush=True)
-    lg_launches = fit_graph_model(lg, lg.pipeline.num_batches,
+    lg_launches = fit_counted(lg, lg.pipeline.num_batches,
                                   lcfg.n_layers, "LayerGCN")
     batch = next(lg.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
     g_cpu = lg.graph.to("cpu")
@@ -1738,7 +1778,7 @@ def phase_graph_models(path, reg, dev):
     print(f"LightGCL: R {USERS} x {ITEMS}, {ops.r.num_edges} edges, SVD "
           f"rank {gcfg.svd_q}; ready after {time.perf_counter() - t_phase} "
           f"s of the phase", flush=True)
-    gcl_launches = fit_graph_model(gcl, gcl.pipeline.num_batches,
+    gcl_launches = fit_counted(gcl, gcl.pipeline.num_batches,
                                    2 * gcfg.gnn_layer, "LightGCL")
     batch = next(gcl.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
     drop = lightgcl_dropout_masks(torch.Generator(dev).manual_seed(SEED),
@@ -1756,7 +1796,7 @@ def phase_graph_models(path, reg, dev):
     require(dcfg.dim == DIM and dcfg.ns == "dens"
             and dn.pipeline.num_neg == dcfg.K * dcfg.n_negs,
             "DENS at its defaults")
-    dn_launches = fit_graph_model(dn, dn.pipeline.num_batches,
+    dn_launches = fit_counted(dn, dn.pipeline.num_batches,
                                   dcfg.context_hops, "DENS")
     batch = next(dn.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
     dcfg.edge_dropout = dcfg.mess_dropout = True       # for this step only
@@ -1774,6 +1814,114 @@ def phase_graph_models(path, reg, dev):
     return {"LayerGCN": lg, "LightGCL": gcl, "DENS": dn,
             "runs": [lg_launches, gcl_launches, dn_launches,
                      *(r[2] for runs in (lg_runs, gcl_runs, dn_runs)
+                       for r in runs.values())]}
+
+
+def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
+    """Phase 11 (the module docstring): SelfCF, CDAE and MultVAE at Gowalla
+    scale. Returns the models and the launch counts of each main-path
+    run."""
+    t_phase = time.perf_counter()
+
+    def build(name):
+        reg.load_skrx_model(name)
+        return reg.get_model(name)[0](
+            RunConfig(recommender=name, data_dir=path, seed=SEED),
+            {"epochs": 1, "early_stop": 1})
+
+    def first_batch(m):
+        return next(m.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    # SelfCF: a fresh edge mask of random rate every step
+    sc = build("SelfCF")
+    scfg, e = sc.config, sc.graph.num_edges
+    require(scfg.embed_dim == DIM and scfg.n_layers == 2
+            and e == 2 * sc.pipeline.num_examples
+            and sc.user_emb.device == dev, "SelfCF at its defaults")
+    print(f"SelfCF: {e} edges, {sc.pipeline.num_batches} steps of "
+          f"{scfg.batch_size}; ready after {time.perf_counter() - t_phase} "
+          f"s of the phase", flush=True)
+    sc_launches = fit_counted(sc, sc.pipeline.num_batches, scfg.n_layers,
+                              "SelfCF")
+    batch = first_batch(sc)
+    for s in range(SEED, SEED + 100):  # the first seed drawing rate > 0.5
+        draws = selfcf_draws(torch.Generator(dev).manual_seed(s), e,
+                             batch[0].shape[0], scfg.embed_dim, scfg.dropout)
+        scale = float(draws[0].max())
+        if scale > 2.0:
+            break
+    require(scale > 2.0, "no drawn rate above 0.5")
+    g_cpu = sc.graph.to("cpu")
+    step_card_vs_cpu(
+        f"SelfCF (edge rate {1 - 1 / scale}, kept edges x {scale})", sc,
+        lambda p, u, pos, w, d: selfcf_loss(g_cpu, p, scfg, u, pos, w, *d),
+        batch, draws)
+    sc_runs = evaluate_routes(sc, "SelfCF", ("full", "fused", "chunked"))
+    # CDAE: n_pos * num_neg negatives a user, a (B, N) dropout mask a step
+    cd = build("CDAE")
+    ccfg = cd.config
+    require(ccfg.hidden_dim == DIM and ccfg.num_neg == 5
+            and cd.en_emb.shape == (ITEMS, DIM), "CDAE at its defaults")
+    print(f"CDAE: {cd.pipeline.num_batches} steps of {ccfg.batch_size} "
+          f"users, {cd.max_k} negative slots a user", flush=True)
+    cd_launches = fit_counted(cd, cd.pipeline.num_batches, 0, "CDAE")
+    batch = first_batch(cd)
+    draws = cdae_draws(torch.Generator(dev).manual_seed(SEED), batch[0],
+                       cd.pipeline.pos_table, ITEMS, cd.max_k, ccfg.dropout)
+    lengths_cpu = cd.pos_lengths.cpu()
+    step_card_vs_cpu(
+        "CDAE (negatives, dropout 0.5)", cd,
+        lambda p, u, rows, w, d: cdae_loss(p, ccfg, lengths_cpu, u, rows, w,
+                                           *d), batch, draws)
+    cd_runs = evaluate_routes(cd, "CDAE", ("full", "fused", "chunked"))
+    # MultVAE: the KL anneal from the f32 step count
+    mv = build("MultVAE")
+    mcfg = mv.config
+    require(mv.q_dims == [ITEMS, DIM] and mv.p_dims == [DIM, ITEMS]
+            and mv.q[0].weight.shape == (2 * DIM, ITEMS)
+            and mcfg.compute_dtype == "float32", "MultVAE at its defaults")
+    mv_launches = fit_counted(mv, mv.pipeline.num_batches, 0, "MultVAE")
+    require(float(mv.update_count) == mv.pipeline.num_batches,
+            f"MultVAE counted {float(mv.update_count)} steps")
+    batch = first_batch(mv)
+    draws = multvae_draws(torch.Generator(dev).manual_seed(SEED),
+                          batch[0].shape[0], ITEMS, DIM, mcfg.keep_prob)
+    anneal = mv.anneal().cpu()
+    step_card_vs_cpu(
+        f"MultVAE (keep_prob 0.5, anneal {float(anneal)})", mv,
+        lambda p, u, rows, w, d: multvae_loss(p, mcfg, rows, w, *d, anneal),
+        batch, draws)
+    mv_runs = evaluate_routes(mv, "MultVAE", ("full", "fused", "chunked"))
+    # the fused kernels on each model's real factors at the evaluation
+    # shape (B=64, k=50): SelfCF's 128 wide, the towers' with a bias
+    u = np.fromiter(sc.evaluator.user_pos_test, np.int64)[:B_EVAL]
+    u_t = torch.as_tensor(u, device=dev)
+    train_t = torch.as_tensor(sc.evaluator._tables_for(u, ITEMS)[0],
+                              device=dev)
+    u_all, i_all = sc._chunk_embeddings()
+    factors = {"SelfCF": (u_all[u_t], i_all, None)}
+    for tag, m in (("CDAE", cd), ("MultVAE", mv)):
+        _, table, bias = m._topk_factors(None)
+        factors[tag] = (m._cached_user_vectors(u_t), table, bias)
+    for tag, (uv, table, bias) in factors.items():
+        require(uv.shape == (B_EVAL, table.shape[1]), f"{tag} factors")
+        check_fused(f"{tag} factors (d={table.shape[1]}, bias "
+                    f"{bias is not None})", uv.contiguous(),
+                    dt.pack_items(table, bias), train_t, K_EVAL, errs)
+    # serving through predict: equal to the plain top-k, no seen item
+    seen = sc.dataset.train_data.to_user_dict()
+    serve_runs = []
+    for tag, m in (("SelfCF", sc), ("CDAE", cd), ("MultVAE", mv)):
+        server = TopKRecommender(m, k=K)
+        (ids, vals), launched = counted(lambda: server.recommend(u))
+        check_served(server, u, ids, vals, seen)
+        serve_runs.append(launched)
+    print(f"phase 11: fused kernels == plain versions on the models' "
+          f"factors; recommend() for {len(u)} users of each model equals "
+          f"the plain top-k; phase 11 took {time.perf_counter() - t_phase} s",
+          flush=True)
+    return {"SelfCF": sc, "CDAE": cd, "MultVAE": mv,
+            "runs": [sc_launches, cd_launches, mv_launches, *serve_runs,
+                     *(r[2] for runs in (sc_runs, cd_runs, mv_runs)
                        for r in runs.values())]}
 
 
@@ -2126,6 +2274,11 @@ def main() -> int:
     p10 = phase_graph_models(path, reg, dev)
     lg, gcl, dn = p10["LayerGCN"], p10["LightGCL"], p10["DENS"]
 
+    # --------------- phase 11: SelfCF, CDAE and MultVAE (#11, the towers)
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 11", flush=True)
+    p11 = phase_selfcf_and_autoencoders(path, reg, dev, errs)
+    sc, cd, mv = p11["SelfCF"], p11["CDAE"], p11["MultVAE"]
+
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
@@ -2237,12 +2390,13 @@ def main() -> int:
     # launches over every main-path run of this script: serving, both
     # fit()s at Gowalla, the ML-1M-scale fit(), LightGCN serving, fused
     # serving, the fused and chunked evaluate() calls, phase 8's fit()s
-    # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML)
-    # and phase 10's (LayerGCN, LightGCL, DENS)
+    # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML),
+    # phase 10's (LayerGCN, LightGCL, DENS) and phase 11's (SelfCF, CDAE,
+    # MultVAE)
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
-                 *p10["runs"]]
+                 *p10["runs"], *p11["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:
@@ -2435,7 +2589,9 @@ def main() -> int:
     trained = (("Gowalla", model), ("LightGCN Gowalla", gcn),
                ("lazy-Adam BPRMF Gowalla", lazy), ("AOBPR Gowalla", ao),
                ("CML Gowalla", cml), ("LayerGCN Gowalla", lg),
-               ("LightGCL Gowalla", gcl), ("DENS Gowalla", dn))
+               ("LightGCL Gowalla", gcl), ("DENS Gowalla", dn),
+               ("SelfCF Gowalla", sc), ("CDAE Gowalla", cd),
+               ("MultVAE Gowalla", mv))
     for tag, m in trained:
         steps = getattr(m, "pipeline", m).num_batches
         for h in m.history:
@@ -2472,7 +2628,10 @@ def main() -> int:
                             ("CML Gowalla", cml, len(test_users)),
                             ("LayerGCN Gowalla", lg, len(test_users)),
                             ("LightGCL Gowalla", gcl, len(test_users)),
-                            ("DENS Gowalla", dn, len(test_users))):
+                            ("DENS Gowalla", dn, len(test_users)),
+                            ("SelfCF Gowalla", sc, len(test_users)),
+                            ("CDAE Gowalla", cd, len(test_users)),
+                            ("MultVAE Gowalla", mv, len(test_users))):
         _, sec = timed(m.evaluate)
         _, per_eval = counted(m.evaluate)
         print(f"{tag} evaluate(): {sec} s, {n_users / sec} users/s, "
@@ -2481,7 +2640,9 @@ def main() -> int:
         print(f"{tag} evaluate() device busy {busy}; top device kernels "
               f"(ms): {heads}")
         modes = {model: ("fused", "chunked"), gcn: ("fused",),
-                 ao: ("fused",), gcl: ("fused",), dn: ("fused",)}.get(m, ())
+                 ao: ("fused",), gcl: ("fused",), dn: ("fused",),
+                 sc: ("fused", "chunked"), cd: ("fused", "chunked"),
+                 mv: ("fused", "chunked")}.get(m, ())
         for mode in modes:
             (_, sec) = evaluate_as(m, mode, CHUNK)
             busy, heads = busy_share(lambda: evaluate_as(m, mode, CHUNK),

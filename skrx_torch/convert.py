@@ -11,8 +11,10 @@ import torch
 
 __all__ = ["bprmf_params_from_jax", "two_tables_from_jax",
            "lightgcl_params_from_jax", "dens_params_from_jax",
-           "dens_port_name", "adam_state_from_jax",
-           "lazy_adam_state_from_jax", "adagrad_state_from_jax"]
+           "linear_port_name", "selfcf_params_from_jax",
+           "cdae_params_from_jax", "multvae_params_from_jax",
+           "adam_state_from_jax", "lazy_adam_state_from_jax",
+           "adagrad_state_from_jax"]
 
 DENS_GATES = ("item_gate", "neg_gate", "pos_gate", "user_gate")
 
@@ -64,15 +66,17 @@ def lightgcl_params_from_jax(params: Dict[str, np.ndarray]
     return _two_tables(params, "E_u_0", "E_i_0")
 
 
-def dens_port_name(key: str) -> Tuple[str, bool]:
-    """(the port's parameter name, transposed?) of a leaf of a JAX DENS's
-    params by its path: a gate ``x @ w + b`` is an ``nn.Linear``, which
-    holds ``w.T`` as ``weight`` and ``b`` as ``bias``."""
-    gate, _, leaf = key.partition("/")
-    if leaf == "w":
-        return f"{gate}.weight", True
-    if leaf == "b":
-        return f"{gate}.bias", False
+def linear_port_name(key: str) -> Tuple[str, bool]:
+    """(the port's parameter name, transposed?) of a leaf of a JAX model's
+    params by its path: a layer ``x @ w + b`` at ``<path>`` (a DENS gate,
+    ``user_gate``; a MultVAE layer, ``q/0``) is an ``nn.Linear`` at the
+    dotted path, which holds ``w.T`` as ``weight`` and ``b`` as ``bias``;
+    another leaf keeps its name."""
+    path, _, leaf = key.rpartition("/")
+    if path and leaf in ("w", "b"):
+        name = path.replace("/", ".")
+        return (f"{name}.weight", True) if leaf == "w" \
+            else (f"{name}.bias", False)
     return key, False
 
 
@@ -93,10 +97,79 @@ def dens_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
                              f"{tuple(leaves['b'].shape)}, tables of width "
                              f"{d}")
         for leaf, value in leaves.items():
-            name, transposed = dens_port_name(f"{gate}/{leaf}")
+            name, transposed = linear_port_name(f"{gate}/{leaf}")
             out[name] = value.T.contiguous() if transposed else value
     return out
 
+
+def selfcf_params_from_jax(params: Dict[str, np.ndarray]
+                           ) -> Dict[str, torch.Tensor]:
+    """A JAX SelfCF's ``params`` (``user_emb``, ``item_emb``, the predictor
+    ``x @ pred_w + pred_b``) as f32 CPU tensors by the port's parameter
+    names: ``predictor.weight`` = ``pred_w.T``, ``predictor.bias`` =
+    ``pred_b``."""
+    keys = ("user_emb", "item_emb", "pred_w", "pred_b")
+    out = _tensors(params, keys)
+    tables = _two_tables({k: params[k] for k in keys[:2]}, *keys[:2])
+    d = tables["user_emb"].shape[1]
+    w, b = out["pred_w"], out["pred_b"]
+    if w.shape != (d, d) or b.shape != (d,):
+        raise ValueError(f"pred_w {tuple(w.shape)}, pred_b {tuple(b.shape)}, "
+                         f"tables of width {d}")
+    return dict(tables, **{"predictor.weight": w.T.contiguous(),
+                           "predictor.bias": b})
+
+
+def cdae_params_from_jax(params: Dict[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """A JAX CDAE's ``params`` as f32 CPU tensors of the same names:
+    ``en_emb`` and ``de_emb`` (N, d), ``en_offset`` (d,), ``de_bias`` (N,),
+    ``user_emb`` (U, d)."""
+    out = _tensors(params, ("en_emb", "en_offset", "de_emb", "de_bias",
+                            "user_emb"))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    n, d = shapes["en_emb"] if len(shapes["en_emb"]) == 2 else (-1, -1)
+    want = {"en_emb": (n, d), "en_offset": (d,), "de_emb": (n, d),
+            "de_bias": (n,), "user_emb": (shapes["user_emb"][0], d)}
+    if n < 0 or shapes != want:
+        raise ValueError(f"inconsistent shapes: {shapes}")
+    return out
+
+
+def multvae_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX MultVAE's nested ``params`` (``{"q": [{"w", "b"}, ...], "p":
+    [...]}``) as f32 CPU tensors by the port's parameter names
+    (``q.0.weight`` = ``w.T``, ``q.0.bias`` = ``b``, ...). Each network's
+    layers must chain, the decoder end where the encoder starts, and the
+    encoder's last layer give a mean and a log-variance of the decoder's
+    input width."""
+    if set(params) != {"p", "q"}:
+        raise ValueError(f"expected keys ('p', 'q'), got {sorted(params)}")
+    out, dims = {}, {}
+    for net in ("q", "p"):
+        widths = []
+        for i, layer in enumerate(params[net]):
+            leaves = _tensors(layer, ("w", "b"))
+            w, b = leaves["w"], leaves["b"]
+            if (w.dim() != 2 or b.shape != (w.shape[1],)
+                    or (widths and widths[-1] != w.shape[0])):
+                raise ValueError(f"{net}/{i}: w {tuple(w.shape)}, b "
+                                 f"{tuple(b.shape)} after widths {widths}")
+            widths = (widths or [w.shape[0]]) + [w.shape[1]]
+            out[f"{net}.{i}.weight"] = w.T.contiguous()
+            out[f"{net}.{i}.bias"] = b
+        dims[net] = widths
+    q, p = dims["q"], dims["p"]
+    if not q or not p or q[0] != p[-1] or q[-1] != 2 * p[0]:
+        raise ValueError(f"encoder widths {q} do not match decoder widths "
+                         f"{p}")
+    return out
+
+
+def _path_key(key: str) -> tuple:
+    """The sort key of a leaf path: list indices by number."""
+    return tuple(int(part) if part.isdigit() else part
+                 for part in key.split("/"))
 
 
 def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
@@ -108,8 +181,9 @@ def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
     ``ravel_pytree`` concatenates a dict's leaves by sorted key (BPRMF:
     ``item_bias``, ``item_emb``, ``user_emb``; LightGCN: ``item_emb``,
     ``user_emb``; a nested dict by its leaves' paths, ``item_gate/b``
-    before ``item_gate/w``); ``shapes`` gives each leaf's shape. optax's
-    count and torch's step both count the updates taken."""
+    before ``item_gate/w``; a list by index, ``p/2/b`` before ``p/10/b``);
+    ``shapes`` gives each leaf's shape by its path. optax's count and
+    torch's step both count the updates taken."""
     mu = np.asarray(mu, dtype=np.float32).reshape(-1)
     nu = np.asarray(nu, dtype=np.float32).reshape(-1)
     total = sum(int(np.prod(s)) for s in shapes.values())
@@ -117,7 +191,7 @@ def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
         raise ValueError(f"mu and nu must hold {total} values, got "
                          f"{mu.shape} and {nu.shape}")
     out, lo = {}, 0
-    for key in sorted(shapes):
+    for key in sorted(shapes, key=_path_key):
         size = int(np.prod(shapes[key]))
         out[key] = {
             "step": torch.tensor(float(count), dtype=torch.float32),

@@ -1,3 +1,5 @@
-from .evaluator import EarlyStopping, MetricReport, RankingEvaluator
+from .evaluator import (EarlyStopping, MetricReport, RankingEvaluator,
+                        fused_family)
 
-__all__ = ["EarlyStopping", "MetricReport", "RankingEvaluator"]
+__all__ = ["EarlyStopping", "MetricReport", "RankingEvaluator",
+           "fused_family"]

@@ -13,9 +13,10 @@ selected, as in the JAX package. Strategies (``eval_mode``):
 - "chunked": ``predict_chunk`` scores ``chunk_size`` items at a time; each
   chunk's masked top-k merges into the running (B, k) best through
   ``vmem_topk``, then the hits against the test table;
-- "fused": dot models; :func:`~skrx_torch.ops.kernels.dot_topk.
-  dot_topk_ranks` ranks each test item without any (B, N) scores (the fused
-  score-and-select kernels and ``rank_lookup_count``);
+- "fused": dot models and towers (:func:`fused_family`);
+  :func:`~skrx_torch.ops.kernels.dot_topk.dot_topk_ranks` ranks each test
+  item without any (B, N) scores (the fused score-and-select kernels and
+  ``rank_lookup_count``);
 - "auto": "chunked" for a model with ``predict_chunk`` when the catalog has
   ``chunk_threshold`` items or more (a memory rule), else "full", as the
   JAX package routes off a TPU (its TPU-measured choice of "fused" is not
@@ -39,13 +40,30 @@ from ..ops.metrics import (ID2METRIC, METRIC2ID, eval_score_matrix_device,
                            topk_scores_and_indices)
 from ..utils import resolve_device
 
-__all__ = ["MetricReport", "RankingEvaluator", "EarlyStopping"]
+__all__ = ["MetricReport", "RankingEvaluator", "EarlyStopping",
+           "fused_family"]
 
 # ANSI colors (the file handler strips these)
 _COLORS = ["\x1b[31m", "\x1b[32m", "\x1b[33m", "\x1b[34m", "\x1b[35m",
            "\x1b[36m"]
 _RESET = "\x1b[0m"
 _EVAL_MODES = ("auto", "full", "chunked", "fused", "topk")
+
+
+def fused_family(model) -> Optional[str]:
+    """How the fused route gets a model's (or model class's) dot factors:
+    "dot" from ``_chunk_embeddings() -> (u_all, i_all)`` (and
+    ``_chunk_bias``), "tower" from ``_topk_factors(None) -> (None, table,
+    bias)`` with each batch's ``_cached_user_vectors``; None when it has
+    neither, or applies a transform after the dot (``_topk_score_fn``)."""
+    if getattr(model, "_topk_score_fn", None) is not None:
+        return None
+    if hasattr(model, "_chunk_embeddings"):
+        return "dot"
+    if hasattr(model, "_topk_factors") and hasattr(model,
+                                                   "_cached_user_vectors"):
+        return "tower"
+    return None
 
 
 def _colored(cells) -> str:
@@ -374,26 +392,39 @@ class RankingEvaluator:
     def evaluate_fused(self, model, num_items: int,
                        test_users: Optional[Iterable[int]] = None
                        ) -> MetricReport:
-        """Metrics of a dot model (``_chunk_embeddings() -> (u_all,
-        i_all)``, optional ``_chunk_bias()``, no ``_topk_score_fn``) without
-        any (B, N) scores: the item table is packed once, then per batch
-        :func:`dot_topk_ranks` ranks each test item with the batch's train
-        table as the mask; hits and metrics follow on the device."""
-        if (not hasattr(model, "_chunk_embeddings")
-                or getattr(model, "_topk_score_fn", None) is not None):
+        """Metrics of a model with plain dot factors (:func:`fused_family`)
+        without any (B, N) scores: the item table (and bias) is packed once,
+        then per batch :func:`dot_topk_ranks` ranks each test item with the
+        batch's train table as the mask; hits and metrics follow on the
+        device. A dot model's user vectors are rows of ``u_all``, a tower's
+        its encoder's output for the batch."""
+        family = fused_family(model)
+        if family is None:
             raise TypeError("fused evaluation needs the model's plain dot "
-                            "factors (_chunk_embeddings, no _topk_score_fn)")
+                            "factors (_chunk_embeddings or _topk_factors, "
+                            "no _topk_score_fn)")
         users = self._test_users(test_users)
         k = self.max_top
-        u_all, i_all = model._chunk_embeddings()
-        u_all = u_all.detach().to(device=self.device, dtype=torch.float32)
-        bias = model._chunk_bias() if hasattr(model, "_chunk_bias") else None
+        if family == "dot":
+            u_all, i_all = model._chunk_embeddings()
+            u_all = u_all.detach().to(device=self.device, dtype=torch.float32)
+            bias = model._chunk_bias() if hasattr(model, "_chunk_bias") \
+                else None
+
+            def user_vectors(batch_users):
+                return u_all[batch_users]
+        else:
+            _, i_all, bias = model._topk_factors(None)
+
+            def user_vectors(batch_users):
+                return model._cached_user_vectors(batch_users).to(
+                    device=self.device, dtype=torch.float32)
         packed = pack_items(i_all.to(self.device),
                             None if bias is None else bias.to(self.device))
 
         def per_user(bi, batch_users, train_t, test_t, test_len):
-            ranks = dot_topk_ranks(u_all[batch_users], None, None, k, test_t,
-                                   mask_table=train_t, packed=packed)
+            ranks = dot_topk_ranks(user_vectors(batch_users), None, None, k,
+                                   test_t, mask_table=train_t, packed=packed)
             return ranking_metrics_from_hits(hits_from_ranks(ranks, k),
                                              test_len, self.metrics)
 

@@ -29,13 +29,11 @@ next epoch.
 """
 from typing import Dict, List, Optional, Tuple, Union
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..convert import (DENS_GATES, adam_state_from_jax, dens_params_from_jax,
-                       dens_port_name)
+from ..convert import DENS_GATES, dens_params_from_jax, linear_port_name
 from ..ops.graph import Graph, edge_dropout, propagate
 from ..ops.initializers import get_initializer
 from ..run_config import RunConfig
@@ -44,7 +42,7 @@ from .LightGCN import build_bipartite_adj
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
                      FrozenEmbeddingMixin, build_prop_graph, make_optimizer,
                      make_train_step)
-from .pipeline import PairwiseEpochPipeline, epoch_generator
+from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["DENS", "DENSConfig", "dens_dropout_masks", "dens_gcn",
            "dens_pool", "dens_select", "dens_loss"]
@@ -260,7 +258,6 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
             self.dataset.train_data, cfg.batch_size, self.device,
             num_neg=cfg.K * cfg.n_negs)
         self.anneal = 1.0
-        self._dropout_gen: Optional[torch.Generator] = None
 
     def step_masks(self) -> Optional[_Masks]:
         """The next training step's dropout masks, from the epoch's
@@ -270,9 +267,7 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
         mess_rate = cfg.mess_dropout_rate if cfg.mess_dropout else 0.0
         if edge_rate <= 0 and mess_rate <= 0:
             return None
-        if self._dropout_gen is None:
-            raise RuntimeError("dropout masks are drawn inside an epoch")
-        return dens_dropout_masks(self._dropout_gen, self.graph,
+        return dens_dropout_masks(self.step_generator(), self.graph,
                                   cfg.context_hops, cfg.dim, edge_rate,
                                   mess_rate)
 
@@ -285,12 +280,7 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
 
     def _train_epoch(self, epoch: int) -> float:
         self.anneal = 1.0 - min(1.0, epoch / max(self.config.warmup, 1))
-        self._dropout_gen = epoch_generator(self.run_config.seed + 1, epoch,
-                                            self.device, stream=1)
-        try:
-            return super()._train_epoch(epoch)
-        finally:
-            self._dropout_gen = None
+        return super()._train_epoch(epoch)
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
@@ -304,22 +294,11 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
         self._copy_params(dens_params_from_jax(params))
         self._final_emb = None
 
-    def load_jax_opt_state(self, count: int, mu: np.ndarray,
-                           nu: np.ndarray) -> None:
-        """Set the Adam state from the flat ``optax.adam`` state of a JAX
-        DENS (``mu`` and ``nu`` raveled in the order of its sorted leaf
-        paths); a gate's ``w`` moments are transposed as its weight."""
-        d = self.config.dim
-        shapes = {"user_emb": (self.num_users, d),
-                  "item_emb": (self.num_items, d)}
+    def _jax_leaves(self) -> Dict[str, Tuple[str, bool]]:
+        """A gate's ``w`` is its ``nn.Linear``'s weight, transposed."""
+        leaves = {name: (name, False) for name in ("user_emb", "item_emb")}
         for gate in DENS_GATES:
-            shapes[f"{gate}/w"], shapes[f"{gate}/b"] = (d, d), (d,)
-        for key, state in adam_state_from_jax(count, mu, nu, shapes).items():
-            name, transposed = dens_port_name(key)
-            if transposed:
-                state = {k: v.T.contiguous() if v.dim() else v
-                         for k, v in state.items()}
-            self.optimizer.state[self.get_parameter(name)] = {
-                "step": state["step"],
-                "exp_avg": state["exp_avg"].to(self.device),
-                "exp_avg_sq": state["exp_avg_sq"].to(self.device)}
+            for leaf in ("w", "b"):
+                key = f"{gate}/{leaf}"
+                leaves[key] = linear_port_name(key)
+        return leaves

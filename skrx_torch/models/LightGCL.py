@@ -40,7 +40,7 @@ from ..utils import ModelConfig
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
                      FrozenEmbeddingMixin, make_optimizer, make_train_step,
                      mxu_msg_dtype, resolve_graph_impl)
-from .pipeline import PairwiseEpochPipeline, epoch_generator
+from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["LightGCL", "LightGCLConfig", "LightGCLOperators",
            "lightgcl_operators", "lightgcl_dropout_masks",
@@ -215,7 +215,6 @@ class LightGCL(FrozenEmbeddingMixin, EpochTrainedRecommender):
         self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
-        self._dropout_gen: Optional[torch.Generator] = None
 
     def step_masks(self) -> Optional[list]:
         """The next training step's dropout masks, from the epoch's
@@ -223,10 +222,9 @@ class LightGCL(FrozenEmbeddingMixin, EpochTrainedRecommender):
         cfg = self.config
         if cfg.dropout <= 0:
             return None
-        if self._dropout_gen is None:
-            raise RuntimeError("dropout masks are drawn inside an epoch")
-        return lightgcl_dropout_masks(self._dropout_gen, self.ops.r.num_edges,
-                                      cfg.gnn_layer, cfg.dropout)
+        return lightgcl_dropout_masks(self.step_generator(),
+                                      self.ops.r.num_edges, cfg.gnn_layer,
+                                      cfg.dropout)
 
     def _loss(self, users, pos, neg, w, masks=None) -> torch.Tensor:
         """The batch's loss under ``masks``, by default the next drawn."""
@@ -234,14 +232,6 @@ class LightGCL(FrozenEmbeddingMixin, EpochTrainedRecommender):
             masks = self.step_masks()
         return lightgcl_loss(self.ops, dict(self.named_parameters()),
                              self.config, users, pos, neg, w, masks)
-
-    def _train_epoch(self, epoch: int) -> float:
-        self._dropout_gen = epoch_generator(self.run_config.seed + 1, epoch,
-                                            self.device, stream=1)
-        try:
-            return super()._train_epoch(epoch)
-        finally:
-            self._dropout_gen = None
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         E_u, E_i, _, _ = lightgcl_forward(self.ops, self.E_u_0, self.E_i_0,

@@ -27,7 +27,8 @@ import torch
 from torch import nn
 
 from ..convert import adam_state_from_jax
-from ..eval import EarlyStopping, MetricReport, RankingEvaluator
+from ..eval import (EarlyStopping, MetricReport, RankingEvaluator,
+                    fused_family)
 from ..io import RSDataset, group_users_by_interactions
 from ..run_config import RunConfig
 from ..utils import Config, Logger, resolve_device, slugify
@@ -81,10 +82,7 @@ class TorchRecommender(nn.Module):
         # likewise a forced strategy this model cannot serve
         mode = self.evaluator.eval_mode
         if ((mode == "chunked" and not hasattr(type(self), "predict_chunk"))
-                or (mode == "fused"
-                    and not (hasattr(type(self), "_chunk_embeddings")
-                             and getattr(type(self), "_topk_score_fn", None)
-                             is None))):
+                or (mode == "fused" and fused_family(type(self)) is None)):
             raise TypeError(f"eval_mode={mode!r} is not supported by "
                             f"{type(self).__name__} (its predict has no "
                             f"compatible factorization); use eval_mode="
@@ -268,17 +266,30 @@ class TorchRecommender(nn.Module):
                                      f"model has {tuple(target.shape)}")
                 target.copy_(value)
 
+    def _jax_leaves(self) -> Dict[str, Tuple[str, bool]]:
+        """Each leaf path of a JAX model of this kind's params (``q/0/w``)
+        -> (the port's parameter name, transposed?); by default the names
+        of ``_JAX_PARAMS``, untransposed."""
+        return {name: (name, False) for name in self._JAX_PARAMS}
+
     def load_jax_opt_state(self, count: int, mu: np.ndarray,
                            nu: np.ndarray) -> None:
         """Set the Adam state from the flat ``optax.adam`` state of a JAX
-        model of this kind (``count`` and the raveled ``mu``, ``nu``); a
-        model with another optimizer overrides this."""
-        shapes = {name: tuple(getattr(self, name).shape)
-                  for name in self._JAX_PARAMS}
-        for name, state in adam_state_from_jax(count, mu, nu,
-                                               shapes).items():
-            param = getattr(self, name)
-            self.optimizer.state[param] = {
+        model of this kind (``count`` and the ``mu``, ``nu`` raveled in the
+        order of its sorted leaf paths, :meth:`_jax_leaves`); a transposed
+        leaf's moments are transposed as its parameter. A model with
+        another optimizer overrides this."""
+        leaves = self._jax_leaves()
+        shapes = {}
+        for key, (name, transposed) in leaves.items():
+            shape = tuple(self.get_parameter(name).shape)
+            shapes[key] = shape[::-1] if transposed else shape
+        for key, state in adam_state_from_jax(count, mu, nu, shapes).items():
+            name, transposed = leaves[key]
+            if transposed:
+                state = {k: v.T.contiguous() if v.dim() else v
+                         for k, v in state.items()}
+            self.optimizer.state[self.get_parameter(name)] = {
                 "step": state["step"],
                 "exp_avg": state["exp_avg"].to(self.device),
                 "exp_avg_sq": state["exp_avg_sq"].to(self.device)}

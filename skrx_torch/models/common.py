@@ -171,9 +171,28 @@ class CachedUserVecChunkMixin:
     ``_score_user_chunk(uv, item_lo, item_hi) -> (B, hi - lo)``. The cache
     is keyed by the tensors of ``_uv_state_refs()`` (by default the
     model's parameters), by identity and version counter (an optimizer step
-    updates them in place), and by the users; ``fit()`` also clears it
-    after every epoch. The tensor-parallel ``predict_topk`` waits for
-    ``parallel/``."""
+    updates them in place), and by the users: a batch given as a tensor
+    by that tensor and its version counter (comparing its values would
+    copy them to the host and stall the card before every batch), ids
+    given otherwise by their values; ``fit()`` also clears it after every
+    epoch. A batch tensor must therefore not be rewritten outside torch's
+    version tracking (through a numpy array it shares memory with, as
+    ``torch.from_numpy`` gives, or through ``.data``): the cache would not
+    see the write and would return the old users' vectors.
+
+    A tower whose catalog score is a plain dot also implements
+    ``_topk_factors(uv) -> (uv2, table, bias)`` such that ``predict(users)
+    == uv2 @ table.T + bias`` up to a per-row constant (which cannot change
+    a row's ranking), with ``uv = _user_vectors(users)``: ``table`` (N, d)
+    covers exactly predict's columns, ``bias`` is (N,) or None, and neither
+    depends on ``uv``'s values (it passes through untouched; the evaluator
+    asks with ``uv=None``). Fused evaluation then scores each batch's
+    cached user vectors against the packed table
+    (:func:`~skrx_torch.eval.fused_family`); a tower that applies a
+    transform after the dot sets ``_topk_score_fn`` instead and keeps the
+    predict route. Serving keeps the predict route for every tower, as
+    the JAX package's fused serving takes only ``_chunk_embeddings``. The
+    tensor-parallel ``predict_topk`` waits for ``parallel/``."""
 
     _uv_cache = None
 
@@ -189,15 +208,18 @@ class CachedUserVecChunkMixin:
 
     @torch.no_grad()
     def _cached_user_vectors(self, users) -> torch.Tensor:
-        users = as_user_tensor(users, self.device)
         refs = self._uv_state_refs()
-        key = ([t._version for t in refs], users.cpu().numpy().tobytes())
+        batch = (users, users._version) if isinstance(users, torch.Tensor) \
+            else (None, np.asarray(users, dtype=np.int64).tobytes())
+        versions = [t._version for t in refs]
         cached = self._uv_cache
         if (cached is None or len(cached[0]) != len(refs)
                 or any(a is not b for a, b in zip(cached[0], refs))
-                or cached[1] != key):
+                or cached[1][0] != versions or cached[1][1] is not batch[0]
+                or cached[1][2] != batch[1]):
             # the references held keep the ids of the tensors from reuse
-            cached = (refs, key, self._user_vectors(users))
+            cached = (refs, (versions, *batch), self._user_vectors(
+                as_user_tensor(users, self.device)))
             self._uv_cache = cached
         return cached[2]
 
@@ -216,14 +238,30 @@ class CachedUserVecChunkMixin:
 class EpochTrainedRecommender(TorchRecommender):
     """Base of models trained by an epoch pipeline: a subclass sets
     ``self.optimizer``, ``self.pipeline`` (``run_epoch(generator,
-    train_step) -> loss``) and ``self.train_step``. Epoch ``e`` draws from
-    ``epoch_generator(seed + 1, e)``, as the JAX package folds the epoch
-    into its key, so a resumed run draws the batches of an uninterrupted
-    one."""
+    train_step) -> loss``) and ``self.train_step``. Epoch ``e``'s pipeline
+    draws from ``epoch_generator(seed + 1, e)``, as the JAX package folds
+    the epoch into its key, so a resumed run draws the batches of an
+    uninterrupted one. A step's own draws (dropout masks, an autoencoder's
+    negatives) come from :meth:`step_generator`, stream 1 of the same
+    (seed + 1, e), independent of the pipeline's."""
+
+    _step_gen: Optional[torch.Generator] = None
+
+    def step_generator(self) -> torch.Generator:
+        """The generator of the running epoch's in-step draws."""
+        if self._step_gen is None:
+            raise RuntimeError("a training step's draws are made inside an "
+                               "epoch")
+        return self._step_gen
 
     def _train_epoch(self, epoch: int) -> Optional[float]:
-        gen = epoch_generator(self.run_config.seed + 1, epoch, self.device)
-        return self.pipeline.run_epoch(gen, self.train_step)
+        seed = self.run_config.seed + 1
+        gen = epoch_generator(seed, epoch, self.device)
+        self._step_gen = epoch_generator(seed, epoch, self.device, stream=1)
+        try:
+            return self.pipeline.run_epoch(gen, self.train_step)
+        finally:
+            self._step_gen = None
 
 
 def resolve_graph_impl(graph_impl: str) -> str:

@@ -1,13 +1,16 @@
-"""Epoch pipeline of pairwise (BPR) training on the model's device: the
-port of ``skrx.models.pipeline.PairwiseEpochPipeline``.
+"""Epoch pipelines on the model's device: the port of
+``skrx.models.pipeline`` (``PairwiseEpochPipeline``,
+``InteractionEpochPipeline``, ``UserVecEpochPipeline``).
 
 Per epoch, as in the JAX package: one permutation of the (padded) training
-pairs and fresh negatives excluded against each user's positives, drawn
-from a generator seeded from ``(seed + 1, epoch)``; padded rows carry weight
-0. JAX runs the epoch as one ``lax.scan``; here a plain loop of steps runs
-on the device, sampling each step's negatives as it goes (a whole epoch of
-(pairs, max_positives) table rows would not fit at Gowalla scale), and the
-host waits once, for the epoch's mean loss.
+examples, drawn from a generator seeded from ``(seed + 1, epoch)``; padded
+rows carry weight 0. The pairwise pipeline also draws fresh negatives,
+excluded against each user's positives. JAX runs the epoch as one
+``lax.scan``; here a plain loop of steps runs on the device, building each
+step's negatives or interaction rows as it goes (a whole epoch of them would
+not fit at Gowalla scale), and the host waits once, for the epoch's mean
+loss. JAX's scan chunking (``max_scan_steps``) and data-parallel mesh have
+no counterpart in such a loop.
 """
 import math
 from typing import Callable, Tuple
@@ -18,7 +21,8 @@ import torch
 from ..io.dataset import ImplicitFeedback
 from ..ops.sampling import sample_negatives
 
-__all__ = ["PairwiseEpochPipeline", "pad_to_batches", "epoch_generator"]
+__all__ = ["PairwiseEpochPipeline", "InteractionEpochPipeline",
+           "UserVecEpochPipeline", "pad_to_batches", "epoch_generator"]
 
 
 def pad_to_batches(arr: np.ndarray, batch_size: int
@@ -52,46 +56,105 @@ def epoch_generator(seed: int, epoch: int, device: torch.device,
     return gen
 
 
-class PairwiseEpochPipeline:
+class _ShuffledEpochPipeline:
+    """Shared epoch mechanism: the padded examples' users and weights on
+    ``device``, one permutation of them an epoch from the generator, and
+    :meth:`run_epoch`. A subclass gives each step's batch
+    (:meth:`_batch`)."""
+
+    def __init__(self, users: np.ndarray, batch_size: int,
+                 device: torch.device):
+        self.num_examples = len(users)
+        padded, weights = pad_to_batches(users, batch_size)
+        self.batch_size = batch_size
+        self.num_batches = len(padded) // batch_size
+        self.device = device
+        self._users = self._put(padded)
+        self._w = torch.as_tensor(weights, device=device)
+
+    def _put(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(ids.astype(np.int64), device=self.device)
+
+    def _batch(self, generator: torch.Generator, idx: torch.Tensor):
+        raise NotImplementedError
+
+    def batches(self, generator: torch.Generator):
+        """The epoch's batches, shuffled (and sampled) from ``generator``."""
+        perm = torch.randperm(len(self._users), generator=generator,
+                              device=self.device)
+        b = self.batch_size
+        for step in range(self.num_batches):
+            yield self._batch(generator, perm[step * b:(step + 1) * b])
+
+    def run_epoch(self, generator: torch.Generator,
+                  train_step: Callable) -> float:
+        """Run ``train_step(batch) -> loss`` over the batches of one epoch;
+        returns the mean over steps of the step losses (one device
+        sync)."""
+        total = torch.zeros((), device=self.device)
+        for batch in self.batches(generator):
+            total += train_step(batch)
+        return float(total / self.num_batches)
+
+
+class InteractionEpochPipeline(_ShuffledEpochPipeline):
+    """(users (B,), pos (B,), weight (B,)) batches of the training pairs,
+    without negatives (SelfCF), on ``device``."""
+
+    def __init__(self, train_data: ImplicitFeedback, batch_size: int,
+                 device: torch.device):
+        pairs = train_data.to_user_item_pairs()
+        super().__init__(pairs[:, 0], batch_size, device)
+        self._pos = self._put(pad_to_batches(pairs[:, 1], batch_size)[0])
+
+    def _batch(self, generator, idx):
+        return self._users[idx], self._pos[idx], self._w[idx]
+
+
+class PairwiseEpochPipeline(InteractionEpochPipeline):
     """(users (B,), pos (B,), neg (B, num_neg), weight (B,)) batches for
     BPR-style models, on ``device``."""
 
     def __init__(self, train_data: ImplicitFeedback, batch_size: int,
                  device: torch.device, num_neg: int = 1, num_trials: int = 8):
-        pairs = train_data.to_user_item_pairs()
-        users, weights = pad_to_batches(pairs[:, 0], batch_size)
-        pos, _ = pad_to_batches(pairs[:, 1], batch_size)
+        super().__init__(train_data, batch_size, device)
         self.num_items = train_data.num_items
         self.num_neg = num_neg
         self.num_trials = num_trials
-        self.batch_size = batch_size
-        self.num_batches = len(users) // batch_size
-        self.num_examples = len(pairs)
-        self.device = device
-        self._users = torch.as_tensor(users.astype(np.int64), device=device)
-        self._pos = torch.as_tensor(pos.astype(np.int64), device=device)
-        self._w = torch.as_tensor(weights, device=device)
         self._pos_table = torch.as_tensor(
             train_data.to_padded_positive_table().table, device=device)
 
-    def batches(self, generator: torch.Generator):
-        """The epoch's batches, shuffled and sampled from ``generator``."""
-        perm = torch.randperm(len(self._users), generator=generator,
-                              device=self.device)
-        b = self.batch_size
-        for step in range(self.num_batches):
-            idx = perm[step * b:(step + 1) * b]
-            users = self._users[idx]
-            neg = sample_negatives(generator, users, self._pos_table,
-                                   self.num_items, self.num_neg,
-                                   self.num_trials)
-            yield users, self._pos[idx], neg.long(), self._w[idx]
+    def _batch(self, generator, idx):
+        users, pos, w = super()._batch(generator, idx)
+        neg = sample_negatives(generator, users, self._pos_table,
+                               self.num_items, self.num_neg, self.num_trials)
+        return users, pos, neg.long(), w
 
-    def run_epoch(self, generator: torch.Generator,
-                  train_step: Callable) -> float:
-        """Run ``train_step(batch) -> loss`` over one epoch; returns the mean
-        over steps of the step losses (one device sync)."""
-        total = torch.zeros((), device=self.device)
-        for batch in self.batches(generator):
-            total += train_step(batch)
-        return float(total / self.num_batches)
+
+class UserVecEpochPipeline(_ShuffledEpochPipeline):
+    """(users (B,), rows (B, N) f32 0/1, weight (B,)) batches for the
+    autoencoders (CDAE, MultVAE), on ``device``. The users are those with at
+    least one training positive, padded with weight 0. A batch's rows are
+    scattered on the device from the padded positive table, so the (U, N)
+    interaction matrix is never built."""
+
+    def __init__(self, train_data: ImplicitFeedback, batch_size: int,
+                 device: torch.device):
+        pp = train_data.to_padded_positive_table()
+        super().__init__(np.nonzero(pp.lengths > 0)[0], batch_size, device)
+        self.num_items = train_data.num_items
+        self.pos_table = torch.as_tensor(pp.table, device=device)
+
+    def rows_for(self, users: torch.Tensor) -> torch.Tensor:
+        """(B, N) f32 0/1 interaction rows of ``users`` (int64 on the
+        pipeline's device): each user's padded table row set to 1 in a
+        (B, N + 1) matrix whose pad column (id N) is dropped."""
+        table_rows = self.pos_table[users].long()
+        rows = torch.zeros((users.shape[0], self.num_items + 1),
+                           device=self.device)
+        rows.scatter_(1, table_rows, 1.0)
+        return rows[:, :self.num_items]
+
+    def _batch(self, generator, idx):
+        users = self._users[idx]
+        return users, self.rows_for(users), self._w[idx]

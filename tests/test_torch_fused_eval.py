@@ -27,9 +27,12 @@ from skrx.models.BPRMF import BPRMF as JaxBPRMF
 from skrx.models.LightGCN import LightGCN as JaxLightGCN
 from skrx.serve import TopKRecommender as JaxTopKRecommender
 from skrx_torch import RunConfig
-from skrx_torch.eval import RankingEvaluator
+from skrx_torch.eval import RankingEvaluator, fused_family
 from skrx_torch.models.BPRMF import BPRMF
+from skrx_torch.models.CDAE import CDAE
+from skrx_torch.models.CML import CML
 from skrx_torch.models.LightGCN import LightGCN
+from skrx_torch.models.common import CachedUserVecChunkMixin
 from skrx_torch.ops.kernels import dot_topk as tdt
 from skrx_torch.ops.kernels import runtime
 from skrx_torch.serve import TopKRecommender
@@ -223,3 +226,66 @@ def test_modes_refuse_models_without_the_factorization(models):
     server = TopKRecommender(tm, fused="auto")
     assert not server.fused
     assert 0 <= _evaluators(tm, "full")[1].evaluate(ScoresOnly())["NDCG@5"]
+
+
+class _Tower(CachedUserVecChunkMixin):
+    """A tower over BPRMF's tables: user vectors from an encoder,
+    ``predict`` their dot with the item table plus the bias."""
+    num_items = 130
+    device = torch.device("cpu")
+
+    def __init__(self, bprmf):
+        self.bprmf = bprmf
+        self.dataset = bprmf.dataset
+
+    def _uv_state_refs(self):
+        return tuple(self.bprmf.parameters())
+
+    def _user_vectors(self, users):
+        return torch.tanh(self.bprmf.user_emb[users])
+
+    def _score_user_chunk(self, uv, lo, hi):
+        return uv @ self.bprmf.item_emb[lo:hi].T + self.bprmf.item_bias[lo:hi]
+
+    @torch.no_grad()
+    def predict(self, users):
+        return self.predict_chunk(users, 0, self.num_items)
+
+
+class _FactoredTower(_Tower):
+    def _topk_factors(self, uv):
+        return uv, self.bprmf.item_emb, self.bprmf.item_bias
+
+
+class _ScoreFnTower(_FactoredTower):
+    @staticmethod
+    def _topk_score_fn(uv, items, bias):
+        return torch.relu(uv @ items.T + bias)
+
+
+def test_fused_takes_tower_factors_and_refuses_towers_without_them(
+        models, tmp_path, monkeypatch):
+    """A tower with plain dot factors (_topk_factors) evaluates fused,
+    equal to its full route; a tower without them, and one that applies a
+    transform after the dot (_topk_score_fn), are refused by the fused
+    route and by a model's construction with eval_mode "fused"; serving
+    keeps every tower on predict."""
+    _, tm = models["BPRMF"]
+    tower = _FactoredTower(tm)
+    assert fused_family(tower) == "tower" and fused_family(tm) == "dot"
+    full = _evaluators(tm, "full")[1].evaluate(tower)
+    fused = _evaluators(tm, "fused")[1].evaluate(tower)
+    np.testing.assert_allclose(list(fused.values()), list(full.values()),
+                               rtol=0, atol=1e-7)
+    assert max(full.values()) > 0
+    for model in (_Tower(tm), _ScoreFnTower(tm)):
+        assert fused_family(model) is None
+        with pytest.raises(TypeError, match="fused"):
+            _evaluators(tm, "fused")[1].evaluate(model)
+    assert not TopKRecommender(_FactoredTower(tm), fused="always").fused
+    monkeypatch.chdir(tmp_path)            # the models write log/ here
+    run = RunConfig(data_dir=tm.dataset.data_dir, eval_mode="fused")
+    with pytest.raises(TypeError, match="fused"):
+        CML(run, dict(embed_size=8), device="cpu")
+    assert CDAE(run, dict(hidden_dim=8), device="cpu").evaluator.eval_mode \
+        == "fused"
