@@ -145,9 +145,11 @@ skrx_torch fails and it exits 1):
    card's busy share during it (torch.profiler), for the score-matrix and
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
-   kernels of one epoch and one evaluate(), for BPRMF (dense and lazy
-   Adam), LightGCN, Pop, AOBPR, CML, LayerGCN, LightGCL, DENS, SelfCF,
-   CDAE and MultVAE (fused and chunked too for the last three); one
+   kernels of the first 100 steps of an epoch and of one evaluate(), for
+   BPRMF (dense and lazy Adam), LightGCN, Pop, AOBPR, CML, LayerGCN,
+   LightGCL, DENS, SelfCF, CDAE and MultVAE (fused and chunked too for the
+   last three), FPMC and TransRec (dense and lazy Adam), SGAT, Caser and
+   HGN (fused too for FPMC, Caser and HGN); one
    BPRMF step with dense and with lazy Adam at the same batch, and
    dedup_rows at the step's 2,048 item rows.
 10. The three other pairwise graph models on the phase-3 data, each at
@@ -194,6 +196,35 @@ skrx_torch fails and it exits 1):
    factors with their bias. recommend() for 64 test users of each model
    equal to the plain top-k of its scores, no seen item. The phase prints
    its seconds; it runs before phase 9, whose tables take its models.
+12. The sequential pairwise models on the phase-3 data, trained on the
+   time-ordered examples of each user's training sequence, each at its
+   published defaults for one fit() epoch: FPMC (d=64, one previous and
+   one next item, batch 1,024), also one epoch with lazy Adam; TransRec
+   (d=64), also one epoch with lazy Adam; SGAT (d=64, 5 layers, 5
+   previous items pre-padded, 3 next), whose every step propagates the
+   whole item-transition graph through segsum with its attention as traced
+   per-edge weights; Caser (d=64, L=5, T=3, nv=4, nh=16, dropout 0.5) and
+   HGN (d=64, L=5, T=3), towers over N + 1 columns (the pad scored 0).
+   propagate_weighted on SGAT's graph with the first step's attention
+   (layer 1 at the initial weights) and a seeded cotangent: the output and
+   dx against segsum_plain in float64 on CPU copies (per row 1e-5 *
+   sum|msg|), dw against a float64 (g[dst] . x[src]) within 1e-5 * sum|g_d
+   x_d| an edge; its device times at that shape beside the bound,
+   torch.sparse.mm of the CSR with the attention as values, and dw. fit():
+   losses finite, segsum launched exactly 2 x 5 x steps + 5 for SGAT
+   (every propagation of a step forward and backward, one propagation for
+   the evaluation) and never for the others, the full route's kernels
+   launched. One train step of each (dense Adam) on the card against the
+   same step on CPU copies of its parameters, Adam state and batch
+   (Caser's dropout mask drawn once; SGAT's propagation through segsum's
+   plain version): the loss within 1e-5 relative, every parameter within
+   1e-5 of its largest magnitude. evaluate() full and chunked for all
+   five, fused for FPMC (its 128-wide concatenated dot), Caser (128 wide)
+   and HGN: each route's kernels launched, metrics within 1e-4 of the
+   full route's. recommend() for 64 test users of each equal to the plain
+   top-k of its scores, no seen item. It prints each model's epoch seconds
+   and steps/s, the busy share and top device kernels of the first 100
+   steps of an SGAT epoch, and its seconds; it runs before phase 9, whose tables take its models.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -213,16 +244,21 @@ from skrx_torch.eval import EarlyStopping
 from skrx_torch.io import synthetic
 from skrx_torch.models.BPRMF import bprmf_lazy_train_step
 from skrx_torch.models.CDAE import cdae_draws, cdae_loss
+from skrx_torch.models.Caser import caser_keep_mask, caser_loss
 from skrx_torch.models.DENS import dens_dropout_masks, dens_loss
+from skrx_torch.models.FPMC import fpmc_loss
+from skrx_torch.models.HGN import hgn_loss
 from skrx_torch.models.LayerGCN import layergcn_loss
 from skrx_torch.models.LightGCL import lightgcl_dropout_masks, lightgcl_loss
 from skrx_torch.models.LightGCN import lightgcn_loss
 from skrx_torch.models.MultVAE import multvae_draws, multvae_loss
+from skrx_torch.models.SGAT import sgat_attention, sgat_loss
 from skrx_torch.models.SelfCF import selfcf_draws, selfcf_loss
+from skrx_torch.models.TransRec import transrec_loss
 from skrx_torch.models.common import make_train_step
 from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
-from skrx_torch.ops.graph import graph_from_coo
+from skrx_torch.ops.graph import graph_from_coo, propagate_weighted
 from skrx_torch.ops.kernels import _build, runtime
 from skrx_torch.ops.kernels import dot_topk as dt
 from skrx_torch.ops.kernels import segsum as ss
@@ -266,6 +302,7 @@ GCN_SERVE = (1, 64, 1024)
 FUSED = ("dot_submax", "dot_extract")
 BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
 CHUNK = 8_192
+TRAIN_WINDOW = 100                # steps of an epoch under the profiler
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
 # F, the most survivors of a block that extract ranks directly
 # (csrc/topk_blocks.cu kRankCap)
@@ -1362,6 +1399,19 @@ def _raw_device_events(prof):
             yield e.name(), e.duration_ns()
 
 
+def epoch_window(m, steps: int = TRAIN_WINDOW):
+    """A training epoch of model m cut to its first ``steps`` steps (its
+    step count lowered for the call): the steady state of an epoch, at a
+    fraction of a long epoch's time under the profiler."""
+    owner = getattr(m, "pipeline", m)
+    full = owner.num_batches
+    owner.num_batches = min(steps, full)
+    try:
+        return m._train_epoch(99)
+    finally:
+        owner.num_batches = full
+
+
 def timed(fn):
     """(result, host seconds) of fn() ended by a device sync."""
     torch.cuda.synchronize()
@@ -1646,10 +1696,11 @@ def nested_cpu(x):
 def step_card_vs_cpu(tag, m, cpu_loss, batch, masks) -> dict:
     """One train step of model m on the card against the same step on CPU
     copies of its parameters, Adam state, batch and masks:
-    ``cpu_loss(params, users, pos, neg, w, masks)`` is the model's loss
-    over CPU copies of its operators, whose propagation runs segsum's plain
-    version. The loss within 1e-5 relative, every updated parameter within
-    1e-5 of its largest magnitude."""
+    ``cpu_loss(params, *batch, masks)`` is the model's loss over CPU copies
+    of its operators, whose propagation runs segsum's plain version (a
+    model whose step draws nothing passes masks None and takes
+    ``cpu_loss(params, *batch)``). The loss within 1e-5 relative, every
+    updated parameter within 1e-5 of its largest magnitude."""
     named = dict(m.named_parameters())
     by_id = {id(p): n for n, p in named.items()}
     order = [by_id[id(p)] for g in m.optimizer.param_groups
@@ -1661,8 +1712,9 @@ def step_card_vs_cpu(tag, m, cpu_loss, batch, masks) -> dict:
     cpu_opt.load_state_dict(cpu_copy(m.optimizer.state_dict()))
     cpu_step = make_train_step(cpu_opt,
                                lambda *b: cpu_loss(params, *b))
-    loss_cpu = float(cpu_step((*nested_cpu(batch), nested_cpu(masks))))
-    loss_card = float(m.train_step((*batch, masks)))
+    args = tuple(batch) if masks is None else (*batch, masks)
+    loss_cpu = float(cpu_step(nested_cpu(args)))
+    loss_card = float(m.train_step(args))
     errs = {"loss": abs(loss_card - loss_cpu) / abs(loss_cpu)}
     require(errs["loss"] <= 1e-5, f"{tag}: loss card {loss_card} vs CPU "
             f"{loss_cpu}")
@@ -1923,6 +1975,205 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
             "runs": [sc_launches, cd_launches, mv_launches, *serve_runs,
                      *(r[2] for runs in (sc_runs, cd_runs, mv_runs)
                        for r in runs.values())]}
+
+def check_weighted(wgraph, x, w, ct, errs: dict):
+    """propagate_weighted (segsum forward and for dx, dw in PyTorch) on the
+    card against float64 on CPU copies: the output and dx by segsum's rule
+    (per row |got - ref| <= 1e-5 * sum|msg| + 1e-30, msg the weighted
+    messages into the row), dw within 1e-5 * sum_d |g[dst]_d x[src]_d| +
+    1e-30 an edge (a 64-term f32 dot stays below 64 * 2^-24 of that sum).
+    Returns each error's largest share of its bound."""
+    xg = x.detach().clone().requires_grad_(True)
+    wg = w.detach().clone().requires_grad_(True)
+    out = propagate_weighted(wgraph, xg, wg)
+    out.backward(ct)
+    g_cpu = wgraph.graph.to("cpu")
+    x64, w64, c64 = (t.detach().cpu().double() for t in (x, w, ct))
+    src, dst = wgraph.src.cpu(), wgraph.dst.cpu()
+    prod = c64[dst] * x64[src]
+    cases = {
+        "out": (out, ss.segsum_plain(g_cpu.fwd, x64, w64),
+                ss.segsum_plain(g_cpu.fwd, x64.abs(), w64.abs())),
+        "dx": (xg.grad, ss.segsum_plain(g_cpu.bwd, c64, w64),
+               ss.segsum_plain(g_cpu.bwd, c64.abs(), w64.abs())),
+        "dw": (wg.grad, prod.sum(-1), prod.abs().sum(-1))}
+    shares = {}
+    for name, (got, ref, scale) in cases.items():
+        got = got.detach().cpu().double()
+        err, bound = (got - ref).abs(), 1e-5 * scale + 1e-30
+        require(bool(torch.isfinite(got).all()),
+                f"propagate_weighted {name}: non-finite")
+        require(bool((err <= bound).all()), f"propagate_weighted {name}: "
+                f"error {float((err / bound).max())} x the bound")
+        shares[name] = float((err / bound).max())
+        if name != "dw":
+            errs["segsum"] = max(errs.get("segsum", 0.0), float(err.max()))
+    require(not bool(wgraph.graph.fwd.merge_count.any()
+                     or wgraph.graph.bwd.merge_count.any()),
+            "segsum left a counter set")
+    return shares
+
+
+def weighted_times(wgraph, x, w, ct, card: str) -> None:
+    """Device times of SGAT's propagation at its graph: segsum with the
+    attention as edge weights, its bound by row 11's rule, torch.sparse.mm
+    of the CSR matrix with the attention as values, and dw."""
+    g = wgraph.graph
+    seg = g.fwd
+    n, d = x.shape
+    e, n_seg = g.num_edges, seg.seg_dst.shape[0]
+    n_part, n_merge = seg.num_partials, seg.merge_row.shape[0]
+    by_row = torch.argsort(wgraph.dst, stable=True)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.cumsum(torch.bincount(wgraph.dst, minlength=n), 0)
+    a_csr = torch.sparse_csr_tensor(crow, wgraph.src[by_row], w[by_row],
+                                    (n, n))
+    require(bool(torch.allclose(torch.sparse.mm(a_csr, x),
+                                ss.segsum(seg, x, w), rtol=1e-4, atol=1e-6)),
+            "torch.sparse.mm of A(att) computes the same function")
+    # x once, the output, each edge's source id, unit weight, original id
+    # and attention, the segment and merge tables; a multiply and an add
+    # per (edge, feature), the weight's scale per edge, an add per partial
+    # feature
+    nbytes = 4 * (2 * n * d + 4 * e + 2 * n_seg + 1 + n_part + 4 * n_merge
+                  + 1)
+    ops = 2 * e * d + e + n_part * d
+    t_b, t_o = nbytes / MEM_RATE * 1e3, ops / F32_OPS * 1e3
+    # dw: g and x once, the endpoints, dw written; a multiply and an add
+    # per (edge, feature)
+    dw_b, dw_o = 4 * (2 * n * d + 3 * e) / MEM_RATE * 1e3, \
+        2 * e * d / F32_OPS * 1e3
+
+    def dw():
+        return torch.sum(ct.index_select(0, wgraph.dst)
+                         * x.index_select(0, wgraph.src), dim=-1)
+    print(f"segsum at SGAT's graph (N={n}, E={e}, D={d}, {n_seg} segments, "
+          f"{n_merge} rows merged from {n_part} partial rows; attention as "
+          f"edge weights): {device_ms(lambda: ss.segsum(seg, x, w))} ms of "
+          f"device time (one call between CUDA events "
+          f"{time_ms(lambda: ss.segsum(seg, x, w))} ms), bound "
+          f"{max(t_b, t_o)} ms ({'bytes' if t_b >= t_o else 'operations'}), "
+          f"plain {device_ms(lambda: ss.segsum_plain(seg, x, w))} ms, "
+          f"library torch.sparse.mm of A(att) "
+          f"{device_ms(lambda: torch.sparse.mm(a_csr, x))} ms; dw "
+          f"(g[dst] . x[src]) {device_ms(dw)} ms, bound {max(dw_b, dw_o)} ms "
+          f"({'bytes' if dw_b >= dw_o else 'operations'})  [{card}]",
+          flush=True)
+
+
+def phase_sequential_models(path, reg, dev, card: str, errs: dict):
+    """Phase 12 (the module docstring): FPMC, TransRec, SGAT, Caser and HGN
+    at Gowalla scale. Returns the models and the launch counts of each
+    main-path run."""
+    t_phase = time.perf_counter()
+
+    def build(name, **over):
+        reg.load_skrx_model(name)
+        return reg.get_model(name)[0](
+            RunConfig(recommender=name, data_dir=path, seed=SEED),
+            {"epochs": 1, "early_stop": 1, **over})
+
+    def first_batch(m):
+        return next(m.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    models, runs = {}, []
+    # FPMC and TransRec: one previous item, one next item; a lazy-Adam
+    # epoch each besides the dense one
+    for name, loss in (("FPMC", fpmc_loss), ("TransRec", transrec_loss)):
+        m = build(name)
+        require(m.config.embed_size == DIM and m.pipeline.num_neg == 1
+                and m.pipeline._prev.shape[1] == 1, f"{name} at its defaults")
+        runs.append(fit_counted(m, m.pipeline.num_batches, 0, name))
+        lazy = build(name, optimizer="lazy_adam")
+        runs.append(fit_counted(lazy, lazy.pipeline.num_batches, 0,
+                                f"{name} (lazy Adam)"))
+        reg_ = m.config.reg
+        step_card_vs_cpu(name, m, lambda p, *b, f=loss, r=reg_: f(p, r, *b),
+                         first_batch(m), None)
+        models[name], models[f"{name} (lazy Adam)"] = m, lazy
+    # SGAT: the whole item graph, 5 layers of attention, at every step
+    sg = build("SGAT")
+    scfg, g = sg.config, sg.graph
+    n_edges, n_occ = g.items.graph.num_edges, g.occ_user.shape[0]
+    require(scfg.embed_size == DIM and scfg.n_layers == 5
+            and scfg.n_seqs == 5 and scfg.n_next == 3
+            and sg.item_emb.device == dev, "SGAT at its defaults")
+    in_edges = torch.bincount(g.edge_tail, minlength=ITEMS)
+    print(f"SGAT: {n_occ} occurrences, {n_edges} edges into "
+          f"{int((in_edges > 0).sum())} rows (most in-edges "
+          f"{int(in_edges.max())}, most occurrences of an edge "
+          f"{int(torch.bincount(g.occ_edge).max())}); "
+          f"{sg.pipeline.num_examples} "
+          f"examples, {sg.pipeline.num_batches} steps of {scfg.batch_size}; "
+          f"ready after {time.perf_counter() - t_phase} s of the phase",
+          flush=True)
+    with torch.no_grad():                  # layer 1 of the first step
+        att = sgat_attention(g, sg.item_emb, sg.user_emb)
+    x = sg.item_emb.detach()
+    ct = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(SEED))
+    shares = check_weighted(g.items, x, att, ct, errs)
+    print(f"propagate_weighted at SGAT's graph, the first step's attention "
+          f"(sum {float(att.sum())} over {n_edges} edges): out, dx and dw "
+          f"within their bounds, largest share of the bound {shares}",
+          flush=True)
+    weighted_times(g.items, x, att, ct, card)
+    runs.append(fit_counted(sg, sg.pipeline.num_batches, scfg.n_layers,
+                            "SGAT"))
+    g_cpu = g.to("cpu")
+    step_card_vs_cpu("SGAT", sg, lambda p, *b: sgat_loss(g_cpu, p, scfg, *b),
+                     first_batch(sg), None)
+    models["SGAT"] = sg
+    # Caser and HGN: towers over N + 1 columns
+    cs = build("Caser")
+    ccfg = cs.config
+    require(ccfg.embed_size == DIM and (ccfg.seq_L, ccfg.seq_T, ccfg.nv,
+                                        ccfg.nh) == (5, 3, 4, 16)
+            and cs._eval_width == ITEMS + 1, "Caser at its defaults")
+    runs.append(fit_counted(cs, cs.pipeline.num_batches, 0, "Caser"))
+    batch = first_batch(cs)
+    keep = caser_keep_mask(torch.Generator(dev).manual_seed(SEED),
+                           batch[0].shape[0], ccfg)
+    step_card_vs_cpu(
+        "Caser (dropout 0.5)", cs,
+        lambda p, *b: caser_loss(p, ccfg, cs.pad_idx, *b), batch, keep)
+    hg = build("HGN")
+    require(hg.config.embed_size == DIM and hg._eval_width == ITEMS + 1,
+            "HGN at its defaults")
+    runs.append(fit_counted(hg, hg.pipeline.num_batches, 0, "HGN"))
+    step_card_vs_cpu("HGN", hg, lambda p, *b: hgn_loss(p, hg.pad_idx, *b),
+                     first_batch(hg), None)
+    models.update(Caser=cs, HGN=hg)
+    for tag, m in models.items():
+        h = m.history[0]
+        print(f"{tag} epoch: train {h['train_seconds']} s "
+              f"({m.pipeline.num_batches / h['train_seconds']} steps/s of "
+              f"batch {m.config.batch_size}), loss {h['loss']}, evaluate() "
+              f"{h['eval_seconds']} s  [{card}]", flush=True)
+    busy, heads = busy_share(lambda: epoch_window(sg), reps=1, warm=False,
+                             top=8)
+    print(f"SGAT train epoch, its first {TRAIN_WINDOW} of "
+          f"{sg.pipeline.num_batches} steps: device busy {busy}; top device "
+          f"kernels (ms, calls): {heads}  [{card}]", flush=True)
+    # every route; the pad column of Caser and HGN included
+    for tag, modes in (("FPMC", ("full", "fused", "chunked")),
+                       ("TransRec", ("full", "chunked")),
+                       ("SGAT", ("full", "chunked")),
+                       ("Caser", ("full", "fused", "chunked")),
+                       ("HGN", ("full", "fused", "chunked"))):
+        route_runs = evaluate_routes(models[tag], tag, modes)
+        runs.extend(r[2] for r in route_runs.values())
+    # serving through predict: equal to the plain top-k, no seen item
+    u = np.fromiter(sg.evaluator.user_pos_test, np.int64)[:B_EVAL]
+    seen = sg.dataset.train_data.to_user_dict()
+    for tag in ("FPMC", "TransRec", "SGAT", "Caser", "HGN"):
+        server = TopKRecommender(models[tag], k=K)
+        (ids, vals), launched = counted(lambda: server.recommend(u))
+        check_served(server, u, ids, vals, seen)
+        runs.append(launched)
+    print(f"phase 12: recommend() for {len(u)} users of each model equals "
+          f"the plain top-k; phase 12 took {time.perf_counter() - t_phase} "
+          f"s", flush=True)
+    return dict(models, runs=runs)
 
 
 def main() -> int:
@@ -2279,6 +2530,12 @@ def main() -> int:
     p11 = phase_selfcf_and_autoencoders(path, reg, dev, errs)
     sc, cd, mv = p11["SelfCF"], p11["CDAE"], p11["MultVAE"]
 
+    # ------- phase 12: FPMC, TransRec, SGAT (#11, traced weights), Caser, HGN
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 12", flush=True)
+    p12 = phase_sequential_models(path, reg, dev, card, errs)
+    sequential = [(f"{tag} Gowalla", p12[tag]) for tag in
+                  ("FPMC", "TransRec", "SGAT", "Caser", "HGN")]
+
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
@@ -2391,12 +2648,12 @@ def main() -> int:
     # fit()s at Gowalla, the ML-1M-scale fit(), LightGCN serving, fused
     # serving, the fused and chunked evaluate() calls, phase 8's fit()s
     # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML),
-    # phase 10's (LayerGCN, LightGCL, DENS) and phase 11's (SelfCF, CDAE,
-    # MultVAE)
+    # phase 10's (LayerGCN, LightGCL, DENS), phase 11's (SelfCF, CDAE,
+    # MultVAE) and phase 12's (FPMC, TransRec, SGAT, Caser, HGN)
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
-                 *p10["runs"], *p11["runs"]]
+                 *p10["runs"], *p11["runs"], *p12["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:
@@ -2591,7 +2848,9 @@ def main() -> int:
                ("CML Gowalla", cml), ("LayerGCN Gowalla", lg),
                ("LightGCL Gowalla", gcl), ("DENS Gowalla", dn),
                ("SelfCF Gowalla", sc), ("CDAE Gowalla", cd),
-               ("MultVAE Gowalla", mv))
+               ("MultVAE Gowalla", mv), *sequential,
+               ("FPMC lazy-Adam Gowalla", p12["FPMC (lazy Adam)"]),
+               ("TransRec lazy-Adam Gowalla", p12["TransRec (lazy Adam)"]))
     for tag, m in trained:
         steps = getattr(m, "pipeline", m).num_batches
         for h in m.history:
@@ -2631,9 +2890,10 @@ def main() -> int:
                             ("DENS Gowalla", dn, len(test_users)),
                             ("SelfCF Gowalla", sc, len(test_users)),
                             ("CDAE Gowalla", cd, len(test_users)),
-                            ("MultVAE Gowalla", mv, len(test_users))):
-        _, sec = timed(m.evaluate)
-        _, per_eval = counted(m.evaluate)
+                            ("MultVAE Gowalla", mv, len(test_users)),
+                            *((tag, m, len(test_users))
+                              for tag, m in sequential)):
+        (_, sec), per_eval = counted(lambda: timed(m.evaluate))
         print(f"{tag} evaluate(): {sec} s, {n_users / sec} users/s, "
               f"launches per evaluate() {per_eval}  [{card}]")
         busy, heads = busy_share(m.evaluate, reps=1, warm=False, top=6)
@@ -2642,7 +2902,9 @@ def main() -> int:
         modes = {model: ("fused", "chunked"), gcn: ("fused",),
                  ao: ("fused",), gcl: ("fused",), dn: ("fused",),
                  sc: ("fused", "chunked"), cd: ("fused", "chunked"),
-                 mv: ("fused", "chunked")}.get(m, ())
+                 mv: ("fused", "chunked"), p12["FPMC"]: ("fused",),
+                 p12["Caser"]: ("fused",),
+                 p12["HGN"]: ("fused",)}.get(m, ())
         for mode in modes:
             (_, sec) = evaluate_as(m, mode, CHUNK)
             busy, heads = busy_share(lambda: evaluate_as(m, mode, CHUNK),
@@ -2650,11 +2912,12 @@ def main() -> int:
             print(f"{tag} evaluate() eval_mode={mode!r}: {sec} s, "
                   f"{n_users / sec} users/s; device busy {busy}; top device "
                   f"kernels (ms): {heads}  [{card}]")
-        if m is not pop:                  # nothing to train
-            busy, heads = busy_share(lambda: m._train_epoch(99), reps=1,
+        # Pop has nothing to train; phase 12 profiled SGAT's steps
+        if m is not pop and m is not p12["SGAT"]:
+            busy, heads = busy_share(lambda: epoch_window(m), reps=1,
                                      warm=False, top=6)
-            print(f"{tag} train epoch device busy {busy}; top device "
-                  f"kernels (ms): {heads}")
+            print(f"{tag} train epoch, its first {TRAIN_WINDOW} steps: "
+                  f"device busy {busy}; top device kernels (ms): {heads}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} "
           f"GiB")
     shutil.rmtree(root, ignore_errors=True)

@@ -13,6 +13,8 @@ __all__ = ["bprmf_params_from_jax", "two_tables_from_jax",
            "lightgcl_params_from_jax", "dens_params_from_jax",
            "linear_port_name", "selfcf_params_from_jax",
            "cdae_params_from_jax", "multvae_params_from_jax",
+           "fpmc_params_from_jax", "transrec_params_from_jax",
+           "caser_params_from_jax", "hgn_params_from_jax",
            "adam_state_from_jax", "lazy_adam_state_from_jax",
            "adagrad_state_from_jax"]
 
@@ -163,6 +165,105 @@ def multvae_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     if not q or not p or q[0] != p[-1] or q[-1] != 2 * p[0]:
         raise ValueError(f"encoder widths {q} do not match decoder widths "
                          f"{p}")
+    return out
+
+
+def _check_shapes(shapes: Dict[str, tuple], want: Dict[str, tuple]) -> None:
+    if shapes != want:
+        bad = {k: (shapes[k], want[k]) for k in want if shapes[k] != want[k]}
+        raise ValueError(f"inconsistent shapes (got, expected): {bad}")
+
+
+def fpmc_params_from_jax(params: Dict[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """A JAX FPMC's ``params`` as f32 CPU tensors of the same names:
+    ``UI`` (U, d); ``IU``, ``IL`` and ``LI`` (N, d)."""
+    out = _tensors(params, ("UI", "IU", "IL", "LI"))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    u, d = (shapes["UI"] + (-1, -1))[:2]
+    n = (shapes["IU"] + (-1,))[0]
+    _check_shapes(shapes, {"UI": (u, d), "IU": (n, d), "IL": (n, d),
+                           "LI": (n, d)})
+    return out
+
+
+def transrec_params_from_jax(params: Dict[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """A JAX TransRec's ``params`` as f32 CPU tensors of the same names:
+    ``user_emb`` (U, d), ``item_emb`` (N, d), ``trans`` (1, d),
+    ``item_bias`` (N,)."""
+    out = _tensors(params, ("user_emb", "item_emb", "trans", "item_bias"))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    n, d = (shapes["item_emb"] + (-1, -1))[:2]
+    _check_shapes(shapes, {"user_emb": (shapes["user_emb"][0], d),
+                           "item_emb": (n, d), "trans": (1, d),
+                           "item_bias": (n,)})
+    return out
+
+
+def _leaf_lists(params: Dict, lists: Tuple[str, ...], length: int
+                ) -> Dict[str, np.ndarray]:
+    """``params`` with each list-valued key in ``lists`` (of ``length``
+    entries) flattened into ``<key>.<i>`` (the port's ``nn.ParameterList``
+    names)."""
+    flat = {k: v for k, v in params.items() if k not in lists}
+    for key in lists:
+        if len(params[key]) != length:
+            raise ValueError(f"{key}: {len(params[key])} entries, expected "
+                             f"{length}")
+        flat.update({f"{key}.{i}": v for i, v in enumerate(params[key])})
+    return flat
+
+
+def caser_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX Caser's ``params`` as f32 CPU tensors in the same layout, the
+    lists of the horizontal convolutions flattened to ``conv_h.<i>`` and
+    ``conv_h_b.<i>``: ``user_emb`` (U, d), ``item_emb`` (N + 1, d),
+    ``conv_v`` (L, 1, nv), ``conv_v_b`` (nv,), ``conv_h.<i>`` (i + 1, d,
+    nh), ``conv_h_b.<i>`` (nh,), ``fc1_w`` (nv d + nh L, d), ``fc1_b``
+    (d,), ``W2`` (N + 1, 2d), ``b2`` (N + 1,)."""
+    keys = ("user_emb", "item_emb", "conv_v", "conv_v_b", "conv_h",
+            "conv_h_b", "fc1_w", "fc1_b", "W2", "b2")
+    if set(params) != set(keys):
+        raise ValueError(f"expected keys {keys}, got {sorted(params)}")
+    conv_v = np.asarray(params["conv_v"])
+    if conv_v.ndim != 3:
+        raise ValueError(f"conv_v {conv_v.shape}, expected (L, 1, nv)")
+    big_l, _, nv = conv_v.shape
+    flat = _leaf_lists(params, ("conv_h", "conv_h_b"), big_l)
+    out = _tensors(flat, tuple(flat))
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    n, d = (shapes["item_emb"] + (-1, -1))[:2]
+    nh = (shapes["conv_h_b.0"] + (-1,))[0]
+    want = {"user_emb": (shapes["user_emb"][0], d), "item_emb": (n, d),
+            "conv_v": (big_l, 1, nv), "conv_v_b": (nv,),
+            "fc1_w": (nv * d + nh * big_l, d), "fc1_b": (d,),
+            "W2": (n, 2 * d), "b2": (n,)}
+    for i in range(big_l):
+        want[f"conv_h.{i}"] = (i + 1, d, nh)
+        want[f"conv_h_b.{i}"] = (nh,)
+    _check_shapes(shapes, want)
+    return out
+
+
+def hgn_params_from_jax(params: Dict[str, np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """A JAX HGN's ``params`` as f32 CPU tensors of the same names:
+    ``user_emb`` (U, d), ``item_emb`` and ``W2`` (N + 1, d), ``b2`` (N + 1,),
+    the feature gates ``fg_item_w``, ``fg_user_w`` (d, d) and ``fg_item_b``,
+    ``fg_user_b`` (d,), the instance gates ``ig_item`` (d, 1) and
+    ``ig_user`` (d, L)."""
+    keys = ("user_emb", "item_emb", "fg_item_w", "fg_item_b", "fg_user_w",
+            "fg_user_b", "ig_item", "ig_user", "W2", "b2")
+    out = _tensors(params, keys)
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    n, d = (shapes["item_emb"] + (-1, -1))[:2]
+    big_l = (shapes["ig_user"] + (-1, -1))[1]
+    _check_shapes(shapes, {
+        "user_emb": (shapes["user_emb"][0], d), "item_emb": (n, d),
+        "fg_item_w": (d, d), "fg_item_b": (d,), "fg_user_w": (d, d),
+        "fg_user_b": (d,), "ig_item": (d, 1), "ig_user": (d, big_l),
+        "W2": (n, d), "b2": (n,)})
     return out
 
 

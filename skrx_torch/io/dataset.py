@@ -8,10 +8,12 @@ and training slices use. The JAX package's pickle view cache is not carried.
 import os
 import warnings
 from collections import OrderedDict, defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+
+from ..utils.generic import pad_sequences
 
 __all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "RSDataset",
            "UserGroup", "group_users_by_interactions"]
@@ -67,6 +69,7 @@ class ImplicitFeedback:
         users = cols.get("user", np.zeros(0, np.int64))
         items = cols.get("item", np.zeros(0, np.int64))
         self._users, self._items = users, items
+        self._times = cols.get("time")
         self.num_ratings = len(users)
         self.num_users = (num_users if num_users is not None
                           else int(users.max()) + 1 if len(users) else 0)
@@ -92,6 +95,65 @@ class ImplicitFeedback:
                 (int(u), part) for u, part in
                 zip(keys, np.split(items, starts[1:])))
         return self._views["user_dict"]
+
+    def _time_order(self) -> np.ndarray:
+        """The rows sorted by (user, time), stably: rows of one user at one
+        time keep their file order."""
+        if self._times is None:
+            raise ValueError("This dataset does not contain timestamps.")
+        order = np.argsort(self._times, kind="stable")
+        return order[np.argsort(self._users[order], kind="stable")]
+
+    def to_user_item_pairs_by_time(self) -> np.ndarray:
+        """(num_ratings, 2) int32 (user, item) rows sorted by (user,
+        time)."""
+        order = self._time_order()
+        return np.stack([self._users[order], self._items[order]],
+                        axis=1).astype(np.int32)
+
+    def to_user_dict_by_time(self) -> "OrderedDict[int, np.ndarray]":
+        """user -> int32 items in time order, users ascending (users without
+        rows absent)."""
+        if "user_dict_by_time" not in self._views:
+            pairs = self.to_user_item_pairs_by_time()
+            keys, starts = np.unique(pairs[:, 0], return_index=True)
+            self._views["user_dict_by_time"] = OrderedDict(
+                (int(u), part) for u, part in
+                zip(keys, np.split(pairs[:, 1], starts[1:])))
+        return self._views["user_dict_by_time"]
+
+    def to_truncated_seq_dict(self, max_len: Optional[int],
+                              pad_value: int = 0, padding: str = "pre",
+                              truncating: str = "pre"
+                              ) -> "OrderedDict[int, np.ndarray]":
+        """user -> the last ``max_len`` items in time order (all of the
+        longest sequence's length when None), padded with ``pad_value`` to
+        ``max_len``."""
+        seq_dict = self.to_user_dict_by_time()
+        if max_len is None:
+            max_len = max((len(s) for s in seq_dict.values()), default=0)
+        seqs = [s[-max_len:] for s in seq_dict.values()]
+        padded = pad_sequences(seqs, value=pad_value, max_len=max_len,
+                               padding=padding, truncating=truncating,
+                               dtype=np.int32)
+        return OrderedDict(zip(seq_dict.keys(), padded))
+
+    def to_padded_seq_tensor(self, max_len: int,
+                             pad_value: Optional[int] = None
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """(num_users, max_len) int32 sequences of each user's last
+        ``max_len`` items in time order, pre-padded with ``pad_value``
+        (default num_items), and (num_users,) int32 lengths; a user without
+        rows has length 0 and a row of padding."""
+        if pad_value is None:
+            pad_value = self.num_items
+        table = np.full((self.num_users, max_len), pad_value, dtype=np.int32)
+        lengths = np.zeros(self.num_users, dtype=np.int32)
+        for u, seq in self.to_user_dict_by_time().items():
+            tail = seq[-max_len:]
+            table[u, max_len - len(tail):] = tail
+            lengths[u] = len(tail)
+        return table, lengths
 
     def to_csr_matrix(self) -> sp.csr_matrix:
         """(num_users, num_items) f32 interaction counts: 1.0 a row, a pair

@@ -1,0 +1,196 @@
+"""Caser — convolutional sequence embedding (Tang & Wang, WSDM 2018): the
+port of ``skrx.models.Caser``.
+
+Same config fields, defaults and checks, and the JAX package's parameter
+layout: ``user_emb`` (U, d) and ``item_emb`` (N + 1, d) from N(0,
+0.01^2), row N the pad; the vertical convolution ``conv_v`` (L, 1, nv) and
+``conv_v_b`` (nv,); the horizontal ones ``conv_h.<i>`` (i + 1, d, nh) and
+``conv_h_b.<i>`` (nh,) for heights 1..L; ``fc1_w`` (nv d + nh L, d),
+``fc1_b`` (d,); ``W2`` (N + 1, 2d) from N(0, 0.01^2) and ``b2`` (N + 1,)
+zeros. The convolutions and the fully connected layer start at
+``torch_layer_default`` (U(-1/sqrt(fan_in), 1/sqrt(fan_in))).
+
+A user's vector (:func:`caser_user_vectors`): the embeddings of its last L
+items (pad rows read as zero), the vertical convolution as an einsum over
+the L axis, each horizontal one over its windows with relu and a max over
+the windows, the concatenation dropped out (training only; the keep mask
+is an argument), ``relu(. @ fc1_w + fc1_b)``, and the user's embedding
+beside it: (B, 2d). Epochs come from :class:`SequentialPairwiseEpochPipeline`
+(L previous items pre-padded with N, T next items, as many negatives); a
+step takes the mean sigmoid cross-entropy over the T positives and T
+negatives of each row, averaged over the weighted rows, then one Adam step
+with ``l2_reg`` added to every gradient (``adam_l2``: the pad rows, whose
+gradient is zero, decay too). Each step's dropout mask comes from the
+epoch's step generator. ``optimizer="lazy_adam"`` is not ported yet
+(ROADMAP.md, Queue 1) and raises.
+
+Scores are ``uv @ W2.T + b2`` with row N of both zeroed: ``predict`` gives
+N + 1 columns, the last scored 0, and ``_eval_width`` is N + 1, so every
+route ranks the same columns. It is a tower: ``_topk_factors`` gives
+``(uv, W2 with row N zeroed, b2 with entry N zeroed)`` for the fused
+route.
+"""
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..convert import caser_params_from_jax
+from ..ops.initializers import get_initializer, torch_layer_default
+from ..ops.losses import sigmoid_cross_entropy
+from ..run_config import RunConfig
+from ..utils import ModelConfig
+from .common import (EpochTrainedRecommender, PadColumnTowerMixin, adam_l2,
+                     lazy_adam_not_ported, make_train_step, pad_masked_rows)
+from .pipeline import SequentialPairwiseEpochPipeline
+
+__all__ = ["Caser", "CaserConfig", "caser_user_vectors", "caser_loss",
+           "caser_keep_mask"]
+
+
+class CaserConfig(ModelConfig):
+    lr: float = 1e-3
+    l2_reg: float = 1e-6
+    embed_size: int = 64
+    seq_L: int = 5
+    seq_T: int = 3
+    nv: int = 4
+    nh: int = 16
+    dropout: float = 0.5
+    optimizer: str = "adam"          # adam | lazy_adam (not ported yet)
+    batch_size: int = 1024
+    epochs: int = 500
+    early_stop: int = 100
+
+    def _validate(self):
+        ok = (isinstance(self.lr, float) and self.lr > 0
+              and isinstance(self.l2_reg, float) and self.l2_reg >= 0
+              and self.optimizer in ("adam", "lazy_adam")
+              and isinstance(self.embed_size, int) and self.embed_size > 0
+              and isinstance(self.seq_L, int) and self.seq_L > 0
+              and isinstance(self.seq_T, int) and self.seq_T > 0
+              and isinstance(self.nv, int) and self.nv > 0
+              and isinstance(self.nh, int) and self.nh > 0
+              and isinstance(self.dropout, float)
+              and isinstance(self.batch_size, int) and self.batch_size > 0)
+        if not ok:
+            raise ValueError(f"invalid Caser config: {self}")
+
+
+def caser_keep_mask(generator: torch.Generator, batch: int,
+                    cfg: CaserConfig) -> Optional[torch.Tensor]:
+    """One step's (B, nv d + nh L) bool dropout keep mask (probability ``1
+    - dropout``), None without dropout."""
+    if cfg.dropout <= 0:
+        return None
+    width = cfg.nv * cfg.embed_size + cfg.nh * cfg.seq_L
+    return torch.rand((batch, width), generator=generator,
+                      device=generator.device) < 1 - cfg.dropout
+
+
+def caser_user_vectors(params: Dict[str, torch.Tensor], cfg: CaserConfig,
+                       pad_id: int, users: torch.Tensor, seqs: torch.Tensor,
+                       keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 2d) user vectors of ``seqs`` (B, L); ``keep`` the dropout mask
+    (None: no dropout)."""
+    b, big_l = seqs.shape
+    item_embs = pad_masked_rows(params["item_emb"], seqs, pad_id)
+    user_emb = params["user_emb"][users]
+    out_v = torch.einsum("bld,lkv->bvd", item_embs, params["conv_v"]) \
+        + params["conv_v_b"][None, :, None]
+    outs = [out_v.reshape(b, -1)]
+    for i in range(big_l):
+        h = i + 1
+        windows = torch.stack([item_embs[:, j:j + h, :]
+                               for j in range(big_l - h + 1)], dim=1)
+        conv = torch.einsum("bwhd,hdn->bwn", windows,
+                            params[f"conv_h.{i}"]) + params[f"conv_h_b.{i}"]
+        outs.append(torch.amax(torch.relu(conv), dim=1))
+    out = torch.cat(outs, dim=1)
+    if keep is not None:
+        out = torch.where(keep, out / (1 - cfg.dropout), 0.0)
+    z = torch.relu(out @ params["fc1_w"] + params["fc1_b"])
+    return torch.cat([z, user_emb], dim=1)
+
+
+def caser_loss(params: Dict[str, torch.Tensor], cfg: CaserConfig,
+               pad_id: int, users: torch.Tensor, pos: torch.Tensor,
+               neg: torch.Tensor, w: torch.Tensor, seqs: torch.Tensor,
+               keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """One batch's loss under one step's dropout mask."""
+    b = users.shape[0]
+    x = caser_user_vectors(params, cfg, pad_id, users, seqs, keep)
+    items = torch.cat([pos.reshape(b, -1), neg.reshape(b, -1)], dim=1)
+    scores = torch.einsum("btd,bd->bt",
+                          pad_masked_rows(params["W2"], items, pad_id), x) \
+        + pad_masked_rows(params["b2"], items, pad_id)
+    t = items.shape[1] // 2
+    loss = (sigmoid_cross_entropy(scores[:, :t], 1.0)
+            + sigmoid_cross_entropy(scores[:, t:], 0.0))
+    return torch.sum(torch.mean(loss, 1) * w) / torch.clamp(torch.sum(w),
+                                                            min=1.0)
+
+
+class Caser(PadColumnTowerMixin, EpochTrainedRecommender):
+
+    def __init__(self, run_config: RunConfig, model_config: Dict,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__(run_config, CaserConfig(**model_config), device)
+        cfg = self.config
+        lazy_adam_not_ported("Caser", cfg)
+        self.pad_idx = self.num_items
+        self._eval_width = self.num_items + 1
+        d, big_l = cfg.embed_size, cfg.seq_L
+        fc1_in = cfg.nv * d + cfg.nh * big_l
+        gen = torch.Generator().manual_seed(run_config.seed)
+        normal = get_initializer("normal")
+
+        def param(t):
+            return nn.Parameter(t.to(self.device))
+        self.user_emb = param(normal((self.num_users, d), gen))
+        self.item_emb = param(normal((self.num_items + 1, d), gen))
+        self.conv_v = param(torch_layer_default((big_l, 1, cfg.nv), big_l,
+                                                gen))
+        self.conv_v_b = param(torch_layer_default((cfg.nv,), big_l, gen))
+        self.conv_h = nn.ParameterList(
+            [param(torch_layer_default((i + 1, d, cfg.nh), (i + 1) * d, gen))
+             for i in range(big_l)])
+        self.conv_h_b = nn.ParameterList(
+            [param(torch_layer_default((cfg.nh,), (i + 1) * d, gen))
+             for i in range(big_l)])
+        self.fc1_w = param(torch_layer_default((fc1_in, d), fc1_in, gen))
+        self.fc1_b = param(torch_layer_default((d,), fc1_in, gen))
+        self.W2 = param(normal((self.num_items + 1, 2 * d), gen))
+        self.b2 = param(torch.zeros(self.num_items + 1))
+        self.optimizer = adam_l2(self.parameters(), cfg.lr, cfg.l2_reg)
+        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.pipeline = SequentialPairwiseEpochPipeline(
+            self.dataset.train_data, cfg.batch_size, self.device,
+            num_previous=big_l, num_next=cfg.seq_T, pad=self.pad_idx)
+        table, _ = self.dataset.train_data.to_padded_seq_tensor(
+            big_l, pad_value=self.pad_idx)
+        self.seq_table = torch.as_tensor(table.astype(np.int64),
+                                         device=self.device)
+
+    def step_keep_mask(self, batch: int) -> Optional[torch.Tensor]:
+        """The next training step's dropout mask, from the epoch's
+        generator."""
+        return caser_keep_mask(self.step_generator(), batch, self.config)
+
+    def _loss(self, users, pos, neg, w, prev, keep=None) -> torch.Tensor:
+        """The batch's loss under the dropout mask ``keep``, by default the
+        next drawn."""
+        if keep is None and self.config.dropout > 0:
+            keep = self.step_keep_mask(users.shape[0])
+        return caser_loss(dict(self.named_parameters()), self.config,
+                          self.pad_idx, users, pos, neg, w, prev, keep)
+
+    def load_jax_params(self, params: Dict) -> None:
+        """Copy a JAX Caser's ``params`` (arrays taken with ``np.asarray``)
+        into this model."""
+        self._copy_params(caser_params_from_jax(params))
+
+    def _user_vectors(self, users: torch.Tensor) -> torch.Tensor:
+        return caser_user_vectors(dict(self.named_parameters()), self.config,
+                                  self.pad_idx, users, self.seq_table[users])

@@ -16,8 +16,9 @@ from .base import TorchRecommender
 from .pipeline import epoch_generator
 
 __all__ = ["ChunkedDotPredictMixin", "FrozenEmbeddingMixin",
-           "CachedUserVecChunkMixin",
-           "EpochTrainedRecommender", "as_user_tensor", "make_optimizer",
+           "CachedUserVecChunkMixin", "PadColumnTowerMixin",
+           "EpochTrainedRecommender", "as_user_tensor", "last_items_by_time",
+           "pad_masked_rows", "lazy_adam_not_ported", "make_optimizer",
            "adam_l2", "make_train_step", "make_sharded_train_step",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
            "build_prop_graph"]
@@ -84,6 +85,34 @@ def as_user_tensor(users, device: torch.device) -> torch.Tensor:
     if isinstance(users, torch.Tensor):
         return users.to(device=device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(users, dtype=np.int64), device=device)
+
+
+def last_items_by_time(train_data) -> np.ndarray:
+    """(num_users,) int64: each user's last training item by time, 0 for a
+    user without one (FPMC, TransRec)."""
+    pairs = train_data.to_user_item_pairs_by_time()
+    last = np.zeros(train_data.num_users, dtype=np.int64)
+    # rows sorted by user: the last row of each user's run wins
+    last[pairs[:, 0]] = pairs[:, 1]
+    return last
+
+
+def pad_masked_rows(table: torch.Tensor, ids: torch.Tensor,
+                    pad_id: int) -> torch.Tensor:
+    """``table[ids]`` with the rows of ``pad_id`` read as zero and given no
+    gradient, as the JAX package's ``table.at[pad].set(0)[ids]`` (Caser,
+    HGN)."""
+    rows = table[ids]
+    keep = ids != pad_id
+    return torch.where(keep[..., None] if rows.dim() > ids.dim() else keep,
+                       rows, 0.0)
+
+
+def lazy_adam_not_ported(model: str, cfg) -> None:
+    """Caser and HGN train with dense Adam only, for now."""
+    if cfg.optimizer == "lazy_adam":
+        raise ValueError(f"optimizer='lazy_adam' is not ported for {model} "
+                         f"yet (ROADMAP.md, Queue 1); use 'adam'")
 
 
 class ChunkedDotPredictMixin:
@@ -233,6 +262,38 @@ class CachedUserVecChunkMixin:
         raise NotImplementedError("predict_topk (tensor-parallel top-k) is "
                                   "not ported yet (ROADMAP.md, Queue 1, "
                                   "parallel/)")
+
+
+class PadColumnTowerMixin(CachedUserVecChunkMixin):
+    """Scoring of the towers with a pad row (Caser, HGN): ``uv @ W2.T +
+    b2`` over N + 1 columns, row N of ``W2`` and ``b2`` (the pad, id
+    ``pad_idx`` = N) zeroed, so that ``predict`` shows the pad column with
+    score 0 and every route ranks the same N + 1 columns (``_eval_width``).
+    A subclass sets ``W2``, ``b2`` and ``pad_idx`` and implements
+    ``_user_vectors``."""
+
+    def _score_user_chunk(self, uv: torch.Tensor, item_lo: int,
+                          item_hi: int) -> torch.Tensor:
+        """Items [lo, hi) of the N + 1 columns; the pad column scores 0."""
+        live = torch.arange(item_lo, item_hi, device=uv.device) != self.pad_idx
+        return (uv @ self.W2[item_lo:item_hi].T
+                + self.b2[None, item_lo:item_hi]) * live[None, :]
+
+    def _topk_factors(self, uv):
+        w2, b2 = self.W2.detach().clone(), self.b2.detach().clone()
+        w2[self.pad_idx], b2[self.pad_idx] = 0.0, 0.0
+        return uv, w2, b2
+
+    def _jax_leaves(self) -> Dict[str, Tuple[str, bool]]:
+        """Leaves by their JAX paths (a list's entries ``conv_h/<i>``)."""
+        return {name.replace(".", "/"): (name, False)
+                for name, _ in self.named_parameters()}
+
+    @torch.no_grad()
+    def predict(self, users) -> torch.Tensor:
+        """(B, N + 1) f32 scores on the model's device, the pad column 0."""
+        uv = self._user_vectors(as_user_tensor(users, self.device))
+        return self._score_user_chunk(uv, 0, self.pad_idx + 1)
 
 
 class EpochTrainedRecommender(TorchRecommender):

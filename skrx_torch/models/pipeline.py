@@ -1,6 +1,7 @@
 """Epoch pipelines on the model's device: the port of
 ``skrx.models.pipeline`` (``PairwiseEpochPipeline``,
-``InteractionEpochPipeline``, ``UserVecEpochPipeline``).
+``SequentialPairwiseEpochPipeline``, ``InteractionEpochPipeline``,
+``UserVecEpochPipeline``).
 
 Per epoch, as in the JAX package: one permutation of the (padded) training
 examples, drawn from a generator seeded from ``(seed + 1, epoch)``; padded
@@ -18,11 +19,13 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..io.data_iterator import _generate_time_order_positive_items
 from ..io.dataset import ImplicitFeedback
 from ..ops.sampling import sample_negatives
 
-__all__ = ["PairwiseEpochPipeline", "InteractionEpochPipeline",
-           "UserVecEpochPipeline", "pad_to_batches", "epoch_generator"]
+__all__ = ["PairwiseEpochPipeline", "SequentialPairwiseEpochPipeline",
+           "InteractionEpochPipeline", "UserVecEpochPipeline",
+           "pad_to_batches", "epoch_generator"]
 
 
 def pad_to_batches(arr: np.ndarray, batch_size: int
@@ -118,17 +121,49 @@ class PairwiseEpochPipeline(InteractionEpochPipeline):
     def __init__(self, train_data: ImplicitFeedback, batch_size: int,
                  device: torch.device, num_neg: int = 1, num_trials: int = 8):
         super().__init__(train_data, batch_size, device)
+        self._init_negatives(train_data, num_neg, num_trials)
+
+    def _init_negatives(self, train_data: ImplicitFeedback, num_neg: int,
+                        num_trials: int) -> None:
         self.num_items = train_data.num_items
         self.num_neg = num_neg
         self.num_trials = num_trials
         self._pos_table = torch.as_tensor(
-            train_data.to_padded_positive_table().table, device=device)
+            train_data.to_padded_positive_table().table, device=self.device)
 
     def _batch(self, generator, idx):
         users, pos, w = super()._batch(generator, idx)
         neg = sample_negatives(generator, users, self._pos_table,
                                self.num_items, self.num_neg, self.num_trials)
         return users, pos, neg.long(), w
+
+
+class SequentialPairwiseEpochPipeline(PairwiseEpochPipeline):
+    """(users (B,), pos (B,) or (B, num_next), neg (B, num_next), weight
+    (B,), prev (B, num_previous)) batches of the examples of
+    :func:`~skrx_torch.io.data_iterator._generate_time_order_positive_items`
+    over each user's time-ordered training sequence (pre-padded with
+    ``pad`` when given), on ``device``. ``pos`` is (B,) when ``num_next``
+    is 1. Each next slot gets one negative, excluded against all of the
+    user's positives and drawn anew every epoch; ``prev`` follows the
+    epoch's permutation with the rest of the example."""
+
+    def __init__(self, train_data: ImplicitFeedback, batch_size: int,
+                 device: torch.device, num_previous: int = 1,
+                 num_next: int = 1, pad=None, num_trials: int = 8):
+        _, users, prev, nxt = _generate_time_order_positive_items(
+            train_data.to_user_dict_by_time(), num_previous=num_previous,
+            num_next=num_next, pad=pad)
+        # the examples are these windows, not the training pairs that
+        # InteractionEpochPipeline's constructor reads
+        _ShuffledEpochPipeline.__init__(self, users, batch_size, device)
+        pos = nxt if num_next > 1 else nxt[:, 0]
+        self._pos = self._put(pad_to_batches(pos, batch_size)[0])
+        self._prev = self._put(pad_to_batches(prev, batch_size)[0])
+        self._init_negatives(train_data, num_next, num_trials)
+
+    def _batch(self, generator, idx):
+        return (*super()._batch(generator, idx), self._prev[idx])
 
 
 class UserVecEpochPipeline(_ShuffledEpochPipeline):

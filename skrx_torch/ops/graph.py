@@ -12,6 +12,13 @@ same edges in both directions, through the edges' original ids. Original
 edge ids follow CSR (row-major) order for :func:`graph_from_sp_matrix`, as
 in both JAX lowerings, so one (E,) mask means the same edges in either
 package.
+
+:func:`propagate_weighted` is ``A(w) @ x`` with per-edge weights ``w``
+that are differentiable (SGAT's attention), on a :class:`WeightedGraph` of
+unit weights: the kernel scales edge e by ``w[orig_e]`` in both directions,
+and the weights' gradient ``dw_e = <g[dst_e], x[src_e]>`` is two row
+gathers and a row dot in plain PyTorch, as the JAX package computes it
+outside its kernel.
 """
 from typing import NamedTuple, Optional
 
@@ -23,7 +30,8 @@ from .kernels.segsum import Segments, build_segments, segsum
 
 __all__ = ["Graph", "graph_from_coo", "graph_from_sp_matrix",
            "transpose_graph", "propagate", "propagate_layers",
-           "edge_dropout"]
+           "edge_dropout", "WeightedGraph", "weighted_graph_from_coo",
+           "propagate_weighted"]
 
 
 class Graph(NamedTuple):
@@ -102,6 +110,67 @@ def propagate(graph: Graph, x: torch.Tensor,
     if edge_mask is not None:
         edge_mask = edge_mask.detach()
     return _Propagate.apply(x, edge_mask, graph)
+
+
+class WeightedGraph(NamedTuple):
+    """A graph of unit weights for :func:`propagate_weighted`, with its
+    edges' endpoints in original edge order (the weights' order)."""
+    graph: Graph
+    src: torch.Tensor             # (E,) int64 source row of edge e
+    dst: torch.Tensor             # (E,) int64 destination row of edge e
+
+    def to(self, device) -> "WeightedGraph":
+        return WeightedGraph(self.graph.to(device), self.src.to(device),
+                             self.dst.to(device))
+
+
+def weighted_graph_from_coo(src: np.ndarray, dst: np.ndarray,
+                            num_nodes: int,
+                            msg_dtype: torch.dtype = torch.float32,
+                            num_src_nodes: Optional[int] = None,
+                            device="cpu") -> WeightedGraph:
+    """The counterpart of ``skrx.ops.pallas.segsum_mxu.
+    weighted_mxu_graph_from_coo``: edges ``src_e -> dst_e`` of weight 1,
+    whose weights :func:`propagate_weighted` takes at each call, indexed
+    by the edges' order here."""
+    g = graph_from_coo(src, dst, np.ones(len(src), np.float32), num_nodes,
+                       msg_dtype, num_src_nodes, device)
+    return WeightedGraph(
+        g, torch.as_tensor(np.asarray(src, np.int64), device=device),
+        torch.as_tensor(np.asarray(dst, np.int64), device=device))
+
+
+class _PropagateWeighted(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, weights, wgraph):
+        ctx.wgraph = wgraph
+        ctx.save_for_backward(x, weights)
+        graph = wgraph.graph
+        return segsum(graph.fwd, x, weights, graph.msg_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wgraph = ctx.wgraph
+        graph = wgraph.graph
+        x, weights = ctx.saved_tensors
+        grad = grad.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = segsum(graph.bwd, grad, weights, graph.msg_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.sum(grad.index_select(0, wgraph.dst)
+                           * x.index_select(0, wgraph.src), dim=-1)
+        return dx, dw, None
+
+
+def propagate_weighted(wgraph: WeightedGraph, x: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """The counterpart of ``skrx.ops.pallas.segsum_mxu.
+    propagate_mxu_weighted``: ``A(w) @ x`` for x (num_src_nodes, D) f32 and
+    ``weights`` (E,) f32 in the graph's edge order, differentiable in both:
+    dx runs the kernel over A(w)^T, ``dw_e = <g[dst_e], x[src_e]>``."""
+    return _PropagateWeighted.apply(x, weights, wgraph)
 
 
 def propagate_layers(graph: Graph, x: torch.Tensor, num_layers: int,
