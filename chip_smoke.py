@@ -146,10 +146,10 @@ skrx_torch fails and it exits 1):
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
    kernels of the first 100 steps of an epoch and of one evaluate(), for
-   BPRMF (dense and lazy Adam), LightGCN, Pop, AOBPR, CML, LayerGCN,
-   LightGCL, DENS, SelfCF, CDAE and MultVAE (fused and chunked too for the
-   last three), FPMC and TransRec (dense and lazy Adam), SGAT, Caser and
-   HGN (fused too for FPMC, Caser and HGN); one
+   BPRMF (dense and lazy Adam; fused and chunked too), LightGCN and AOBPR
+   (fused too), Pop, CML, LayerGCN, LightGCL, DENS, SelfCF, CDAE and
+   MultVAE, FPMC and TransRec (dense and lazy Adam), SGAT, Caser and HGN
+   (their other routes are timed in phases 10-12); one
    BPRMF step with dense and with lazy Adam at the same batch, and
    dedup_rows at the step's 2,048 item rows.
 10. The three other pairwise graph models on the phase-3 data, each at
@@ -204,7 +204,9 @@ skrx_torch fails and it exits 1):
    previous items pre-padded, 3 next), whose every step propagates the
    whole item-transition graph through segsum with its attention as traced
    per-edge weights; Caser (d=64, L=5, T=3, nv=4, nh=16, dropout 0.5) and
-   HGN (d=64, L=5, T=3), towers over N + 1 columns (the pad scored 0).
+   HGN (d=64, L=5, T=3), towers over N + 1 columns (the pad scored 0),
+   each also one epoch with lazy Adam cut to its first 100 steps (its
+   tables' gathered rows; no table gradient formed).
    propagate_weighted on SGAT's graph with the first step's attention
    (layer 1 at the initial weights) and a seeded cotangent: the output and
    dx against segsum_plain in float64 on CPU copies (per row 1e-5 *
@@ -225,6 +227,33 @@ skrx_torch fails and it exits 1):
    top-k of its scores, no seen item. It prints each model's epoch seconds
    and steps/s, the busy share and top device kernels of the first 100
    steps of an SGAT epoch, and its seconds; it runs before phase 9, whose tables take its models.
+13. The sequence towers on the phase-3 data, each built by name at its
+   published defaults for one fit() epoch: GRU4Rec (layers [64], batch
+   128, top1) and GRU4RecPlus (bpr_max, 2,048 sampled negatives a step),
+   whose session-parallel walk (its schedule built on the host, ~5,500
+   steps) trains TF-style GRU cells; SASRec (d=64, L=50, 2 blocks, 1
+   head, dropout 0.5, batch 128); BERT4Rec (windows of 5, d=64, 2 heads,
+   2 layers, batch 256, masked-LM over the catalog, optax's clipped AdamW
+   with warm-up); SRGNN (d=64, 1 step, sessions of up to 200 items,
+   batch 256, a (256, 200, 200) adjacency a step); GRU4RecPlus's epoch
+   is cut to the first 1,000 steps of its walk. fit(): losses finite,
+   the full route's kernels launched, segsum never. One train step of
+   each on the card against the same step on CPU copies of its
+   parameters, optimizer state, batch and draws (GRU4RecPlus's negatives,
+   the dropout masks and BERT4Rec's masking uniforms drawn once;
+   BERT4Rec's schedule past its warm-up): the loss within 1e-5 relative,
+   every parameter within 1e-5 of its largest magnitude (an attention's
+   key bias, whose gradient is rounding noise, of its key weight's).
+   One bf16 step of SASRec and of BERT4Rec: finite, its loss within 5%
+   of the f32 loss of the same batch. Each model's epoch seconds and
+   steps/s, and the busy share and top device kernels of the first 100
+   steps of an epoch. evaluate() full, fused and chunked for each: each
+   route's kernels launched, metrics within 1e-4 of the full route's.
+   recommend() for 64 test users of each equal to the plain top-k of its
+   scores, no seen item, the serving kernels launched; GRU4Rec also
+   through the fused route (equal to dot_topk's plain version, its
+   kernels launched). It prints its seconds; alone: `python3
+   experiments/chip_phase13.py`.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -246,16 +275,20 @@ from skrx_torch.models.BPRMF import bprmf_lazy_train_step
 from skrx_torch.models.CDAE import cdae_draws, cdae_loss
 from skrx_torch.models.Caser import caser_keep_mask, caser_loss
 from skrx_torch.models.DENS import dens_dropout_masks, dens_loss
+from skrx_torch.models.BERT4Rec import bert4rec_draws, bert4rec_loss
 from skrx_torch.models.FPMC import fpmc_loss
+from skrx_torch.models.GRU4Rec import gru4rec_loss, walker_num_steps
 from skrx_torch.models.HGN import hgn_loss
 from skrx_torch.models.LayerGCN import layergcn_loss
 from skrx_torch.models.LightGCL import lightgcl_dropout_masks, lightgcl_loss
 from skrx_torch.models.LightGCN import lightgcn_loss
 from skrx_torch.models.MultVAE import multvae_draws, multvae_loss
+from skrx_torch.models.SASRec import sasrec_draws, sasrec_loss
 from skrx_torch.models.SGAT import sgat_attention, sgat_loss
+from skrx_torch.models.SRGNN import srgnn_loss
 from skrx_torch.models.SelfCF import selfcf_draws, selfcf_loss
 from skrx_torch.models.TransRec import transrec_loss
-from skrx_torch.models.common import make_train_step
+from skrx_torch.models.common import make_train_step, nest_params
 from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
 from skrx_torch.ops.graph import graph_from_coo, propagate_weighted
@@ -263,7 +296,7 @@ from skrx_torch.ops.kernels import _build, runtime
 from skrx_torch.ops.kernels import dot_topk as dt
 from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.kernels import topk_blocks as tb
-from skrx_torch.ops.optim import LazyAdam, dedup_rows
+from skrx_torch.ops.optim import LazyAdam, OptaxAdamW, dedup_rows
 from skrx_torch.serve import TopKRecommender
 from skrx_torch.utils.checkpoint import Checkpointer
 
@@ -303,6 +336,7 @@ FUSED = ("dot_submax", "dot_extract")
 BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
 CHUNK = 8_192
 TRAIN_WINDOW = 100                # steps of an epoch under the profiler
+WALK_WINDOW = 1_000               # steps of GRU4RecPlus's fit() epoch
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
 # F, the most survivors of a block that extract ranks directly
 # (csrc/topk_blocks.cu kRankCap)
@@ -1401,8 +1435,15 @@ def _raw_device_events(prof):
 
 def epoch_window(m, steps: int = TRAIN_WINDOW):
     """A training epoch of model m cut to its first ``steps`` steps (its
-    step count lowered for the call): the steady state of an epoch, at a
-    fraction of a long epoch's time under the profiler."""
+    step count lowered for the call; GRU4Rec's walk by its step limit):
+    the steady state of an epoch, at a fraction of a long epoch's time
+    under the profiler."""
+    if hasattr(m, "step_limit"):
+        m.step_limit = steps
+        try:
+            return m._train_epoch(99)
+        finally:
+            m.step_limit = None
     owner = getattr(m, "pipeline", m)
     full = owner.num_batches
     owner.num_batches = min(steps, full)
@@ -1693,35 +1734,52 @@ def nested_cpu(x):
     return x
 
 
-def step_card_vs_cpu(tag, m, cpu_loss, batch, masks) -> dict:
+def step_card_vs_cpu(tag, m, cpu_loss, batch, masks, card_step=None,
+                     cpu_optimizer=None, zero_grad_params=None) -> dict:
     """One train step of model m on the card against the same step on CPU
     copies of its parameters, Adam state, batch and masks:
     ``cpu_loss(params, *batch, masks)`` is the model's loss over CPU copies
     of its operators, whose propagation runs segsum's plain version (a
     model whose step draws nothing passes masks None and takes
-    ``cpu_loss(params, *batch)``). The loss within 1e-5 relative, every
-    updated parameter within 1e-5 of its largest magnitude."""
+    ``cpu_loss(params, *batch)``). ``card_step(args) -> loss`` is the
+    model's step (``m.train_step``), ``cpu_optimizer(groups)`` builds the
+    CPU copy's optimizer over param groups of the same layout (a
+    ``torch.optim.Adam`` of the model's defaults). The loss within 1e-5
+    relative, every updated parameter within 1e-5 of its largest
+    magnitude. A parameter that is a key of ``zero_grad_params`` has a
+    gradient that is 0 but for rounding (an attention's key bias, which
+    the softmax cancels), and Adam turns that noise, which differs between
+    the card and the CPU, into steps that differ as much as they are
+    large; it is held within 1e-5 of the largest magnitude of the
+    parameter its value names instead (the key weight beside it, the
+    scale at which it enters the logits)."""
     named = dict(m.named_parameters())
     by_id = {id(p): n for n, p in named.items()}
-    order = [by_id[id(p)] for g in m.optimizer.param_groups
-             for p in g["params"]]
+    groups = [[by_id[id(p)] for p in g["params"]]
+              for g in m.optimizer.param_groups]
+    order = [n for g in groups for n in g]
     params = {n: named[n].detach().cpu().clone().requires_grad_(True)
               for n in order}
-    cpu_opt = torch.optim.Adam([params[n] for n in order],
-                               **m.optimizer.defaults)
+    if cpu_optimizer is None:
+        cpu_opt = torch.optim.Adam([params[n] for n in order],
+                                   **m.optimizer.defaults)
+    else:
+        cpu_opt = cpu_optimizer([[params[n] for n in g] for g in groups])
     cpu_opt.load_state_dict(cpu_copy(m.optimizer.state_dict()))
     cpu_step = make_train_step(cpu_opt,
                                lambda *b: cpu_loss(params, *b))
     args = tuple(batch) if masks is None else (*batch, masks)
+    zero_grad_params = zero_grad_params or {}
     loss_cpu = float(cpu_step(nested_cpu(args)))
-    loss_card = float(m.train_step(args))
+    loss_card = float((card_step or m.train_step)(args))
     errs = {"loss": abs(loss_card - loss_cpu) / abs(loss_cpu)}
     require(errs["loss"] <= 1e-5, f"{tag}: loss card {loss_card} vs CPU "
             f"{loss_cpu}")
     for n in order:
         err = float((named[n].detach().cpu().double()
                      - params[n].detach().double()).abs().max())
-        scale = float(params[n].detach().abs().max())
+        scale = float(params[zero_grad_params.get(n, n)].detach().abs()
+                      .max())
         errs[n] = err
         require(err <= 1e-5 * scale + 1e-30,
                 f"{tag} {n}: card vs CPU after one step {err} (scale "
@@ -2143,6 +2201,18 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
     step_card_vs_cpu("HGN", hg, lambda p, *b: hgn_loss(p, hg.pad_idx, *b),
                      first_batch(hg), None)
     models.update(Caser=cs, HGN=hg)
+    # a lazy-Adam epoch each, cut to its first TRAIN_WINDOW steps: the
+    # tables' gathered rows, the rest dense
+    for name in ("Caser", "HGN"):
+        lazy = build(name, optimizer="lazy_adam")
+        lazy.pipeline.num_batches = TRAIN_WINDOW
+        runs.append(fit_counted(lazy, TRAIN_WINDOW, 0,
+                                f"{name} (lazy Adam)"))
+        tables = lazy.optimizer.tables
+        require(sorted(tables) == ["W2", "b2", "item_emb", "user_emb"]
+                and all(t.grad is None for t in tables.values()),
+                f"{name} (lazy Adam): no table gradient formed")
+        models[f"{name} (lazy Adam)"] = lazy
     for tag, m in models.items():
         h = m.history[0]
         print(f"{tag} epoch: train {h['train_seconds']} s "
@@ -2173,6 +2243,163 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
     print(f"phase 12: recommend() for {len(u)} users of each model equals "
           f"the plain top-k; phase 12 took {time.perf_counter() - t_phase} "
           f"s", flush=True)
+    return dict(models, runs=runs)
+
+SERVE_KERNELS = {"predict": SERVING, "fused": FUSED + ("kth_largest",
+                                                      "pruned_merge")}
+
+
+def phase_sequence_towers(path, reg, dev, card: str, errs: dict):
+    """Phase 13 (the module docstring): GRU4Rec, GRU4RecPlus, SASRec,
+    BERT4Rec and SRGNN at Gowalla scale. Returns the models and the launch
+    counts of each main-path run."""
+    t_phase = time.perf_counter()
+
+    def build(name, **over):
+        reg.load_skrx_model(name)
+        t0 = time.perf_counter()
+        m = reg.get_model(name)[0](
+            RunConfig(recommender=name, data_dir=path, seed=SEED),
+            {"epochs": 1, "early_stop": 1, **over})
+        print(f"{name} built in {time.perf_counter() - t0} s", flush=True)
+        return m
+    models, runs, steps = {}, [], {}
+    gen = torch.Generator(dev).manual_seed(SEED)
+    # GRU4Rec and GRU4RecPlus: the session-parallel walk, B = 128 rows
+    for name in ("GRU4Rec", "GRU4RecPlus"):
+        m = build(name)
+        cfg = m.config
+        require(cfg.layers == [DIM] and cfg.batch_size == 128
+                and cfg.loss == ("top1" if name == "GRU4Rec" else "bpr_max")
+                and (name == "GRU4Rec" or cfg.n_sample == 2048)
+                and m.item_emb.device == dev, f"{name} at its defaults")
+        perm = np.random.default_rng((SEED, 0)).permutation(m._n_sessions)
+        steps[name] = walker_num_steps(m._sess_lens, perm,
+                                       cfg.batch_size)[1]
+        if name == "GRU4RecPlus":     # its epoch cut to a window of the walk
+            m.step_limit = steps[name] = min(WALK_WINDOW, steps[name])
+        runs.append(fit_counted(m, steps[name], 0, name))
+        m.step_limit = None
+        in_s, out_s, _ = m.epoch_schedule(0)
+        states = [torch.randn((cfg.batch_size, n), device=dev, generator=gen)
+                  for n in cfg.layers]
+        neg = m.draw_negatives(gen)                 # None for GRU4Rec
+        step_card_vs_cpu(
+            name, m, lambda p, *b, m=m: gru4rec_loss(
+                nest_params(p), m.config, m._loss_from_logits, *b)[0],
+            (in_s[1], out_s[1], states, neg), None,
+            card_step=lambda args, m=m: m.train_step(*args)[0])
+        models[name] = m
+    print(f"GRU4Rec walks: {steps} steps an epoch; the predict scan "
+          f"{models['GRU4Rec']._pred_seq.shape[0]} steps over "
+          f"{USERS} users", flush=True)
+    # SASRec: one row a user, L = 50; a bf16 step besides the f32 ones
+    sa = build("SASRec")
+    scfg = sa.config
+    require(scfg.hidden_units == DIM and scfg.max_len == 50
+            and scfg.num_blocks == 2 and scfg.num_heads == 1
+            and scfg.dropout_rate == 0.5 and scfg.batch_size == 128,
+            "SASRec at its defaults")
+    runs.append(fit_counted(sa, sa.pipeline.num_batches, 0, "SASRec"))
+    batch = next(sa.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    draws = sasrec_draws(gen, batch[0].shape[0], scfg)
+    step_card_vs_cpu("SASRec", sa, lambda p, *b: sasrec_loss(
+        nest_params(p), scfg, sa.pad_id, *b[1:]), batch, draws,
+        zero_grad_params={f"blocks.{i}.att.k.b": f"blocks.{i}.att.k.w"
+                          for i in range(scfg.num_blocks)})
+    models["SASRec"] = sa
+    # BERT4Rec: windows of 5; its schedule past the warm-up for the
+    # comparison (one epoch's schedule has decayed to 0 at its end)
+    bt = build("BERT4Rec")
+    bcfg = bt.config
+    require((bcfg.max_seq_len, bcfg.h_size, bcfg.att_heads, bcfg.n_layers,
+             bcfg.batch_size, bcfg.verbose) == (5, DIM, 2, 2, 256, 10)
+            and bt.tok_emb.shape == (ITEMS + 2, DIM), "BERT4Rec at its "
+            "defaults")
+    runs.append(fit_counted(bt, bt.pipeline.num_batches, 0, "BERT4Rec"))
+    bt.optimizer.count = 150
+    batch = next(bt.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+    draws = bert4rec_draws(gen, batch[0].shape[0], bcfg)
+    opt = bt.optimizer
+    step_card_vs_cpu(
+        "BERT4Rec", bt, lambda p, *b: bert4rec_loss(
+            nest_params(p), bcfg, ITEMS, *b), batch, draws,
+        cpu_optimizer=lambda groups: OptaxAdamW(
+            [{"params": g, "decay": og["decay"]}
+             for g, og in zip(groups, opt.param_groups)], opt.schedule,
+            opt.b1, opt.b2, opt.eps, opt.weight_decay, opt.max_norm),
+        zero_grad_params={f"blocks.{i}.k.b": f"blocks.{i}.k.w"
+                          for i in range(bcfg.n_layers)})
+    models["BERT4Rec"] = bt
+    # one bf16 step each, against the f32 loss of the same batch and draws
+    for tag, m, draw, n_batch in (("SASRec", sa, sasrec_draws, 5),
+                                  ("BERT4Rec", bt, bert4rec_draws, 2)):
+        bb = next(m.pipeline.batches(epoch_generator(SEED + 8, 0, dev)))
+        args = (*bb[:n_batch], draw(gen, bb[0].shape[0], m.config))
+        with torch.no_grad():
+            f32 = float(m._loss(*args))
+        m.config.compute_dtype = "bfloat16"
+        try:
+            bf16 = float(m.train_step(args))
+        finally:
+            m.config.compute_dtype = "float32"
+        finite = all(bool(torch.isfinite(p).all()) for p in m.parameters())
+        print(f"{tag}: one bf16 step, loss {bf16} against f32 {f32}",
+              flush=True)
+        require(finite and abs(bf16 - f32) <= 0.05 * abs(f32),
+                f"{tag} bf16 step: loss {bf16} vs f32 {f32}")
+    # SRGNN: one example a prefix, sessions of up to 200 items
+    sr = build("SRGNN")
+    rcfg = sr.config
+    require(rcfg.hidden_size == DIM and rcfg.step == 1
+            and rcfg.max_seq_len == 200 and rcfg.batch_size == 256
+            and sr.l_max == 200, "SRGNN at its defaults")
+    print(f"SRGNN: {sr.num_examples} examples, {sr.num_batches} steps of "
+          f"{rcfg.batch_size}, sessions (l_max, n_max) = ({sr.l_max}, "
+          f"{sr.n_max})", flush=True)
+    runs.append(fit_counted(sr, sr.num_batches, 0, "SRGNN"))
+    batch = next(sr.batches(1))
+    step_card_vs_cpu("SRGNN", sr, lambda p, *b: srgnn_loss(
+        nest_params(p), rcfg, *(x.long() for x in b)), batch, None)
+    models["SRGNN"] = sr
+    for tag, m in models.items():
+        h = m.history[0]
+        n_steps = steps.get(tag) or getattr(m, "pipeline", m).num_batches
+        print(f"{tag} epoch: train {h['train_seconds']} s ({n_steps} steps, "
+              f"{n_steps / h['train_seconds']} steps/s of batch "
+              f"{m.config.batch_size}), loss {h['loss']}, evaluate() "
+              f"{h['eval_seconds']} s  [{card}]", flush=True)
+        busy, heads = busy_share(lambda: epoch_window(m), reps=1,
+                                 warm=False, top=6)
+        print(f"{tag} train epoch, its first {TRAIN_WINDOW} steps: device "
+              f"busy {busy}; top device kernels (ms, calls): {heads}  "
+              f"[{card}]", flush=True)
+    for tag, m in models.items():
+        route_runs = evaluate_routes(m, tag, ("full", "fused", "chunked"))
+        runs.extend(r[2] for r in route_runs.values())
+    # serving through predict (GRU4Rec also fused): the plain top-k, no
+    # seen item
+    u = np.fromiter(sr.evaluator.user_pos_test, np.int64)[:B_EVAL]
+    seen = sr.dataset.train_data.to_user_dict()
+    for tag, m in models.items():
+        server = TopKRecommender(m, k=K)
+        (ids, vals), launched = counted(lambda: server.recommend(u))
+        check_served(server, u, ids, vals, seen)
+        runs.append(launched)
+        for kname in SERVE_KERNELS["predict"]:
+            require(launched[kname] >= 1,
+                    f"{kname} never launched serving {tag}")
+    fsrv = TopKRecommender(models["GRU4Rec"], k=K, fused="always")
+    require(fsrv.fused, "GRU4Rec takes the fused route")
+    answer, launched = counted(lambda: serve_measured(fsrv, u))
+    check_fused_served(fsrv, *answer, seen)
+    runs.append(launched)
+    for kname in SERVE_KERNELS["fused"]:
+        require(launched[kname] >= 1,
+                f"{kname} never launched in GRU4Rec's fused serving")
+    print(f"phase 13: recommend() for {len(u)} users of each model equals "
+          f"the plain top-k (GRU4Rec's fused route too); phase 13 took "
+          f"{time.perf_counter() - t_phase} s", flush=True)
     return dict(models, runs=runs)
 
 
@@ -2536,6 +2763,10 @@ def main() -> int:
     sequential = [(f"{tag} Gowalla", p12[tag]) for tag in
                   ("FPMC", "TransRec", "SGAT", "Caser", "HGN")]
 
+    # ---- phase 13: GRU4Rec, GRU4RecPlus, SASRec, BERT4Rec, SRGNN (towers)
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 13", flush=True)
+    p13 = phase_sequence_towers(path, reg, dev, card, errs)
+
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
@@ -2653,7 +2884,7 @@ def main() -> int:
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
-                 *p10["runs"], *p11["runs"], *p12["runs"]]
+                 *p10["runs"], *p11["runs"], *p12["runs"], *p13["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:
@@ -2899,12 +3130,9 @@ def main() -> int:
         busy, heads = busy_share(m.evaluate, reps=1, warm=False, top=6)
         print(f"{tag} evaluate() device busy {busy}; top device kernels "
               f"(ms): {heads}")
+        # the models of phases 10-12 had each route timed there
         modes = {model: ("fused", "chunked"), gcn: ("fused",),
-                 ao: ("fused",), gcl: ("fused",), dn: ("fused",),
-                 sc: ("fused", "chunked"), cd: ("fused", "chunked"),
-                 mv: ("fused", "chunked"), p12["FPMC"]: ("fused",),
-                 p12["Caser"]: ("fused",),
-                 p12["HGN"]: ("fused",)}.get(m, ())
+                 ao: ("fused",)}.get(m, ())
         for mode in modes:
             (_, sec) = evaluate_as(m, mode, CHUNK)
             busy, heads = busy_share(lambda: evaluate_as(m, mode, CHUNK),

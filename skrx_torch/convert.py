@@ -15,6 +15,9 @@ __all__ = ["bprmf_params_from_jax", "two_tables_from_jax",
            "cdae_params_from_jax", "multvae_params_from_jax",
            "fpmc_params_from_jax", "transrec_params_from_jax",
            "caser_params_from_jax", "hgn_params_from_jax",
+           "flatten_jax_tree", "gru4rec_params_from_jax",
+           "sasrec_params_from_jax", "bert4rec_params_from_jax",
+           "srgnn_params_from_jax",
            "adam_state_from_jax", "lazy_adam_state_from_jax",
            "adagrad_state_from_jax"]
 
@@ -265,6 +268,127 @@ def hgn_params_from_jax(params: Dict[str, np.ndarray]
         "fg_user_b": (d,), "ig_item": (d, 1), "ig_user": (d, big_l),
         "W2": (n, d), "b2": (n,)})
     return out
+
+
+def flatten_jax_tree(params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested params tree (dicts and lists) as f32 CPU tensors by dotted
+    path, a list's entries by index (``blocks.0.att.q.w``): the names of
+    the port's nested parameters (``ParamTree``, ``nn.ModuleList``)."""
+    if isinstance(params, dict):
+        items = params.items()
+    elif isinstance(params, (list, tuple)):
+        items = enumerate(params)
+    else:
+        return {prefix: torch.from_numpy(np.array(params, dtype=np.float32))}
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in items:
+        out.update(flatten_jax_tree(value, f"{prefix}.{key}" if prefix
+                                    else str(key)))
+    return out
+
+
+def _tree_from_jax(params, want: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+    """``flatten_jax_tree(params)``, checked against the expected leaves and
+    shapes (``want``: dotted path -> shape)."""
+    out = flatten_jax_tree(params)
+    if set(out) != set(want):
+        raise ValueError(f"expected leaves {sorted(want)}, got "
+                         f"{sorted(out)}")
+    _check_shapes({k: tuple(v.shape) for k, v in out.items()}, want)
+    return out
+
+
+def _need(params: Dict, *keys: str) -> None:
+    missing = [k for k in keys if k not in params]
+    if missing:
+        raise ValueError(f"missing leaves {missing}, got {sorted(params)}")
+
+
+def _gru_cell_shapes(prefix: str, n_in: int, hid: int) -> Dict[str, tuple]:
+    return {f"{prefix}.gate_w": (n_in + hid, 2 * hid),
+            f"{prefix}.gate_b": (2 * hid,),
+            f"{prefix}.cand_w": (n_in + hid, hid),
+            f"{prefix}.cand_b": (hid,)}
+
+
+def gru4rec_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX GRU4Rec's (or GRU4RecPlus's) ``params`` as f32 CPU tensors:
+    ``input_emb`` (N, l_0), ``item_emb`` (N, l_last), ``item_bias`` (N,)
+    and each TF GRU cell ``cells.<i>.{gate_w, gate_b, cand_w, cand_b}``."""
+    _need(params, "item_bias", "cells")
+    cells = params["cells"]
+    widths = [int(np.shape(c["cand_b"])[0]) for c in cells]
+    if not widths:
+        raise ValueError("a GRU4Rec has at least one cell")
+    n = int(np.shape(params["item_bias"])[0])
+    want = {"input_emb": (n, widths[0]), "item_emb": (n, widths[-1]),
+            "item_bias": (n,)}
+    for i, hid in enumerate(widths):
+        want.update(_gru_cell_shapes(f"cells.{i}",
+                                     widths[max(i - 1, 0)], hid))
+    return _tree_from_jax(params, want)
+
+
+def _dense_shapes(prefix: str, n_in: int, n_out: int) -> Dict[str, tuple]:
+    return {f"{prefix}.w": (n_in, n_out), f"{prefix}.b": (n_out,)}
+
+
+def sasrec_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX SASRec's ``params`` as f32 CPU tensors: ``item_emb`` (N, d),
+    ``pos_emb`` (L, d), ``ln_f_s``, ``ln_f_b`` (d,) and each block's
+    ``blocks.<i>.{ln1_s, ln1_b, ln2_s, ln2_b}``, ``att.{q, k, v}.{w,
+    b}`` and ``ffn.{ff1, ff2}.{w, b}`` (d, d), (d,)."""
+    _need(params, "item_emb", "pos_emb")
+    n, d = np.shape(params["item_emb"])
+    big_l = np.shape(params["pos_emb"])[0]
+    want = {"item_emb": (n, d), "pos_emb": (big_l, d), "ln_f_s": (d,),
+            "ln_f_b": (d,)}
+    for i in range(len(params.get("blocks") or [])):
+        pre = f"blocks.{i}"
+        for name in ("ln1_s", "ln1_b", "ln2_s", "ln2_b"):
+            want[f"{pre}.{name}"] = (d,)
+        for name in ("q", "k", "v"):
+            want.update(_dense_shapes(f"{pre}.att.{name}", d, d))
+        for name in ("ff1", "ff2"):
+            want.update(_dense_shapes(f"{pre}.ffn.{name}", d, d))
+    return _tree_from_jax(params, want)
+
+
+def bert4rec_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX BERT4Rec's ``params`` as f32 CPU tensors: ``tok_emb`` (N + 2,
+    d), ``pos_emb`` (L, d), ``ln_e_s``, ``ln_e_b``, ``mlm_ln_s``,
+    ``mlm_ln_b`` (d,), ``mlm_dense.{w, b}``, ``out_bias`` (N + 2,) and each
+    block's ``blocks.<i>.{q, k, v, att_out}.{w, b}`` (d, d), ``ff1`` (d,
+    4d), ``ff2`` (4d, d) and ``{ln1, ln2}_{s, b}``."""
+    _need(params, "tok_emb", "pos_emb")
+    vocab, d = np.shape(params["tok_emb"])
+    big_l = np.shape(params["pos_emb"])[0]
+    want = {"tok_emb": (vocab, d), "pos_emb": (big_l, d), "ln_e_s": (d,),
+            "ln_e_b": (d,), "mlm_ln_s": (d,), "mlm_ln_b": (d,),
+            "out_bias": (vocab,), **_dense_shapes("mlm_dense", d, d)}
+    for i in range(len(params.get("blocks") or [])):
+        pre = f"blocks.{i}"
+        for name in ("q", "k", "v", "att_out"):
+            want.update(_dense_shapes(f"{pre}.{name}", d, d))
+        want.update(_dense_shapes(f"{pre}.ff1", d, 4 * d))
+        want.update(_dense_shapes(f"{pre}.ff2", 4 * d, d))
+        for name in ("ln1_s", "ln1_b", "ln2_s", "ln2_b"):
+            want[f"{pre}.{name}"] = (d,)
+    return _tree_from_jax(params, want)
+
+
+def srgnn_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX SRGNN's ``params`` as f32 CPU tensors: ``embedding`` (N, d),
+    ``nasr_w1``, ``nasr_w2``, ``W_in``, ``W_out`` (d, d), ``nasr_v`` (1,
+    d), ``nasr_b``, ``b_in``, ``b_out`` (d,), ``B`` (2d, d) and the TF GRU
+    cell ``gru.{gate_w, gate_b, cand_w, cand_b}`` over 2d inputs."""
+    _need(params, "embedding")
+    n, d = np.shape(params["embedding"])
+    want = {"embedding": (n, d), "nasr_w1": (d, d), "nasr_w2": (d, d),
+            "nasr_v": (1, d), "nasr_b": (d,), "W_in": (d, d), "b_in": (d,),
+            "W_out": (d, d), "b_out": (d,), "B": (2 * d, d),
+            **_gru_cell_shapes("gru", 2 * d, d)}
+    return _tree_from_jax(params, want)
 
 
 def _path_key(key: str) -> tuple:

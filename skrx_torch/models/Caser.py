@@ -41,12 +41,15 @@ from ..ops.initializers import get_initializer, torch_layer_default
 from ..ops.losses import sigmoid_cross_entropy
 from ..run_config import RunConfig
 from ..utils import ModelConfig
-from .common import (EpochTrainedRecommender, PadColumnTowerMixin, adam_l2,
-                     lazy_adam_not_ported, make_train_step, pad_masked_rows)
+from ..ops.optim import make_lazy_train_step
+from .common import (EpochTrainedRecommender, LazyAdamTowerMixin,
+                     PadColumnTowerMixin, adam_l2, make_train_step,
+                     pad_masked_rows)
 from .pipeline import SequentialPairwiseEpochPipeline
 
-__all__ = ["Caser", "CaserConfig", "caser_user_vectors", "caser_loss",
-           "caser_keep_mask"]
+__all__ = ["Caser", "CaserConfig", "caser_features", "caser_user_vectors",
+           "caser_loss", "caser_gathered_loss", "caser_keep_mask",
+           "LAZY_GATHERS"]
 
 
 class CaserConfig(ModelConfig):
@@ -58,7 +61,7 @@ class CaserConfig(ModelConfig):
     nv: int = 4
     nh: int = 16
     dropout: float = 0.5
-    optimizer: str = "adam"          # adam | lazy_adam (not ported yet)
+    optimizer: str = "adam"          # adam | lazy_adam
     batch_size: int = 1024
     epochs: int = 500
     early_stop: int = 100
@@ -89,14 +92,13 @@ def caser_keep_mask(generator: torch.Generator, batch: int,
                       device=generator.device) < 1 - cfg.dropout
 
 
-def caser_user_vectors(params: Dict[str, torch.Tensor], cfg: CaserConfig,
-                       pad_id: int, users: torch.Tensor, seqs: torch.Tensor,
-                       keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, 2d) user vectors of ``seqs`` (B, L); ``keep`` the dropout mask
+def caser_features(params: Dict[str, torch.Tensor], cfg: CaserConfig,
+                   item_embs: torch.Tensor, user_emb: torch.Tensor,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 2d) user vectors from the embeddings of the last L items (B, L,
+    d; pad rows zero) and of the users (B, d); ``keep`` the dropout mask
     (None: no dropout)."""
-    b, big_l = seqs.shape
-    item_embs = pad_masked_rows(params["item_emb"], seqs, pad_id)
-    user_emb = params["user_emb"][users]
+    b, big_l, _ = item_embs.shape
     out_v = torch.einsum("bld,lkv->bvd", item_embs, params["conv_v"]) \
         + params["conv_v_b"][None, :, None]
     outs = [out_v.reshape(b, -1)]
@@ -114,31 +116,80 @@ def caser_user_vectors(params: Dict[str, torch.Tensor], cfg: CaserConfig,
     return torch.cat([z, user_emb], dim=1)
 
 
-def caser_loss(params: Dict[str, torch.Tensor], cfg: CaserConfig,
-               pad_id: int, users: torch.Tensor, pos: torch.Tensor,
-               neg: torch.Tensor, w: torch.Tensor, seqs: torch.Tensor,
-               keep: Optional[torch.Tensor]) -> torch.Tensor:
-    """One batch's loss under one step's dropout mask."""
-    b = users.shape[0]
-    x = caser_user_vectors(params, cfg, pad_id, users, seqs, keep)
-    items = torch.cat([pos.reshape(b, -1), neg.reshape(b, -1)], dim=1)
-    scores = torch.einsum("btd,bd->bt",
-                          pad_masked_rows(params["W2"], items, pad_id), x) \
-        + pad_masked_rows(params["b2"], items, pad_id)
-    t = items.shape[1] // 2
+def caser_user_vectors(params: Dict[str, torch.Tensor], cfg: CaserConfig,
+                       pad_id: int, users: torch.Tensor, seqs: torch.Tensor,
+                       keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 2d) user vectors of ``seqs`` (B, L); ``keep`` the dropout mask
+    (None: no dropout)."""
+    return caser_features(params, cfg,
+                          pad_masked_rows(params["item_emb"], seqs, pad_id),
+                          params["user_emb"][users], keep)
+
+
+def _caser_scores_loss(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                       w: torch.Tensor) -> torch.Tensor:
+    """The mean sigmoid cross-entropy of the T positives (the first half
+    of the (B, 2T) columns) and T negatives, over the weighted rows."""
+    scores = torch.einsum("btd,bd->bt", w2, x) + b2
+    t = scores.shape[1] // 2
     loss = (sigmoid_cross_entropy(scores[:, :t], 1.0)
             + sigmoid_cross_entropy(scores[:, t:], 0.0))
     return torch.sum(torch.mean(loss, 1) * w) / torch.clamp(torch.sum(w),
                                                             min=1.0)
 
 
-class Caser(PadColumnTowerMixin, EpochTrainedRecommender):
+def _batch_items(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    b = pos.shape[0]
+    return torch.cat([pos.reshape(b, -1), neg.reshape(b, -1)], dim=1)
+
+
+def caser_loss(params: Dict[str, torch.Tensor], cfg: CaserConfig,
+               pad_id: int, users: torch.Tensor, pos: torch.Tensor,
+               neg: torch.Tensor, w: torch.Tensor, seqs: torch.Tensor,
+               keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """One batch's loss under one step's dropout mask."""
+    x = caser_user_vectors(params, cfg, pad_id, users, seqs, keep)
+    items = _batch_items(pos, neg)
+    return _caser_scores_loss(x, pad_masked_rows(params["W2"], items, pad_id),
+                              pad_masked_rows(params["b2"], items, pad_id), w)
+
+
+def caser_gathered_loss(gathered, dense: Dict[str, torch.Tensor],
+                        cfg: CaserConfig, pad_id: int, batch,
+                        keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`caser_loss` over a lazy step's gathered rows (user, the L
+    previous items, W2 and b2 of the 2T items; pad rows read as zero), as
+    the JAX package's lazy-Adam Caser."""
+    users, pos, neg, w, seqs = batch[:5]
+    ue, item_g, w2_g, b2_g = gathered
+    b, big_l = seqs.shape
+    items = _batch_items(pos, neg)
+    item_embs = torch.where((seqs == pad_id)[..., None], 0.0,
+                            item_g.reshape(b, big_l, -1))
+    w2 = torch.where((items == pad_id)[..., None], 0.0,
+                     w2_g.reshape(*items.shape, -1))
+    b2 = torch.where(items == pad_id, 0.0, b2_g.reshape(items.shape))
+    return _caser_scores_loss(caser_features(dense, cfg, item_embs, ue, keep),
+                              w2, b2, w)
+
+
+def _item_rows(batch) -> torch.Tensor:
+    return _batch_items(batch[1], batch[2]).reshape(-1)
+
+
+# the rows a lazy step gathers (Caser and HGN), in the loss's order
+LAZY_GATHERS = (("user_emb", lambda b: b[0]),
+                ("item_emb", lambda b: b[4].reshape(-1)),
+                ("W2", _item_rows), ("b2", _item_rows))
+
+
+class Caser(LazyAdamTowerMixin, PadColumnTowerMixin,
+            EpochTrainedRecommender):
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, CaserConfig(**model_config), device)
         cfg = self.config
-        lazy_adam_not_ported("Caser", cfg)
         self.pad_idx = self.num_items
         self._eval_width = self.num_items + 1
         d, big_l = cfg.embed_size, cfg.seq_L
@@ -163,8 +214,19 @@ class Caser(PadColumnTowerMixin, EpochTrainedRecommender):
         self.fc1_b = param(torch_layer_default((d,), fc1_in, gen))
         self.W2 = param(normal((self.num_items + 1, 2 * d), gen))
         self.b2 = param(torch.zeros(self.num_items + 1))
-        self.optimizer = adam_l2(self.parameters(), cfg.lr, cfg.l2_reg)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        if cfg.optimizer == "lazy_adam":
+            def loss_fn(gathered, dense, batch):
+                keep = batch[5] if len(batch) > 5 else \
+                    self.step_keep_mask(batch[0].shape[0])
+                return caser_gathered_loss(gathered, dense, cfg,
+                                           self.pad_idx, batch, keep)
+            self.train_step, (self.optimizer, self.dense_optimizer) = \
+                make_lazy_train_step(cfg.lr, LAZY_GATHERS, loss_fn,
+                                     dict(self.named_parameters()),
+                                     weight_decay=cfg.l2_reg)
+        else:
+            self.optimizer = adam_l2(self.parameters(), cfg.lr, cfg.l2_reg)
+            self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
             num_previous=big_l, num_next=cfg.seq_T, pad=self.pad_idx)

@@ -18,8 +18,10 @@ zeroed). Epochs come from :class:`SequentialPairwiseEpochPipeline` (L
 previous items pre-padded with N, T next items, as many negatives); a step
 takes the BPR loss summed over the T slots and the weighted rows, then one
 Adam step with ``reg`` added to every gradient (``adam_l2``).
-``optimizer="lazy_adam"`` is not ported yet (ROADMAP.md, Queue 1) and
-raises.
+``optimizer="lazy_adam"``: row-wise lazy Adam on ``user_emb``,
+``item_emb``, ``W2`` and ``b2`` over the rows a batch gathers (weight
+decay on those rows only), dense ``adam_l2`` on the gates, as the JAX
+package's.
 
 ``predict`` gives N + 1 columns, the last scored 0; ``_eval_width`` is
 N + 1. It is a tower: the user vector folds ``user + union + sum of the
@@ -37,11 +39,15 @@ from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
 from ..run_config import RunConfig
 from ..utils import ModelConfig
-from .common import (EpochTrainedRecommender, PadColumnTowerMixin, adam_l2,
-                     lazy_adam_not_ported, make_train_step, pad_masked_rows)
+from ..ops.optim import make_lazy_train_step
+from .Caser import LAZY_GATHERS
+from .common import (EpochTrainedRecommender, LazyAdamTowerMixin,
+                     PadColumnTowerMixin, adam_l2, make_train_step,
+                     pad_masked_rows)
 from .pipeline import SequentialPairwiseEpochPipeline
 
-__all__ = ["HGN", "HGNConfig", "hgn_forward", "hgn_loss"]
+__all__ = ["HGN", "HGNConfig", "hgn_union", "hgn_forward", "hgn_loss",
+           "hgn_gathered_loss"]
 
 
 class HGNConfig(ModelConfig):
@@ -50,7 +56,7 @@ class HGNConfig(ModelConfig):
     seq_L: int = 5
     seq_T: int = 3
     embed_size: int = 64
-    optimizer: str = "adam"          # adam | lazy_adam (not ported yet)
+    optimizer: str = "adam"          # adam | lazy_adam
     batch_size: int = 1024
     epochs: int = 1000
     early_stop: int = 100
@@ -67,6 +73,20 @@ class HGNConfig(ModelConfig):
             raise ValueError(f"invalid HGN config: {self}")
 
 
+def hgn_union(params: Dict[str, torch.Tensor], user_emb: torch.Tensor,
+              item_embs: torch.Tensor) -> torch.Tensor:
+    """(B, d) union of the feature- and instance-gated item embeddings (B,
+    L, d; pad rows zero) of users with embeddings ``user_emb`` (B, d)."""
+    gate = torch.sigmoid(
+        item_embs @ params["fg_item_w"] + params["fg_item_b"]
+        + (user_emb @ params["fg_user_w"] + params["fg_user_b"])[:, None, :])
+    gated = item_embs * gate
+    inst = torch.sigmoid((gated @ params["ig_item"])[..., 0]
+                         + user_emb @ params["ig_user"])
+    return torch.sum(gated * inst[..., None], 1) \
+        / torch.sum(inst, 1, keepdim=True)
+
+
 def hgn_forward(params: Dict[str, torch.Tensor], pad_id: int,
                 users: torch.Tensor, seqs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -74,15 +94,17 @@ def hgn_forward(params: Dict[str, torch.Tensor], pad_id: int,
     and their sequences ``seqs`` (B, L)."""
     item_embs = pad_masked_rows(params["item_emb"], seqs, pad_id)
     user_emb = params["user_emb"][users]
-    gate = torch.sigmoid(
-        item_embs @ params["fg_item_w"] + params["fg_item_b"]
-        + (user_emb @ params["fg_user_w"] + params["fg_user_b"])[:, None, :])
-    gated = item_embs * gate
-    inst = torch.sigmoid((gated @ params["ig_item"])[..., 0]
-                         + user_emb @ params["ig_user"])
-    union = torch.sum(gated * inst[..., None], 1) \
-        / torch.sum(inst, 1, keepdim=True)
-    return user_emb, item_embs, union
+    return user_emb, item_embs, hgn_union(params, user_emb, item_embs)
+
+
+def _hgn_bpr(user_emb, item_embs, union, w2, b2, w) -> torch.Tensor:
+    """The BPR loss of the T positives (the first half of the (B, 2T)
+    columns) against the T negatives, summed over the weighted rows."""
+    res = torch.einsum("btd,bd->bt", w2, user_emb) + b2
+    res = res + torch.einsum("btd,bd->bt", w2, union)
+    res = res + torch.einsum("bld,btd->bt", item_embs, w2)
+    t = res.shape[1] // 2
+    return torch.sum(torch.sum(bpr_loss(res[:, :t], res[:, t:]), 1) * w)
 
 
 def hgn_loss(params: Dict[str, torch.Tensor], pad_id: int,
@@ -92,22 +114,35 @@ def hgn_loss(params: Dict[str, torch.Tensor], pad_id: int,
     b = users.shape[0]
     user_emb, item_embs, union = hgn_forward(params, pad_id, users, seqs)
     items = torch.cat([pos.reshape(b, -1), neg.reshape(b, -1)], dim=1)
-    w2 = pad_masked_rows(params["W2"], items, pad_id)
-    res = torch.einsum("btd,bd->bt", w2, user_emb) \
-        + pad_masked_rows(params["b2"], items, pad_id)
-    res = res + torch.einsum("btd,bd->bt", w2, union)
-    res = res + torch.einsum("bld,btd->bt", item_embs, w2)
-    t = items.shape[1] // 2
-    return torch.sum(torch.sum(bpr_loss(res[:, :t], res[:, t:]), 1) * w)
+    return _hgn_bpr(user_emb, item_embs, union,
+                    pad_masked_rows(params["W2"], items, pad_id),
+                    pad_masked_rows(params["b2"], items, pad_id), w)
 
 
-class HGN(PadColumnTowerMixin, EpochTrainedRecommender):
+def hgn_gathered_loss(gathered, dense: Dict[str, torch.Tensor],
+                      pad_id: int, batch) -> torch.Tensor:
+    """:func:`hgn_loss` over a lazy step's gathered rows (user, the L
+    previous items, W2 and b2 of the 2T items; pad rows read as zero), as
+    the JAX package's lazy-Adam HGN."""
+    users, pos, neg, w, seqs = batch
+    ue, item_g, w2_g, b2_g = gathered
+    b, big_l = seqs.shape
+    items = torch.cat([pos.reshape(b, -1), neg.reshape(b, -1)], dim=1)
+    item_embs = torch.where((seqs == pad_id)[..., None], 0.0,
+                            item_g.reshape(b, big_l, -1))
+    w2 = torch.where((items == pad_id)[..., None], 0.0,
+                     w2_g.reshape(*items.shape, -1))
+    b2 = torch.where(items == pad_id, 0.0, b2_g.reshape(items.shape))
+    return _hgn_bpr(ue, item_embs, hgn_union(dense, ue, item_embs), w2, b2,
+                    w)
+
+
+class HGN(LazyAdamTowerMixin, PadColumnTowerMixin, EpochTrainedRecommender):
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, HGNConfig(**model_config), device)
         cfg = self.config
-        lazy_adam_not_ported("HGN", cfg)
         self.pad_idx = self.num_items
         self._eval_width = self.num_items + 1
         d, big_l, n_pad = cfg.embed_size, cfg.seq_L, self.num_items + 1
@@ -128,8 +163,16 @@ class HGN(PadColumnTowerMixin, EpochTrainedRecommender):
         self.ig_user = param(xavier((d, big_l), gen))
         self.W2 = param(normal((n_pad, d), gen))
         self.b2 = param(torch.zeros(n_pad))
-        self.optimizer = adam_l2(self.parameters(), cfg.lr, cfg.reg)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        if cfg.optimizer == "lazy_adam":
+            def loss_fn(gathered, dense, batch):
+                return hgn_gathered_loss(gathered, dense, self.pad_idx, batch)
+            self.train_step, (self.optimizer, self.dense_optimizer) = \
+                make_lazy_train_step(cfg.lr, LAZY_GATHERS, loss_fn,
+                                     dict(self.named_parameters()),
+                                     weight_decay=cfg.reg)
+        else:
+            self.optimizer = adam_l2(self.parameters(), cfg.lr, cfg.reg)
+            self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
             num_previous=big_l, num_next=cfg.seq_T, pad=self.pad_idx)

@@ -9,21 +9,123 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch import nn
 
+from ..convert import adam_state_from_jax, lazy_adam_state_from_jax
 from ..ops.graph import Graph, graph_from_sp_matrix
 from ..ops.optim import LazyAdam
 from .base import TorchRecommender
 from .pipeline import epoch_generator
 
-__all__ = ["ChunkedDotPredictMixin", "FrozenEmbeddingMixin",
+__all__ = ["ParamTree", "param_tree", "add_param_tree", "cast_tree",
+           "nest_params", "NestedParamsMixin",
+           "gather_rows", "dotted_jax_leaves",
+           "ChunkedDotPredictMixin", "FrozenEmbeddingMixin",
            "CachedUserVecChunkMixin", "PadColumnTowerMixin",
            "EpochTrainedRecommender", "as_user_tensor", "last_items_by_time",
-           "pad_masked_rows", "lazy_adam_not_ported", "make_optimizer",
+           "pad_masked_rows", "LazyAdamTowerMixin", "make_optimizer",
            "adam_l2", "make_train_step", "make_sharded_train_step",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
            "build_prop_graph"]
 
 GRAPH_IMPLS = ("auto", "segment", "mxu", "mxu_bf16")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of parameters as a module: ``tree["att"]["q"]["w"]``
+    reads as the JAX package's params do, and ``named_parameters`` gives
+    the dotted path (``att.q.w``)."""
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+def param_tree(tree, device) -> Union[nn.Module, nn.Parameter]:
+    """Parameters on ``device`` from a nested dict (a :class:`ParamTree`)
+    or list (an ``nn.ModuleList``) of CPU tensors."""
+    if isinstance(tree, torch.Tensor):
+        return nn.Parameter(tree.to(device))
+    if isinstance(tree, (list, tuple)):
+        return nn.ModuleList([param_tree(v, device) for v in tree])
+    return add_param_tree(ParamTree(), tree, device)
+
+
+def add_param_tree(module: nn.Module, tree: Dict, device) -> nn.Module:
+    """Register the entries of the nested dict ``tree`` on ``module``
+    (:func:`param_tree`), so that its parameters carry the tree's paths."""
+    for key, value in tree.items():
+        child = param_tree(value, device)
+        if isinstance(child, nn.Parameter):
+            module.register_parameter(key, child)
+        else:
+            module.add_module(key, child)
+    return module
+
+
+def cast_tree(tree, dtype: Optional[torch.dtype] = None):
+    """A module's or nested dict's parameters as nested dicts and lists of
+    tensors, the f32 ones cast to ``dtype`` (differentiably; None keeps
+    them): the JAX package's mixed precision, f32 master weights and
+    ``dtype`` compute."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if dtype is not None \
+            and tree.dtype == torch.float32 else tree
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return [cast_tree(v, dtype) for v in tree]
+    if isinstance(tree, nn.Module):
+        items = [*tree.named_parameters(recurse=False),
+                 *tree.named_children()]
+    else:
+        items = tree.items()
+    return {key: cast_tree(value, dtype) for key, value in items}
+
+
+def nest_params(flat: Dict[str, torch.Tensor]):
+    """Tensors by dotted name (``blocks.0.att.q.w``, as ``named_parameters``
+    gives them) as nested dicts, a run of numbered keys as a list."""
+    root: Dict = {}
+    for name, value in flat.items():
+        node = root
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(root)
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (ids of any shape) by ``index_select``, whose gradient
+    is one ``index_add_`` (the indexing gradient sorts its indices)."""
+    rows = torch.index_select(table, 0, ids.reshape(-1))
+    return rows.reshape(*ids.shape, *table.shape[1:])
+
+
+def dotted_jax_leaves(model: nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """A model's parameters by their JAX paths: the dotted names with
+    ``/`` (a list's entries ``cells/<i>``), none transposed."""
+    return {name.replace(".", "/"): (name, False)
+            for name, _ in model.named_parameters()}
+
+
+class NestedParamsMixin:
+    """A model whose parameters carry the JAX package's nested paths
+    (``blocks.0.att.q.w``; ``conv_h.<i>``): its leaves by JAX path for the
+    Adam state, and its parameters as the nested tree the functional
+    losses take."""
+
+    def _jax_leaves(self) -> Dict[str, Tuple[str, bool]]:
+        return dotted_jax_leaves(self)
+
+    def params_tree(self):
+        """The parameters as the JAX package's nested tree."""
+        return cast_tree(self)
 
 
 def make_optimizer(name: str, params: Dict[str, torch.nn.Parameter],
@@ -106,13 +208,6 @@ def pad_masked_rows(table: torch.Tensor, ids: torch.Tensor,
     keep = ids != pad_id
     return torch.where(keep[..., None] if rows.dim() > ids.dim() else keep,
                        rows, 0.0)
-
-
-def lazy_adam_not_ported(model: str, cfg) -> None:
-    """Caser and HGN train with dense Adam only, for now."""
-    if cfg.optimizer == "lazy_adam":
-        raise ValueError(f"optimizer='lazy_adam' is not ported for {model} "
-                         f"yet (ROADMAP.md, Queue 1); use 'adam'")
 
 
 class ChunkedDotPredictMixin:
@@ -264,7 +359,7 @@ class CachedUserVecChunkMixin:
                                   "parallel/)")
 
 
-class PadColumnTowerMixin(CachedUserVecChunkMixin):
+class PadColumnTowerMixin(NestedParamsMixin, CachedUserVecChunkMixin):
     """Scoring of the towers with a pad row (Caser, HGN): ``uv @ W2.T +
     b2`` over N + 1 columns, row N of ``W2`` and ``b2`` (the pad, id
     ``pad_idx`` = N) zeroed, so that ``predict`` shows the pad column with
@@ -284,16 +379,52 @@ class PadColumnTowerMixin(CachedUserVecChunkMixin):
         w2[self.pad_idx], b2[self.pad_idx] = 0.0, 0.0
         return uv, w2, b2
 
-    def _jax_leaves(self) -> Dict[str, Tuple[str, bool]]:
-        """Leaves by their JAX paths (a list's entries ``conv_h/<i>``)."""
-        return {name.replace(".", "/"): (name, False)
-                for name, _ in self.named_parameters()}
-
     @torch.no_grad()
     def predict(self, users) -> torch.Tensor:
         """(B, N + 1) f32 scores on the model's device, the pad column 0."""
         uv = self._user_vectors(as_user_tensor(users, self.device))
         return self._score_user_chunk(uv, 0, self.pad_idx + 1)
+
+
+class LazyAdamTowerMixin:
+    """The state of a model with ``optimizer="lazy_adam"`` whose tables
+    step under :class:`~skrx_torch.ops.optim.LazyAdam` (``self.optimizer``)
+    and whose other parameters under dense Adam (``self.dense_optimizer``,
+    as ``make_lazy_train_step`` returns them; Caser, HGN): checkpoints
+    hold both, and JAX's ``opt_state`` converts."""
+
+    def _train_state(self) -> Dict:
+        state = super()._train_state()
+        if self.config.optimizer == "lazy_adam":
+            state["dense_optimizer"] = self.dense_optimizer.state_dict()
+        return state
+
+    def _load_train_state(self, state: Dict) -> None:
+        super()._load_train_state(state)
+        if "dense_optimizer" in state:
+            self.dense_optimizer.load_state_dict(state["dense_optimizer"])
+
+    def load_jax_opt_state(self, *state) -> None:
+        """Dense Adam: ``(count, mu, nu)``, as the base class. Lazy Adam:
+        JAX's ``opt_state`` as ``(lazy, (count, mu, nu))``: a dict of one
+        ``LazyAdamState`` (m, v, counts) per table, and the dense Adam
+        state of the other leaves (``mu``, ``nu`` raveled in JAX's
+        order)."""
+        if self.config.optimizer != "lazy_adam":
+            super().load_jax_opt_state(*state)
+            return
+        lazy, (count, mu, nu) = state
+        self.optimizer.load_state_dict(
+            {name: lazy_adam_state_from_jax(*s) for name, s in lazy.items()})
+        leaves = {key: name for key, (name, _) in dotted_jax_leaves(
+            self).items() if name not in self.optimizer.tables}
+        shapes = {key: tuple(self.get_parameter(name).shape)
+                  for key, name in leaves.items()}
+        for key, st in adam_state_from_jax(count, mu, nu, shapes).items():
+            self.dense_optimizer.state[self.get_parameter(leaves[key])] = {
+                "step": st["step"],
+                "exp_avg": st["exp_avg"].to(self.device),
+                "exp_avg_sq": st["exp_avg_sq"].to(self.device)}
 
 
 class EpochTrainedRecommender(TorchRecommender):

@@ -25,6 +25,7 @@ from ..ops.sampling import sample_negatives
 
 __all__ = ["PairwiseEpochPipeline", "SequentialPairwiseEpochPipeline",
            "InteractionEpochPipeline", "UserVecEpochPipeline",
+           "RowsEpochPipeline",
            "pad_to_batches", "epoch_generator"]
 
 
@@ -193,3 +194,17 @@ class UserVecEpochPipeline(_ShuffledEpochPipeline):
     def _batch(self, generator, idx):
         users = self._users[idx]
         return users, self.rows_for(users), self._w[idx]
+
+
+class RowsEpochPipeline(_ShuffledEpochPipeline):
+    """(rows[0] (B, ...), rows[1] (B, ...), ..., weight (B,)) batches of
+    per-example integer rows, padded with weight 0, on ``device``: SASRec's
+    (user, input sequence, target sequence), BERT4Rec's windows."""
+
+    def __init__(self, rows, batch_size: int, device: torch.device):
+        super().__init__(rows[0], batch_size, device)
+        self._rows = [self._users] + [
+            self._put(pad_to_batches(r, batch_size)[0]) for r in rows[1:]]
+
+    def _batch(self, generator, idx):
+        return (*(r[idx] for r in self._rows), self._w[idx])

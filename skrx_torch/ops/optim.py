@@ -16,14 +16,24 @@ move and caches keyed on them (serving's packed table) see the step. The
 loss is taken over gathered rows (leaf tensors), so no (N, d) gradient or
 moment update is ever formed. Plain PyTorch: no kernel until the card shows
 a need.
+
+Beside them, optax's pieces that BERT4Rec and SRGNN train with, written
+out because torch's differ: ``clip_by_global_norm`` (torch's
+``clip_grad_norm_`` adds 1e-6 to the norm and always rescales), the
+warm-up and linear decay schedule indexed by update count (the first
+update has lr 0; ``LambdaLR`` steps after the update), ``OptaxAdamW``
+(``optax.adamw``: Adam, then the decayed weights of the masked leaves,
+then the schedule) and the staircase exponential decay.
 """
+import math
 from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
 __all__ = ["LazyAdamState", "lazy_adam_init", "dedup_rows",
            "lazy_adam_row_update", "LazyAdam", "make_lazy_train_step",
-           "OptaxAdagrad"]
+           "OptaxAdagrad", "clip_by_global_norm_", "warmup_linear_decay",
+           "staircase_exponential_decay", "OptaxAdamW"]
 
 
 class LazyAdamState(NamedTuple):
@@ -247,3 +257,112 @@ class OptaxAdagrad(torch.optim.Optimizer):
                                   torch.zeros_like(acc))
                 p.add_(-group["lr"] * (inv * g))
         return None
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Sequence[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm``, in place: the gradients are left as
+    they are when their global norm is below ``max_norm``, else scaled by
+    ``max_norm / norm``. Returns the norm (a device scalar; nothing waits
+    on the host)."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.where(norm < max_norm,
+                                           torch.ones_like(norm),
+                                           max_norm / norm))
+    return norm
+
+
+def warmup_linear_decay(lr: float, warmup: int, total: int
+                        ) -> Callable[[int], float]:
+    """optax's ``join_schedules([linear_schedule(0, lr, warmup),
+    linear_schedule(lr, 0, max(total - warmup, 1))], [warmup])``: the lr
+    of the update after ``count`` updates (count 0: lr 0)."""
+    decay = max(total - warmup, 1)
+
+    def schedule(count: int) -> float:
+        if count < warmup:
+            return lr * count / warmup
+        return lr - lr * min(count - warmup, decay) / decay
+    return schedule
+
+
+def staircase_exponential_decay(lr: float, steps: int, rate: float
+                                ) -> Callable[[int], float]:
+    """``optax.exponential_decay(lr, steps, rate, staircase=True)``: the
+    lr of the update after ``count`` updates."""
+    if steps <= 0 or rate == 0:
+        return lambda count: lr
+    return lambda count: lr * rate ** math.floor(count / steps)
+
+
+class OptaxAdamW(torch.optim.Optimizer):
+    """``optax.chain(clip_by_global_norm(max_norm), optax.adamw(schedule,
+    b1, b2, eps, weight_decay, mask))``: the gradients clipped by their
+    global norm over every parameter, then per parameter ``m / c1 /
+    (sqrt(v / c2) + eps)``, plus ``weight_decay * p`` on the parameters of
+    groups with ``decay`` True, times ``-schedule(count)``, where
+    ``count`` is the number of updates before this one (the first takes
+    ``schedule(0)``). ``torch.optim.AdamW`` decays before the moments'
+    step and scales the decay by lr alone; this is optax's order.
+    ``max_norm`` None skips the clip."""
+
+    def __init__(self, groups, schedule: Callable[[int], float],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.0, max_norm=None):
+        super().__init__(groups, dict(decay=True))
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.max_norm = weight_decay, max_norm
+        self.count = 0
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["exp_avg"] = torch.zeros_like(p)
+                self.state[p]["exp_avg_sq"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdamW takes no closure")
+        params = [p for g in self.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.max_norm is not None:
+            clip_by_global_norm_([p.grad for p in params], self.max_norm)
+        t = self.count + 1
+        # optax's bias corrections, 1 - b ** t in f32
+        c1 = float(1 - torch.tensor(self.b1, dtype=torch.float32) ** t)
+        c2 = float(1 - torch.tensor(self.b2, dtype=torch.float32) ** t)
+        lr = float(self.schedule(self.count))
+        for group in self.param_groups:
+            ps = group["params"]
+            if not ps:
+                continue
+            grads = [p.grad for p in ps]
+            ms = [self.state[p]["exp_avg"] for p in ps]
+            vs = [self.state[p]["exp_avg_sq"] for p in ps]
+            torch._foreach_mul_(ms, self.b1)
+            torch._foreach_add_(ms, grads, alpha=1 - self.b1)
+            torch._foreach_mul_(vs, self.b2)
+            torch._foreach_addcmul_(vs, grads, grads, value=1 - self.b2)
+            denom = torch._foreach_div(vs, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            upd = torch._foreach_div(ms, c1)
+            torch._foreach_div_(upd, denom)
+            if group["decay"] and self.weight_decay:
+                torch._foreach_add_(upd, ps, alpha=self.weight_decay)
+            torch._foreach_add_(ps, upd, alpha=-lr)
+        self.count = t
+        return None
+
+    def state_dict(self):
+        state = super().state_dict()
+        state["count"] = self.count
+        return state
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)

@@ -7,8 +7,11 @@ within rtol 1e-5 / atol 1e-6. predict over the N + 1 columns within rtol
 chunked), and recommend() equal to JAX's, on a dataset with one user whose
 seen row is full (column N, the pad, can be recommended with score 0) and
 users whose rows are padded (column N masked); the Adam state from JAX's
-order (``conv_h/<i>``); config, registry, converters, ``lazy_adam``
-refused, and fit() with checkpoint and resume."""
+order (``conv_h/<i>``); two ``optimizer="lazy_adam"`` steps (lazy Adam on
+the tables' gathered rows from JAX's random per-table state, dense Adam
+with weight decay on the rest from JAX's random moments; Caser with JAX's
+dropout masks) within the same tolerance; config, registry, converters,
+and fit() with checkpoint and resume (also with lazy Adam)."""
 import os
 
 import numpy as np
@@ -191,6 +194,85 @@ def test_adam_state_from_jax_order(build):
                                       2 * want[name].numpy())
 
 
+def _lazy_state(rng, shape):
+    from skrx.ops import optim as joptim
+    return joptim.LazyAdamState(
+        jnp.asarray(rng.standard_normal(shape).astype(np.float32) * 0.05),
+        jnp.asarray(rng.uniform(1e-3, 1e-2, shape).astype(np.float32)),
+        jnp.asarray(rng.integers(0, 5, shape[0]).astype(np.int32)))
+
+
+def _dense_state(dense_state, dense_params, rng, count):
+    """JAX's dense Adam state (``adam_l2``'s chain) with random moments at
+    ``count``, and (count, mu, nu) raveled in JAX's order."""
+    from jax.flatten_util import ravel_pytree
+    flat, unravel = ravel_pytree(dense_params)
+    mu = rng.standard_normal(flat.shape[0]).astype(np.float32) * 0.05
+    nu = rng.uniform(1e-3, 1e-2, flat.shape[0]).astype(np.float32)
+
+    def fill(st):
+        if not hasattr(st, "_fields"):
+            return tuple(fill(x) for x in st)
+        if "mu" in st._fields:
+            return st._replace(count=jnp.asarray(count, jnp.int32),
+                               mu=unravel(mu), nu=unravel(nu))
+        return st
+    return fill(dense_state), (count, mu, nu)
+
+
+@pytest.mark.parametrize("name,dropout", [("Caser", 0.5), ("Caser", 0.0),
+                                          ("HGN", None)])
+def test_lazy_adam_steps_match_jax(build, name, dropout):
+    over = dict(optimizer="lazy_adam")
+    if dropout is not None:
+        over.update(dropout=dropout)
+    jm, tm = build(name, **over)
+    convert = MODELS[name][4]
+    rng = np.random.default_rng(12)
+    params = _set_weights(name, jm, tm, rng)
+    lazy, dense = jm.opt_state
+    lazy = {k: _lazy_state(rng, params[k].shape) for k in lazy}
+    dense_params = {k: v for k, v in jm.params.items() if k not in lazy}
+    dense, flat_dense = _dense_state(dense, dense_params, rng, 2)
+    tm.load_jax_opt_state(lazy, flat_dense)
+    assert sorted(tm.optimizer.tables) == ["W2", "b2", "item_emb",
+                                           "user_emb"]
+    carry = (jm.params, (lazy, dense))
+    gen = epoch_generator(3, 0, torch.device("cpu"))
+    width = tm.config.nv * DIM + tm.config.nh * L if name == "Caser" else 0
+    key = jax.random.key(9)
+    for batch in list(tm.pipeline.batches(gen))[:2]:
+        jbatch = tuple(jnp.asarray(x.numpy().astype(
+            np.float32 if x.dtype == torch.float32 else np.int32))
+            for x in batch)
+        if name == "Caser":
+            (p, state, key2), ref_loss = jax.jit(jm._step_with_key)(
+                (*carry, key), jbatch)
+            keep = None
+            if dropout:
+                keep = torch.from_numpy(np.array(jax.random.bernoulli(
+                    jax.random.split(key)[1], 1 - dropout, (16, width))))
+            key = key2
+            loss = tm.train_step((*batch, keep))
+        else:
+            (p, state), ref_loss = jax.jit(jm._train_step)(carry, jbatch)
+            loss = tm.train_step(batch)
+        carry = (p, state)
+        np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    ref = convert(jax.tree_util.tree_map(np.asarray, carry[0]))
+    start = convert(params)
+    got = dict(tm.named_parameters())
+    for key_, value in ref.items():
+        np.testing.assert_allclose(got[key_].detach().numpy(),
+                                   value.numpy(), **TOL, err_msg=key_)
+        assert not np.array_equal(value.numpy(), start[key_].numpy()), key_
+    for table, st in carry[1][0].items():        # the lazy state too
+        live = tm.optimizer.states[table]
+        np.testing.assert_array_equal(live.counts.numpy(),
+                                      np.asarray(st.counts))
+        np.testing.assert_allclose(live.m.numpy(), np.asarray(st.m), **TOL)
+
+
 @pytest.mark.parametrize("name", ["Caser", "HGN"])
 def test_predict_routes_and_recommend_match_jax(build, name):
     """b2 shifted to -2: the pad column (score 0) outranks most items, so
@@ -254,9 +336,11 @@ def test_config_registry_converters_and_fit(build, name, tmp_path,
     monkeypatch.chdir(tmp_path)
     run = dict(data_dir=tm.dataset.data_dir, seed=1, top_k=(10,),
                checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        cls(RunConfig(**run), dict(small, optimizer="lazy_adam"),
-            device="cpu")
+    lazy = cls(RunConfig(**dict(run, checkpoint_dir=str(tmp_path / "lz"))),
+               dict(small, optimizer="lazy_adam", epochs=1), device="cpu")
+    lazy.fit()
+    assert np.isfinite(lazy.history[0]["loss"])
+    assert "dense_optimizer" in lazy._train_state()
     m = cls(RunConfig(**run), dict(small, epochs=2), device="cpu")
     if name == "Caser":                 # each step's mask from stream 1
         drawn = []
