@@ -254,10 +254,40 @@ skrx_torch fails and it exits 1):
    through the fused route (equal to dot_topk's plain version, its
    kernels launched). It prints its seconds; alone: `python3
    experiments/chip_phase13.py`.
+14. The multimodal models on the phase-3 data with 4,096-d image and
+   384-d text item features written by the port's generator. The kNN
+   selection (row chunks of the normalised features' similarities, each
+   row's top 10 by blockwise_topk, kernels #1-#4) of both tables, timed,
+   against float64 on the CPU on 256 sampled rows: a neighbour may differ
+   only where its similarity is within 1e-5 of the row's 10th; the
+   selected similarities within 1e-5 of float64. BM3 (d=64, 1 layer,
+   dropout 0.3, cl_weight 2.0), SLMRec (d=64, 3 layers, FAC, concat,
+   "pre"), FREEDOM (d=64, k=10, 1 item-graph and 2 user-item layers,
+   image weight 0.1, dropout 0.8), MGCN (d=64, 2 user-item and 1 item
+   layers, k=10, cl 0.001) and LATTICE (d=64, k=10, lambda 0.9, 1 layer,
+   lightgcn, lr 1e-4), each built by name at its defaults with batch
+   2,048 (its kNN graphs built on the card, launches counted) for one
+   fit() epoch: losses finite, segsum launched exactly its propagations
+   forward and backward each step and once an evaluation, LATTICE's
+   learned graph through blockwise_topk (pruned_merge launched in its
+   fit()). One train step of each on the card against the same step on
+   CPU copies of its parameters, Adam state, batch and draws (BM3's
+   table-wide target masks, FREEDOM's epoch mask, MGCN at its LambdaLR
+   rate; LATTICE's epoch-first step, the item weights built with gradient
+   on the card's selection of neighbours): the loss within 1e-5
+   relative, every parameter within 1e-5 of its largest magnitude.
+   evaluate() full, fused and chunked (SLMRec, whose score is a sigmoid,
+   full and chunked): each route's kernels launched, metrics within 1e-4
+   of the full route's. recommend() for 64 test users of each equal to
+   the plain top-k of its scores, no seen item. Each model's epoch
+   seconds and steps/s, the busy share and top device kernels of the
+   first 100 steps of an epoch, LATTICE's peak device memory, and the
+   phase's seconds; alone: `python3 experiments/chip_phase14.py`.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import os
 import shutil
@@ -270,21 +300,26 @@ import torch
 
 from skrx_torch import ModelRegistry, RunConfig
 from skrx_torch.eval import EarlyStopping
-from skrx_torch.io import synthetic
+from skrx_torch.io import RSDataset, synthetic
 from skrx_torch.models.BPRMF import bprmf_lazy_train_step
 from skrx_torch.models.CDAE import cdae_draws, cdae_loss
 from skrx_torch.models.Caser import caser_keep_mask, caser_loss
 from skrx_torch.models.DENS import dens_dropout_masks, dens_loss
 from skrx_torch.models.BERT4Rec import bert4rec_draws, bert4rec_loss
+from skrx_torch.models.BM3 import bm3_draws, bm3_loss
+from skrx_torch.models.FREEDOM import freedom_loss
 from skrx_torch.models.FPMC import fpmc_loss
 from skrx_torch.models.GRU4Rec import gru4rec_loss, walker_num_steps
 from skrx_torch.models.HGN import hgn_loss
+from skrx_torch.models.LATTICE import lattice_item_graph, lattice_loss
 from skrx_torch.models.LayerGCN import layergcn_loss
 from skrx_torch.models.LightGCL import lightgcl_dropout_masks, lightgcl_loss
 from skrx_torch.models.LightGCN import lightgcn_loss
+from skrx_torch.models.MGCN import MGCNGraphs, mgcn_loss
 from skrx_torch.models.MultVAE import multvae_draws, multvae_loss
 from skrx_torch.models.SASRec import sasrec_draws, sasrec_loss
 from skrx_torch.models.SGAT import sgat_attention, sgat_loss
+from skrx_torch.models.SLMRec import slmrec_draws, slmrec_loss
 from skrx_torch.models.SRGNN import srgnn_loss
 from skrx_torch.models.SelfCF import selfcf_draws, selfcf_loss
 from skrx_torch.models.TransRec import transrec_loss
@@ -295,6 +330,7 @@ from skrx_torch.ops.graph import graph_from_coo, propagate_weighted
 from skrx_torch.ops.kernels import _build, runtime
 from skrx_torch.ops.kernels import dot_topk as dt
 from skrx_torch.ops.kernels import segsum as ss
+from skrx_torch.ops.mm_graph import knn_select
 from skrx_torch.ops.kernels import topk_blocks as tb
 from skrx_torch.ops.optim import LazyAdam, OptaxAdamW, dedup_rows
 from skrx_torch.serve import TopKRecommender
@@ -337,6 +373,8 @@ BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
 CHUNK = 8_192
 TRAIN_WINDOW = 100                # steps of an epoch under the profiler
 WALK_WINDOW = 1_000               # steps of GRU4RecPlus's fit() epoch
+IMG_DIM, TXT_DIM = 4_096, 384     # VGG image, sentence-transformer text
+KNN_K, KNN_ROWS = 10, 256         # the kNN graphs' k; rows held to float64
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
 # F, the most survivors of a block that extract ranks directly
 # (csrc/topk_blocks.cu kRankCap)
@@ -2403,6 +2441,236 @@ def phase_sequence_towers(path, reg, dev, card: str, errs: dict):
     return dict(models, runs=runs)
 
 
+def check_knn(tag, feats: np.ndarray, sims, ids, rng) -> dict:
+    """The card's kNN selection (``sims``, ``ids`` (N, k)) of ``feats``
+    against float64 on the CPU on KNN_ROWS sampled rows: a row's neighbour
+    set may differ from the float64 top k only by neighbours whose float64
+    similarity lies within 1e-5 of the row's k-th (near ties, which f32
+    rounding may order either way); each selected similarity is within
+    1e-5 of its float64 value."""
+    n, k = ids.shape
+    rows = np.sort(rng.choice(n, KNN_ROWS, replace=False))
+    f64 = feats.astype(np.float64)
+    norm = f64 / (np.linalg.norm(f64, axis=1, keepdims=True) + 1e-12)
+    ref = norm[rows] @ norm.T                        # (rows, N) float64
+    kth = -np.partition(-ref, k - 1, axis=1)[:, k - 1]
+    pick = torch.as_tensor(rows, device=ids.device)
+    got_ids, got_sims = ids[pick].cpu().numpy(), sims[pick].cpu().numpy()
+    differ, gap, worst = 0, 0.0, 0.0
+    for r in range(len(rows)):
+        odd = set(np.flatnonzero(ref[r] >= kth[r]).tolist()) \
+            ^ set(got_ids[r].tolist())
+        differ += bool(odd)
+        for item in odd:
+            gap = max(gap, abs(ref[r, item] - kth[r]))
+        worst = max(worst, float(np.abs(got_sims[r]
+                                        - ref[r, got_ids[r]]).max()))
+    require(gap <= 1e-5, f"{tag}: a neighbour {gap} from the k-th "
+            f"similarity differs from float64's")
+    require(worst <= 1e-5, f"{tag}: similarities off float64 by {worst}")
+    return {"rows_differing": differ, "largest_gap_of_a_differing_"
+            "neighbour": gap, "largest_similarity_error": worst}
+
+
+def phase_multimodal(path, reg, dev, card: str, errs: dict):
+    """Phase 14 (the module docstring): the item features, their kNN
+    graphs and BM3, SLMRec, FREEDOM, MGCN and LATTICE at Gowalla scale.
+    Returns the launch counts of each main-path run."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    synthetic.write_mm_features(path, ITEMS, SEED, IMG_DIM, TXT_DIM)
+    data = RSDataset(path, "\t", "UIRT")
+    feats = {"image": data.img_features, "text": data.txt_features}
+    require(feats["image"].shape == (ITEMS, IMG_DIM)
+            and feats["text"].shape == (ITEMS, TXT_DIM), "feature tables")
+    print(f"item features {IMG_DIM} + {TXT_DIM} wide written and read in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    rng = np.random.default_rng(SEED + 14)
+    runs = []
+    for tag, x in feats.items():
+        x_dev = torch.as_tensor(x, device=dev)
+        (sims, ids), launched = counted(lambda: knn_select(x_dev, KNN_K))
+        (_, sec) = timed(lambda: knn_select(x_dev, KNN_K))
+        for kname in SERVING:
+            require(launched[kname] >= 1, f"{kname} never launched in the "
+                    f"{tag} kNN selection")
+        t0 = time.perf_counter()
+        report = check_knn(tag, x, sims, ids, rng)
+        print(f"kNN selection of the {tag} table ({ITEMS} x {x.shape[1]}, "
+              f"k={KNN_K}): {sec} s on the card; launches {launched}; "
+              f"against float64 on {KNN_ROWS} rows ({time.perf_counter() - t0}"
+              f" s on the host): {report}  [{card}]", flush=True)
+        del x_dev, sims, ids
+    del feats, data
+
+    def build(name, **want):
+        reg.load_skrx_model(name)
+        t0 = time.perf_counter()
+        m, launched = counted(lambda: reg.get_model(name)[0](
+            RunConfig(recommender=name, data_dir=path, seed=SEED),
+            {"epochs": 1, "early_stop": 1}))
+        cfg = m.config.to_dict()
+        require(all(cfg[k] == v for k, v in want.items())
+                and cfg["batch_size"] == 2048 and m.item_emb.device == dev,
+                f"{name} at its defaults: {cfg}")
+        print(f"{name} built in {time.perf_counter() - t0} s (its kNN "
+              f"graphs included); launches {launched}", flush=True)
+        runs.append(launched)
+        return m
+
+    def first_batch(m):
+        return next(m.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
+
+    def finish(tag, m, props, modes, step):
+        """fit(), one step card vs CPU, the evaluate() routes, serving and
+        the epoch's reports of model m."""
+        t0 = time.perf_counter()
+        runs.append(fit_counted(m, m.pipeline.num_batches, props, tag))
+        t1 = time.perf_counter()
+        step()
+        t2 = time.perf_counter()
+        route_runs = evaluate_routes(m, tag, modes)
+        runs.extend(r[2] for r in route_runs.values())
+        u = np.fromiter(m.evaluator.user_pos_test, np.int64)[:B_EVAL]
+        server = TopKRecommender(m, k=K)
+        (ids, vals), launched = counted(lambda: server.recommend(u))
+        check_served(server, u, ids, vals,
+                     m.dataset.train_data.to_user_dict())
+        runs.append(launched)
+        for kname in SERVE_KERNELS["predict"]:
+            require(launched[kname] >= 1,
+                    f"{kname} never launched serving {tag}")
+        h, steps = m.history[0], m.pipeline.num_batches
+        print(f"{tag} epoch: train {h['train_seconds']} s ({steps} steps, "
+              f"{steps / h['train_seconds']} steps/s of batch "
+              f"{m.config.batch_size}), loss {h['loss']}, evaluate() "
+              f"{h['eval_seconds']} s; recommend() for {len(u)} users "
+              f"equals the plain top-k  [{card}]", flush=True)
+        busy, heads = busy_share(lambda: epoch_window(m), reps=1,
+                                 warm=False, top=6)
+        print(f"{tag} train epoch, its first {TRAIN_WINDOW} steps: device "
+              f"busy {busy}; top device kernels (ms, calls): {heads}  "
+              f"[{card}]", flush=True)
+        print(f"{tag}: fit() {t1 - t0} s, the step card vs CPU {t2 - t1} "
+              f"s, the rest {time.perf_counter() - t2} s", flush=True)
+
+    def drop():
+        """Free a model's device memory: the models hold reference cycles
+        (their steps close over them), which only the collector frees."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    full3 = ("full", "fused", "chunked")
+    # BM3: LightGCN over the SelfCF graph; table-wide target masks
+    m = build("BM3", embed_dim=DIM, n_layers=1, dropout=0.3, cl_weight=2.0)
+    cfg, g_cpu = m.config, m.graph.to("cpu")
+
+    def bm3_step():
+        batch = first_batch(m)
+        draws = bm3_draws(torch.Generator(dev).manual_seed(SEED),
+                          m.num_users, m.num_items, DIM, cfg.dropout,
+                          m.has_t, m.has_v)
+        step_card_vs_cpu("BM3", m, lambda p, u, i, w, d: bm3_loss(
+            g_cpu, nest_params(p), cfg, u, i, w, d), batch, draws)
+    finish("BM3", m, cfg.n_layers, full3, bm3_step)
+    del m, g_cpu
+    drop()
+    # SLMRec: three towers over one graph; a sigmoid score (no fused route)
+    m = build("SLMRec", rec_dim=DIM, layer_num=3, ssl_task="FAC",
+              mm_fusion_mode="concat", adj_type="pre")
+    cfg, g_cpu = m.config, m.graph.to("cpu")
+    v_cpu, t_cpu = m.v_feat.cpu(), m.t_feat.cpu()
+
+    def slmrec_step():
+        batch = first_batch(m)
+        draws = slmrec_draws(torch.Generator(dev).manual_seed(SEED), cfg,
+                             m.num_users + m.num_items)
+        step_card_vs_cpu("SLMRec (FAC)", m, lambda p, u, i, w, d: slmrec_loss(
+            g_cpu, nest_params(p), cfg, v_cpu, t_cpu, m.num_users, u, i, w,
+            d), batch, draws)
+    finish("SLMRec", m, 3 * cfg.layer_num, ("full", "chunked"), slmrec_step)
+    del m, g_cpu, v_cpu, t_cpu
+    drop()
+    # FREEDOM: the frozen kNN item graph and the pruned user-item graph
+    m = build("FREEDOM", embed_dim=DIM, knn_k=KNN_K, n_mm_layers=1,
+              n_ui_layers=2, mm_image_weight=0.1, dropout=0.8)
+    cfg = m.config
+    ui_cpu, mm_cpu = m.ui_graph.to("cpu"), m.mm_graph.to("cpu")
+
+    def freedom_step():
+        mask = m.epoch_mask(0)
+        require(int((mask[:m.num_pairs] != 0).sum()) == m.keep_len,
+                "FREEDOM keeps keep_len pairs")
+        step_card_vs_cpu(f"FREEDOM ({m.keep_len} of {m.num_pairs} pairs "
+                         f"kept)", m, lambda p, u, pos, neg, w, mask:
+                         freedom_loss(ui_cpu, mm_cpu, nest_params(p), cfg, u,
+                                      pos, neg, w, mask), first_batch(m),
+                         mask)
+    finish("FREEDOM", m, cfg.n_mm_layers + cfg.n_ui_layers, full3,
+           freedom_step)
+    del m, ui_cpu, mm_cpu
+    drop()
+    # MGCN: four graphs; the LambdaLR rate set by the update count
+    m = build("MGCN", embed_dim=DIM, n_ui_layers=2, n_layers=1, knn_k=KNN_K,
+              cl_loss=0.001)
+    cfg = m.config
+    graphs_cpu = MGCNGraphs(*(g.to("cpu") for g in m.graphs))
+
+    def mgcn_step():
+        # the rate the card's step sets, in the state the CPU copy loads
+        lr = m.lr_at(m.update_count)
+        for group in m.optimizer.param_groups:
+            group["lr"] = lr
+        step_card_vs_cpu(
+            f"MGCN (update {m.update_count}, lr {lr})", m,
+            lambda p, *b: mgcn_loss(graphs_cpu, nest_params(p), cfg, *b),
+            first_batch(m), None)
+    finish("MGCN", m, 2 * cfg.n_layers + 2 + cfg.n_ui_layers, full3,
+           mgcn_step)
+    del m, graphs_cpu
+    drop()
+    # LATTICE: the learned item graph selected by blockwise_topk each epoch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m = build("LATTICE", embed_dim=DIM, knn_k=KNN_K, lambda_coeff=0.9,
+              n_layers=1, cf_model="lightgcn", lr=1e-4)
+    cfg = m.config
+
+    def lattice_step():
+        m.epoch_item, m.epoch_weights = m.item_graph(), None
+        item = m.epoch_item
+        item_cpu = lattice_item_graph(
+            [i.cpu() for i in item.ids],
+            [tuple(t.cpu() for t in o) for o in m.originals], m.num_items)
+        ui_cpu = m.ui_graph.to("cpu")
+        t0 = time.perf_counter()
+        step_card_vs_cpu(
+            f"LATTICE (the epoch's first step, {item.graph.graph.num_edges} "
+            f"item edges with gradient)", m, lambda p, *b: lattice_loss(
+                ui_cpu, item_cpu, nest_params(p), cfg, *b, None)[0],
+            first_batch(m), None)
+        print(f"LATTICE's step card vs CPU took {time.perf_counter() - t0} "
+              f"s", flush=True)
+        require(m.epoch_weights is not None
+                and not m.epoch_weights.requires_grad,
+                "LATTICE keeps the first step's weights, detached")
+        m.epoch_item = m.epoch_weights = None
+    runs_before = len(runs)
+    finish("LATTICE", m, cfg.n_layers + len(cfg.weight_size), full3,
+           lattice_step)
+    require(runs[runs_before]["pruned_merge"] >= 1,
+            "LATTICE's fit() selected its graph without blockwise_topk")
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"LATTICE peak device memory {peak / 2**30} GiB above the "
+          f"{base / 2**30} GiB held before it (JAX's dense item graph: "
+          f"{ITEMS * ITEMS * 4 / 2**30} GiB a matrix)  [{card}]", flush=True)
+    del m
+    drop()
+    print(f"phase 14 took {time.perf_counter() - t_phase} s", flush=True)
+    return {"runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2767,6 +3035,10 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 13", flush=True)
     p13 = phase_sequence_towers(path, reg, dev, card, errs)
 
+    # ------ phase 14: the multimodal models (#11; kNN graphs through #1-#4)
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 14", flush=True)
+    p14 = phase_multimodal(path, reg, dev, card, errs)
+
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
@@ -2880,11 +3152,14 @@ def main() -> int:
     # serving, the fused and chunked evaluate() calls, phase 8's fit()s
     # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML),
     # phase 10's (LayerGCN, LightGCL, DENS), phase 11's (SelfCF, CDAE,
-    # MultVAE) and phase 12's (FPMC, TransRec, SGAT, Caser, HGN)
+    # MultVAE), phase 12's (FPMC, TransRec, SGAT, Caser, HGN), phase 13's
+    # (the sequence towers) and phase 14's (the kNN builds and the
+    # multimodal models)
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
-                 *p10["runs"], *p11["runs"], *p12["runs"], *p13["runs"]]
+                 *p10["runs"], *p11["runs"], *p12["runs"], *p13["runs"],
+                 *p14["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:

@@ -17,7 +17,9 @@ __all__ = ["bprmf_params_from_jax", "two_tables_from_jax",
            "caser_params_from_jax", "hgn_params_from_jax",
            "flatten_jax_tree", "gru4rec_params_from_jax",
            "sasrec_params_from_jax", "bert4rec_params_from_jax",
-           "srgnn_params_from_jax",
+           "srgnn_params_from_jax", "bm3_params_from_jax",
+           "slmrec_params_from_jax", "freedom_params_from_jax",
+           "mgcn_params_from_jax", "lattice_params_from_jax",
            "adam_state_from_jax", "lazy_adam_state_from_jax",
            "adagrad_state_from_jax"]
 
@@ -388,6 +390,114 @@ def srgnn_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
             "nasr_v": (1, d), "nasr_b": (d,), "W_in": (d, d), "b_in": (d,),
             "W_out": (d, d), "b_out": (d,), "B": (2 * d, d),
             **_gru_cell_shapes("gru", 2 * d, d)}
+    return _tree_from_jax(params, want)
+
+
+def _modality_shapes(params: Dict, n: int, out_dim: int
+                     ) -> Dict[str, tuple]:
+    """The expected shapes of the feature tables and projectors present in a
+    multimodal model's ``params`` (``v_feat`` with ``image_trs``, ``t_feat``
+    with ``text_trs``), projecting to ``out_dim``."""
+    want = {}
+    for feat, trs in (("v_feat", "image_trs"), ("t_feat", "text_trs")):
+        if feat in params:
+            f = int(np.shape(params[feat])[-1])
+            want.update({feat: (n, f),
+                         **_dense_shapes(trs, f, out_dim)})
+    return want
+
+
+def _tables_shapes(params: Dict) -> Tuple[Dict[str, tuple], int, int]:
+    _need(params, "user_emb", "item_emb")
+    u, d = np.shape(params["user_emb"])
+    n = np.shape(params["item_emb"])[0]
+    return {"user_emb": (u, d), "item_emb": (n, d)}, int(n), int(d)
+
+
+def bm3_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX BM3's ``params`` as f32 CPU tensors by dotted path:
+    ``user_emb`` (U, d), ``item_emb`` (N, d), ``pred_w`` (d, d),
+    ``pred_b`` (d,) and, per modality present, ``v_feat`` (N, F) with
+    ``image_trs.{w, b}`` (F, d), (d,), ``t_feat`` with ``text_trs``."""
+    want, n, d = _tables_shapes(params)
+    want.update({"pred_w": (d, d), "pred_b": (d,),
+                 **_modality_shapes(params, n, d)})
+    return _tree_from_jax(params, want)
+
+
+def slmrec_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX SLMRec's ``params`` as f32 CPU tensors by dotted path:
+    ``user_emb``, ``item_emb`` (U or N, d), the projections ``v_dense``,
+    ``t_dense`` (F, d), ``after_gcn_u``, ``after_gcn_i`` (3d or d, d) as
+    ``{w, b}``, and under the FAC task ``g_i_iv``, ``g_v_iv``,
+    ``g_iv_iva`` (d, d), ``g_iva_ivat``, ``g_t_ivat`` (d, d // 2)."""
+    want, n, d = _tables_shapes(params)
+    _need(params, "v_dense", "t_dense", "after_gcn_u")
+    fused = int(np.shape(params["after_gcn_u"]["w"])[0])
+    for name in ("v_dense", "t_dense"):
+        want.update(_dense_shapes(
+            name, int(np.shape(params[name]["w"])[0]), d))
+    for name in ("after_gcn_u", "after_gcn_i"):
+        want.update(_dense_shapes(name, fused, d))
+    if "g_i_iv" in params:
+        for name in ("g_i_iv", "g_v_iv", "g_iv_iva"):
+            want.update(_dense_shapes(name, d, d))
+        for name in ("g_iva_ivat", "g_t_ivat"):
+            want.update(_dense_shapes(name, d, d // 2))
+    return _tree_from_jax(params, want)
+
+
+def freedom_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX FREEDOM's ``params`` as f32 CPU tensors by dotted path:
+    ``user_emb``, ``item_emb`` and, per modality present, its feature table
+    and projector (``v_feat``, ``image_trs.{w, b}``; ``t_feat``,
+    ``text_trs``) to ``feat_dim``."""
+    want, n, _ = _tables_shapes(params)
+    trs = params.get("image_trs") or params.get("text_trs")
+    if trs is None:
+        raise ValueError("a FREEDOM has at least one modality")
+    want.update(_modality_shapes(params, n, int(np.shape(trs["b"])[0])))
+    return _tree_from_jax(params, want)
+
+
+def mgcn_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX MGCN's ``params`` as f32 CPU tensors by dotted path:
+    ``user_emb``, ``item_emb`` (d wide), ``v_feat`` and ``t_feat`` with
+    ``image_trs``, ``text_trs`` (F, d), ``query1``, the gates ``gate_v``,
+    ``gate_t``, ``gate_image_prefer``, ``gate_text_prefer`` (d, d) as
+    ``{w, b}``, and ``query2.w`` (d, 1) without a bias."""
+    want, n, d = _tables_shapes(params)
+    _need(params, "v_feat", "t_feat")
+    want.update(_modality_shapes(params, n, d))
+    for name in ("query1", "gate_v", "gate_t", "gate_image_prefer",
+                 "gate_text_prefer"):
+        want.update(_dense_shapes(name, d, d))
+    want["query2.w"] = (d, 1)
+    return _tree_from_jax(params, want)
+
+
+def lattice_params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX LATTICE's ``params`` as f32 CPU tensors by dotted path:
+    ``user_emb``, ``item_emb``, ``modal_weight`` (2,), per modality present
+    its feature table and projector to ``feat_embed_dim``, and with
+    ``cf_model="ngcf"`` the layers ``gc.<i>`` and ``bi.<i>`` as ``{w,
+    b}``."""
+    want, n, d = _tables_shapes(params)
+    trs = params.get("image_trs") or params.get("text_trs")
+    if trs is None:
+        raise ValueError("a LATTICE has at least one modality")
+    want.update({"modal_weight": (2,),
+                 **_modality_shapes(params, n, int(np.shape(trs["b"])[0]))})
+    gc, bi = params.get("gc"), params.get("bi")
+    if (gc is None) != (bi is None) or (gc is not None
+                                        and len(gc) != len(bi)):
+        raise ValueError("ngcf layers come as gc and bi of one length")
+    width = d
+    for i, layer in enumerate(gc or []):
+        out = int(np.shape(layer["b"])[0])
+        want.update({**_dense_shapes(f"gc.{i}", width, out),
+                     **_dense_shapes(f"bi.{i}", width, out)})
+        width = out
     return _tree_from_jax(params, want)
 
 

@@ -15,8 +15,8 @@ import scipy.sparse as sp
 
 from ..utils.generic import pad_sequences
 
-__all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "RSDataset",
-           "UserGroup", "group_users_by_interactions"]
+__all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "MMData",
+           "RSDataset", "UserGroup", "group_users_by_interactions"]
 
 _COLUMN_SETS = {"UI": ("user", "item"),
                 "UIR": ("user", "item", "rating"),
@@ -276,8 +276,41 @@ class CFData:
         return fwd, bwd
 
 
+class MMData:
+    """Item feature tables ``<prefix>.{img,txt,audio}.npz`` (the first array
+    of each file), as the JAX package's ``MMData`` loads them; a missing
+    file gives ``None`` features and dimension."""
+
+    def __init__(self, data_dir: str):
+        data_name = os.path.basename(os.path.normpath(data_dir))
+        prefix = os.path.join(data_dir, data_name)
+        self.img_features, self.img_dim = self._load_npz(prefix + ".img.npz")
+        self.txt_features, self.txt_dim = self._load_npz(prefix + ".txt.npz")
+        self.audio_features, self.audio_dim = self._load_npz(
+            prefix + ".audio.npz")
+
+    @staticmethod
+    def _load_npz(path: str):
+        if not os.path.exists(path):
+            return None, None
+        with np.load(path, allow_pickle=True) as obj:
+            features = obj[obj.files[0]]
+        return features, features.shape[-1]
+
+    @property
+    def statistic_info(self) -> str:
+        lines = [""]
+        for name, feats in [("image", self.img_features),
+                            ("txt", self.txt_features),
+                            ("audio", self.audio_features)]:
+            if feats is not None:
+                lines.append(f"The shape of {name} features: {feats.shape}")
+        return "\n".join(lines)
+
+
 class RSDataset:
-    """Facade that loads the collaborative-filtering data on first use."""
+    """Facade that loads the collaborative-filtering data, and the item
+    features (``mm_data``), on first use."""
 
     def __init__(self, data_dir: str, sep: str, columns: str):
         self.data_dir = data_dir
@@ -285,6 +318,7 @@ class RSDataset:
         self.columns = columns
         self.data_name = os.path.basename(os.path.normpath(data_dir))
         self._cf_data = None
+        self._mm_data = None
 
     @property
     def cf_data(self) -> CFData:
@@ -292,13 +326,33 @@ class RSDataset:
             self._cf_data = CFData(self.data_dir, self.sep, self.columns)
         return self._cf_data
 
+    @property
+    def mm_data(self) -> MMData:
+        if self._mm_data is None:
+            self._mm_data = MMData(self.data_dir)
+        return self._mm_data
+
     train_data = property(lambda self: self.cf_data.train_data)
     valid_data = property(lambda self: self.cf_data.valid_data)
     test_data = property(lambda self: self.cf_data.test_data)
     num_users = property(lambda self: self.cf_data.num_users)
     num_items = property(lambda self: self.cf_data.num_items)
     num_ratings = property(lambda self: self.cf_data.num_ratings)
-    statistic_info = property(lambda self: self.cf_data.statistic_info)
+    img_features = property(lambda self: self.mm_data.img_features)
+    img_dim = property(lambda self: self.mm_data.img_dim)
+    txt_features = property(lambda self: self.mm_data.txt_features)
+    txt_dim = property(lambda self: self.mm_data.txt_dim)
+    audio_features = property(lambda self: self.mm_data.audio_features)
+    audio_dim = property(lambda self: self.mm_data.audio_dim)
+
+    @property
+    def statistic_info(self) -> str:
+        """The collaborative-filtering summary, and the feature tables'
+        shapes once they are loaded."""
+        info = self.cf_data.statistic_info
+        if self._mm_data is not None:
+            info += "\n" + self._mm_data.statistic_info
+        return info
 
 
 class UserGroup:

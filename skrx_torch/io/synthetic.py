@@ -5,13 +5,15 @@ Writes the same file layout as ``skrx.io.synthetic.make_dataset_dir``
 user, item, rating, time), but draws items from a Zipf popularity law with
 vectorized numpy instead of a dense (users, items) affinity matrix, so a
 Gowalla-sized log (29,858 users, 40,981 items, 1,027,370 interactions) takes
-seconds. It does not reproduce the JAX generator's bits.
+seconds. It does not reproduce the JAX generator's interactions; its item
+features (``with_mm``, :func:`write_mm_features`) are the JAX generator's
+draws, bit for bit, for the same seed and item count.
 """
 import os
 
 import numpy as np
 
-__all__ = ["make_interactions", "make_dataset_dir"]
+__all__ = ["make_interactions", "make_dataset_dir", "write_mm_features"]
 
 _MIN_PER_USER = 3
 _ITEM_EXPONENT = 0.8                   # Zipf popularity, as the JAX generator
@@ -82,13 +84,29 @@ def _split_by_time(rows: np.ndarray, ratios=(0.7, 0.1, 0.2)):
             rows[rank >= valid_end])
 
 
+def write_mm_features(out_dir: str, num_items: int, seed: int,
+                      img_dim: int = 24, txt_dim: int = 16) -> None:
+    """Write ``<out_dir>/<name>.img.npz`` (num_items, img_dim) and
+    ``.txt.npz`` (num_items, txt_dim) f32 item features: standard normal
+    draws of ``np.random.default_rng(seed + 1)``, the image table first, as
+    the JAX generator's ``with_mm`` draws them."""
+    rng = np.random.default_rng(seed + 1)
+    prefix = os.path.join(out_dir, os.path.basename(os.path.normpath(out_dir)))
+    np.savez(prefix + ".img.npz",
+             rng.standard_normal((num_items, img_dim)).astype(np.float32))
+    np.savez(prefix + ".txt.npz",
+             rng.standard_normal((num_items, txt_dim)).astype(np.float32))
+
+
 def make_dataset_dir(root: str, name: str = "synth", num_users: int = 29_858,
                      num_items: int = 40_981, num_ratings: int = 1_027_370,
-                     seed: int = 2021) -> str:
+                     seed: int = 2021, with_mm: bool = False,
+                     img_dim: int = 24, txt_dim: int = 16) -> str:
     """Generate, split (0.7/0.1/0.2 by time) and save a dataset; returns its
     directory, ready for :class:`skrx_torch.io.RSDataset` with
     ``sep="\\t"`` and ``columns="UIRT"``. The defaults are the Gowalla
-    catalog of the LightGCN paper."""
+    catalog of the LightGCN paper. ``with_mm`` also writes item features of
+    ``img_dim`` and ``txt_dim`` columns (:func:`write_mm_features`)."""
     rows = make_interactions(num_users, num_items, num_ratings, seed)
     train, valid, test = _split_by_time(rows)
     # same directory naming as the JAX Preprocessor (ratio split by time,
@@ -104,4 +122,6 @@ def make_dataset_dir(root: str, name: str = "synth", num_users: int = 29_858,
         ids = np.arange(n)
         np.savetxt(prefix + suffix, np.stack([ids, ids], 1), fmt="%d",
                    delimiter="\t")
+    if with_mm:
+        write_mm_features(out_dir, num_items, seed, img_dim, txt_dim)
     return out_dir

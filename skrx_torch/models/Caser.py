@@ -21,8 +21,10 @@ step takes the mean sigmoid cross-entropy over the T positives and T
 negatives of each row, averaged over the weighted rows, then one Adam step
 with ``l2_reg`` added to every gradient (``adam_l2``: the pad rows, whose
 gradient is zero, decay too). Each step's dropout mask comes from the
-epoch's step generator. ``optimizer="lazy_adam"`` is not ported yet
-(ROADMAP.md, Queue 1) and raises.
+epoch's step generator. ``optimizer="lazy_adam"``: row-wise lazy Adam on
+``user_emb``, ``item_emb``, ``W2`` and ``b2`` over the rows a batch
+gathers (weight decay on those rows only), dense ``adam_l2`` on the
+convolutions and ``fc1``, as the JAX package's.
 
 Scores are ``uv @ W2.T + b2`` with row N of both zeroed: ``predict`` gives
 N + 1 columns, the last scored 0, and ``_eval_width`` is N + 1, so every

@@ -24,7 +24,8 @@ def _port_files():
              os.path.join(ROOT, "experiments", "direct_rank_designs.py"),
              os.path.join(ROOT, "experiments", "dedup_rows_designs.py"),
              os.path.join(ROOT, "experiments", "chip_phase12.py"),
-             os.path.join(ROOT, "experiments", "chip_phase13.py")]
+             os.path.join(ROOT, "experiments", "chip_phase13.py"),
+             os.path.join(ROOT, "experiments", "chip_phase14.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
