@@ -284,16 +284,39 @@ skrx_torch fails and it exits 1):
    first 100 steps of an epoch, LATTICE's peak device memory, and the
    phase's seconds; alone: `python3 experiments/chip_phase14.py`.
 
+15. The command line on the phase-3 data, from a scratch working
+   directory. (a) The user's command as a subprocess, `python3
+   run_skrx_torch.py --recommender LightGCN --data_dir <dir> --epochs 1
+   --early_stop 1 --top_k "(10,20)" --metric "('Recall','NDCG')"`
+   (LightGCN at its defaults: d=64, 3 layers, batch 1,024; test batch
+   64): exit 0, its log under log/<data>/LightGCN/. (b) The same argv
+   through run_skrx_torch.main(argv) in this process, launches counted:
+   segsum, submax, kth_largest, extract and rank_count each launched;
+   its metrics within 1e-6 of (a)'s logged ones and of a LightGCN built
+   by hand and fit() (bit-equality printed). (c) `--config run.ini` with
+   MultVAE, the ini setting compute_dtype bfloat16, epochs 1 and an lr
+   that a CLI --lr overrides: the model's log shows both, the metrics
+   finite; BPRMF with --compute_dtype bfloat16 warns and runs. (d) A user
+   model, unarchived_models/BPRMFGrid.py (the port's BPRMF with a
+   two-point lr grid), with --hyperopt True: the grid fallback (no
+   hyperopt library) logs 2 trial rows and the best parameters, and
+   returns the best trial's NDCG@10. (e) The command of (a) under
+   CUDA_VISIBLE_DEVICES="" exits non-zero with the device error. It
+   prints each check and its seconds; alone: `python3
+   experiments/chip_phase15.py`.
+
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
 import gc
+import glob
 import json
 import os
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -335,6 +358,7 @@ from skrx_torch.ops.kernels import topk_blocks as tb
 from skrx_torch.ops.optim import LazyAdam, OptaxAdamW, dedup_rows
 from skrx_torch.serve import TopKRecommender
 from skrx_torch.utils.checkpoint import Checkpointer
+import run_skrx_torch
 
 USERS, ITEMS, RATINGS, DIM, K = 29_858, 40_981, 1_027_370, 64, 10
 # MovieLens-1M's published counts: the small-catalog route
@@ -2671,6 +2695,176 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
     return {"runs": runs}
 
 
+def _logged_report(log_path: str) -> dict:
+    """The metric -> value of a fit()'s log: its "metrics:" names and its
+    "best:" values."""
+    names, values = None, None
+    with open(log_path) as f:
+        for line in f:
+            cells = line.split()
+            if cells[:1] == ["metrics:"]:
+                names = cells[1:]
+            elif cells[:1] == ["best:"]:
+                values = [float(v) for v in cells[1:]]
+    require(names is not None and values is not None
+            and len(names) == len(values), f"no metrics in {log_path}")
+    return dict(zip(names, values))
+
+
+def _newest(pattern: str) -> str:
+    found = sorted(glob.glob(pattern), key=os.path.getmtime)
+    require(bool(found), f"no file matches {pattern}")
+    return found[-1]
+
+
+def phase_command_line(path, work: str, device=None) -> dict:
+    """Phase 15 (the module docstring): the user's command line, its ini
+    overlay and run options, a user model with a grid search, and no CPU
+    fallback, run from the working directory ``work``. ``device`` is
+    handed to the in-process runs (None: the card). Returns the launch
+    counts of each main-path run."""
+    t_phase = time.perf_counter()
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "run_skrx_torch.py")
+    name = os.path.basename(os.path.normpath(path))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "unarchived_models"))
+    cwd = os.getcwd()
+    os.chdir(work)
+    runs = []
+    metrics = ("--top_k", "(10,20)", "--metric", "('Recall','NDCG')")
+    argv = ["--recommender", "LightGCN", "--data_dir", path, "--epochs", "1",
+            "--early_stop", "1", *metrics]
+    try:
+        # (a) the user's command
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, script, *argv], cwd=work,
+                             capture_output=True, text=True, timeout=600)
+        require(out.returncode == 0, f"run_skrx_torch.py exited "
+                f"{out.returncode}: {out.stderr[-3000:]}")
+        cli_log = _newest(os.path.join(work, "log", name, "LightGCN",
+                                       "*.log"))
+        logged = _logged_report(cli_log)
+        print(f"phase 15 (a): python3 run_skrx_torch.py {' '.join(argv)} "
+              f"exited 0 in {time.perf_counter() - t0} s; its log "
+              f"{os.path.relpath(cli_log, work)}: {logged}", flush=True)
+        # (b) the same argv in this process, and the model built by hand
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: run_skrx_torch.main(argv, device))
+        runs.append(launches)
+        print(f"phase 15 (b): launches during run_skrx_torch.main(argv): "
+              f"{launches} ({time.perf_counter() - t0} s)", flush=True)
+        for kname in ("segsum", "submax", "kth_largest", "extract",
+                      "rank_count"):
+            require(launches[kname] > 0,
+                    f"{kname} never launched by the command line's run")
+        run_skrx_torch._set_random_seed(SEED)
+        reg = ModelRegistry()
+        reg.load_skrx_model("LightGCN")
+        gcn_cls, _ = reg.get_model("LightGCN")
+        direct = gcn_cls(RunConfig(recommender="LightGCN", data_dir=path,
+                                   top_k=(10, 20),
+                                   metric=("Recall", "NDCG")),
+                         {"epochs": 1, "early_stop": 1}, device=device)
+        require((direct.config.embed_size, direct.config.n_layers)
+                == (DIM, 3), "LightGCN at full width")
+        ref, launches = counted(direct.fit)
+        runs.append(launches)
+        del direct
+        for key, value in ref.items():
+            require(abs(got[key] - value) <= 1e-6
+                    and abs(got[key] - logged[key]) <= 1e-6,
+                    f"{key}: main() {got[key]}, subprocess {logged[key]}, "
+                    f"by hand {value}")
+        print(f"phase 15 (b): main() {dict(got.results)} equals the "
+              f"subprocess's log and a LightGCN built by hand within 1e-6; "
+              f"bit-equal to the one built by hand: "
+              f"{dict(got.results) == dict(ref.results)}", flush=True)
+        # (c) an ini file under the command line; compute_dtype routed
+        t0 = time.perf_counter()
+        ini = os.path.join(work, "run.ini")
+        with open(ini, "w") as f:
+            f.write(f"[run]\nrecommender = MultVAE\ndata_dir = {path}\n"
+                    f"compute_dtype = bfloat16\nepochs = 1\n"
+                    f"early_stop = 1\nlr = 0.005\n")
+        vae, launches = counted(lambda: run_skrx_torch.main(
+            ["--config", ini, "--lr", "0.002", *metrics], device))
+        runs.append(launches)
+        with open(_newest(os.path.join(work, "log", name, "MultVAE",
+                                       "*.log"))) as f:
+            text = f.read()
+        require("compute_dtype=bfloat16" in text and "lr=0.002" in text
+                and "lr=0.005" not in text,
+                "the ini's compute_dtype and the CLI's lr in MultVAE's log")
+        require(all(np.isfinite(v) for v in vae.values()),
+                f"MultVAE metrics finite: {vae}")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            bpr, launches = counted(lambda: run_skrx_torch.main(
+                ["--recommender", "BPRMF", "--data_dir", path,
+                 "--compute_dtype", "bfloat16", "--epochs", "1",
+                 "--early_stop", "1", *metrics], device))
+        runs.append(launches)
+        require(any("compute_dtype" in str(w.message) for w in caught),
+                "BPRMF under --compute_dtype bfloat16 must warn")
+        require(all(np.isfinite(v) for v in bpr.values()),
+                f"BPRMF metrics finite: {bpr}")
+        print(f"phase 15 (c): --config run.ini --lr 0.002: MultVAE ran "
+              f"with compute_dtype=bfloat16 and lr=0.002 ({dict(vae.results)}"
+              f"); BPRMF --compute_dtype bfloat16 warned and ran "
+              f"({dict(bpr.results)}); {time.perf_counter() - t0} s",
+              flush=True)
+        # (d) a user model with a two-point grid, searched
+        t0 = time.perf_counter()
+        with open(os.path.join(work, "unarchived_models", "BPRMFGrid.py"),
+                  "w") as f:
+            f.write("from skrx_torch.models.BPRMF import BPRMF, "
+                    "BPRMFConfig\n\n\n"
+                    "class BPRMFGridConfig(BPRMFConfig):\n"
+                    "    @classmethod\n"
+                    "    def param_space(cls):\n"
+                    "        return {'lr': [0.001, 0.01]}\n\n\n"
+                    "class BPRMFGrid(BPRMF):\n"
+                    "    pass\n")
+        best, launches = counted(lambda: run_skrx_torch.main(
+            ["--recommender", "BPRMFGrid", "--data_dir", path,
+             "--hyperopt", "True", "--epochs", "1", "--early_stop", "1",
+             *metrics], device))
+        runs.append(launches)
+        with open(_newest(os.path.join(work, "log", name, "BPRMFGrid",
+                                       "hyperopt_*.log"))) as f:
+            text = f.read()
+        trials = [float(line.rsplit("NDCG@10=", 1)[1])
+                  for line in text.splitlines() if line.startswith("trial ")]
+        chosen = [line for line in text.splitlines()
+                  if line.startswith("Best params:")]
+        require(len(trials) == 2 and len(chosen) == 1
+                and "lr" in chosen[0], f"the grid's log: {text[-2000:]}")
+        require(abs(best["NDCG@10"] - max(trials)) <= 5e-7,
+                f"returned NDCG@10 {best['NDCG@10']}, trials {trials}")
+        print(f"phase 15 (d): BPRMFGrid from unarchived_models/, "
+              f"--hyperopt True: grid fallback, trials NDCG@10 {trials}, "
+              f"{chosen[0]!r}, returned {best['NDCG@10']}; "
+              f"{time.perf_counter() - t0} s", flush=True)
+        # (e) no fallback to the CPU
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, script, *argv], cwd=work,
+                             capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        require(out.returncode != 0
+                and "CUDA is not available" in out.stderr,
+                f"without a card the command line must fail: rc "
+                f"{out.returncode}, {out.stderr[-2000:]}")
+        print(f"phase 15 (e): CUDA_VISIBLE_DEVICES=\"\" python3 "
+              f"run_skrx_torch.py ... exited {out.returncode}: "
+              f"{out.stderr.strip().splitlines()[-1]} "
+              f"({time.perf_counter() - t0} s)", flush=True)
+    finally:
+        os.chdir(cwd)
+    print(f"phase 15 took {time.perf_counter() - t_phase} s", flush=True)
+    return {"runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3039,6 +3233,10 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 14", flush=True)
     p14 = phase_multimodal(path, reg, dev, card, errs)
 
+    # -------------------- phase 15: the command line (#11, #1-#3, #6)
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 15", flush=True)
+    p15 = phase_command_line(path, os.path.join(root, "cli"))
+
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
@@ -3153,13 +3351,13 @@ def main() -> int:
     # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML),
     # phase 10's (LayerGCN, LightGCL, DENS), phase 11's (SelfCF, CDAE,
     # MultVAE), phase 12's (FPMC, TransRec, SGAT, Caser, HGN), phase 13's
-    # (the sequence towers) and phase 14's (the kNN builds and the
-    # multimodal models)
+    # (the sequence towers), phase 14's (the kNN builds and the
+    # multimodal models) and phase 15's (the command line's runs)
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
                  *p10["runs"], *p11["runs"], *p12["runs"], *p13["runs"],
-                 *p14["runs"]]
+                 *p14["runs"], *p15["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     for kname in FUSED:

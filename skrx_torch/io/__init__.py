@@ -1,7 +1,19 @@
-from .dataset import (CFData, ImplicitFeedback, MMData, PaddedPositives,
-                      RSDataset, UserGroup, group_users_by_interactions)
+from .batch_iterator import BatchIterator
+from .dataset import (CFData, ImplicitFeedback, KGData, KnowledgeGraph,
+                      MMData, PaddedPositives, RSDataset, SocialData,
+                      SocialNetwork, UserGroup, group_users_by_interactions)
+from .data_iterator import (InteractionIterator, ItemVecIterator,
+                            KGPairwiseIterator, PairwiseIterator,
+                            PointwiseIterator, SequentialPairwiseIterator,
+                            SequentialPointwiseIterator, UserVecIterator)
+from .preprocessor import Preprocessor
 from . import synthetic
 
-__all__ = ["CFData", "ImplicitFeedback", "MMData", "PaddedPositives",
-           "RSDataset", "UserGroup", "group_users_by_interactions",
+__all__ = ["BatchIterator", "CFData", "ImplicitFeedback", "KGData",
+           "KnowledgeGraph", "MMData", "PaddedPositives", "RSDataset",
+           "SocialData", "SocialNetwork", "UserGroup",
+           "group_users_by_interactions", "InteractionIterator",
+           "ItemVecIterator", "KGPairwiseIterator", "PairwiseIterator",
+           "PointwiseIterator", "SequentialPairwiseIterator",
+           "SequentialPointwiseIterator", "UserVecIterator", "Preprocessor",
            "synthetic"]

@@ -1,9 +1,12 @@
-"""Collaborative-filtering dataset layer, numpy-only.
+"""Dataset layer, numpy-only: the port of ``skrx.io.dataset``.
 
 Reads the ``<name>.{train,valid,test}`` and ``<name>.{user2id,item2id}``
 layout that ``skrx.io.synthetic.make_dataset_dir`` and this package's
-:mod:`skrx_torch.io.synthetic` write, and exposes the views that the serving
-and training slices use. The JAX package's pickle view cache is not carried.
+:mod:`skrx_torch.io.synthetic` write, the knowledge graph ``<name>.kg``
+(head, relation, tail) and the item features ``<name>.{img,txt,audio}.npz``,
+and exposes the JAX package's views of them. ``read_delimited`` types a
+headerless file's columns as ``pandas.read_csv`` does. The JAX package's
+pickle view cache is not carried.
 """
 import os
 import warnings
@@ -15,8 +18,10 @@ import scipy.sparse as sp
 
 from ..utils.generic import pad_sequences
 
-__all__ = ["ImplicitFeedback", "PaddedPositives", "CFData", "MMData",
-           "RSDataset", "UserGroup", "group_users_by_interactions"]
+__all__ = ["ImplicitFeedback", "KnowledgeGraph", "PaddedPositives", "CFData",
+           "KGData", "MMData", "RSDataset", "SocialNetwork", "SocialData",
+           "UserGroup", "group_users_by_interactions", "missing_mask",
+           "read_delimited"]
 
 _COLUMN_SETS = {"UI": ("user", "item"),
                 "UIR": ("user", "item", "rating"),
@@ -44,6 +49,60 @@ def _read_table(path: str, sep: str, names) -> Dict[str, np.ndarray]:
     return cols
 
 
+# the strings pandas.read_csv reads as a missing value by default
+_NA_STRINGS = ["", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN",
+               "-nan", "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL",
+               "NaN", "None", "n/a", "nan", "null"]
+
+
+def _typed_column(tokens: np.ndarray) -> np.ndarray:
+    """One column's fields typed as pandas types them: int64 when every
+    field is an integer, float64 when every field is a number or missing
+    (NaN), else an object array of str with NaN where missing."""
+    missing = np.isin(tokens, _NA_STRINGS)
+    if not missing.any():
+        try:
+            return tokens.astype(np.int64)
+        except (ValueError, OverflowError):
+            pass
+    try:
+        out = np.full(len(tokens), np.nan)
+        out[~missing] = tokens[~missing].astype(np.float64)
+        return out
+    except ValueError:
+        out = tokens.astype(object)
+        out[missing] = np.nan
+        return out
+
+
+def missing_mask(column: np.ndarray) -> np.ndarray:
+    """Where a column of :func:`read_delimited` holds a missing value."""
+    if column.dtype.kind == "f":
+        return np.isnan(column)
+    if column.dtype == object:
+        return np.array([isinstance(v, float) for v in column], dtype=bool)
+    return np.zeros(len(column), dtype=bool)
+
+
+def read_delimited(path: str, sep: str, names) -> Dict[str, np.ndarray]:
+    """Columns of a headerless ``sep``-delimited file by name, each typed
+    as ``pandas.read_csv(path, sep=sep, header=None, names=names)`` types
+    it; blank lines are skipped, a short row's missing fields are NaN."""
+    with open(path, newline="") as f:
+        rows = [line.split(sep) for line in f.read().splitlines() if line]
+    width = len(names)
+    if any(len(r) > width for r in rows):
+        raise ValueError(f"{path}: a row has more than {width} fields "
+                         f"({', '.join(names)})")
+    cols = [[] for _ in names]
+    for r in rows:
+        r = r + [""] * (width - len(r))
+        for c, field in zip(cols, r):
+            c.append(field)
+    return {name: _typed_column(np.array(c, dtype=str))
+            for name, c in zip(names, cols)}
+
+
 class PaddedPositives:
     """Per-user positive sets as a device-ready table.
 
@@ -56,6 +115,18 @@ class PaddedPositives:
         self.table = table
         self.lengths = lengths
         self.pad_id = pad_id
+
+
+def _grouped(keys: np.ndarray, *values: np.ndarray):
+    """key -> the int32 values of its rows in row order, keys ascending;
+    with several value columns, key -> a tuple of them."""
+    order = np.argsort(keys, kind="stable")
+    uniq, starts = np.unique(keys[order], return_index=True)
+    parts = [np.split(v[order].astype(np.int32), starts[1:])
+             for v in values]
+    if len(values) == 1:
+        return OrderedDict((int(k), p) for k, p in zip(uniq, parts[0]))
+    return OrderedDict((int(k), tuple(p)) for k, *p in zip(uniq, *parts))
 
 
 class ImplicitFeedback:
@@ -80,6 +151,13 @@ class ImplicitFeedback:
     def __len__(self):
         return self.num_ratings
 
+    def is_empty(self) -> bool:
+        return self.num_ratings == 0
+
+    def to_set_of_users(self) -> set:
+        """The users with a row."""
+        return set(np.unique(self._users).tolist())
+
     def to_user_item_pairs(self) -> np.ndarray:
         """(num_ratings, 2) int32 (user, item) rows in file order."""
         return np.stack([self._users, self._items], axis=1).astype(np.int32)
@@ -87,13 +165,7 @@ class ImplicitFeedback:
     def to_user_dict(self) -> "OrderedDict[int, np.ndarray]":
         """user -> int32 items in file order, users ascending."""
         if "user_dict" not in self._views:
-            order = np.argsort(self._users, kind="stable")
-            users = self._users[order]
-            items = self._items[order].astype(np.int32)
-            keys, starts = np.unique(users, return_index=True)
-            self._views["user_dict"] = OrderedDict(
-                (int(u), part) for u, part in
-                zip(keys, np.split(items, starts[1:])))
+            self._views["user_dict"] = _grouped(self._users, self._items)
         return self._views["user_dict"]
 
     def _time_order(self) -> np.ndarray:
@@ -171,6 +243,18 @@ class ImplicitFeedback:
         order."""
         return self.to_csr_matrix().tocoo()
 
+    def to_csc_matrix(self) -> sp.csc_matrix:
+        return self.to_csr_matrix().tocsc()
+
+    def to_dok_matrix(self) -> sp.dok_matrix:
+        return self.to_csr_matrix().todok()
+
+    def to_item_dict(self) -> "OrderedDict[int, np.ndarray]":
+        """item -> int32 users in file order, items ascending."""
+        if "item_dict" not in self._views:
+            self._views["item_dict"] = _grouped(self._items, self._users)
+        return self._views["item_dict"]
+
     def to_padded_positive_table(self, bucket: int = 32,
                                  max_pos_cap: Optional[int] = None
                                  ) -> PaddedPositives:
@@ -202,6 +286,76 @@ class ImplicitFeedback:
         out = PaddedPositives(table, lengths, pad_id=self.num_items)
         self._views[key] = out
         return out
+
+
+class KnowledgeGraph:
+    """Views over (head, relation, tail) triplets, in row order."""
+
+    def __init__(self, columns: Optional[Dict[str, np.ndarray]] = None,
+                 num_entities: Optional[int] = None,
+                 num_relations: Optional[int] = None):
+        cols = columns or {}
+        empty = np.zeros(0, np.int64)
+        self._heads = cols.get("head", empty)
+        self._relations = cols.get("relation", empty)
+        self._tails = cols.get("tail", empty)
+        self.num_triplets = len(self._heads)
+        if self.num_triplets:
+            top = max(np.nanmax(self._heads), np.nanmax(self._tails))
+            self.num_entities = (num_entities if num_entities is not None
+                                 else int(top) + 1)
+            self.num_relations = (num_relations if num_relations is not None
+                                  else int(np.nanmax(self._relations)) + 1)
+        else:
+            self.num_entities = num_entities or 0
+            self.num_relations = num_relations or 0
+        self._views: Dict = {}
+
+    def is_empty(self) -> bool:
+        return self.num_triplets == 0
+
+    def __len__(self):
+        return self.num_triplets
+
+    def to_triplets(self) -> np.ndarray:
+        """(num_triplets, 3) int32 (head, relation, tail) rows."""
+        return np.stack([self._heads, self._relations, self._tails],
+                        axis=1).astype(np.int32)
+
+    def _dict(self, by: str, c1: str, c2: str):
+        """``by`` value -> {c1: int32, c2: int32} of its rows in row order,
+        keys ascending."""
+        if by not in self._views:
+            col = {"head": self._heads, "relation": self._relations,
+                   "tail": self._tails}
+            self._views[by] = OrderedDict(
+                (k, {c1: a, c2: b}) for k, (a, b) in
+                _grouped(col[by], col[c1], col[c2]).items())
+        return self._views[by]
+
+    def to_head_dict(self):
+        return self._dict("head", "relation", "tail")
+
+    def to_tail_dict(self):
+        return self._dict("tail", "relation", "head")
+
+    def to_relation_dict(self):
+        return self._dict("relation", "head", "tail")
+
+    def to_csr_matrix_dict(self) -> Dict[int, sp.csr_matrix]:
+        """relation -> (num_entities, num_entities) f32 head-by-tail
+        counts, relations ascending."""
+        if "csr" not in self._views:
+            n = self.num_entities
+            self._views["csr"] = {
+                rel: sp.csr_matrix((np.ones(len(d["head"]), np.float32),
+                                    (d["head"], d["tail"])), shape=(n, n))
+                for rel, d in self.to_relation_dict().items()}
+        return self._views["csr"]
+
+    def to_coo_matrix_dict(self) -> Dict[int, sp.coo_matrix]:
+        return {rel: mat.tocoo()
+                for rel, mat in self.to_csr_matrix_dict().items()}
 
 
 class CFData:
@@ -276,6 +430,50 @@ class CFData:
         return fwd, bwd
 
 
+def _drop_duplicate_rows(cols: Dict[str, np.ndarray]
+                         ) -> Dict[str, np.ndarray]:
+    """The rows that repeat no earlier row, in row order (NaN equal to NaN,
+    -0.0 to 0.0, as pandas' ``drop_duplicates``)."""
+    keys = []
+    for c in cols.values():
+        if c.dtype == object:
+            _, c = np.unique(c.astype(str), return_inverse=True)
+        elif c.dtype.kind == "f":
+            c = np.where(np.isnan(c), np.nan, c + 0.0).view(np.int64)
+        keys.append(c.astype(np.int64))
+    if not keys or not len(keys[0]):
+        return cols
+    _, first = np.unique(np.stack(keys, axis=1), axis=0, return_index=True)
+    keep = np.sort(first)
+    return {name: c[keep] for name, c in cols.items()}
+
+
+class KGData:
+    """The knowledge graph ``<prefix>.kg``: (head, relation, tail) rows
+    with repeated rows dropped (the first kept); warns on missing
+    values."""
+
+    def __init__(self, data_dir: str, sep: str):
+        data_name = os.path.basename(os.path.normpath(data_dir))
+        path = os.path.join(data_dir, data_name + ".kg")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(path)
+        cols = _drop_duplicate_rows(
+            read_delimited(path, sep, ("head", "relation", "tail")))
+        if any(missing_mask(c).any() for c in cols.values()):
+            warnings.warn("knowledge graph data has null values; check the "
+                          "file or the separator.")
+        self.kg_data = KnowledgeGraph(cols)
+
+    @property
+    def statistic_info(self) -> str:
+        kg = self.kg_data
+        return "\n".join(["",
+                          f"The number of entities: {kg.num_entities}",
+                          f"The number of relations: {kg.num_relations}",
+                          f"The number of triplets: {kg.num_triplets}"])
+
+
 class MMData:
     """Item feature tables ``<prefix>.{img,txt,audio}.npz`` (the first array
     of each file), as the JAX package's ``MMData`` loads them; a missing
@@ -308,9 +506,18 @@ class MMData:
         return "\n".join(lines)
 
 
+class SocialNetwork:
+    """Placeholder for social-graph views (empty in the JAX package too)."""
+
+
+class SocialData:
+    """Placeholder loader for social data (empty in the JAX package too)."""
+
+
 class RSDataset:
-    """Facade that loads the collaborative-filtering data, and the item
-    features (``mm_data``), on first use."""
+    """Facade that loads the collaborative-filtering data, the knowledge
+    graph (``kg_data``) and the item features (``mm_data``) on first
+    use."""
 
     def __init__(self, data_dir: str, sep: str, columns: str):
         self.data_dir = data_dir
@@ -318,6 +525,7 @@ class RSDataset:
         self.columns = columns
         self.data_name = os.path.basename(os.path.normpath(data_dir))
         self._cf_data = None
+        self._kg_data = None
         self._mm_data = None
 
     @property
@@ -325,6 +533,16 @@ class RSDataset:
         if self._cf_data is None:
             self._cf_data = CFData(self.data_dir, self.sep, self.columns)
         return self._cf_data
+
+    @property
+    def kg_data(self) -> KnowledgeGraph:
+        if self._kg_data is None:
+            self._kg_data = KGData(self.data_dir, self.sep)
+        return self._kg_data.kg_data
+
+    @property
+    def social_data(self):
+        raise NotImplementedError  # a stub, as in the JAX package
 
     @property
     def mm_data(self) -> MMData:
@@ -338,6 +556,9 @@ class RSDataset:
     num_users = property(lambda self: self.cf_data.num_users)
     num_items = property(lambda self: self.cf_data.num_items)
     num_ratings = property(lambda self: self.cf_data.num_ratings)
+    num_entities = property(lambda self: self.kg_data.num_entities)
+    num_relations = property(lambda self: self.kg_data.num_relations)
+    num_triplets = property(lambda self: self.kg_data.num_triplets)
     img_features = property(lambda self: self.mm_data.img_features)
     img_dim = property(lambda self: self.mm_data.img_dim)
     txt_features = property(lambda self: self.mm_data.txt_features)
@@ -347,11 +568,12 @@ class RSDataset:
 
     @property
     def statistic_info(self) -> str:
-        """The collaborative-filtering summary, and the feature tables'
-        shapes once they are loaded."""
+        """The collaborative-filtering summary, and the knowledge graph's
+        counts and the feature tables' shapes once they are loaded."""
         info = self.cf_data.statistic_info
-        if self._mm_data is not None:
-            info += "\n" + self._mm_data.statistic_info
+        for part in (self._kg_data, self._mm_data):
+            if part is not None:
+                info += "\n" + part.statistic_info
         return info
 
 

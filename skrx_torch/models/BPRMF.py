@@ -1,8 +1,9 @@
 """BPRMF — Bayesian Personalized Ranking matrix factorization (Rendle et
 al., UAI 2009): the port of ``skrx.models.BPRMF``.
 
-Same config fields and defaults, same parameters (``user_emb`` (U, d) and
-``item_emb`` (N, d) drawn from N(0, 0.01^2), ``item_bias`` (N,) zeros).
+Same config fields, defaults and search grid, same parameters
+(``user_emb`` (U, d) and ``item_emb`` (N, d) drawn from N(0, 0.01^2),
+``item_bias`` (N,) zeros).
 Training: per step the summed BPR loss of the batch plus
 ``reg * 0.5 * sum(w * (|ue|^2 + |pe|^2 + |ne|^2 + bp^2 + bn^2))`` over its
 gathered rows (padded rows weigh 0), then one dense Adam step, or with
@@ -44,6 +45,11 @@ class BPRMFConfig(ModelConfig):
     epochs: int = 1000
     early_stop: int = 200
     optimizer: str = "adam"
+
+    @classmethod
+    def param_space(cls):
+        return {"lr": [0.001, 0.005, 0.01, 0.05],
+                "reg": [0.0, 0.001, 0.005, 0.01, 0.05]}
 
     def _validate(self):
         ok = (isinstance(self.lr, float) and self.lr > 0

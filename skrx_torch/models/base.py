@@ -10,16 +10,18 @@ evaluates every ``verbose`` epochs, stops early on NDCG@10 after
 ``early_stop`` evaluations without a gain, and stops on a non-finite loss.
 With ``RunConfig.checkpoint_dir`` and ``checkpoint_every`` it saves the
 training state (``_train_state``: parameters, optimizer state) and early
-stopping; ``resume`` restarts after the latest save. ``profile_dir`` writes
-a ``torch.profiler`` trace of epoch ``start + 1`` and its evaluation.
-Predict caches are cleared after every epoch. Subclasses implement
-``_train_epoch(epoch) -> loss`` (None: nothing to train) and ``predict``;
-a model trained by ``self.optimizer`` names in ``_JAX_PARAMS`` the
-parameters a JAX model of its kind carries over.
+stopping; ``resume`` restarts after the latest save. ``profile_dir``
+writes a ``torch.profiler`` trace of epoch ``start + 1`` and its
+evaluation. ``RunConfig.compute_dtype`` is routed into the model config as
+in the JAX package. Predict caches are cleared after every epoch.
+Subclasses implement ``_train_epoch(epoch) -> loss`` (None: nothing to
+train) and ``predict``; a model trained by ``self.optimizer`` names in
+``_JAX_PARAMS`` the parameters a JAX model of its kind carries over.
 """
 import os
 import platform
 import time
+import warnings
 from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -61,6 +63,19 @@ class TorchRecommender(nn.Module):
         self.device = resolve_device(device, run_config.gpu_id)
         self.run_config = run_config
         self.config = model_config
+        # the run's compute dtype reaches a model config that declares the
+        # field (MultVAE, SASRec, BERT4Rec) unless the model config was
+        # given its own; any other model warns and runs float32
+        cdt = run_config.compute_dtype
+        if cdt != "float32":
+            if not hasattr(type(model_config), "compute_dtype"):
+                warnings.warn(
+                    f"RunConfig.compute_dtype={cdt!r} ignored: "
+                    f"{type(model_config).__name__} declares no "
+                    f"compute_dtype (no bfloat16 compute path); this model "
+                    f"runs float32")
+            elif "compute_dtype" not in model_config.__dict__:
+                model_config.compute_dtype = cdt
         self.dataset = RSDataset(run_config.data_dir, run_config.sep,
                                  run_config.file_column)
         self.num_users = self.dataset.num_users

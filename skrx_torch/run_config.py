@@ -1,8 +1,7 @@
-"""Run-level configuration (the port's own copy of ``skrx.run_config``,
-with the fields the serving, training, checkpoint, profiler and evaluation
-slices read; the JAX package's mesh and dtype options come with the slices
-that use them)."""
-from typing import Tuple, Union
+"""Run-level configuration: the port's own copy of ``skrx.run_config``,
+with the same fields and defaults (``mesh_shape`` takes only None or (1,
+1) until the port has ``parallel/``)."""
+from typing import Optional, Tuple, Union
 
 from .utils.config import Config
 
@@ -18,6 +17,8 @@ class RunConfig(Config):
     data_dir: str = ""
     file_column: str = "UIRT"
     sep: str = "\t"
+    # search the model config's param_space() (HyperOpt) instead of one fit
+    hyperopt: bool = False
     # index of the CUDA device the entry points run on (cuda:<gpu_id>)
     gpu_id: Union[int, str] = 0
     metric: Tuple[str, ...] = ("Precision", "Recall", "MAP", "NDCG")
@@ -28,6 +29,13 @@ class RunConfig(Config):
     # kept for API parity with the JAX package; evaluation runs on the device
     test_thread: int = 4
     seed: int = 2021
+    # mesh axis sizes (data, model); None or (1, 1): one device. A larger
+    # mesh raises NotImplementedError (ROADMAP.md Queue 1 item 4)
+    mesh_shape: Optional[Tuple[int, int]] = None
+    # "float32" or "bfloat16": routed into a model config that declares a
+    # compute_dtype field (MultVAE, SASRec, BERT4Rec) unless the model's
+    # own config sets it; any other model warns and runs float32
+    compute_dtype: str = "float32"
     # evaluation strategy: "full" scores the whole catalog per batch,
     # "chunked" eval_chunk_size items at a time (the (B, N) scores never
     # exist), "fused" ranks through the fused score-and-select kernels (dot
@@ -93,3 +101,17 @@ class RunConfig(Config):
             raise ValueError("checkpoint_every must be an int >= 0")
         if not isinstance(self.resume, bool):
             raise ValueError("resume must be a bool")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError("compute_dtype must be 'float32' or 'bfloat16'")
+        if self.mesh_shape is not None:
+            shape = tuple(self.mesh_shape)
+            if len(shape) != 2 or not all(isinstance(a, int) and a > 0
+                                          for a in shape):
+                raise ValueError("mesh_shape must be None or two positive "
+                                 "ints (data, model)")
+            if shape != (1, 1):
+                raise NotImplementedError(
+                    f"mesh_shape={shape}: the port runs on one device; "
+                    f"meshes come with parallel/ (ROADMAP.md Queue 1 item "
+                    f"4)")
+            self.mesh_shape = shape

@@ -1,9 +1,17 @@
 from .common import normalize_adj_matrix
-from .config import Config, ModelConfig
+from .config import (Config, ModelConfig, merge_config_with_cmd_args,
+                     merge_config_with_ini, parse_value)
+from .decorator import timer, typeassert
 from .device import resolve_device
-from .generic import pad_sequences, slugify
+from .generic import OrderedDefaultDict, md5sum, pad_sequences, slugify
 from .logger import Logger
+from .random import (batch_randint_choice, host_rng, randint_choice,
+                     set_host_seed)
 from .registry import ModelRegistry
 
-__all__ = ["Config", "ModelConfig", "resolve_device", "slugify", "Logger",
-           "ModelRegistry", "normalize_adj_matrix", "pad_sequences"]
+__all__ = ["Config", "ModelConfig", "merge_config_with_cmd_args",
+           "merge_config_with_ini", "parse_value", "timer", "typeassert",
+           "resolve_device", "OrderedDefaultDict", "md5sum", "slugify",
+           "Logger", "ModelRegistry", "normalize_adj_matrix",
+           "pad_sequences", "randint_choice", "batch_randint_choice",
+           "set_host_seed", "host_rng"]

@@ -3,14 +3,32 @@
 * ``Config`` — ordered attribute namespace whose ``__init__`` consumes known
   keyword arguments (unknown ones are ignored, so one flat dict can feed a
   run config and a model config) and then runs ``_validate()``.
-* ``ModelConfig`` — the base of each model's hyper-parameter config.
-
-The CLI and ini overlays of the JAX package come with the CLI slice.
+* ``ModelConfig`` — the base of each model's hyper-parameter config, with
+  its search grid ``param_space()`` (empty: no search) and ``num_combos()``.
+* ``merge_config_with_cmd_args`` / ``merge_config_with_ini`` — overlay
+  ``--key value`` pairs and ini files; values are parsed by ``parse_value``
+  (``ast.literal_eval``, never ``eval``, with a string fallback).
 """
+import ast
+import configparser
+import sys
 from collections import OrderedDict
-from typing import Any, List
+from typing import Any, Dict, List, Optional
 
-__all__ = ["Config", "ModelConfig"]
+__all__ = ["Config", "ModelConfig", "merge_config_with_cmd_args",
+           "merge_config_with_ini", "parse_value"]
+
+
+def parse_value(text: str) -> Any:
+    """A CLI or ini value as a Python literal, else the string itself;
+    ``true`` and ``false`` in any case are bools (a string "false" would
+    be truthy)."""
+    if text.strip().lower() in ("true", "false"):
+        return text.strip().lower() == "true"
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
 
 
 class Config:
@@ -60,7 +78,52 @@ class Config:
 
 
 class ModelConfig(Config):
-    """Per-model hyper-parameter config. A model's config defines the
-    classmethod ``param_space()``, its search grid, where the JAX package's
-    does; the hyper-parameter search that reads it comes with the CLI
-    slice."""
+    """Per-model hyper-parameter config with an optional search grid."""
+
+    @classmethod
+    def param_space(cls) -> Dict[str, list]:
+        """The grid the search driver walks: parameter -> values. Empty
+        disables the search."""
+        return {}
+
+    @classmethod
+    def num_combos(cls) -> int:
+        n = 1
+        for values in cls.param_space().values():
+            n *= max(len(values), 1)
+        return n
+
+
+def merge_config_with_cmd_args(config: Dict[str, Any],
+                               argv: Optional[List[str]] = None
+                               ) -> Dict[str, Any]:
+    """``config`` overlaid with the ``--key value`` pairs of ``argv``
+    (``sys.argv[1:]`` when None); raises SyntaxError on an odd count or a
+    key without ``--``."""
+    args = sys.argv[1:] if argv is None else list(argv)
+    if len(args) % 2 != 0:
+        raise SyntaxError("The numbers of arguments and values are not "
+                          "equal.")
+    out = dict(config)
+    for flag, value in zip(args[0::2], args[1::2]):
+        if not flag.startswith("--"):
+            raise SyntaxError(f"Arguments must start with '--': {flag!r}")
+        out[flag[2:]] = parse_value(value)
+    return out
+
+
+def merge_config_with_ini(config: Dict[str, Any], ini_path: str,
+                          sections: Optional[List[str]] = None
+                          ) -> Dict[str, Any]:
+    """``config`` overlaid with the keys of an ini file, every section in
+    file order unless ``sections`` names some; raises FileNotFoundError
+    when the file cannot be read."""
+    parser = configparser.ConfigParser()
+    if not parser.read(ini_path):
+        raise FileNotFoundError(ini_path)
+    out = dict(config)
+    for section in (sections if sections is not None
+                    else parser.sections()):
+        for key, value in parser.items(section):
+            out[key] = parse_value(value)
+    return out

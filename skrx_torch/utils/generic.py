@@ -1,12 +1,44 @@
-"""Small helpers (the port's own copy of the part of
-``skrx.utils.generic`` it uses)."""
+"""Small host-side helpers: the port's own copy of
+``skrx.utils.generic``."""
+import hashlib
 import re
 import unicodedata
+from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["slugify", "pad_sequences"]
+__all__ = ["OrderedDefaultDict", "md5sum", "pad_sequences", "slugify"]
+
+
+class OrderedDefaultDict(OrderedDict):
+    """An OrderedDict with defaultdict semantics (insertion order kept)."""
+
+    def __init__(self, default_factory=None, *args, **kwargs):
+        if default_factory is not None and not callable(default_factory):
+            raise TypeError("first argument must be callable or None")
+        super().__init__(*args, **kwargs)
+        self.default_factory = default_factory
+
+    def __missing__(self, key):
+        if self.default_factory is None:
+            raise KeyError(key)
+        self[key] = value = self.default_factory()
+        return value
+
+    def __reduce__(self):
+        args = ((self.default_factory,) if self.default_factory is not None
+                else ())
+        return self.__class__, args, None, None, iter(self.items())
+
+
+def md5sum(file_path: str, chunk_size: int = 1 << 20) -> str:
+    """The MD5 hex digest of a file, read in chunks."""
+    digest = hashlib.md5()
+    with open(file_path, "rb") as f:
+        for chunk in iter(lambda: f.read(chunk_size), b""):
+            digest.update(chunk)
+    return digest.hexdigest()
 
 _SLUG_BAD = re.compile(r"[^\w\s\-\.\@\[\]\(\),=]")
 _SLUG_WS = re.compile(r"[\s]+")

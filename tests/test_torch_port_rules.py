@@ -18,6 +18,7 @@ NEVER = {"jax", "jaxlib", "skrx", "pandas"}
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "chip_ab.py"),
+             os.path.join(ROOT, "run_skrx_torch.py"),
              os.path.join(ROOT, "experiments", "segsum_merge_variants.py"),
              os.path.join(ROOT, "experiments", "rank_count_designs.py"),
              os.path.join(ROOT, "experiments", "submax_variants.py"),
@@ -25,7 +26,8 @@ def _port_files():
              os.path.join(ROOT, "experiments", "dedup_rows_designs.py"),
              os.path.join(ROOT, "experiments", "chip_phase12.py"),
              os.path.join(ROOT, "experiments", "chip_phase13.py"),
-             os.path.join(ROOT, "experiments", "chip_phase14.py")]
+             os.path.join(ROOT, "experiments", "chip_phase14.py"),
+             os.path.join(ROOT, "experiments", "chip_phase15.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
@@ -103,6 +105,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
                                  dataset=model.dataset, num_items=40)
     with pytest.raises(RuntimeError, match="CUDA"):
         TopKRecommender(stub)
+    # the command line and the search driver build their models on CUDA
+    sys.path.insert(0, ROOT)
+    import run_skrx_torch
+    from skrx_torch.models.BPRMF import BPRMFConfig
+    from skrx_torch.utils.hyperopt_driver import HyperOpt
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_skrx_torch.main(["--recommender", "BPRMF", "--data_dir", data])
+    for search in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            HyperOpt(RunConfig(data_dir=data, hyperopt=search), BPRMF,
+                     BPRMFConfig, {}).run()
+    assert run_skrx_torch.main(["--recommender", "Pop", "--data_dir", data],
+                               device="cpu")["NDCG@10"] >= 0.0
 
 
 def test_fit_and_evaluate_default_to_cuda_and_raise_without_it(tmp_path,

@@ -127,8 +127,9 @@ def test_registry_builds_bprmf_by_name(pair, tmp_path, monkeypatch):
     reg.load_skrx_model("BPRMF")
     cls, cfg_cls = reg.get_model("BPRMF")
     assert cls is BPRMF and cfg_cls().n_dim == 64
+    assert reg.load_skrx_model("NoSuchModel") is False
     with pytest.raises(KeyError):
-        reg.load_skrx_model("NoSuchModel")
+        reg.get_model("NoSuchModel")
     m = cls(RunConfig(data_dir=jm.dataset.data_dir, seed=4), {},
             device="cpu")
     assert m.user_emb.shape == (jm.num_users, 64)
