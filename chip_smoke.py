@@ -138,8 +138,10 @@ skrx_torch fails and it exits 1):
    200 back-to-back calls between CUDA events; the kernel's bound; the
    selection kernels (submax, kth_largest, extract, dot_submax,
    dot_extract) again at the evaluation shape (B=64, k=50) with their
-   bounds (and torch.kthvalue beside kth_largest); vmem_topk at chunked
-   evaluate()'s merge (B=64, W=100, k=50, beside torch.topk); direct_rank at
+   bounds (and torch.kthvalue beside kth_largest); vmem_topk (#5,
+   pruned_merge's kernel at tau = -inf, its launches counted apart) at
+   chunked evaluate()'s merge (B=64, W=100, k=50, beside torch.topk), its
+   own row of the kernel record; direct_rank at
    the ML-1M evaluation shape with its found probes, by the profiler, by
    CUDA events over 1,000 back-to-back calls and for one call; recommend's p50 per batch size with the
    card's busy share during it (torch.profiler), for the score-matrix and
@@ -235,8 +237,9 @@ skrx_torch fails and it exits 1):
    head, dropout 0.5, batch 128); BERT4Rec (windows of 5, d=64, 2 heads,
    2 layers, batch 256, masked-LM over the catalog, optax's clipped AdamW
    with warm-up); SRGNN (d=64, 1 step, sessions of up to 200 items,
-   batch 256, a (256, 200, 200) adjacency a step); GRU4RecPlus's epoch
-   is cut to the first 1,000 steps of its walk. fit(): losses finite,
+   batch 256, a (256, 200, 200) adjacency a step); GRU4Rec's and
+   GRU4RecPlus's epochs are cut to the first 1,000 steps of their walks,
+   BERT4Rec's and SRGNN's to their first 500 steps. fit(): losses finite,
    the full route's kernels launched, segsum never. One train step of
    each on the card against the same step on CPU copies of its
    parameters, optimizer state, batch and draws (GRU4RecPlus's negatives,
@@ -304,8 +307,37 @@ skrx_torch fails and it exits 1):
    CUDA_VISIBLE_DEVICES="" exits non-zero with the device error. It
    prints each check and its seconds; alone: `python3
    experiments/chip_phase15.py`.
+16. The mesh (skrx_torch/parallel/) on the phase-3 data, its ranks
+   sharing the one card over gloo (NCCL refuses two ranks on one GPU),
+   spawned after the kernels are built. (a) 2 ranks on cuda:0: the
+   backend each chose (gloo), the world and each rank's device. (b) The
+   sharded propagate on the LightGCN graph at D=64 (its destination rows
+   split in two), forward and the gradient of a seeded cotangent, against
+   propagate on one device: within 1e-5 of the output's scale, segsum
+   launched once forward and once backward on each rank. (c)
+   sharded_dot_topk at B=64, k=50, d=64 over the 40,981 items (2 shards)
+   with a train table, against topk_scores_and_indices of the whole
+   score matrix: values within 1e-5 of their scale, ids equal but for
+   near ties at the k-th place (counted), #1-#4 and #5 launched on each
+   rank. (d) LightGCN at its defaults with batch 2,048 on (1, 2), one
+   fit() epoch cut to its first MESH_GCN_STEPS steps (the pipeline's
+   num_batches), against a single-device LightGCN at the same seed and
+   cut: the epoch loss within 1e-5 relative, every parameter within 1e-5
+   of its table's scale, evaluate() through "topk" within 1e-4 of the
+   single device's "full" (rank_count never launched), segsum launched
+   exactly steps x 2 x 3 + 3 times on each rank, #1-#5 launched. (e)
+   BPRMF at its defaults on (2, 2), 4 ranks, one epoch cut to
+   MESH_BPR_STEPS steps, against one device the same way. (f) The
+   user's command, `torchrun --standalone --nproc_per_node 2
+   run_skrx_torch.py --recommender LightGCN --mesh_shape "(1,2)" --epochs
+   1 ...` (batch MESH_CLI_BATCH so that its epoch fits the phase), as a
+   subprocess: exit 0, one log, rank 0's, with finite metrics. (g) The
+   phase's and the epochs' seconds, each labelled with the ranks that
+   shared the card. The tally adds the single-device runs' and every
+   rank's launches. Alone: `python3 experiments/chip_phase16.py`.
 
-The second-to-last line is the per-kernel JSON record, the last line
+The second-to-last line is the per-kernel JSON record (one row for each of
+the 11 TPU kernels), the last line
 ``{"ok": true, "device": {...}}``.
 """
 import gc
@@ -349,13 +381,16 @@ from skrx_torch.models.TransRec import transrec_loss
 from skrx_torch.models.common import make_train_step, nest_params
 from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
-from skrx_torch.ops.graph import graph_from_coo, propagate_weighted
+from skrx_torch.ops.graph import (graph_from_coo, propagate,
+                                  propagate_weighted)
 from skrx_torch.ops.kernels import _build, runtime
 from skrx_torch.ops.kernels import dot_topk as dt
 from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.mm_graph import knn_select
 from skrx_torch.ops.kernels import topk_blocks as tb
 from skrx_torch.ops.optim import LazyAdam, OptaxAdamW, dedup_rows
+from skrx_torch.parallel import (ShardedPropGraph, make_mesh, pad_rows,
+                                 run_ranks, sharded_dot_topk)
 from skrx_torch.serve import TopKRecommender
 from skrx_torch.utils.checkpoint import Checkpointer
 import run_skrx_torch
@@ -374,7 +409,7 @@ SEED = 2021
 REPS = 50
 SERVING = ("submax", "kth_largest", "extract", "pruned_merge")
 SOURCE = {name: "skrx_torch/ops/kernels/csrc/topk_blocks.cu"
-          for name in SERVING}
+          for name in SERVING + ("vmem_topk",)}
 SOURCE.update(rank_count="skrx_torch/ops/kernels/csrc/rank_counts.cu",
               rank_lookup_count="skrx_torch/ops/kernels/csrc/rank_counts.cu",
               direct_rank="skrx_torch/ops/kernels/csrc/rank_counts.cu",
@@ -385,6 +420,7 @@ REPLACES = {"submax": "skrx/ops/pallas/topk_blocks.py:488",
             "kth_largest": "skrx/ops/pallas/topk_blocks.py:224",
             "extract": "skrx/ops/pallas/topk_blocks.py:601",
             "pruned_merge": "skrx/ops/pallas/topk_blocks.py:295",
+            "vmem_topk": "skrx/ops/pallas/topk_blocks.py:145",
             "rank_count": "skrx/ops/pallas/topk_blocks.py:815",
             "rank_lookup_count": "skrx/ops/pallas/topk_blocks.py:872",
             "direct_rank": "skrx/ops/pallas/topk_blocks.py:935",
@@ -396,7 +432,8 @@ FUSED = ("dot_submax", "dot_extract")
 BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
 CHUNK = 8_192
 TRAIN_WINDOW = 100                # steps of an epoch under the profiler
-WALK_WINDOW = 1_000               # steps of GRU4RecPlus's fit() epoch
+WALK_WINDOW = 1_000               # steps of GRU4Rec's, GRU4RecPlus's epoch
+TOWER_STEPS = 500                 # steps of BERT4Rec's and SRGNN's epoch
 IMG_DIM, TXT_DIM = 4_096, 384     # VGG image, sentence-transformer text
 KNN_K, KNN_ROWS = 10, 256         # the kNN graphs' k; rows held to float64
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -409,6 +446,12 @@ MERGE_CAP = 256
 # H100 SXM data sheet: f32 outside the tensor cores, device-memory bytes/s
 F32_OPS = 67e12
 MEM_RATE = 3.35e12
+# phase 16: the steps of the sharded epochs (of 358 at LightGCN's batch of
+# 2,048 and 716 at BPRMF's 1,024; the pipeline's num_batches) and the
+# command line's batch, so that the phase stays near 150 s
+MESH_GCN_STEPS = 100
+MESH_BPR_STEPS = 300
+MESH_CLI_BATCH = 8_192
 NEG_INF = float("-inf")
 INT_MIN = -2 ** 31                      # -0.0 as int32
 
@@ -493,7 +536,7 @@ def check_chain(what: str, scores, mask, k: int, errs: dict,
     expect_equal(f"{what} vmem_topk", [vv, vi],
                  tb.pruned_merge_plain(cv.cpu(), ci.cpu(), k,
                                        torch.full_like(tau.cpu(), NEG_INF)),
-                 errs, "pruned_merge")
+                 errs, "vmem_topk")
     require(torch.equal(vv.cpu(), mv.cpu())
             and torch.equal(vi.cpu(), mi.cpu()),
             f"{what}: vmem_topk != pruned_merge")
@@ -1526,11 +1569,13 @@ def timed(fn):
 
 def counted(fn):
     """(result, launches per kernel) of fn(): the counts are set to 0 just
-    before and read just after."""
-    torch.cuda.synchronize()
+    before and read just after (a CPU rehearsal has nothing to sync)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
     runtime.reset_launches()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, dict(runtime.LAUNCHES)
 
 
@@ -1875,10 +1920,10 @@ def fit_counted(m, steps_per_epoch: int, props: int, tag: str):
 
 # the kernels each evaluate() route must launch (a chunk of CHUNK items is
 # too narrow for the blockwise kernels at k=50: the chunked route merges
-# each chunk's top-k through vmem_topk, pruned_merge's kernel)
+# each chunk's top-k through vmem_topk, pruned_merge's kernel at tau=-inf)
 ROUTE_KERNELS = {"full": ("submax", "kth_largest", "extract", "rank_count"),
                  "fused": FUSED + ("kth_largest", "rank_lookup_count"),
-                 "chunked": ("pruned_merge",)}
+                 "chunked": ("vmem_topk",)}
 
 
 def evaluate_routes(m, tag: str, modes) -> dict:
@@ -2338,8 +2383,8 @@ def phase_sequence_towers(path, reg, dev, card: str, errs: dict):
         perm = np.random.default_rng((SEED, 0)).permutation(m._n_sessions)
         steps[name] = walker_num_steps(m._sess_lens, perm,
                                        cfg.batch_size)[1]
-        if name == "GRU4RecPlus":     # its epoch cut to a window of the walk
-            m.step_limit = steps[name] = min(WALK_WINDOW, steps[name])
+        # the epoch cut to a window of the walk
+        m.step_limit = steps[name] = min(WALK_WINDOW, steps[name])
         runs.append(fit_counted(m, steps[name], 0, name))
         m.step_limit = None
         in_s, out_s, _ = m.epoch_schedule(0)
@@ -2378,6 +2423,7 @@ def phase_sequence_towers(path, reg, dev, card: str, errs: dict):
              bcfg.batch_size, bcfg.verbose) == (5, DIM, 2, 2, 256, 10)
             and bt.tok_emb.shape == (ITEMS + 2, DIM), "BERT4Rec at its "
             "defaults")
+    bt.pipeline.num_batches = min(TOWER_STEPS, bt.pipeline.num_batches)
     runs.append(fit_counted(bt, bt.pipeline.num_batches, 0, "BERT4Rec"))
     bt.optimizer.count = 150
     batch = next(bt.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
@@ -2419,6 +2465,7 @@ def phase_sequence_towers(path, reg, dev, card: str, errs: dict):
     print(f"SRGNN: {sr.num_examples} examples, {sr.num_batches} steps of "
           f"{rcfg.batch_size}, sessions (l_max, n_max) = ({sr.l_max}, "
           f"{sr.n_max})", flush=True)
+    sr.num_batches = min(TOWER_STEPS, sr.num_batches)
     runs.append(fit_counted(sr, sr.num_batches, 0, "SRGNN"))
     batch = next(sr.batches(1))
     step_card_vs_cpu("SRGNN", sr, lambda p, *b: srgnn_loss(
@@ -2865,6 +2912,314 @@ def phase_command_line(path, work: str, device=None) -> dict:
     return {"runs": runs}
 
 
+def _mesh_inputs(n_rows: int, dev):
+    """Phase 16's seeded inputs on ``dev``: node features and a cotangent
+    (n_rows, 64) for the propagate; user vectors (64, 64), an item table,
+    a bias and a train table for the top-k."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = torch.randn(n_rows, DIM, generator=gen, device=dev)
+    ct = torch.randn(n_rows, DIM, generator=gen, device=dev)
+    uv = torch.randn(B_EVAL, DIM, generator=gen, device=dev) / 8
+    items = torch.randn(ITEMS, DIM, generator=gen, device=dev) / 8
+    bias = torch.randn(ITEMS, generator=gen, device=dev) / 8
+    train = torch.randint(0, ITEMS + 1, (B_EVAL, 1456), generator=gen,
+                          device=dev, dtype=torch.int32)
+    return x, ct, uv, items, bias, train
+
+
+def _mesh_steps(m, steps: int) -> int:
+    """Cut a model's epoch to its first ``steps`` steps (the pipeline's
+    num_batches); the steps it will run."""
+    m.pipeline.num_batches = min(steps, m.pipeline.num_batches)
+    return m.pipeline.num_batches
+
+
+def _mesh_fit_rank(m, steps: int) -> dict:
+    """One fit() epoch of a model on a mesh, cut to ``steps``; its launches
+    counted, its whole parameters on rank 0."""
+    _mesh_steps(m, steps)
+    best, launches = counted(m.fit)
+    whole = {k: v.cpu().numpy() for k, v in m.full_params().items()}
+    h = m.history[0]
+    return {"loss": h["loss"], "train_seconds": h["train_seconds"],
+            "eval_seconds": h["eval_seconds"], "report": dict(best.results),
+            "launches": launches, "mode": m.evaluator.eval_mode,
+            "params": whole if m.mesh.rank == 0 else None}
+
+
+def _mesh_pair_rank(rank: int, path: str, adj_path: str, work: str,
+                    device: str) -> dict:
+    """Phase 16 (a)-(d) on one of 2 ranks sharing ``device``."""
+    import scipy.sparse as sp
+    import torch.distributed as dist
+    dev = torch.device(device)
+    out = {"world": dist.get_world_size(), "device": str(dev),
+           "backend": dist.get_backend()}
+    mesh = make_mesh((1, 2), dev)
+    # (b) the sharded propagate, forward and backward, on this rank's rows
+    g = ShardedPropGraph(mesh, sp.load_npz(adj_path), device=dev)
+    x, ct, uv, items, bias, train = _mesh_inputs(g.num_nodes, dev)
+    rows = slice(rank * g.rows_per_shard, (rank + 1) * g.rows_per_shard)
+    xl = pad_rows(x, g.graph)[rows].clone().requires_grad_()
+
+    def prop():
+        y = propagate(g, xl)
+        torch.sum(y * pad_rows(ct, g.graph)[rows]).backward()
+        return y
+    y, out["prop_launches"] = counted(prop)
+    out["prop"] = (y.detach().cpu().numpy(), xl.grad.cpu().numpy())
+    # (c) the two-stage top-k over the split catalog
+    (vals, ids), out["topk_launches"] = counted(lambda: sharded_dot_topk(
+        mesh, uv, items, bias, K_EVAL, ITEMS, train))
+    out["topk"] = (vals.cpu().numpy(), ids.cpu().numpy())
+    # (d) LightGCN on (1, 2)
+    os.chdir(work)
+    reg = ModelRegistry()
+    reg.load_skrx_model("LightGCN")
+    gcn = reg.get_model("LightGCN")[0](
+        RunConfig(recommender="LightGCN", data_dir=path, seed=SEED,
+                  mesh_shape=(1, 2)),
+        {"batch_size": 2048, "epochs": 1, "early_stop": 1}, device=dev)
+    out["gcn"] = _mesh_fit_rank(gcn, MESH_GCN_STEPS)
+    return out
+
+
+def _mesh_quad_rank(rank: int, path: str, work: str, device: str) -> dict:
+    """Phase 16 (e): BPRMF on one of 4 ranks sharing ``device``."""
+    os.chdir(work)
+    reg = ModelRegistry()
+    reg.load_skrx_model("BPRMF")
+    bpr = reg.get_model("BPRMF")[0](
+        RunConfig(recommender="BPRMF", data_dir=path, seed=SEED,
+                  mesh_shape=(2, 2)),
+        {"epochs": 1, "early_stop": 1}, device=device)
+    return {"bpr": _mesh_fit_rank(bpr, MESH_BPR_STEPS), "tp": bpr._tp}
+
+
+def _mesh_against_single(tag: str, ranks, single, single_report,
+                         single_loss: float, on_card: bool) -> None:
+    """Phase 16 (d), (e): each rank's epoch loss within 1e-5 relative of
+    the single device's, every parameter row within 1e-5 of its table's
+    scale, the "topk" metrics within 1e-4 of the single device's "full"
+    (and, on the card, the launches of the "topk" route)."""
+    whole = ranks[0]["params"]
+    worst = {}
+    for name, p in single.named_parameters():
+        ref = p.detach().cpu().numpy()
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(whole[name] - ref).max())
+        worst[name] = err / scale
+        require(err <= 1e-5 * scale, f"{tag} {name}: off by {err} (table "
+                f"scale {scale})")
+    for r in ranks:
+        require(r["mode"] == "auto" and abs(r["loss"] - single_loss)
+                <= 1e-5 * abs(single_loss),
+                f"{tag} loss {r['loss']} against {single_loss}")
+        # "auto" took the two-stage top-k: the rank counts never ran
+        require(not on_card or r["launches"]["rank_count"]
+                == r["launches"]["direct_rank"] == 0
+                and r["launches"]["vmem_topk"] >= 1,
+                f"{tag}: evaluate() did not go through 'topk': "
+                f"{r['launches']}")
+        for key, value in single_report.items():
+            require(abs(r["report"][key] - value) <= 1e-4,
+                    f"{tag} {key}: topk {r['report'][key]}, full {value}")
+    print(f"phase 16 {tag}: loss {ranks[0]['loss']} (one device "
+          f"{single_loss}); parameters off by at most {worst} of each "
+          f"table's scale; evaluate() through 'topk' {ranks[0]['report']} "
+          f"(one device's 'full' {dict(single_report.results)}); within 1e-4",
+          flush=True)
+
+
+def phase_mesh(path, work: str, card: str, device=None) -> dict:
+    """Phase 16 (the module docstring): the mesh, ranks sharing the card
+    (``device``, None: cuda:0, also each rank's). Returns the launch
+    counts of each main-path run (the single device's and each rank's)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    on_card = dev.type == "cuda"       # a CPU rehearsal launches nothing
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    reg = ModelRegistry()
+    reg.load_skrx_model("LightGCN")
+    reg.load_skrx_model("BPRMF")
+    try:
+        # the single device: LightGCN (it writes the adjacency the ranks
+        # read), the propagate and the top-k, and one cut fit() epoch
+        gcn = reg.get_model("LightGCN")[0](
+            RunConfig(recommender="LightGCN", data_dir=path, seed=SEED),
+            {"batch_size": 2048, "epochs": 1, "early_stop": 1}, device=dev)
+        require((gcn.config.embed_size, gcn.config.n_layers) == (DIM, 3),
+                "LightGCN at full width")
+        x, ct, uv, items, bias, train = _mesh_inputs(gcn.graph.num_nodes,
+                                                     dev)
+        x.requires_grad_()
+        y_ref = propagate(gcn.graph, x)
+        torch.sum(y_ref * ct).backward()
+        ref_v, ref_i = metrics.topk_scores_and_indices(
+            uv @ items.T + bias[None, :], K_EVAL, mask_table=train)
+        gcn_steps = _mesh_steps(gcn, MESH_GCN_STEPS)
+        _, gcn_launches = counted(gcn.fit)
+        adj_path = os.path.join(path, "_LightGCN_data", "pre_adj.npz")
+        t0 = time.perf_counter()
+        pair = run_ranks(_mesh_pair_rank, 2,
+                         (path, adj_path, work, str(dev)), device=dev,
+                         timeout=600)
+        pair_s = time.perf_counter() - t0
+        # (a) the backend
+        for r, o in enumerate(pair):
+            print(f"phase 16 (a): rank {r} of {o['world']} on {o['device']},"
+                  f" backend {o['backend']}", flush=True)
+            require(o["backend"] == "gloo" and o["world"] == 2,
+                    "2 ranks sharing one card run gloo")
+        # (b) the sharded propagate against the single device
+        y = torch.from_numpy(np.concatenate([o["prop"][0] for o in pair]))
+        dx = torch.from_numpy(np.concatenate([o["prop"][1] for o in pair]))
+        n = gcn.graph.num_nodes
+        errs16 = {}
+        for tag, got, ref in (("A x", y[:n], y_ref.detach()),
+                              ("A^T g", dx[:n], x.grad)):
+            ref = ref.cpu()
+            scale = float(ref.abs().max())
+            errs16[tag] = float((got - ref).abs().max())
+            require(errs16[tag] <= 1e-5 * scale,
+                    f"sharded {tag} off by {errs16[tag]} (scale {scale})")
+        for r, o in enumerate(pair):
+            require(not on_card or o["prop_launches"]["segsum"] == 2,
+                    f"rank {r}: segsum {o['prop_launches']['segsum']} "
+                    f"launches for one propagate and its gradient, not 2")
+        print(f"phase 16 (b): sharded propagate on the LightGCN graph "
+              f"({n} rows, {gcn.graph.num_edges} edges, D={DIM}, "
+              f"{pair[0]['prop'][0].shape[0]} rows a rank) against one "
+              f"device: max |err| {errs16} (within 1e-5 of the output's "
+              f"scale); segsum launches per rank "
+              f"{[o['prop_launches']['segsum'] for o in pair]} (one "
+              f"forward, one backward)", flush=True)
+        # (c) the two-stage top-k against the single device's
+        got_v, got_i = (torch.from_numpy(a) for a in pair[0]["topk"])
+        require(all(np.array_equal(o["topk"][1], pair[0]["topk"][1])
+                    for o in pair), "the ranks' merged top-k differ")
+        ref_v, ref_i = ref_v.cpu(), ref_i.cpu()
+        scale = float(ref_v.abs().max())
+        verr = float((got_v - ref_v).abs().max())
+        require(verr <= 1e-5 * scale, f"top-k values off by {verr}")
+        ties = 0
+        for row in range(B_EVAL):
+            if torch.equal(got_i[row], ref_i[row]):
+                continue
+            # a different id only at a near tie around the k-th value
+            kth = float(ref_v[row, -1])
+            diff = got_i[row] != ref_i[row]
+            near = (ref_v[row][diff] - kth).abs().max()
+            require(float(near) <= 1e-5 * scale,
+                    f"top-k row {row} differs beyond a near tie")
+            ties += 1
+        for r, o in enumerate(pair):
+            for kname in SERVING + ("vmem_topk",):
+                require(not on_card or o["topk_launches"][kname] >= 1,
+                        f"rank {r}: {kname} not launched by the top-k")
+        print(f"phase 16 (c): sharded_dot_topk (B={B_EVAL}, k={K_EVAL}, "
+              f"d={DIM}, {ITEMS} items, 2 shards of {-(-ITEMS // 2)}, "
+              f"train table) against one device: values within {verr} "
+              f"(scale {scale}); {ties} rows with a near tie at the k-th "
+              f"place; launches per rank "
+              f"{[o['topk_launches'] for o in pair]}", flush=True)
+        # (d) LightGCN on (1, 2) against one device
+        gcn_one = gcn.history[0]
+        _mesh_against_single("(d) LightGCN (1, 2)",
+                             [o["gcn"] for o in pair], gcn,
+                             gcn_one["report"], gcn_one["loss"], on_card)
+        expect = gcn_steps * 2 * 3 + 3
+        for r, o in enumerate(pair):
+            got = o["gcn"]["launches"]
+            require(not on_card or got["segsum"] == expect,
+                    f"rank {r}: segsum {got['segsum']} launches, not "
+                    f"{expect}")
+            for kname in SERVING + ("vmem_topk",):
+                require(not on_card or got[kname] >= 1,
+                        f"rank {r}: {kname} never launched in LightGCN's "
+                        f"sharded fit()")
+            print(f"phase 16 (d): rank {r} launches in fit() "
+                  f"({gcn_steps} steps + evaluate()): {got}; "
+                  f"segsum expected {expect}", flush=True)
+        del gcn
+        # (e) BPRMF on (2, 2)
+        bpr = reg.get_model("BPRMF")[0](
+            RunConfig(recommender="BPRMF", data_dir=path, seed=SEED),
+            {"epochs": 1, "early_stop": 1}, device=dev)
+        bpr_steps = _mesh_steps(bpr, MESH_BPR_STEPS)
+        _, bpr_launches = counted(bpr.fit)
+        t0 = time.perf_counter()
+        quad = run_ranks(_mesh_quad_rank, 4, (path, work, str(dev)),
+                         device=dev, timeout=600)
+        quad_s = time.perf_counter() - t0
+        require(all(o["tp"] for o in quad), "BPRMF's tensor-parallel step")
+        bpr_one = bpr.history[0]
+        _mesh_against_single("(e) BPRMF (2, 2)", [o["bpr"] for o in quad],
+                             bpr, bpr_one["report"], bpr_one["loss"],
+                             on_card)
+        for r, o in enumerate(quad):
+            for kname in SERVING + ("vmem_topk",):
+                require(not on_card or o["bpr"]["launches"][kname] >= 1,
+                        f"rank {r}: {kname} never launched in BPRMF's "
+                        f"sharded fit()")
+        print(f"phase 16 (e): launches per rank in fit() "
+              f"({bpr_steps} steps + evaluate()): "
+              f"{[o['bpr']['launches'] for o in quad]}", flush=True)
+        del bpr
+        # (f) the user's command under torchrun
+        t0 = time.perf_counter()
+        script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "run_skrx_torch.py")
+        cli = os.path.join(work, "cli")
+        os.makedirs(cli)
+        argv = ["--recommender", "LightGCN", "--data_dir", path,
+                "--mesh_shape", "(1,2)", "--epochs", "1", "--early_stop",
+                "1", "--batch_size", str(MESH_CLI_BATCH), "--top_k",
+                "(10,20)", "--metric", "('Recall','NDCG')"]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", script, *argv]
+        done = subprocess.run(cmd, cwd=cli, capture_output=True, text=True,
+                              timeout=600)
+        require(done.returncode == 0, f"torchrun exited {done.returncode}: "
+                f"{done.stderr[-3000:]}")
+        name = os.path.basename(os.path.normpath(path))
+        logs = glob.glob(os.path.join(cli, "log", "*", "*", "*.log"))
+        require(len(logs) == 1 and os.path.dirname(logs[0]) == os.path.join(
+            cli, "log", name, "LightGCN"), f"one log, rank 0's: {logs}")
+        logged = _logged_report(logs[0])
+        require(all(np.isfinite(v) for v in logged.values()),
+                f"finite metrics in the log: {logged}")
+        cli_s = time.perf_counter() - t0
+        print(f"phase 16 (f): torchrun --standalone --nproc_per_node 2 "
+              f"run_skrx_torch.py {' '.join(argv)} exited 0 in {cli_s} s "
+              f"(2 ranks sharing one H100); one log, rank 0's: {logged}",
+              flush=True)
+    finally:
+        os.chdir(cwd)
+    # (g) seconds, every one of them taken by ranks sharing one card
+    print(f"phase 16 (g) [{card}]: LightGCN (1, 2), 2 ranks sharing one "
+          f"H100: {gcn_steps} steps in "
+          f"{pair[0]['gcn']['train_seconds']} s, "
+          f"{pair[0]['gcn']['train_seconds'] / gcn_steps} s a step "
+          f"(one device: {gcn_one['train_seconds']} s, "
+          f"{gcn_one['train_seconds'] / gcn_steps} s a step); its "
+          f"'topk' evaluate() {pair[0]['gcn']['eval_seconds']} s (one "
+          f"device's 'full' {gcn_one['eval_seconds']} s); the 2 ranks' "
+          f"call {pair_s} s. BPRMF (2, 2), 4 ranks sharing one H100: "
+          f"{bpr_steps} steps in {quad[0]['bpr']['train_seconds']} s "
+          f"(one device {bpr_one['train_seconds']} s), 'topk' evaluate() "
+          f"{quad[0]['bpr']['eval_seconds']} s (one device's 'full' "
+          f"{bpr_one['eval_seconds']} s); the 4 ranks' call {quad_s} s. "
+          f"The command (f) {cli_s} s. Phase 16 took "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    return {"runs": [gcn_launches, bpr_launches]
+            + [o["gcn"]["launches"] for o in pair]
+            + [o["bpr"]["launches"] for o in quad]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3171,7 +3526,7 @@ def main() -> int:
                   f"launches {launched}", flush=True)
             require(diff <= 1e-4, f"{tag} {mode}: metrics off by {diff}")
             need = (FUSED + ("kth_largest", "rank_lookup_count")
-                    if mode == "fused" else ("pruned_merge",))
+                    if mode == "fused" else ("vmem_topk",))
             for kname in need:
                 require(launched[kname] >= 1,
                         f"{kname} never launched in {mode} evaluate() of {tag}")
@@ -3237,6 +3592,10 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 15", flush=True)
     p15 = phase_command_line(path, os.path.join(root, "cli"))
 
+    # ---- phase 16: the mesh, ranks sharing the card (#11, #1-#5 a rank)
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 16", flush=True)
+    p16 = phase_mesh(path, os.path.join(root, "mesh"), card)
+
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
@@ -3274,12 +3633,27 @@ def main() -> int:
     require(bool(torch.allclose(torch.sparse.mm(a_csr, ego),
                                 ss.segsum(fseg, ego), rtol=1e-4, atol=1e-6)),
             "torch.sparse.mm of the CSR matrix computes the same function")
+    # vmem_topk (#5) at its own shape, chunked evaluate()'s merge: the
+    # running best (B=64, k=50) beside one chunk's top 50
+    tops = [torch.topk(e_sc[:, lo:lo + CHUNK], K_EVAL, dim=1)
+            for lo in (0, CHUNK)]
+    c_v = torch.cat([t.values for t in tops], 1).contiguous()
+    c_i = torch.cat([tops[0].indices, tops[1].indices + CHUNK],
+                    1).to(torch.int32).contiguous()
+    neg_e = torch.full((be,), NEG_INF, device=dev)
+    w_m = c_v.shape[1]
+    expect_equal("vmem_topk at the chunk-merge shape",
+                 tb.vmem_topk(c_v, c_i, K_EVAL),
+                 tb.pruned_merge_plain(c_v.cpu(), c_i.cpu(), K_EVAL,
+                                       neg_e.cpu()), errs, "vmem_topk")
     work = {   # (bytes moved, operations) for this run's inputs
         "submax": (4 * (b * n + b * seen_w + b * w_sub), b * n),
         "kth_largest": (4 * (b * w_sub + b), 2 * 33 * b * w_sub),
         "extract": (4 * (b * n + b * seen_w + b) + 8 * b * w_c,
                     b * n + select_ops(found, K)),
         "pruned_merge": (8 * b * w_c + 4 * b + 8 * b * K, 2 * K * b * w_c),
+        "vmem_topk": (8 * be * w_m + 4 * be + 8 * be * K_EVAL,
+                      2 * K_EVAL * be * w_m),
         # a compare and an add per (probe, segment of equal keys) pair
         "rank_count": (8 * be * w_r + 12 * be * t_eval,
                        2 * t_eval * int(rank_segments(e_cv, e_ci).sum())),
@@ -3323,6 +3697,9 @@ def main() -> int:
         "pruned_merge": (lambda: tb.pruned_merge(cv, ci, K, tau),
                          lambda: tb.pruned_merge_plain(cv, ci, K, tau),
                          lambda: torch.topk(cv, K, dim=1)),
+        "vmem_topk": (lambda: tb.vmem_topk(c_v, c_i, K_EVAL),
+                      lambda: tb.pruned_merge_plain(c_v, c_i, K_EVAL, neg_e),
+                      lambda: torch.topk(c_v, K_EVAL, dim=1)),
         "rank_count": (lambda: tb.rank_count(e_cv, e_ci, e_st, e_te),
                        lambda: tb.rank_count_plain(e_cv, e_ci, e_st, e_te),
                        None),
@@ -3352,14 +3729,17 @@ def main() -> int:
     # phase 10's (LayerGCN, LightGCL, DENS), phase 11's (SelfCF, CDAE,
     # MultVAE), phase 12's (FPMC, TransRec, SGAT, Caser, HGN), phase 13's
     # (the sequence towers), phase 14's (the kNN builds and the
-    # multimodal models) and phase 15's (the command line's runs)
+    # multimodal models), phase 15's (the command line's runs) and phase
+    # 16's (the single-device and every rank's fit() on the mesh)
     path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
                  gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
                  *p10["runs"], *p11["runs"], *p12["runs"], *p13["runs"],
-                 *p14["runs"], *p15["runs"]]
+                 *p14["runs"], *p15["runs"], *p16["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
+    shapes["vmem_topk"] = (f"B={be}, W={w_m}, k={K_EVAL}: chunked "
+                           f"evaluate()'s merge")
     for kname in FUSED:
         shapes[kname] = f"B={b}, N={n}, d={DIM}, k={K}, L={seen_w}"
     shapes["rank_lookup_count"] = (
@@ -3422,21 +3802,9 @@ def main() -> int:
           f"{total} ms vs masked torch.topk {time_ms(masked_topk)} ms; "
           f"predict {time_ms(lambda: model.predict(users))} ms "
           f"[{card}, B={b}]")
-    # vmem_topk (#5) at its own shape, chunked evaluate()'s merge: the
-    # running best (B=64, k=50) beside one chunk's top 50
-    tops = [torch.topk(e_sc[:, lo:lo + CHUNK], K_EVAL, dim=1)
-            for lo in (0, CHUNK)]
-    c_v = torch.cat([t.values for t in tops], 1).contiguous()
-    c_i = torch.cat([tops[0].indices, tops[1].indices + CHUNK],
-                    1).to(torch.int32).contiguous()
-    neg_e = torch.full((be,), NEG_INF, device=dev)
-    w_m = c_v.shape[1]
+    # vmem_topk (#5) at its own shape: its row above
     t_bytes = (8 * be * w_m + 4 * be + 8 * be * K_EVAL) / MEM_RATE * 1e3
     t_ops = 2 * K_EVAL * be * w_m / F32_OPS * 1e3
-    expect_equal("vmem_topk at the chunk-merge shape",
-                 tb.vmem_topk(c_v, c_i, K_EVAL),
-                 tb.pruned_merge_plain(c_v.cpu(), c_i.cpu(), K_EVAL,
-                                       neg_e.cpu()), errs, "pruned_merge")
     print(f"vmem_topk (pruned_merge, tau=-inf) at the chunked-evaluation "
           f"merge (B={be}, W={w_m}, k={K_EVAL}): "
           f"{device_ms(lambda: tb.vmem_topk(c_v, c_i, K_EVAL))} ms of device "

@@ -18,6 +18,17 @@ search (``--hyperopt True``) or the one ``fit()`` runs through
 
 The run is on ``cuda:<gpu_id>``; without CUDA it raises. ``main(argv,
 device="cpu")`` runs it on the CPU.
+
+A mesh, ``--mesh_shape "(d,m)"``, runs as d * m ranks of one process each,
+started by torchrun:
+
+    torchrun --standalone --nproc_per_node 2 run_skrx_torch.py \
+        --recommender LightGCN --data_dir <dir> --mesh_shape "(1,2)"
+
+Each rank starts its process group (``WORLD_SIZE`` > 1) before the model
+is built, on ``cuda:<LOCAL_RANK mod cards>``; ranks that share a card run
+gloo. Only rank 0 writes the logs. Ranks already joined by a process group
+(``skrx_torch.parallel.run_ranks``) call ``main`` as it is.
 """
 import os
 import random
@@ -27,7 +38,10 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from skrx_torch import RunConfig
+from skrx_torch.parallel import initialize_distributed
 from skrx_torch.utils import (ModelRegistry, merge_config_with_cmd_args,
                               merge_config_with_ini, set_host_seed)
 from skrx_torch.utils.hyperopt_driver import HyperOpt
@@ -77,8 +91,17 @@ def main(argv: Optional[List[str]] = None,
     model_class, config_class = registry.get_model(model_name)
 
     _set_random_seed(run_config.seed)
-    return HyperOpt(run_config, model_class, config_class, model_params,
-                    device=device).run()
+    started = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+            and not dist.is_initialized():
+        device = initialize_distributed(device=device)
+        started = True
+    try:
+        return HyperOpt(run_config, model_class, config_class, model_params,
+                        device=device).run()
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

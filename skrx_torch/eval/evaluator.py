@@ -17,13 +17,21 @@ selected, as in the JAX package. Strategies (``eval_mode``):
   :func:`~skrx_torch.ops.kernels.dot_topk.dot_topk_ranks` ranks each test
   item without any (B, N) scores (the fused score-and-select kernels and
   ``rank_lookup_count``);
-- "auto": "chunked" for a model with ``predict_chunk`` when the catalog has
+- "topk": the model's ``predict_topk`` gives each batch's train-masked
+  top-k, the catalog split over the mesh's model axis (two-stage merge,
+  :func:`~skrx_torch.parallel.sharded_dot_topk`), then the hits against
+  the test table; it needs a mesh whose model axis is above 1;
+- "auto": "topk" under such a mesh for a model with ``predict_topk``;
+  else "chunked" for a model with ``predict_chunk`` when the catalog has
   ``chunk_threshold`` items or more (a memory rule), else "full", as the
   JAX package routes off a TPU (its TPU-measured choice of "fused" is not
   carried).
 
-"topk" (the tensor-parallel strategy) waits for ``parallel/`` and raises
-``NotImplementedError`` (ROADMAP.md, Queue 1).
+Under a mesh (``mesh``) every rank evaluates together. When the batch size
+divides by the data axis, each data index scores its rows of every batch
+and the metric sums are all-reduced over the data axis, so every rank
+returns the same report; otherwise every rank scores whole batches. The
+fused route does not run under a model axis above 1.
 """
 import itertools
 from collections import OrderedDict
@@ -38,6 +46,8 @@ from ..ops.metrics import (ID2METRIC, METRIC2ID, eval_score_matrix_device,
                            hits_against_padded_truth, hits_from_ranks,
                            ranking_metrics_from_hits,
                            topk_scores_and_indices)
+from ..parallel import data_sharding, model_parallel_size
+from ..parallel.distributed import all_reduce_sum
 from ..utils import resolve_device
 
 __all__ = ["MetricReport", "RankingEvaluator", "EarlyStopping",
@@ -128,7 +138,7 @@ def _pad_table(user_dict: Dict[int, np.ndarray], users: np.ndarray,
 
 class RankingEvaluator:
     """Evaluate a model's top-K ranking quality on ``device`` (``cuda`` unless
-    given; absent CUDA raises).
+    given; absent CUDA raises), on one rank of ``mesh`` when given.
 
     The model must provide ``predict(users) -> (B, N) scores``.
     """
@@ -146,7 +156,8 @@ class RankingEvaluator:
                  batch_size: int = 256, num_thread: int = 8,
                  eval_mode: str = "auto", chunk_size: int = 65536,
                  chunk_threshold: int = 131072,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         if metric is None:
             metric = ["Precision", "Recall", "MAP", "NDCG", "MRR"]
         elif isinstance(metric, str):
@@ -160,16 +171,21 @@ class RankingEvaluator:
                 raise ValueError(f"'{m}' is not in {tuple(METRIC2ID)}")
         if eval_mode not in _EVAL_MODES:
             raise ValueError(f"unknown eval_mode {eval_mode!r}")
-        if eval_mode == "topk":
-            raise NotImplementedError(
-                "eval_mode='topk' is not ported yet (ROADMAP.md, Queue 1, "
-                "parallel/); use 'auto', 'full', 'chunked' or 'fused'")
+        tp = model_parallel_size(mesh) > 1
+        if eval_mode == "topk" and not tp:
+            raise ValueError("eval_mode='topk' needs a mesh whose model axis "
+                             "is above 1")
+        if eval_mode == "fused" and tp:
+            raise ValueError("eval_mode='fused' runs on one rank's whole "
+                             "catalog; under a model axis above 1 use "
+                             "'topk' or 'auto'")
         if chunk_size <= 0 or chunk_threshold <= 0:
             raise ValueError(f"chunk_size and chunk_threshold must be > 0, "
                              f"got {chunk_size}, {chunk_threshold}")
         if not user_test_dict:
             raise ValueError("'user_test_dict' cannot be empty.")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.user_pos_train = user_train_dict if user_train_dict is not None \
             else {}
         self.user_pos_test = user_test_dict
@@ -234,14 +250,25 @@ class RankingEvaluator:
         return (self._train_table[users], self._test_table[users],
                 self._test_len[users])
 
+    def _batch_rows(self) -> slice:
+        """The rows of every batch this rank scores: its data index's
+        under a mesh whose data axis divides the batch size, else all."""
+        mesh, bs = self.mesh, self.batch_size
+        if mesh is None or mesh.data_size == 1 or bs % mesh.data_size:
+            return slice(None)
+        blocks = data_sharding(mesh, bs)
+        return slice(blocks.lo, blocks.hi)
+
     def _dev_batches(self, users: np.ndarray, num_items: int):
         """Per batch ``(batch_users, train_t, test_t, test_len (>= 1),
         weight)`` on the device, the last batch padded with its last user
-        (weight 0). Kept across evaluations of the same users (LRU of
-        ``_LRU_SLOTS``); above ``table_cache_budget`` bytes a generator
-        uploads one batch at a time."""
+        (weight 0), this rank's rows of each (:meth:`_batch_rows`). Kept
+        across evaluations of the same users (LRU of ``_LRU_SLOTS``); above
+        ``table_cache_budget`` bytes a generator uploads one batch at a
+        time."""
         bs = self.batch_size
         n_users = len(users)
+        rows = self._batch_rows()
 
         def put(x):
             return torch.as_tensor(x).to(self.device)
@@ -257,9 +284,10 @@ class RankingEvaluator:
                 train_table, test_table, test_len = self._tables_for(
                     batch_users, num_items)
                 weight = (np.arange(bs) < n_real) & (test_len > 0)
-                yield (put(batch_users.astype(np.int64)), put(train_table),
-                       put(test_table), put(np.maximum(test_len, 1)),
-                       put(weight.astype(np.float32)))
+                yield (put(batch_users[rows].astype(np.int64)),
+                       put(train_table[rows]), put(test_table[rows]),
+                       put(np.maximum(test_len[rows], 1)),
+                       put(weight[rows].astype(np.float32)))
 
         self._tables_for(users[:1], num_items)      # width probe
         w = self._train_table.shape[1] + self._test_table.shape[1]
@@ -301,8 +329,12 @@ class RankingEvaluator:
         num_items = (getattr(model, "_eval_width", None)
                      or getattr(model, "num_items", None))
         mode = self.eval_mode
-        if mode in ("fused", "chunked") and num_items is None:
+        if mode in ("fused", "chunked", "topk") and num_items is None:
             raise ValueError(f"eval_mode={mode!r} needs model.num_items")
+        if mode == "topk" or (mode == "auto" and num_items is not None
+                              and model_parallel_size(self.mesh) > 1
+                              and hasattr(model, "predict_topk")):
+            return self.evaluate_topk(model, num_items, test_users)
         if mode == "fused":
             return self.evaluate_fused(model, num_items, test_users)
         if mode == "chunked" or (
@@ -326,6 +358,9 @@ class RankingEvaluator:
                 * weight[:, None, None], dim=0)
             metric_sum = batch_sum if metric_sum is None \
                 else metric_sum + batch_sum
+        if self._batch_rows() != slice(None):    # each data index's rows
+            all_reduce_sum(metric_sum, self.mesh.data_group,
+                           self.mesh.data_size)
         final = metric_sum.double().cpu().numpy() / len(users)  # (M, top)
         return MetricReport(self.metrics_list,
                             final[:, self.top_show - 1].reshape(-1))
@@ -344,7 +379,8 @@ class RankingEvaluator:
         # the catalog width comes from the first batch's scores
         first_users = users[:bs] if len(users) >= bs else np.concatenate(
             [users, np.full(bs - len(users), users[-1], np.int32)])
-        first_scores = predict(first_users.astype(np.int64))
+        first_scores = predict(first_users[self._batch_rows()].astype(
+            np.int64))
         return self._sum_batches(
             users, int(first_scores.shape[1]),
             lambda bi, batch_users, *tables: self.per_user_metrics(
@@ -364,9 +400,10 @@ class RankingEvaluator:
             raise TypeError("chunked evaluation needs the model's "
                             "predict_chunk(users, lo, hi)")
         chunk_size = int(chunk_size or self.chunk_size)
-        bs, k = self.batch_size, self.max_top
+        k = self.max_top
 
         def per_user(bi, batch_users, train_t, test_t, test_len):
+            bs = batch_users.shape[0]
             best_v = torch.full((bs, k), float("-inf"), device=self.device)
             # never a test id nor the tables' pad id (num_items)
             best_i = torch.full((bs, k), num_items + 1, dtype=torch.int32,
@@ -384,6 +421,33 @@ class RankingEvaluator:
                                            torch.cat([best_i, idx + lo], 1), k)
             return ranking_metrics_from_hits(
                 hits_against_padded_truth(best_i, test_t), test_len,
+                self.metrics)
+
+        return self._sum_batches(self._test_users(test_users), num_items,
+                                 per_user)
+
+    def evaluate_topk(self, model, num_items: int,
+                      test_users: Optional[Iterable[int]] = None
+                      ) -> MetricReport:
+        """Metrics from the model's ``predict_topk(users, k, train_table)
+        -> (values, global ids)``, the train-masked top-k with the catalog
+        split over the mesh's model axis, so no rank builds the (B, N)
+        scores: -inf slots and a top-k shorter than k (a catalog below k)
+        never hit a test item; then the hits against the test table."""
+        if not hasattr(model, "predict_topk"):
+            raise TypeError("topk evaluation needs the model's "
+                            "predict_topk(users, k, train_table)")
+        k = self.max_top
+        sentinel = num_items + 1   # never a test id nor the pad id
+
+        def per_user(bi, batch_users, train_t, test_t, test_len):
+            vals, idx = model.predict_topk(batch_users, k, train_t)
+            idx = torch.where(torch.isneginf(vals), sentinel, idx)
+            if idx.shape[1] < k:
+                idx = torch.cat([idx, idx.new_full(
+                    (idx.shape[0], k - idx.shape[1]), sentinel)], 1)
+            return ranking_metrics_from_hits(
+                hits_against_padded_truth(idx, test_t), test_len,
                 self.metrics)
 
         return self._sum_batches(self._test_users(test_users), num_items,

@@ -16,6 +16,19 @@ and no (N, d) gradient or moment is formed; epochs come from
 ``predict`` is one f32 ``torch.matmul`` plus the bias, outside any kernel as
 in the JAX package; it assumes PyTorch's default of TF32 off for f32
 matmuls (``torch.backends.cuda.matmul.allow_tf32`` False).
+
+Under a mesh of several ranks (``RunConfig.mesh_shape`` (d, m), dense Adam)
+``user_emb`` and ``item_emb`` are split by rows over the model axis
+(``mf_param_shardings``) and ``item_bias`` is whole on every rank; each
+rank trains on its data index's slice of the batch. A batch's rows are
+read by :func:`~skrx_torch.parallel.lookup_rows` (of a table, each
+owner's rows all-reduced over the model axis; of the bias, the rank's
+copy), whose backward adds every data index's gradient into the rank's
+rows as one device sums it. ``_tp`` (a model axis above 1) marks
+the tensor-parallel step, as in the JAX package. Scoring gathers the
+tables whole once an epoch; ``evaluate()`` ranks through ``predict_topk``
+when the model axis is above 1. Lazy Adam under a mesh is not ported
+(ROADMAP.md Queue 1 item 4b).
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -27,10 +40,13 @@ from ..convert import bprmf_params_from_jax, lazy_adam_state_from_jax
 from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
 from ..ops.optim import LazyAdam, make_lazy_train_step
+from ..parallel import (lookup_rows, mf_param_shardings, model_parallel_size,
+                        take_rows)
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (ChunkedDotPredictMixin, EpochTrainedRecommender,
-                     as_user_tensor, make_optimizer, make_train_step)
+                     as_user_tensor, make_optimizer, make_sharded_train_step,
+                     make_train_step)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["BPRMF", "BPRMFConfig", "bprmf_gathered_loss",
@@ -100,39 +116,69 @@ def bprmf_lazy_train_step(params: Dict[str, torch.Tensor], lr: float,
 
 class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb", "item_bias")
+    _MESH_READY = True
+    _PREDICT_CACHE_ATTRS = (*EpochTrainedRecommender._PREDICT_CACHE_ATTRS,
+                            "_whole_tables")
+    _whole_tables = None
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, BPRMFConfig(**model_config), device)
-        d = self.config.n_dim
+        cfg = self.config
+        if self.mesh is not None and cfg.optimizer == "lazy_adam":
+            raise NotImplementedError("BPRMF with optimizer='lazy_adam' under "
+                                      "a mesh is not ported (ROADMAP.md "
+                                      "Queue 1 item 4b)")
+        self._tp = model_parallel_size(self.mesh) > 1
+        d = cfg.n_dim
         gen = torch.Generator().manual_seed(run_config.seed)
         normal, zeros = get_initializer("normal"), get_initializer("zeros")
-        self.user_emb = nn.Parameter(
-            normal((self.num_users, d), gen).to(self.device))
-        self.item_emb = nn.Parameter(
-            normal((self.num_items, d), gen).to(self.device))
-        self.item_bias = nn.Parameter(zeros((self.num_items,)).to(self.device))
+        full = {"user_emb": normal((self.num_users, d), gen),
+                "item_emb": normal((self.num_items, d), gen),
+                "item_bias": zeros((self.num_items,))}
+        if self.mesh is not None:
+            self._row_blocks = {
+                name: blocks for name, blocks in
+                mf_param_shardings(self.mesh, full).items()
+                if blocks is not None}
+        for name, value in full.items():
+            local = take_rows(value, self._row_blocks.get(name))
+            setattr(self, name, nn.Parameter(local.to(self.device)))
         tables = {name: getattr(self, name) for name in self._JAX_PARAMS}
-        if self.config.optimizer == "lazy_adam":
+        if cfg.optimizer == "lazy_adam":
             self.train_step, self.optimizer = bprmf_lazy_train_step(
-                tables, self.config.lr, self.config.reg)
+                tables, cfg.lr, cfg.reg)
+        elif self.mesh is not None:
+            self.optimizer = make_optimizer("adam", tables, cfg.lr)
+            self.train_step = make_sharded_train_step(self.optimizer,
+                                                       self._loss)
         else:
-            self.optimizer = make_optimizer("adam", tables, self.config.lr)
+            self.optimizer = make_optimizer("adam", tables, cfg.lr)
             self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = PairwiseEpochPipeline(
-            self.dataset.train_data, self.config.batch_size, self.device,
-            num_neg=1)
+            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
+            mesh=self.mesh)
 
     def _loss(self, users, pos, neg, w) -> torch.Tensor:
+        """The loss of this batch, under a mesh of this rank's slice."""
         neg = neg[:, 0]
+        if self.mesh is None:
+            def rows(name, ids):
+                return getattr(self, name)[ids]
+        else:
+            def rows(name, ids):
+                return lookup_rows(getattr(self, name), ids,
+                                   self._row_blocks.get(name), self.mesh)
         return bprmf_gathered_loss(
-            self.user_emb[users], self.item_emb[pos], self.item_emb[neg],
-            self.item_bias[pos], self.item_bias[neg], w, self.config.reg)
+            rows("user_emb", users), rows("item_emb", pos),
+            rows("item_emb", neg), rows("item_bias", pos),
+            rows("item_bias", neg), w, self.config.reg)
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX BPRMF's ``params`` (arrays taken with ``np.asarray``)
         into this model."""
         self._copy_params(bprmf_params_from_jax(params))
+        self._invalidate_predict_cache()
 
     def load_jax_opt_state(self, *state) -> None:
         """Dense Adam: ``(count, mu, nu)``, as the base class. Lazy Adam:
@@ -148,8 +194,16 @@ class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
             {name: lazy_adam_state_from_jax(*s)
              for name, s in zip(self._JAX_PARAMS, state)})
 
+    @torch.no_grad()
     def _chunk_embeddings(self):
-        return self.user_emb, self.item_emb
+        """The live tables; under a mesh, the tables gathered whole (on
+        every rank, once an epoch)."""
+        if self.mesh is None:
+            return self.user_emb, self.item_emb
+        if self._whole_tables is None:
+            whole = self.full_params()
+            self._whole_tables = (whole["user_emb"], whole["item_emb"])
+        return self._whole_tables
 
     def _chunk_bias(self):
         return self.item_bias
@@ -158,6 +212,7 @@ class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
     def predict(self, users) -> torch.Tensor:
         """(B, N) f32 scores ``user_emb[users] @ item_emb.T + item_bias`` on
         the model's device."""
+        user_emb, item_emb = self._chunk_embeddings()
         users = as_user_tensor(users, self.device)
-        return torch.matmul(self.user_emb[users], self.item_emb.T) \
+        return torch.matmul(user_emb[users], item_emb.T) \
             + self.item_bias[None, :]

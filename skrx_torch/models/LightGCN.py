@@ -12,6 +12,18 @@ batch's valid rows plus ``reg * 0.5 * sum(w * (|ue|^2 + |pe|^2 + |ne|^2)) /
 batch_size`` on the ego rows; then one dense Adam step. ``evaluate()``
 propagates once under ``no_grad`` and scores from those frozen embeddings,
 which ``predict`` and ``_chunk_embeddings`` reuse until the next epoch.
+
+Under a mesh of several ranks (``RunConfig.mesh_shape``) the graph's
+destination rows split over every rank (``ShardedPropGraph``, segsum on
+each rank's edges) and each rank holds the rows of ``user_emb`` and
+``item_emb`` that fall in its block of the node table
+(``graph_param_shardings``). A step propagates the rank's rows through
+the layers, all-gathers the layer mean and the ego rows (the gather's
+backward sums over the data axis) and takes the loss of the rank's slice
+of the batch (:func:`sharded_lightgcn_loss`); the mean BPR divides by the
+whole batch's valid rows. ``evaluate()`` gathers the propagated tables
+whole on every rank and ranks through ``predict_topk`` when the model axis
+is above 1.
 """
 import os
 from typing import Dict, Optional, Tuple, Union
@@ -19,21 +31,25 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..convert import two_tables_from_jax
 from ..ops.graph import Graph, propagate_layers
 from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
+from ..parallel import ShardedPropGraph, gather_all_rows, take_rows
+from ..parallel.distributed import all_gather_rows, all_reduce_sum
 from ..run_config import RunConfig
 from ..utils import ModelConfig, normalize_adj_matrix
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
-                     FrozenEmbeddingMixin, build_prop_graph, make_optimizer,
-                     make_train_step)
+                     FrozenEmbeddingMixin, build_prop_graph,
+                     graph_param_shardings, make_optimizer,
+                     make_sharded_train_step, make_train_step)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["LightGCN", "LightGCNConfig", "build_bipartite_adj",
-           "lightgcn_embeddings", "lightgcn_loss"]
+           "lightgcn_embeddings", "lightgcn_loss", "sharded_lightgcn_loss"]
 
 
 class LightGCNConfig(ModelConfig):
@@ -112,27 +128,77 @@ def lightgcn_loss(graph: Graph, user_emb: torch.Tensor,
     return loss + reg * reg_term / batch_size
 
 
+def _ego_rows(graph: ShardedPropGraph, user_emb: torch.Tensor,
+              item_emb: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the padded node table: its user rows, then its
+    item rows, then zeros up to ``rows_per_shard``."""
+    ego = torch.cat([user_emb, item_emb], dim=0)
+    return F.pad(ego, (0, 0, 0, graph.rows_per_shard - ego.shape[0]))
+
+
+def sharded_lightgcn_loss(graph: ShardedPropGraph, user_emb: torch.Tensor,
+                          item_emb: torch.Tensor, num_users: int,
+                          n_layers: int, reg: float, batch_size: int,
+                          users: torch.Tensor, pos: torch.Tensor,
+                          neg: torch.Tensor, w: torch.Tensor
+                          ) -> torch.Tensor:
+    """This rank's share of :func:`lightgcn_loss` on a mesh: its rows of
+    the tables (``user_emb``, ``item_emb``) propagated through the sharded
+    graph, the layer mean and the ego rows gathered from every rank, and
+    the loss of its slice of the batch (``users``, ``pos``, ``neg``,
+    ``w``), the mean BPR over the whole batch's valid rows. The slices'
+    losses sum to the single device's."""
+    mesh = graph.mesh
+    ego = _ego_rows(graph, user_emb, item_emb)
+    combined = propagate_layers(graph, ego, n_layers, "mean")
+    table = gather_all_rows(torch.cat([combined, ego], dim=1), mesh)
+    d = ego.shape[1]
+    neg = neg[:, 0]
+    items = num_users + torch.stack([pos, neg])
+    ue, pe, ne = table[users], table[items[0]], table[items[1]]
+    y_pos = torch.sum(ue[:, :d] * pe[:, :d], dim=-1)
+    y_neg = torch.sum(ue[:, :d] * ne[:, :d], dim=-1)
+    n_valid = all_reduce_sum(torch.sum(w), mesh.data_group, mesh.data_size)
+    loss = torch.sum(bpr_loss(y_pos, y_neg) * w) / torch.clamp(n_valid,
+                                                               min=1.0)
+    reg_term = 0.5 * torch.sum(torch.sum(
+        ue[:, d:] ** 2 + pe[:, d:] ** 2 + ne[:, d:] ** 2, dim=-1) * w)
+    return loss + reg * reg_term / batch_size
+
+
 class LightGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb")
+    _MESH_READY = True
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, LightGCNConfig(**model_config), device)
         cfg = self.config
         adj = self._load_adj_mat(cfg.adj_type)
-        self.graph = build_prop_graph(adj, cfg.graph_impl, device=self.device)
+        self.graph = build_prop_graph(adj, cfg.graph_impl, mesh=self.mesh,
+                                      device=self.device)
         gen = torch.Generator().manual_seed(run_config.seed)
         init = get_initializer("xavier_uniform")
-        self.user_emb = nn.Parameter(
-            init((self.num_users, cfg.embed_size), gen).to(self.device))
-        self.item_emb = nn.Parameter(
-            init((self.num_items, cfg.embed_size), gen).to(self.device))
+        tables = {"user_emb": init((self.num_users, cfg.embed_size), gen),
+                  "item_emb": init((self.num_items, cfg.embed_size), gen)}
+        if isinstance(self.graph, ShardedPropGraph):
+            self._row_blocks = graph_param_shardings(
+                self.mesh, {"user_emb": self.num_users,
+                            "item_emb": self.num_items})
+        for name, full in tables.items():
+            local = take_rows(full, self._row_blocks.get(name))
+            setattr(self, name, nn.Parameter(local.to(self.device)))
         self.optimizer = make_optimizer("adam", {"user_emb": self.user_emb,
                                                  "item_emb": self.item_emb},
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        if self.mesh is not None:
+            self.train_step = make_sharded_train_step(self.optimizer,
+                                                      self._loss)
+        else:
+            self.train_step = make_train_step(self.optimizer, self._loss)
         self.pipeline = PairwiseEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
+            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
+            mesh=self.mesh)
 
     def _load_adj_mat(self, adj_type: str) -> sp.csr_matrix:
         out_dir = os.path.join(self.dataset.data_dir,
@@ -143,18 +209,35 @@ class LightGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
             return sp.load_npz(path)
         adj = build_bipartite_adj(self.dataset.train_data.to_user_item_pairs(),
                                   self.num_users, self.num_items, adj_type)
-        sp.save_npz(path, adj)
+        # written under a name of this process's own, then moved into
+        # place: the ranks of a mesh may write it at once
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
+        sp.save_npz(tmp, adj)
+        os.replace(tmp, path)
         return adj
 
     def _loss(self, users, pos, neg, w) -> torch.Tensor:
         cfg = self.config
+        if isinstance(self.graph, ShardedPropGraph):
+            return sharded_lightgcn_loss(
+                self.graph, self.user_emb, self.item_emb, self.num_users,
+                cfg.n_layers, cfg.reg, cfg.batch_size, users, pos, neg, w)
         return lightgcn_loss(self.graph, self.user_emb, self.item_emb,
                              cfg.n_layers, cfg.reg, cfg.batch_size, users,
                              pos, neg, w)
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return lightgcn_embeddings(self.graph, self.user_emb, self.item_emb,
-                                   self.config.n_layers)
+        """The propagated (users, items) tables, whole on every rank under
+        a mesh (gathered from the ranks' rows)."""
+        if not isinstance(self.graph, ShardedPropGraph):
+            return lightgcn_embeddings(self.graph, self.user_emb,
+                                       self.item_emb, self.config.n_layers)
+        ego = _ego_rows(self.graph, self.user_emb, self.item_emb)
+        combined = propagate_layers(self.graph, ego, self.config.n_layers,
+                                    "mean")
+        table = all_gather_rows(combined, self.mesh.world, self.mesh.size)
+        return (table[:self.num_users],
+                table[self.num_users:self.num_users + self.num_items])
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX LightGCN's ``params`` (arrays taken with

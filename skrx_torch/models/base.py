@@ -14,9 +14,19 @@ stopping; ``resume`` restarts after the latest save. ``profile_dir``
 writes a ``torch.profiler`` trace of epoch ``start + 1`` and its
 evaluation. ``RunConfig.compute_dtype`` is routed into the model config as
 in the JAX package. Predict caches are cleared after every epoch.
+
 Subclasses implement ``_train_epoch(epoch) -> loss`` (None: nothing to
 train) and ``predict``; a model trained by ``self.optimizer`` names in
 ``_JAX_PARAMS`` the parameters a JAX model of its kind carries over.
+
+``RunConfig.mesh_shape`` (d, m) with ``d * m`` above 1 builds the mesh of
+the started process group (one process a rank; ``make_mesh`` checks the
+world size) and hands it to the evaluator and the model; a model that
+cannot train under a mesh (``_MESH_READY`` False) raises. A rank holds
+its rows of a table split over the ranks (``_row_blocks``); checkpoints
+hold the gathered whole tables and moments, as a single-device run's, and
+resume takes each rank's rows again. Only rank 0 writes the log and the
+checkpoints; every rank runs every epoch, evaluation and collective.
 """
 import os
 import platform
@@ -32,6 +42,8 @@ from ..convert import adam_state_from_jax
 from ..eval import (EarlyStopping, MetricReport, RankingEvaluator,
                     fused_family)
 from ..io import RSDataset, group_users_by_interactions
+from ..parallel import (RowBlocks, gather_rows, make_mesh, process_index,
+                        take_rows)
 from ..run_config import RunConfig
 from ..utils import Config, Logger, resolve_device, slugify
 from ..utils.checkpoint import Checkpointer
@@ -56,11 +68,25 @@ def resolve_eval_batch_size(batch_size: Union[int, str],
 
 class TorchRecommender(nn.Module):
     _JAX_PARAMS: Tuple[str, ...] = ()
+    # whether the model trains and evaluates under a mesh of several ranks
+    _MESH_READY = False
 
     def __init__(self, run_config: RunConfig, model_config: Config,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__()
         self.device = resolve_device(device, run_config.gpu_id)
+        self.mesh = None
+        # parameter name -> its rows on this rank, for a table split over
+        # the mesh's ranks (the others are whole on every rank)
+        self._row_blocks: Dict[str, RowBlocks] = {}
+        shape = run_config.mesh_shape
+        if shape is not None and shape[0] * shape[1] > 1:
+            if not self._MESH_READY:
+                raise NotImplementedError(
+                    f"{type(self).__name__} under mesh_shape={shape}: only "
+                    f"LightGCN and BPRMF train on a mesh so far; the rest "
+                    f"is ROADMAP.md Queue 1 item 4b")
+            self.mesh = make_mesh(shape, self.device)
         self.run_config = run_config
         self.config = model_config
         # the run's compute dtype reaches a model config that declares the
@@ -93,11 +119,13 @@ class TorchRecommender(nn.Module):
             eval_mode=run_config.eval_mode,
             chunk_size=run_config.eval_chunk_size,
             chunk_threshold=run_config.eval_chunk_threshold,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         # likewise a forced strategy this model cannot serve
         mode = self.evaluator.eval_mode
         if ((mode == "chunked" and not hasattr(type(self), "predict_chunk"))
-                or (mode == "fused" and fused_family(type(self)) is None)):
+                or (mode == "fused" and fused_family(type(self)) is None)
+                or (mode == "topk"
+                    and not hasattr(type(self), "predict_topk"))):
             raise TypeError(f"eval_mode={mode!r} is not supported by "
                             f"{type(self).__name__} (its predict has no "
                             f"compatible factorization); use eval_mode="
@@ -114,7 +142,8 @@ class TorchRecommender(nn.Module):
         run_id = f"{param_str}_{time.time():.8f}"
         data_tag = os.path.basename(os.path.normpath(dataset.data_dir))
         logger = Logger(os.path.join("log", data_tag, model_name,
-                                     run_id + ".log"))
+                                     run_id + ".log")
+                        if process_index() == 0 else None)
         logger.info(f"Server:\t{platform.node()}")
         logger.info(f"Workspace:\t{os.getcwd()}")
         logger.info(f"PID:\t{os.getpid()}")
@@ -154,20 +183,45 @@ class TorchRecommender(nn.Module):
         return Checkpointer(os.path.join(rc.checkpoint_dir,
                                          type(self).__name__))
 
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters as a single-device model holds them, detached: a
+        table split over the mesh's ranks gathered whole (a collective
+        call under a mesh)."""
+        return {name: gather_rows(p.detach(), self._row_blocks.get(name))
+                for name, p in self.named_parameters()}
+
+    def _optimizer_state_rows(self, state_dict: Dict, rows) -> Dict:
+        """``state_dict`` of ``self.optimizer`` with each moment of a split
+        table mapped by ``rows(tensor, RowBlocks)`` (gather or take)."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        names = {id(p): n for n, p in self.named_parameters()}
+        state = {}
+        for i, st in state_dict["state"].items():
+            blocks = self._row_blocks.get(names[id(params[i])])
+            state[i] = {k: rows(v, blocks) if isinstance(v, torch.Tensor)
+                        and v.dim() else v for k, v in st.items()}
+        return {**state_dict, "state": state}
+
     def _train_state(self) -> Dict:
         """What a checkpoint holds: the parameters and the optimizer's
-        state; a model with more state across epochs extends it."""
-        state: Dict = {"params": {name: p.detach() for name, p
-                                  in self.named_parameters()}}
+        state (split tables and their moments gathered whole); a model
+        with more state across epochs extends it."""
+        state: Dict = {"params": self.full_params()}
         optimizer = getattr(self, "optimizer", None)
         if optimizer is not None:
             state["optimizer"] = optimizer.state_dict()
+            if self._row_blocks:
+                state["optimizer"] = self._optimizer_state_rows(
+                    state["optimizer"], gather_rows)
         return state
 
     def _load_train_state(self, state: Dict) -> None:
         self._copy_params(state["params"])
         if "optimizer" in state:
-            self.optimizer.load_state_dict(state["optimizer"])
+            opt_state = state["optimizer"]
+            if self._row_blocks:
+                opt_state = self._optimizer_state_rows(opt_state, take_rows)
+            self.optimizer.load_state_dict(opt_state)
         self._invalidate_predict_cache()
 
     def _start_trace(self):
@@ -209,9 +263,11 @@ class TorchRecommender(nn.Module):
                 self.logger.info(f"resumed from checkpoint at epoch {step}")
 
         def save(epoch):
-            ckpt.save(epoch, self._train_state(),
-                      {"epoch": epoch,
-                       "early_stopping": early_stopping.get_state()})
+            state = self._train_state()      # every rank: it gathers
+            if process_index() == 0:
+                ckpt.save(epoch, state,
+                          {"epoch": epoch,
+                           "early_stopping": early_stopping.get_state()})
 
         prof = None
         epoch_start = time.perf_counter()
@@ -272,9 +328,12 @@ class TorchRecommender(nn.Module):
 
     def _copy_params(self, tensors: Dict[str, torch.Tensor]) -> None:
         """Copy CPU tensors into the parameters of the same names (dotted
-        for a submodule's, as ``named_parameters`` gives them)."""
+        for a submodule's, as ``named_parameters`` gives them); of a table
+        split over the mesh's ranks, the whole table, of which this rank
+        takes its rows."""
         with torch.no_grad():
             for name, value in tensors.items():
+                value = take_rows(value, self._row_blocks.get(name))
                 target = self.get_parameter(name)
                 if target.shape != value.shape:
                     raise ValueError(f"{name}: shape {tuple(value.shape)}, "
@@ -298,12 +357,16 @@ class TorchRecommender(nn.Module):
         shapes = {}
         for key, (name, transposed) in leaves.items():
             shape = tuple(self.get_parameter(name).shape)
+            if name in self._row_blocks:          # the whole table's
+                shape = (self._row_blocks[name].num_rows, *shape[1:])
             shapes[key] = shape[::-1] if transposed else shape
         for key, state in adam_state_from_jax(count, mu, nu, shapes).items():
             name, transposed = leaves[key]
             if transposed:
                 state = {k: v.T.contiguous() if v.dim() else v
                          for k, v in state.items()}
+            state = {k: take_rows(v, self._row_blocks.get(name))
+                     if v.dim() else v for k, v in state.items()}
             self.optimizer.state[self.get_parameter(name)] = {
                 "step": state["step"],
                 "exp_avg": state["exp_avg"].to(self.device),

@@ -1,9 +1,10 @@
-"""Shared model helpers: the optimizer and train-step factory, the base of
-models trained by an epoch pipeline, chunked scoring for dot-product models
-(frozen embeddings for the graph models) and for models with a per-user
-encoder, and the lowering of a model's adjacency for propagation (the port
-of ``skrx.models.common``; the tensor-parallel parts wait for
-``parallel/``)."""
+"""Shared model helpers: the optimizer and train-step factories (one device,
+and a mesh of ranks), the base of models trained by an epoch pipeline,
+chunked scoring for dot-product models (frozen embeddings for the graph
+models; the two-stage top-k over a catalog split by the mesh's model axis)
+and for models with a per-user encoder, and the lowering of a model's
+adjacency for propagation, sharded over a mesh's ranks or not (the port of
+``skrx.models.common``)."""
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -14,6 +15,8 @@ from torch import nn
 from ..convert import adam_state_from_jax, lazy_adam_state_from_jax
 from ..ops.graph import Graph, graph_from_sp_matrix
 from ..ops.optim import LazyAdam
+from ..parallel import RowBlocks, ShardedPropGraph, sharded_dot_topk
+from ..parallel.mesh import row_blocks
 from .base import TorchRecommender
 from .pipeline import epoch_generator
 
@@ -26,7 +29,8 @@ __all__ = ["ParamTree", "param_tree", "add_param_tree", "cast_tree",
            "pad_masked_rows", "LazyAdamTowerMixin", "make_optimizer",
            "adam_l2", "make_train_step", "make_sharded_train_step",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
-           "build_prop_graph"]
+           "build_prop_graph", "graph_sharding_enabled",
+           "graph_param_shardings"]
 
 GRAPH_IMPLS = ("auto", "segment", "mxu", "mxu_bf16")
 
@@ -175,11 +179,19 @@ def make_train_step(optimizer: torch.optim.Optimizer,
     return train_step
 
 
-def make_sharded_train_step(*args, **kwargs):
-    """The tensor-parallel step of the JAX package (tables row-sharded over
-    a mesh) is not ported yet."""
-    raise NotImplementedError("the tensor-parallel train step is not ported "
-                              "yet (ROADMAP.md, Queue 1, parallel/)")
+def make_sharded_train_step(optimizer: torch.optim.Optimizer,
+                            loss_fn: Callable[..., torch.Tensor]) -> Callable:
+    """``train_step(batch) -> loss`` on one rank of a mesh: the loss of
+    ``loss_fn(*batch)``, the rank's share (its data index's slice of the
+    batch) of the summed loss, before the update; then one optimizer step
+    over the rank's parameters, its rows of a split table. It is
+    :func:`make_train_step`: each parameter gets its whole gradient from
+    the backward of the collectives that read it
+    (:func:`~skrx_torch.parallel.lookup_rows`,
+    :func:`~skrx_torch.parallel.gather_all_rows`, the sharded propagate),
+    and Adam is elementwise, so stepping a rank's rows and their moments
+    is the single-device step."""
+    return make_train_step(optimizer, loss_fn)
 
 
 def as_user_tensor(users, device: torch.device) -> torch.Tensor:
@@ -243,6 +255,27 @@ class ChunkedDotPredictMixin:
         if bias is not None:
             scores = scores + bias[None, item_lo:item_hi]
         return scores
+
+    @torch.no_grad()
+    def predict_topk(self, users, k: int, train_table=None):
+        """The exact train-masked top-k with the catalog split over the
+        mesh's model axis (model axis above 1; every rank of the model
+        group calls it with the same users): each rank scores its items,
+        takes its local top-k (#1-#4 on a card) and the candidates merge
+        through #5 (:func:`~skrx_torch.parallel.sharded_dot_topk`), so no
+        rank builds the (B, N) scores. Returns (values (B, k'), global ids
+        (B, k') int32), ``k' = min(k, num_items)``; -inf slots carry
+        masked or padding ids."""
+        u_all, i_all = self._chunk_embeddings()
+        users = as_user_tensor(users, u_all.device)
+        n_items = int(i_all.shape[0])
+        if train_table is None:
+            train_table = torch.full((users.shape[0], 1), n_items,
+                                     dtype=torch.int32, device=u_all.device)
+        return sharded_dot_topk(
+            self.mesh, u_all[users], i_all, self._chunk_bias(), k, n_items,
+            train_table, self.__dict__.setdefault("_topk_cache", {}),
+            score_fn=getattr(self, "_topk_score_fn", None))
 
 
 class FrozenEmbeddingMixin(ChunkedDotPredictMixin):
@@ -316,7 +349,8 @@ class CachedUserVecChunkMixin:
     transform after the dot sets ``_topk_score_fn`` instead and keeps the
     predict route. Serving keeps the predict route for every tower, as
     the JAX package's fused serving takes only ``_chunk_embeddings``. The
-    tensor-parallel ``predict_topk`` waits for ``parallel/``."""
+    towers' tensor-parallel ``predict_topk`` is not ported (ROADMAP.md,
+    Queue 1 item 4b)."""
 
     _uv_cache = None
 
@@ -354,9 +388,9 @@ class CachedUserVecChunkMixin:
                                       item_lo, item_hi)
 
     def predict_topk(self, users, k: int, train_table=None):
-        raise NotImplementedError("predict_topk (tensor-parallel top-k) is "
-                                  "not ported yet (ROADMAP.md, Queue 1, "
-                                  "parallel/)")
+        raise NotImplementedError("the towers' tensor-parallel predict_topk "
+                                  "is not ported (ROADMAP.md, Queue 1 item "
+                                  "4b)")
 
 
 class PadColumnTowerMixin(NestedParamsMixin, CachedUserVecChunkMixin):
@@ -473,15 +507,38 @@ def mxu_msg_dtype(impl: str) -> torch.dtype:
     return torch.bfloat16 if impl == "mxu_bf16" else torch.float32
 
 
+def graph_sharding_enabled(mesh) -> bool:
+    """Whether a graph model shards its propagation: under any mesh of
+    more than one rank."""
+    return mesh is not None and mesh.size > 1
+
+
 def build_prop_graph(adj: sp.spmatrix, graph_impl: str = "auto",
-                     mesh=None, device="cpu") -> Graph:
+                     mesh=None, device="cpu"
+                     ) -> Union[Graph, ShardedPropGraph]:
     """Lower a square scipy adjacency for
-    :func:`skrx_torch.ops.graph.propagate` on ``device``. A device mesh
-    (row-sharded propagation) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("sharded propagation over a mesh is not "
-                                  "ported yet (ROADMAP.md, Queue 1, "
-                                  "parallel/)")
+    :func:`skrx_torch.ops.graph.propagate` on ``device``. Under a mesh of
+    several ranks the destination rows split over every rank (a
+    :class:`~skrx_torch.parallel.ShardedPropGraph`: one all-gather each
+    way a propagation, segsum over the rank's edges)."""
     impl = resolve_graph_impl(graph_impl)
+    if graph_sharding_enabled(mesh):
+        return ShardedPropGraph(mesh, adj, mxu_msg_dtype(impl),
+                                device=device)
     return graph_from_sp_matrix(adj, msg_dtype=mxu_msg_dtype(impl),
                                 device=device)
+
+
+def graph_param_shardings(mesh, sizes: Dict[str, int]
+                          ) -> Dict[str, RowBlocks]:
+    """Row ownership of a graph model's tables, ``sizes`` (name -> rows)
+    in node order (their rows concatenated are the node table): rank r
+    owns node rows ``r * rows_per .. (r + 1) * rows_per`` of the padded
+    table (``rows_per = -(-N // ranks)``, as the sharded propagate), and
+    of each table the rows that fall there."""
+    total, offset, out = sum(sizes.values()), 0, {}
+    for name, rows in sizes.items():
+        out[name] = row_blocks(rows, mesh.size, mesh.rank, mesh.world,
+                               offset=offset, span=total)
+        offset += rows
+    return out

@@ -10,8 +10,15 @@ excluded against each user's positives. JAX runs the epoch as one
 ``lax.scan``; here a plain loop of steps runs on the device, building each
 step's negatives or interaction rows as it goes (a whole epoch of them would
 not fit at Gowalla scale), and the host waits once, for the epoch's mean
-loss. JAX's scan chunking (``max_scan_steps``) and data-parallel mesh have
-no counterpart in such a loop.
+loss. JAX's scan chunking (``max_scan_steps``) has no counterpart in such a
+loop.
+
+Under a mesh (``mesh=``, the pairwise and interaction pipelines) every rank
+draws the same global epoch from the same seeded generator, the
+permutation and the negatives, and takes its data index's rows of each
+batch (the batch size must divide by the data axis); ``run_epoch`` sums
+the ranks' step losses over the data axis, so the epoch's loss is the
+single device's.
 """
 import math
 from typing import Callable, Tuple
@@ -22,6 +29,8 @@ import torch
 from ..io.data_iterator import _generate_time_order_positive_items
 from ..io.dataset import ImplicitFeedback
 from ..ops.sampling import sample_negatives
+from ..parallel import data_sharding
+from ..parallel.distributed import all_reduce_sum
 
 __all__ = ["PairwiseEpochPipeline", "SequentialPairwiseEpochPipeline",
            "InteractionEpochPipeline", "UserVecEpochPipeline",
@@ -67,12 +76,18 @@ class _ShuffledEpochPipeline:
     (:meth:`_batch`)."""
 
     def __init__(self, users: np.ndarray, batch_size: int,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.num_examples = len(users)
         padded, weights = pad_to_batches(users, batch_size)
         self.batch_size = batch_size
         self.num_batches = len(padded) // batch_size
         self.device = device
+        self.mesh = mesh
+        # this rank's rows of every batch: its data index's
+        self._data_rows = None
+        if mesh is not None and mesh.data_size > 1:
+            blocks = data_sharding(mesh, batch_size)
+            self._data_rows = slice(blocks.lo, blocks.hi)
         self._users = self._put(padded)
         self._w = torch.as_tensor(weights, device=device)
 
@@ -88,16 +103,20 @@ class _ShuffledEpochPipeline:
                               device=self.device)
         b = self.batch_size
         for step in range(self.num_batches):
-            yield self._batch(generator, perm[step * b:(step + 1) * b])
+            batch = self._batch(generator, perm[step * b:(step + 1) * b])
+            yield batch if self._data_rows is None else \
+                tuple(t[self._data_rows] for t in batch)
 
     def run_epoch(self, generator: torch.Generator,
                   train_step: Callable) -> float:
         """Run ``train_step(batch) -> loss`` over the batches of one epoch;
         returns the mean over steps of the step losses (one device
-        sync)."""
+        sync; under a mesh the ranks' losses summed over the data axis)."""
         total = torch.zeros((), device=self.device)
         for batch in self.batches(generator):
             total += train_step(batch)
+        if self.mesh is not None:
+            all_reduce_sum(total, self.mesh.data_group, self.mesh.data_size)
         return float(total / self.num_batches)
 
 
@@ -106,9 +125,9 @@ class InteractionEpochPipeline(_ShuffledEpochPipeline):
     without negatives (SelfCF), on ``device``."""
 
     def __init__(self, train_data: ImplicitFeedback, batch_size: int,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         pairs = train_data.to_user_item_pairs()
-        super().__init__(pairs[:, 0], batch_size, device)
+        super().__init__(pairs[:, 0], batch_size, device, mesh)
         self._pos = self._put(pad_to_batches(pairs[:, 1], batch_size)[0])
 
     def _batch(self, generator, idx):
@@ -120,8 +139,9 @@ class PairwiseEpochPipeline(InteractionEpochPipeline):
     BPR-style models, on ``device``."""
 
     def __init__(self, train_data: ImplicitFeedback, batch_size: int,
-                 device: torch.device, num_neg: int = 1, num_trials: int = 8):
-        super().__init__(train_data, batch_size, device)
+                 device: torch.device, num_neg: int = 1, num_trials: int = 8,
+                 mesh=None):
+        super().__init__(train_data, batch_size, device, mesh)
         self._init_negatives(train_data, num_neg, num_trials)
 
     def _init_negatives(self, train_data: ImplicitFeedback, num_neg: int,

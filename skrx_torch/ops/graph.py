@@ -20,12 +20,13 @@ and the weights' gradient ``dw_e = <g[dst_e], x[src_e]>`` is two row
 gathers and a row dot in plain PyTorch, as the JAX package computes it
 outside its kernel.
 """
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..parallel.graph_shard import ShardedPropGraph
 from .kernels.segsum import Segments, build_segments, segsum
 
 __all__ = ["Graph", "graph_from_coo", "graph_from_sp_matrix",
@@ -102,11 +103,14 @@ class _Propagate(torch.autograd.Function):
         return dx, None, None
 
 
-def propagate(graph: Graph, x: torch.Tensor,
+def propagate(graph: Union[Graph, ShardedPropGraph], x: torch.Tensor,
               edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One step of ``A @ x`` for x (num_src_nodes, D) f32, differentiable in
     x. ``edge_mask`` (E,) f32 scales each edge's weight (dropout) and is not
-    differentiated."""
+    differentiated. On a :class:`~skrx_torch.parallel.ShardedPropGraph`, x
+    and the result are this rank's rows (a collective call)."""
+    if isinstance(graph, ShardedPropGraph):
+        return graph.prop(x, edge_mask)
     if edge_mask is not None:
         edge_mask = edge_mask.detach()
     return _Propagate.apply(x, edge_mask, graph)

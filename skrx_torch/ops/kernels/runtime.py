@@ -15,10 +15,11 @@ from . import _build
 __all__ = ["KERNELS", "LAUNCHES", "reset_launches", "launch", "on_cuda",
            "check"]
 
-# kernel name -> its launches since the last reset
-KERNELS = ("submax", "kth_largest", "extract", "pruned_merge", "rank_count",
-           "rank_lookup_count", "direct_rank", "dot_submax", "dot_extract",
-           "segsum")
+# kernel name -> its launches since the last reset; "vmem_topk" counts the
+# pruned_merge kernel launched with tau = -inf (the TPU kernel #5)
+KERNELS = ("submax", "kth_largest", "extract", "pruned_merge", "vmem_topk",
+           "rank_count", "rank_lookup_count", "direct_rank", "dot_submax",
+           "dot_extract", "segsum")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -233,6 +233,14 @@ def pruned_merge(vals: torch.Tensor, idx: torch.Tensor, k: int,
     and int32 ids: (value desc, id asc), a (value, id) pair repeated across
     lanes taken once, -inf slots with id SENTINEL. ``tau`` (B,) must bound
     each row's k-th largest distinct pair from below (or be -inf)."""
+    return _merge(vals, idx, k, tau, "pruned_merge")
+
+
+def _merge(vals: torch.Tensor, idx: torch.Tensor, k: int, tau: torch.Tensor,
+           kernel: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pruned_merge kernel, its launch counted as ``kernel``'s: #4
+    (``pruned_merge``) or #5 (``vmem_topk``), the TPU kernel it stands
+    for."""
     _check(vals, "vals", torch.float32, 2)
     _check(idx, "idx", torch.int32, 2)
     _check(tau, "tau", torch.float32, 1)
@@ -249,16 +257,17 @@ def pruned_merge(vals: torch.Tensor, idx: torch.Tensor, k: int,
     if b:
         _launch("skrx_pruned_merge", vals.device, vals, idx, b, w, tau, k,
                 out_v, out_i)
-        LAUNCHES["pruned_merge"] += 1
+        LAUNCHES[kernel] += 1
     return out_v, out_i
 
 
 def vmem_topk(vals: torch.Tensor, idx: torch.Tensor, k: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`pruned_merge` without pruning (tau = -inf): the contract of
-    ``skrx.ops.pallas.vmem_topk``."""
+    ``skrx.ops.pallas.vmem_topk`` (#5), its launches counted as
+    ``LAUNCHES["vmem_topk"]``."""
     tau = torch.full((vals.shape[0],), float("-inf"), device=vals.device)
-    return pruned_merge(vals, idx, k, tau)
+    return _merge(vals, idx, k, tau, "vmem_topk")
 
 
 # ------------------------------------------------------------- composition

@@ -1,6 +1,5 @@
 """Run-level configuration: the port's own copy of ``skrx.run_config``,
-with the same fields and defaults (``mesh_shape`` takes only None or (1,
-1) until the port has ``parallel/``)."""
+with the same fields and defaults."""
 from typing import Optional, Tuple, Union
 
 from .utils.config import Config
@@ -29,8 +28,10 @@ class RunConfig(Config):
     # kept for API parity with the JAX package; evaluation runs on the device
     test_thread: int = 4
     seed: int = 2021
-    # mesh axis sizes (data, model); None or (1, 1): one device. A larger
-    # mesh raises NotImplementedError (ROADMAP.md Queue 1 item 4)
+    # mesh axis sizes (data, model); None or (1, 1): one process. A larger
+    # mesh runs d * m ranks of one process each (torchrun, or
+    # skrx_torch.parallel.run_ranks): batches split over data, tables over
+    # model (BPRMF) or over every rank (LightGCN's graph)
     mesh_shape: Optional[Tuple[int, int]] = None
     # "float32" or "bfloat16": routed into a model config that declares a
     # compute_dtype field (MultVAE, SASRec, BERT4Rec) unless the model's
@@ -40,9 +41,10 @@ class RunConfig(Config):
     # "chunked" eval_chunk_size items at a time (the (B, N) scores never
     # exist), "fused" ranks through the fused score-and-select kernels (dot
     # models); "auto" is "chunked" from eval_chunk_threshold items on, for
-    # a model with predict_chunk, else "full". "topk" is not ported yet
-    # (ROADMAP.md) and raises NotImplementedError when the evaluator is
-    # built. All produce the same metrics.
+    # a model with predict_chunk, else "full"; "topk" ranks through the
+    # model's predict_topk, the two-stage top-k over the catalog split by
+    # the mesh's model axis, and is "auto"'s choice when that axis is above
+    # 1. All produce the same metrics.
     eval_mode: str = "auto"
     eval_chunk_size: int = 65536
     eval_chunk_threshold: int = 131072
@@ -109,9 +111,4 @@ class RunConfig(Config):
                                           for a in shape):
                 raise ValueError("mesh_shape must be None or two positive "
                                  "ints (data, model)")
-            if shape != (1, 1):
-                raise NotImplementedError(
-                    f"mesh_shape={shape}: the port runs on one device; "
-                    f"meshes come with parallel/ (ROADMAP.md Queue 1 item "
-                    f"4)")
             self.mesh_shape = shape

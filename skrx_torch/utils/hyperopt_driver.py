@@ -32,6 +32,7 @@ import torch
 
 from ..eval import EarlyStopping, MetricReport
 from ..io import RSDataset
+from ..parallel.distributed import process_index
 from ..run_config import RunConfig
 from ..version import __version__
 from .generic import slugify
@@ -78,7 +79,8 @@ class HyperOpt:
         data_tag = os.path.basename(os.path.normpath(self._dataset.data_dir))
         logger = Logger(os.path.join("log", data_tag,
                                      self._model_class.__name__,
-                                     run_id + ".log"))
+                                     run_id + ".log")
+                        if process_index() == 0 else None)
         logger.info("Task: Tune Hyper-Parameters")
         logger.info(f"Server:\t{platform.node()}")
         logger.info(f"Workspace:\t{os.getcwd()}")

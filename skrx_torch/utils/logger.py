@@ -4,6 +4,7 @@ import logging
 import os
 import re
 import sys
+from typing import Optional
 
 __all__ = ["Logger"]
 
@@ -18,13 +19,18 @@ class _StripColorFilter(logging.Filter):
 
 
 class Logger:
-    """Logs to stdout and to ``filename`` (its directory is created)."""
+    """Logs to stdout and to ``filename`` (its directory is created); with
+    ``filename`` None it writes nothing (the ranks of a mesh but rank 0)."""
 
-    def __init__(self, filename: str):
-        self._logger = logging.getLogger(filename)
+    def __init__(self, filename: Optional[str]):
+        self._logger = logging.getLogger(
+            filename if filename is not None else f"skrx_torch.{id(self)}")
         self._logger.setLevel(logging.DEBUG)
         self._logger.propagate = False
         self._logger.handlers.clear()
+        if filename is None:
+            self._logger.addHandler(logging.NullHandler())
+            return
 
         dirname = os.path.dirname(filename)
         if dirname:

@@ -156,16 +156,24 @@ def test_parse_value_and_overlays_equal_jax(tmp_path):
         tcfg.merge_config_with_ini({}, str(tmp_path / "missing.ini"))
 
 
-def test_mesh_shape_larger_than_one_device_raises(data_dir):
+def test_mesh_shape_larger_than_one_device_raises(data_dir, tmp_path,
+                                                  monkeypatch):
+    """A mesh of several ranks is a valid RunConfig; without the ranks
+    (no process group) the model refuses to build, a model outside the
+    mesh slice refuses by name (ROADMAP Queue 1 item 4b)."""
+    monkeypatch.chdir(tmp_path)
+    from skrx_torch.models.LightGCN import LightGCN
     for shape in ((1, 2), (2, 1), [4, 1]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            RunConfig(data_dir=data_dir, mesh_shape=shape)
+        run = RunConfig(data_dir=data_dir, mesh_shape=shape)
+        assert run.mesh_shape == tuple(shape)
+        with pytest.raises(ValueError, match="does not match 1 ranks"):
+            LightGCN(run, dict(embed_size=8), device="cpu")
     for bad in ((1,), (0, 1), (1.0, 1)):
         with pytest.raises(ValueError):
             RunConfig(mesh_shape=bad)
     assert RunConfig(mesh_shape=[1, 1]).mesh_shape == (1, 1)
     assert RunConfig().mesh_shape is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
         run_skrx_torch.main(["--recommender", "Pop", "--data_dir", data_dir,
                              "--mesh_shape", "(1,2)"], device="cpu")
 

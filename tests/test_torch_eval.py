@@ -274,10 +274,11 @@ def test_evaluator_matches_jax(n, top_k, bs):
 
 
 def test_evaluator_refuses_modes_not_ported():
-    """Only "topk" (it waits for parallel/) is refused; "chunked" and
-    "fused" are built, with their chunk settings."""
+    """"topk" is refused without a mesh whose model axis is above 1 (it
+    ranks the catalog split over that axis); "chunked" and "fused" are
+    built, with their chunk settings."""
     train, test = {0: np.array([1])}, {0: np.array([2])}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model axis is above 1"):
         RankingEvaluator(train, test, eval_mode="topk", device="cpu")
     for mode in ("auto", "full", "chunked", "fused"):
         ev = RankingEvaluator(train, test, eval_mode=mode, chunk_size=512,

@@ -27,7 +27,8 @@ def _port_files():
              os.path.join(ROOT, "experiments", "chip_phase12.py"),
              os.path.join(ROOT, "experiments", "chip_phase13.py"),
              os.path.join(ROOT, "experiments", "chip_phase14.py"),
-             os.path.join(ROOT, "experiments", "chip_phase15.py")]
+             os.path.join(ROOT, "experiments", "chip_phase15.py"),
+             os.path.join(ROOT, "experiments", "chip_phase16.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
@@ -338,7 +339,8 @@ def test_cuda_kernels_match_plain_versions(b, n, k, block_n, width):
     assert torch.equal(vv.cpu(), rmv) and torch.equal(vi.cpu(), rmi)
     torch.cuda.synchronize()
     assert runtime.LAUNCHES == {"submax": 1, "kth_largest": 1, "extract": 1,
-                                "pruned_merge": 2, "rank_count": 0,
+                                "pruned_merge": 1, "vmem_topk": 1,
+                                "rank_count": 0,
                                 "rank_lookup_count": 0, "direct_rank": 0,
                                 "dot_submax": 0, "dot_extract": 0,
                                 "segsum": 0}

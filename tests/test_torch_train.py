@@ -295,9 +295,44 @@ def test_train_step_matches_jax(small_data, monkeypatch):
 
 
 def test_sharded_train_step_is_not_ported():
-    from skrx_torch.models.common import make_sharded_train_step
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_train_step()
+    """The sharded step on a mesh of one process (no process group), its
+    rows read by lookup_rows (a table split over the model axis of one
+    rank, and a table every rank holds), is the single-device step with
+    plain indexing, bit for bit: the lookup's backward sums as indexing's
+    gradient does. The multi-rank step is held to one device in
+    tests/test_torch_sharded_models.py."""
+    from skrx_torch.models.common import (make_optimizer,
+                                          make_sharded_train_step,
+                                          make_train_step)
+    from skrx_torch.parallel import lookup_rows, make_mesh, \
+        model_row_sharding
+    mesh = make_mesh(None, "cpu")
+    assert (mesh.size, mesh.data_size, mesh.model_size) == (1, 1, 1)
+    ids = torch.tensor([0, 2, 2, 5, 1, 2])
+    steps = []
+    for sharded in (False, True):
+        rng = np.random.default_rng(3)
+        table = torch.nn.Parameter(_t(rng.standard_normal((6, 3))
+                                      .astype(np.float32)))
+        bias = torch.nn.Parameter(_t(rng.standard_normal(6)
+                                     .astype(np.float32)))
+        opt = make_optimizer("adam", {"t": table, "b": bias}, 0.1)
+        blocks = model_row_sharding(mesh, 6)
+
+        def loss(ids):
+            if sharded:
+                rows = lookup_rows(table, ids, blocks, mesh)
+                b = lookup_rows(bias, ids, None, mesh)
+            else:
+                rows, b = table[ids], bias[ids]
+            return torch.sum(torch.sin(rows) * b[:, None])
+        step = (make_sharded_train_step(opt, loss) if sharded
+                else make_train_step(opt, loss))
+        losses = [float(step((ids,))) for _ in range(3)]
+        steps.append((losses, table.detach().clone(), bias.detach().clone()))
+    assert steps[0][0] == steps[1][0]
+    assert torch.equal(steps[0][1], steps[1][1])
+    assert torch.equal(steps[0][2], steps[1][2])
 
 
 # ------------------------------------------------------------------- fit()
