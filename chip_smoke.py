@@ -120,7 +120,8 @@ skrx_torch fails and it exits 1):
    model with resume=True and epochs=3 starts at epoch 2 with parameters,
    moments, counts and early stopping bit-equal to checkpoint 1, and its
    loss is finite. The same model with profile_dir writes a trace of its
-   second epoch that names the port's kernels. evaluate_group(): four
+   second epoch (both epochs cut to their first TRAIN_WINDOW steps) that
+   names the port's kernels. evaluate_group(): four
    groups whose metrics, weighted by their test users, equal evaluate()'s
    within 1e-6. Pop: fit() (nothing trained, one evaluation), per-user
    metrics of 1,024 users card vs plain within 1e-6, the items tied at
@@ -147,7 +148,8 @@ skrx_torch fails and it exits 1):
    card's busy share during it (torch.profiler), for the score-matrix and
    the fused route; train steps/s, seconds per epoch and evaluation users/s
    (full, fused and chunked) with the busy share and the top device
-   kernels of the first 100 steps of an epoch and of one evaluate(), for
+   kernels of the first TRAIN_WINDOW steps of an epoch and of one
+   evaluate(), for
    BPRMF (dense and lazy Adam; fused and chunked too), LightGCN and AOBPR
    (fused too), Pop, CML, LayerGCN, LightGCL, DENS, SelfCF, CDAE and
    MultVAE, FPMC and TransRec (dense and lazy Adam), SGAT, Caser and HGN
@@ -200,14 +202,16 @@ skrx_torch fails and it exits 1):
    its seconds; it runs before phase 9, whose tables take its models.
 12. The sequential pairwise models on the phase-3 data, trained on the
    time-ordered examples of each user's training sequence, each at its
-   published defaults for one fit() epoch: FPMC (d=64, one previous and
+   published defaults for one fit() epoch cut to its first SEQ_STEPS
+   steps: FPMC (d=64, one previous and
    one next item, batch 1,024), also one epoch with lazy Adam; TransRec
    (d=64), also one epoch with lazy Adam; SGAT (d=64, 5 layers, 5
    previous items pre-padded, 3 next), whose every step propagates the
    whole item-transition graph through segsum with its attention as traced
    per-edge weights; Caser (d=64, L=5, T=3, nv=4, nh=16, dropout 0.5) and
    HGN (d=64, L=5, T=3), towers over N + 1 columns (the pad scored 0),
-   each also one epoch with lazy Adam cut to its first 100 steps (its
+   each also one epoch with lazy Adam cut to its first TRAIN_WINDOW
+   steps (its
    tables' gathered rows; no table gradient formed).
    propagate_weighted on SGAT's graph with the first step's attention
    (layer 1 at the initial weights) and a seeded cotangent: the output and
@@ -227,8 +231,8 @@ skrx_torch fails and it exits 1):
    and HGN: each route's kernels launched, metrics within 1e-4 of the
    full route's. recommend() for 64 test users of each equal to the plain
    top-k of its scores, no seen item. It prints each model's epoch seconds
-   and steps/s, the busy share and top device kernels of the first 100
-   steps of an SGAT epoch, and its seconds; it runs before phase 9, whose tables take its models.
+   and steps/s, the busy share and top device kernels of the first
+   TRAIN_WINDOW steps of an SGAT epoch, and its seconds; it runs before phase 9, whose tables take its models.
 13. The sequence towers on the phase-3 data, each built by name at its
    published defaults for one fit() epoch: GRU4Rec (layers [64], batch
    128, top1) and GRU4RecPlus (bpr_max, 2,048 sampled negatives a step),
@@ -238,8 +242,9 @@ skrx_torch fails and it exits 1):
    2 layers, batch 256, masked-LM over the catalog, optax's clipped AdamW
    with warm-up); SRGNN (d=64, 1 step, sessions of up to 200 items,
    batch 256, a (256, 200, 200) adjacency a step); GRU4Rec's and
-   GRU4RecPlus's epochs are cut to the first 1,000 steps of their walks,
-   BERT4Rec's and SRGNN's to their first 500 steps. fit(): losses finite,
+   GRU4RecPlus's epochs are cut to the first WALK_WINDOW steps of their
+   walks, BERT4Rec's and SRGNN's to their first TOWER_STEPS steps. fit():
+   losses finite,
    the full route's kernels launched, segsum never. One train step of
    each on the card against the same step on CPU copies of its
    parameters, optimizer state, batch and draws (GRU4RecPlus's negatives,
@@ -249,8 +254,9 @@ skrx_torch fails and it exits 1):
    key bias, whose gradient is rounding noise, of its key weight's).
    One bf16 step of SASRec and of BERT4Rec: finite, its loss within 5%
    of the f32 loss of the same batch. Each model's epoch seconds and
-   steps/s, and the busy share and top device kernels of the first 100
-   steps of an epoch. evaluate() full, fused and chunked for each: each
+   steps/s, and the busy share and top device kernels of the first
+   TRAIN_WINDOW steps of an epoch. evaluate() full, fused and chunked for
+   each: each
    route's kernels launched, metrics within 1e-4 of the full route's.
    recommend() for 64 test users of each equal to the plain top-k of its
    scores, no seen item, the serving kernels launched; GRU4Rec also
@@ -284,7 +290,8 @@ skrx_torch fails and it exits 1):
    of the full route's. recommend() for 64 test users of each equal to
    the plain top-k of its scores, no seen item. Each model's epoch
    seconds and steps/s, the busy share and top device kernels of the
-   first 100 steps of an epoch, LATTICE's peak device memory, and the
+   first TRAIN_WINDOW steps of an epoch, LATTICE's peak device memory,
+   and the
    phase's seconds; alone: `python3 experiments/chip_phase14.py`.
 
 15. The command line on the phase-3 data, from a scratch working
@@ -335,6 +342,33 @@ skrx_torch fails and it exits 1):
    phase's and the epochs' seconds, each labelled with the ranks that
    shared the card. The tally adds the single-device runs' and every
    rank's launches. Alone: `python3 experiments/chip_phase16.py`.
+17. Every other model on the mesh: 4 ranks of a (2, 2) mesh sharing the
+   card over gloo, spawned once, run in turn the 24 models that phase 16
+   leaves out (Pop, AOBPR, CML, the graph family DENS, SelfCF, LayerGCN,
+   LightGCL, BM3, SLMRec, FREEDOM, MGCN, LATTICE, the towers CDAE,
+   MultVAE, FPMC, TransRec, SGAT, Caser, HGN, GRU4Rec, GRU4RecPlus,
+   SASRec, BERT4Rec, SRGNN) and BPRMF with lazy Adam, each at its
+   default config widths on phase 14's data (phase 3's with the 4,096-d
+   image and 384-d text features) and one seed: a fit() epoch cut to
+   P17_STEPS steps (fewer for the models whose step all-reduces a
+   replicated or gathered 4,096-wide feature table through the host,
+   P17_FEW), its evaluate() through "topk" over P17_EVAL_USERS test
+   users (rank_count never launched); then, the 4 ranks at once, each
+   runs the same steps on one device of every 4th model and holds the
+   mesh model to it: the epoch loss within 1e-4 relative, every
+   parameter, gathered whole, within 1e-4 of its 2-norm (P17_GAP; the
+   greatest entry gap printed; the biases of exactly zero gradient,
+   P17_NOISE, reported; P17_TWICE's run one device twice for the card's
+   own spread), the metrics within 1e-4.
+   Every rank's predict_topk over P17_TOPK_USERS users against the
+   masked top-k of its predict: values within 1e-5 of the scores' scale
+   (the largest finite |score| of the rows), an id different only where
+   predict scores it that near its place's value (a near tie). Every rank launches
+   segsum (#11) in each graph model's fit() and #1-#5 in each
+   predict_topk. It prints each model's step seconds on the mesh and on
+   one device, the greatest parameter gap and the metric gap with the
+   card's name and power limit. Alone: `python3
+   experiments/chip_phase17.py`.
 
 The second-to-last line is the per-kernel JSON record (one row for each of
 the 11 TPU kernels), the last line
@@ -431,9 +465,11 @@ GCN_SERVE = (1, 64, 1024)
 FUSED = ("dot_submax", "dot_extract")
 BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
 CHUNK = 8_192
-TRAIN_WINDOW = 100                # steps of an epoch under the profiler
+TRAIN_WINDOW = 20                 # steps of an epoch under the profiler
 WALK_WINDOW = 1_000               # steps of GRU4Rec's, GRU4RecPlus's epoch
 TOWER_STEPS = 500                 # steps of BERT4Rec's and SRGNN's epoch
+# steps of phase 12's epochs (FPMC, TransRec, SGAT, Caser, HGN)
+SEQ_STEPS = 200
 IMG_DIM, TXT_DIM = 4_096, 384     # VGG image, sentence-transformer text
 KNN_K, KNN_ROWS = 10, 256         # the kNN graphs' k; rows held to float64
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -449,9 +485,46 @@ MEM_RATE = 3.35e12
 # phase 16: the steps of the sharded epochs (of 358 at LightGCN's batch of
 # 2,048 and 716 at BPRMF's 1,024; the pipeline's num_batches) and the
 # command line's batch, so that the phase stays near 150 s
-MESH_GCN_STEPS = 100
-MESH_BPR_STEPS = 300
-MESH_CLI_BATCH = 8_192
+MESH_GCN_STEPS = 20
+MESH_BPR_STEPS = 50
+MESH_CLI_BATCH = 16_384
+# phase 17: the steps of each model's cut epoch on (2, 2), fewer where a
+# step moves a 4,096-wide feature table (671 MB) through gloo's host
+# staging, and the users of its evaluate() and of predict_topk
+P17_STEPS = 20
+P17_FEW = {"DENS": 10, "LayerGCN": 10, "LightGCL": 10, "SLMRec": 10,
+           "BM3": 3, "FREEDOM": 3, "MGCN": 2, "LATTICE": 3, "MultVAE": 8}
+P17_EVAL_USERS = 1_024
+P17_TOPK_USERS = 64
+P17_MODELS = ("Pop", "AOBPR", "CML", "DENS", "SelfCF", "LayerGCN",
+              "LightGCL", "CDAE", "MultVAE", "FPMC", "TransRec", "SGAT",
+              "Caser", "HGN", "GRU4Rec", "GRU4RecPlus", "SASRec",
+              "BERT4Rec", "SRGNN", "BM3", "SLMRec", "FREEDOM", "MGCN",
+              "LATTICE", "BPRMF")
+P17_CONFIG = {"LayerGCN": {"dropout": 0.1}, "BPRMF": {"optimizer":
+                                                      "lazy_adam"}}
+P17_GRAPH = ("DENS", "SelfCF", "LayerGCN", "LightGCL", "BM3", "SLMRec",
+             "LATTICE")
+# the gap allowed after the cut epoch, |mesh - one device| over |one
+# device| of each parameter (2-norms): 1e-4 (the CPU tests hold every
+# entry within 1e-5 of its table's scale). On the card the backward's
+# scatter-adds are unordered, and an entry whose gradient cancels to
+# rounding (an item row the batch pushes both ways) takes Adam's whole
+# step on that rounding's sign, on one device from run to run as on the
+# mesh; the greatest entry gap is printed beside it, and P17_TWICE's
+# models run one device twice for that spread (on an H100 80GB HBM3 at
+# 700 W: one device's AOBPR epoch loss 1.1e-5 apart in two runs, its
+# parameters 5.2e-5 in one, GRU4RecPlus's 7.5e-3, SASRec's 4.2e-5), which
+# also sets the loss's check at 1e-4 relative. GRU4Rec's and GRU4RecPlus's 1e-2: at
+# their initial weights the TOP1 and BPR-max gradients of many item
+# biases cancel to ~1e-9, near Adam's eps (their step-0 gradients agree
+# within 3e-4 of their scale)
+P17_GAP = {"GRU4Rec": 1e-2, "GRU4RecPlus": 1e-2}
+P17_TWICE = ("AOBPR", "GRU4Rec", "GRU4RecPlus", "SASRec", "SGAT")
+# biases whose exact gradient is 0 (each shifts every logit of a softmax
+# row alike), moved only by rounding noise that Adam magnifies
+P17_NOISE = {"SASRec": ("blocks.{}.att.k.b",), "BERT4Rec": ("blocks.{}.k.b",),
+             "SLMRec": ("g_v_iv.b", "g_t_ivat.b")}
 NEG_INF = float("-inf")
 INT_MIN = -2 ** 31                      # -0.0 as int32
 
@@ -1713,6 +1786,9 @@ def phase_fit_and_models(root, path, reg, model_cls, dev, rng, test_users):
     resumed.run_config.checkpoint_every = 0
     resumed.run_config.profile_dir = prof_dir
     resumed.config.epochs = 2
+    # both epochs cut to their first TRAIN_WINDOW steps: a trace of a
+    # whole epoch runs to ~490 MB and ~30 s
+    resumed.pipeline.num_batches = TRAIN_WINDOW
     (_, prof_sec), prof_launches = counted(lambda: timed(resumed.fit))
     (trace_name,) = os.listdir(prof_dir)
     trace_path = os.path.join(prof_dir, trace_name)
@@ -2247,9 +2323,9 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
         m = build(name)
         require(m.config.embed_size == DIM and m.pipeline.num_neg == 1
                 and m.pipeline._prev.shape[1] == 1, f"{name} at its defaults")
-        runs.append(fit_counted(m, m.pipeline.num_batches, 0, name))
+        runs.append(fit_counted(m, _mesh_steps(m, SEQ_STEPS), 0, name))
         lazy = build(name, optimizer="lazy_adam")
-        runs.append(fit_counted(lazy, lazy.pipeline.num_batches, 0,
+        runs.append(fit_counted(lazy, _mesh_steps(lazy, SEQ_STEPS), 0,
                                 f"{name} (lazy Adam)"))
         reg_ = m.config.reg
         step_card_vs_cpu(name, m, lambda p, *b, f=loss, r=reg_: f(p, r, *b),
@@ -2282,7 +2358,7 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
           f"within their bounds, largest share of the bound {shares}",
           flush=True)
     weighted_times(g.items, x, att, ct, card)
-    runs.append(fit_counted(sg, sg.pipeline.num_batches, scfg.n_layers,
+    runs.append(fit_counted(sg, _mesh_steps(sg, SEQ_STEPS), scfg.n_layers,
                             "SGAT"))
     g_cpu = g.to("cpu")
     step_card_vs_cpu("SGAT", sg, lambda p, *b: sgat_loss(g_cpu, p, scfg, *b),
@@ -2294,7 +2370,7 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
     require(ccfg.embed_size == DIM and (ccfg.seq_L, ccfg.seq_T, ccfg.nv,
                                         ccfg.nh) == (5, 3, 4, 16)
             and cs._eval_width == ITEMS + 1, "Caser at its defaults")
-    runs.append(fit_counted(cs, cs.pipeline.num_batches, 0, "Caser"))
+    runs.append(fit_counted(cs, _mesh_steps(cs, SEQ_STEPS), 0, "Caser"))
     batch = first_batch(cs)
     keep = caser_keep_mask(torch.Generator(dev).manual_seed(SEED),
                            batch[0].shape[0], ccfg)
@@ -2304,7 +2380,7 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
     hg = build("HGN")
     require(hg.config.embed_size == DIM and hg._eval_width == ITEMS + 1,
             "HGN at its defaults")
-    runs.append(fit_counted(hg, hg.pipeline.num_batches, 0, "HGN"))
+    runs.append(fit_counted(hg, _mesh_steps(hg, SEQ_STEPS), 0, "HGN"))
     step_card_vs_cpu("HGN", hg, lambda p, *b: hgn_loss(p, hg.pad_idx, *b),
                      first_batch(hg), None)
     models.update(Caser=cs, HGN=hg)
@@ -3220,6 +3296,252 @@ def phase_mesh(path, work: str, card: str, device=None) -> dict:
             + [o["bpr"]["launches"] for o in quad]}
 
 
+def _p17_model(name: str, path: str, dev, mesh_shape=None):
+    """Model ``name`` at its default widths for phase 17: one cut epoch,
+    evaluated through P17_EVAL_USERS test users in batches of 256."""
+    reg = ModelRegistry()
+    reg.load_skrx_model(name)
+    cls = reg.get_model(name)[0]
+    m = cls(RunConfig(recommender=name, data_dir=path, seed=SEED,
+                      test_batch_size=256, mesh_shape=mesh_shape),
+            {"epochs": 1, "early_stop": 1, **P17_CONFIG.get(name, {})},
+            device=dev)
+    test = m.evaluator.user_pos_test
+    m.evaluator.set_test_data({u: test[u] for u in
+                               sorted(test)[:P17_EVAL_USERS]})
+    if name == "SASRec":
+        # its query mask, sign(|sum(LN(x))|), reads a sum that is 0 but for
+        # rounding while the layer norms keep their initial bias 0: a
+        # rank's 64 rows and one device's 128 reduce in other orders and
+        # mask other positions. Biases from a seed (both runs alike)
+        gen = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for key, p in m.named_parameters():
+                if key.rsplit(".", 1)[-1].startswith("ln") \
+                        and key.endswith("_b"):
+                    p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    steps = P17_FEW.get(name, P17_STEPS)
+    if hasattr(m, "step_limit"):                  # GRU4Rec's walk
+        m.step_limit = steps
+    elif hasattr(m, "num_batches"):               # AOBPR, SRGNN
+        m.num_batches = min(steps, m.num_batches)
+    elif hasattr(m, "pipeline"):
+        m.pipeline.num_batches = min(steps, m.pipeline.num_batches)
+    else:                                         # Pop trains nothing
+        steps = 0
+    return m, steps
+
+
+def _p17_noise(name: str, m) -> set:
+    """The parameters of ``m`` of exactly zero gradient (P17_NOISE)."""
+    blocks = len(getattr(m, "blocks", ()))
+    return {n.format(i) for n in P17_NOISE.get(name, ())
+            for i in range(max(blocks, 1))}
+
+
+def _p17_topk(m) -> dict:
+    """predict_topk over P17_TOPK_USERS users against the masked top-k of
+    predict (every rank of the model group calls it): the value error, the
+    greatest gap between an id's place and predict's score of it (an id
+    may differ at a near tie), their scale (the largest finite |score| of
+    the rows: the magnitude the two routes round at), the rows that
+    differ, and the launches. Checked in the main process."""
+    users = np.arange(P17_TOPK_USERS)
+    width = getattr(m, "_eval_width", None) or m.num_items
+    train = torch.as_tensor(m.evaluator._tables_for(users, width)[0]).to(
+        m.device)
+    (vals, ids), launches = counted(
+        lambda: m.predict_topk(users, K_EVAL, train))
+    scores = metrics.mask_items(torch.as_tensor(m.predict(users)).float(),
+                                train)
+    ref_v, ref_i = metrics.topk_scores_and_indices(scores, K_EVAL)
+    finite = torch.isfinite(ref_v)
+    scale = float(scores[torch.isfinite(scores)].abs().max())
+    err = float((vals - ref_v)[finite].abs().max())
+    picked = torch.gather(scores, 1, ids.long().clamp(0, scores.shape[1]
+                                                      - 1))
+    diff = (ids != ref_i) & finite
+    near = float((picked - ref_v)[diff].abs().max()) if bool(diff.any()) \
+        else 0.0
+    return {"err": err, "near": near, "scale": scale,
+            "ties": int(diff.any(dim=1).sum()), "launches": launches}
+
+
+def _p17_gaps(whole: dict, one, noise: set):
+    """(worst by 2-norm, worst entry, the zero-gradient biases' entry
+    gaps) of the whole parameters ``whole`` against model ``one``'s."""
+    gaps, norms = {}, {}
+    for key, p in one.named_parameters():
+        ref = p.detach().float()
+        delta = whole[key].float() - ref
+        gaps[key] = float(delta.abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        norms[key] = float(torch.linalg.vector_norm(delta)) / max(
+            float(torch.linalg.vector_norm(ref)), 1e-30)
+    kept = [k for k in gaps if k not in noise]
+    worst = max(kept, key=norms.get, default=None)
+    entry = max(kept, key=gaps.get, default=None)
+    return ((worst, norms.get(worst, 0.0)), (entry, gaps.get(entry, 0.0)),
+            {k: gaps[k] for k in noise if k in gaps})
+
+
+def _p17_single(name: str, path: str, dev, whole: dict) -> dict:
+    """Model ``name``'s same cut epoch on one device, its gaps to the mesh
+    model's whole parameters ``whole``; for P17_TWICE a second run's gap
+    to the first (the card's own run-to-run spread)."""
+    t0 = time.perf_counter()
+    one, _ = _p17_model(name, path, dev)
+    out = {"single_build_seconds": time.perf_counter() - t0}
+    one_best, out["single_launches"] = counted(one.fit)
+    h1 = one.history[0]
+    noise = _p17_noise(name, one)
+    out["gap"], out["entry_gap"], out["noise_gaps"] = _p17_gaps(whole, one,
+                                                                noise)
+    out.update(single_loss=h1["loss"], single_seconds=h1["train_seconds"],
+               single_report=dict(one_best.results))
+    if name in P17_TWICE:
+        first = {k: p.detach().clone() for k, p in one.named_parameters()}
+        del one
+        again, _ = _p17_model(name, path, dev)
+        again.fit()
+        out["twice_gap"] = _p17_gaps(first, again, noise)[0]
+        del again
+    return out
+
+
+def _p17_rank(rank: int, path: str, work: str, device: str) -> dict:
+    """Phase 17 on one of 4 ranks sharing ``device``: every model of
+    P17_MODELS on (2, 2); then, all ranks at once, the same steps on one
+    device of the models whose index is the rank's modulo 4, against the
+    whole parameters the rank kept."""
+    import torch.distributed as dist
+    os.chdir(work)
+    dev = torch.device(device)
+    out, kept = {}, {}
+    for i, name in enumerate(P17_MODELS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        m, steps = _p17_model(name, path, dev, (2, 2))
+        t_build = time.perf_counter() - t0
+        best, launches = counted(m.fit)
+        h = m.history[0]
+        out[name] = {"steps": steps, "loss": h["loss"],
+                     "build_seconds": t_build,
+                     "train_seconds": h["train_seconds"],
+                     "eval_seconds": h["eval_seconds"],
+                     "report": dict(best.results), "launches": launches,
+                     "mode": m.evaluator.eval_mode}
+        if hasattr(m, "predict_topk"):
+            out[name]["topk"] = _p17_topk(m)
+        whole = m.full_params()
+        if i % 4 == rank:
+            kept[name] = whole
+        del m, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    for name, whole in kept.items():
+        out[name].update(_p17_single(name, path, dev, whole))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def phase_mesh_models(path, work: str, card: str, device=None) -> dict:
+    """Phase 17 (the module docstring): every other model on (2, 2), 4
+    ranks sharing the card (``device``, None: cuda:0). Returns the launch
+    counts of each main-path run (each rank's and rank 0's single
+    device's, each model's fit() and predict_topk)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    on_card = dev.type == "cuda"       # a CPU rehearsal launches nothing
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ranks = run_ranks(_p17_rank, 4, (path, work, str(dev)), device=dev,
+                      timeout=1000)
+    runs, failed = [], []
+
+    def check(ok: bool, what: str) -> None:
+        # every model's line is printed first; the phase then fails on
+        # the whole list
+        if not ok:
+            failed.append(what)
+    for i, name in enumerate(P17_MODELS):
+        per = [r[name] for r in ranks]
+        one = per[i % 4]                 # the rank that ran one device
+        for r, o in enumerate(per):
+            runs.append(o["launches"])
+            check(abs(o["loss"] - one["single_loss"])
+                  <= 1e-4 * abs(one["single_loss"])
+                  if one["single_loss"] is not None else o["loss"] is None,
+                  f"phase 17 {name} rank {r}: loss {o['loss']}, one "
+                  f"device {one['single_loss']}")
+            for key, value in one["single_report"].items():
+                check(abs(o["report"][key] - value) <= 1e-4,
+                      f"phase 17 {name} rank {r} {key}: mesh "
+                      f"{o['report'][key]}, one device {value}")
+            if "topk" in o:
+                t = o["topk"]
+                runs.append(t["launches"])
+                # values within 1e-5 of the scores' scale; an id differs
+                # only where predict scores it as near its place's value
+                check(max(t["err"], t["near"]) <= 1e-5 * t["scale"],
+                      f"phase 17 {name} rank {r}: predict_topk values "
+                      f"off by {t['err']}, an id {t['near']} off its "
+                      f"place (scale {t['scale']})")
+                check(o["mode"] == "auto" and (
+                    not on_card or o["launches"]["rank_count"]
+                    == o["launches"]["direct_rank"] == 0),
+                    f"phase 17 {name} rank {r}: evaluate() did not go "
+                    f"through 'topk': {o['launches']}")
+                for kname in SERVING + ("vmem_topk",):
+                    check(not on_card or t["launches"][kname] >= 1,
+                          f"phase 17 {name} rank {r}: {kname} never "
+                          f"launched by predict_topk")
+            if name in P17_GRAPH:
+                check(not on_card or o["launches"]["segsum"] >= 1,
+                      f"phase 17 {name} rank {r}: segsum never launched "
+                      f"in its sharded fit()")
+        runs.append(one["single_launches"])
+        key, gap = one["gap"]
+        check(gap <= P17_GAP.get(name, 1e-4), f"phase 17 {name}: {key} "
+              f"off by {gap} of its norm")
+        metric_gap = max((abs(one["report"][k] - v) for k, v in
+                          one["single_report"].items()), default=0.0)
+        steps = max(one["steps"], 1)
+        topk = one.get("topk")
+        twice = one.get("twice_gap")
+        print(f"phase 17 {name} [{card}]: {one['steps']} steps on (2, 2), "
+              f"4 ranks sharing one H100: {one['train_seconds'] / steps} s "
+              f"a step (one device {one['single_seconds'] / steps} s); "
+              f"loss {one['loss']} (one device {one['single_loss']}); "
+              f"greatest parameter gap {gap} of its norm ({key}), greatest "
+              f"entry gap {one['entry_gap'][1]} of its table's scale "
+              f"({one['entry_gap'][0]})"
+              + (f", zero-gradient biases {one['noise_gaps']}"
+                 if one["noise_gaps"] else "")
+              + (f"; one device run twice: {twice[1]} of its norm "
+                 f"({twice[0]})" if twice else "")
+              + f"; 'topk' evaluate() of {P17_EVAL_USERS} users "
+              f"{one['eval_seconds']} s, metric gap {metric_gap}"
+              + (f"; predict_topk of {P17_TOPK_USERS} users within "
+                 f"{topk['err']} (scale {topk['scale']}, {topk['ties']} "
+                 f"rows with a near tie, {topk['near']} apart)"
+                 if topk else "")
+              + f"; built in {one['build_seconds']} s on the mesh, "
+              f"{one['single_build_seconds']} s on one device; rank "
+              f"{i % 4} launches {one['launches']}", flush=True)
+    require(not failed, "\n".join(failed))
+    print(f"phase 17 launches, every rank's and one device's summed: "
+          f"{ {k: sum(r[k] for r in runs) for k in runtime.KERNELS} }",
+          flush=True)
+    print(f"phase 17 [{card}]: {len(P17_MODELS)} models on (2, 2) in "
+          f"{time.perf_counter() - t_phase} s", flush=True)
+    return {"runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3595,6 +3917,9 @@ def main() -> int:
     # ---- phase 16: the mesh, ranks sharing the card (#11, #1-#5 a rank)
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 16", flush=True)
     p16 = phase_mesh(path, os.path.join(root, "mesh"), card)
+    # ------- phase 17: every other model on (2, 2) (#11, #1-#5 a rank)
+    print(f"[{time.perf_counter() - t_main:.1f} s] phase 17", flush=True)
+    p17 = phase_mesh_models(path, os.path.join(root, "mesh_models"), card)
 
     # ------------------------------------------------------ phase 9: times
     print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
@@ -3735,7 +4060,8 @@ def main() -> int:
                  gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
                  *p10["runs"], *p11["runs"], *p12["runs"], *p13["runs"],
-                 *p14["runs"], *p15["runs"], *p16["runs"]]
+                 *p14["runs"], *p15["runs"], *p16["runs"],
+                 *p17["runs"]]
     launches = {k: sum(r[k] for r in path_runs) for k in runtime.KERNELS}
     shapes = {k: f"B={b}, N={n}, k={K}, L={seen_w}" for k in SERVING}
     shapes["vmem_topk"] = (f"B={be}, W={w_m}, k={K_EVAL}: chunked "

@@ -15,6 +15,10 @@ deviation, the deltas of rows a batch touches more than once are summed,
 not applied one after another. The loss is ``sum(-log sigmoid(x) * w) /
 max(sum(w), 1)`` over the epoch. ``predict`` is ``user_emb[users] @
 item_emb.T``, so every evaluation strategy applies.
+
+Under a mesh every rank draws the whole batch's negatives, computes the
+deltas of its data index's rows, and applies the whole batch's deltas
+(gathered over the data axis in batch order) to its replicated tables.
 """
 import math
 from typing import Dict, Optional, Tuple, Union
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from ..convert import two_tables_from_jax
+from ..parallel import batch_total, gather_batch_ids, local_rows
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .base import TorchRecommender
@@ -109,7 +114,9 @@ class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
     def _sgd_step(self, users: torch.Tensor, pos: torch.Tensor,
                   neg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """One SGD step of the BPR loss with weight decay, deltas of repeated
-        rows summed; returns the batch's summed loss (weighted)."""
+        rows summed; returns the batch's summed loss (weighted). A rank of
+        a mesh takes its slice of the batch and applies the whole batch's
+        deltas."""
         lr, reg = self.config.lr, self.config.reg
         ue, ie, je = self.user_emb[users], self.item_emb[pos], \
             self.item_emb[neg]
@@ -119,10 +126,15 @@ class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
         du = lr * (cmg * (ie - je) - reg * ue * wc)
         di = lr * (cmg * ue - reg * ie * wc)
         dj = lr * (-cmg * ue - reg * je * wc)
-        self.user_emb.index_add_(0, users, du)
-        self.item_emb.index_add_(0, pos, di)
-        self.item_emb.index_add_(0, neg, dj)
-        return torch.sum(-torch.nn.functional.logsigmoid(x_uij) * w)
+        loss = torch.sum(-torch.nn.functional.logsigmoid(x_uij) * w)
+        users, pos, neg, du, di, dj = map(gather_batch_ids,
+                                          (users, pos, neg, du, di, dj))
+        # index_put_ sums repeated rows in a fixed order (a card's
+        # index_add_ does not), so every replica takes the same update
+        self.user_emb.index_put_((users,), du, accumulate=True)
+        self.item_emb.index_put_((pos,), di, accumulate=True)
+        self.item_emb.index_put_((neg,), dj, accumulate=True)
+        return loss
 
     @torch.no_grad()
     def _train_epoch(self, epoch: int) -> float:
@@ -140,8 +152,9 @@ class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
             sl = slice(step * bsz, (step + 1) * bsz)
             neg = self._negatives(gen, users[sl], rank_idx[sl], sorted_items,
                                   std)
-            total += self._sgd_step(users[sl], pos[sl], neg, w[sl])
-        return float(total / torch.clamp(torch.sum(w), min=1.0))
+            total += self._sgd_step(*map(local_rows, (users[sl], pos[sl],
+                                                      neg, w[sl])))
+        return float(batch_total(total) / torch.clamp(torch.sum(w), min=1.0))
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX AOBPR's ``params`` (arrays taken with ``np.asarray``)

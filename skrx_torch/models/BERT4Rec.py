@@ -36,6 +36,12 @@ of them before the mask; its vector is the MLM head's transform of the
 encoder's state at the mask, and ``predict`` is ``uv @ tok_emb[:N].T +
 out_bias[:N]``: a tower with a bias (``_topk_factors``). ``verbose``
 (10) sets the evaluation period of ``fit()``.
+
+Under a mesh BERT4Rec trains data-parallel: each rank takes its data
+index's slice of the windows and of the step's uniforms and dropout masks
+(drawn at the whole batch's shape), the mean divides by the whole batch's
+masked positions, and the gradients sum over the data axis before the
+global-norm clip.
 """
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -47,6 +53,7 @@ from ..convert import adam_state_from_jax, bert4rec_params_from_jax
 from ..ops.attention import dense, dropout, keep_mask, layer_norm
 from ..ops.initializers import get_initializer
 from ..ops.optim import OptaxAdamW, warmup_linear_decay
+from ..parallel import batch_total, global_rows, local_rows
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (CachedUserVecChunkMixin, EpochTrainedRecommender,
@@ -235,7 +242,7 @@ def bert4rec_loss(p, cfg: BERT4RecConfig, num_items: int,
     log_probs = torch.log_softmax(logits, dim=-1)
     tgt = torch.gather(log_probs, -1, tokens[..., None])[..., 0]
     weight = do_mask.float() * w[:, None]
-    return -torch.sum(tgt * weight) / torch.clamp(torch.sum(weight),
+    return -torch.sum(tgt * weight) / torch.clamp(batch_total(weight),
                                                   min=1.0)
 
 
@@ -263,7 +270,7 @@ class BERT4Rec(NestedParamsMixin, CachedUserVecChunkMixin,
         windows = bert4rec_windows(user_pos, big_l, cfg.sliding_step,
                                    self.pad_id)
         self.pipeline = RowsEpochPipeline([windows], cfg.batch_size,
-                                          self.device)
+                                          self.device, mesh=self.mesh)
         tokens, mask_pos = bert4rec_test_tokens(
             self.num_users, user_pos,
             self.dataset.test_data.to_user_dict_by_time(), big_l,
@@ -304,7 +311,8 @@ class BERT4Rec(NestedParamsMixin, CachedUserVecChunkMixin,
         self.optimizer = OptaxAdamW(
             groups, warmup_linear_decay(cfg.lr, 100, num_steps),
             b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01, max_norm=5.0)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
 
     def step_draws(self, batch: int) -> Draws:
         """The next training step's uniforms and dropout masks, from the
@@ -313,8 +321,8 @@ class BERT4Rec(NestedParamsMixin, CachedUserVecChunkMixin,
 
     def _loss(self, tokens, w, draws=None) -> torch.Tensor:
         """The batch's loss under ``draws``, by default the next drawn."""
-        if draws is None:
-            draws = self.step_draws(tokens.shape[0])
+        if draws is None:       # drawn at the whole batch's shape
+            draws = local_rows(self.step_draws(global_rows(tokens.shape[0])))
         return bert4rec_loss(self.params_tree(), self.config, self.num_items,
                              tokens, w, draws)
 

@@ -24,6 +24,13 @@ the predictor are applied to the batch's rows only (JAX projects whole
 tables; the other rows get no gradient either way); dense Adam.
 ``evaluate()`` freezes the predictor's outputs of the encoder, which
 ``predict``, the chunked and fused routes and serving score by a dot.
+
+Under a mesh the graph's destination rows split over every rank (segsum on
+each rank's edges) with the rows of ``user_emb`` and ``item_emb`` in the
+rank's block; the encoder's outputs are gathered whole for the rank's
+slice of the batch, the means are over the whole batch's valid rows, the
+``reg`` term of the whole tables counts once, and the other parameters'
+gradients sum over the data axis.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -36,8 +43,10 @@ from ..ops.initializers import get_initializer
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .SelfCF import selfcf_norm_adj
+from ..parallel import batch_total, once
 from .common import (GRAPH_IMPLS, add_param_tree, build_prop_graph,
-                     gather_rows, make_optimizer, make_train_step)
+                     gather_rows, make_optimizer, make_train_step, node_rows,
+                     node_table_rows, whole_nodes)
 from .multimodal import MultimodalRecommender, item_features
 from .pipeline import InteractionEpochPipeline
 
@@ -77,14 +86,21 @@ class BM3Config(ModelConfig):
             raise ValueError(f"invalid BM3 config: {self}")
 
 
-def bm3_forward(graph: Graph, p: Dict, n_layers: int
+def bm3_forward(graph: Graph, p: Dict, n_layers: int,
+                num_users: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(users, items): the mean of layers 0..n_layers of the propagated
-    ego embeddings, the items plus ``item_emb``."""
-    num_users = p["user_emb"].shape[0]
-    ego = torch.cat([p["user_emb"], p["item_emb"]], dim=0)
+    ego embeddings, the items plus ``item_emb``. On a sharded graph the
+    tables are the rank's rows, ``num_users`` the whole count, and both
+    come out whole."""
+    if num_users is None:
+        num_users = p["user_emb"].shape[0]
+    ego = node_rows(graph, p["user_emb"], p["item_emb"])
     combined = propagate_layers(graph, ego, n_layers, "mean")
-    return combined[:num_users], combined[num_users:] + p["item_emb"]
+    d = ego.shape[1]
+    both = whole_nodes(graph, torch.cat([combined, ego], dim=1))
+    return both[:num_users, :d], (both[num_users:, :d]
+                                  + both[num_users:, d:])
 
 
 def bm3_draws(generator: torch.Generator, num_users: int, num_items: int,
@@ -120,18 +136,18 @@ def _cos(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def bm3_loss(graph: Graph, p: Dict, cfg: BM3Config, users: torch.Tensor,
-             items: torch.Tensor, w: torch.Tensor, draws: _Draws
-             ) -> torch.Tensor:
+             items: torch.Tensor, w: torch.Tensor, draws: _Draws,
+             num_users: Optional[int] = None) -> torch.Tensor:
     """One batch's loss under one step's keep masks (:func:`bm3_draws`);
-    ``p`` the nested parameters."""
+    ``p`` the nested parameters; ``num_users`` as :func:`bm3_forward`."""
     mask_u, mask_i, mask_t, mask_v = draws
-    u_ori, i_ori = bm3_forward(graph, p, cfg.n_layers)
+    u_ori, i_ori = bm3_forward(graph, p, cfg.n_layers, num_users)
     u_rows, i_rows = gather_rows(u_ori, users), gather_rows(i_ori, items)
     u_tgt = _target(u_rows, mask_u, users, cfg.dropout)
     i_tgt = _target(i_rows, mask_i, items, cfg.dropout)
     pred = {"w": p["pred_w"], "b": p["pred_b"]}
     u_on, i_on = dense(u_rows, pred), dense(i_rows, pred)
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
 
     def wmean(x):
         return torch.sum(x * w) / n_valid
@@ -146,8 +162,8 @@ def bm3_loss(graph: Graph, p: Dict, cfg: BM3Config, users: torch.Tensor,
         tgt = _target(online, mask, items, cfg.dropout)
         on = dense(online, pred)
         cl = cl + wmean(1 - _cos(on, i_tgt)) + wmean(1 - _cos(on, tgt))
-    reg = (torch.linalg.vector_norm(u_ori)
-           + torch.linalg.vector_norm(i_ori)) / i_ori.shape[0]
+    reg = once((torch.linalg.vector_norm(u_ori)
+                + torch.linalg.vector_norm(i_ori)) / i_ori.shape[0])
     return loss + cfg.reg * reg + cfg.cl_weight * cl
 
 
@@ -160,14 +176,16 @@ class BM3(MultimodalRecommender):
         self.graph = build_prop_graph(
             selfcf_norm_adj(self.dataset.train_data.to_user_item_pairs(),
                             self.num_users, self.num_items),
-            cfg.graph_impl, device=self.device)
+            cfg.graph_impl, mesh=self.mesh, device=self.device)
         gen = torch.Generator().manual_seed(run_config.seed)
         xavier_u = get_initializer("xavier_uniform")
         xavier_n = get_initializer("xavier_normal")
         d = cfg.embed_dim
-        tree = {"user_emb": xavier_u((self.num_users, d), gen),
-                "item_emb": xavier_u((self.num_items, d), gen),
-                "pred_w": xavier_n((d, d), gen), "pred_b": torch.zeros(d)}
+        tree = node_table_rows(self, self.graph, {
+            "user_emb": xavier_u((self.num_users, d), gen),
+            "item_emb": xavier_u((self.num_items, d), gen)})
+        tree.update({"pred_w": xavier_n((d, d), gen),
+                     "pred_b": torch.zeros(d)})
         for feat, trs, x in (("v_feat", "image_trs", v_feat),
                              ("t_feat", "text_trs", t_feat)):
             if x is not None:
@@ -178,9 +196,11 @@ class BM3(MultimodalRecommender):
         self.has_t, self.has_v = t_feat is not None, v_feat is not None
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = InteractionEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device)
+            self.dataset.train_data, cfg.batch_size, self.device,
+            mesh=self.mesh)
 
     def step_draws(self) -> _Draws:
         """The next training step's keep masks, from the epoch's
@@ -197,11 +217,12 @@ class BM3(MultimodalRecommender):
         if draws is None:
             draws = self.step_draws()
         return bm3_loss(self.graph, self.params_tree(), self.config, users,
-                        items, w, draws)
+                        items, w, draws, self.num_users)
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         p = self.params_tree()
-        u_ori, i_ori = bm3_forward(self.graph, p, self.config.n_layers)
+        u_ori, i_ori = bm3_forward(self.graph, p, self.config.n_layers,
+                                   self.num_users)
         pred = {"w": p["pred_w"], "b": p["pred_b"]}
         return dense(u_ori, pred), dense(i_ori, pred)
 

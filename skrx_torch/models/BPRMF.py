@@ -26,9 +26,12 @@ owner's rows all-reduced over the model axis; of the bias, the rank's
 copy), whose backward adds every data index's gradient into the rank's
 rows as one device sums it. ``_tp`` (a model axis above 1) marks
 the tensor-parallel step, as in the JAX package. Scoring gathers the
-tables whole once an epoch; ``evaluate()`` ranks through ``predict_topk``
-when the model axis is above 1. Lazy Adam under a mesh is not ported
-(ROADMAP.md Queue 1 item 4b).
+tables whole after the steps move them (``eval_param``); ``evaluate()``
+ranks through ``predict_topk`` when the model axis is above 1. With lazy Adam the tables stay whole on
+every rank under any mesh (the JAX package's lazy branch comes before
+tensor parallelism): each rank gathers the whole batch's rows and row
+gradients over the data axis and applies the same row update, so the
+replicas stay bit-equal.
 """
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -45,8 +48,7 @@ from ..parallel import (lookup_rows, mf_param_shardings, model_parallel_size,
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (ChunkedDotPredictMixin, EpochTrainedRecommender,
-                     as_user_tensor, make_optimizer, make_sharded_train_step,
-                     make_train_step)
+                     as_user_tensor, make_optimizer, make_train_step)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["BPRMF", "BPRMFConfig", "bprmf_gathered_loss",
@@ -116,27 +118,22 @@ def bprmf_lazy_train_step(params: Dict[str, torch.Tensor], lr: float,
 
 class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb", "item_bias")
-    _MESH_READY = True
-    _PREDICT_CACHE_ATTRS = (*EpochTrainedRecommender._PREDICT_CACHE_ATTRS,
-                            "_whole_tables")
-    _whole_tables = None
+    # the bias is read through lookup_rows, whose backward sums it
+    _GRAD_WHOLE = ("item_bias",)
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, BPRMFConfig(**model_config), device)
         cfg = self.config
-        if self.mesh is not None and cfg.optimizer == "lazy_adam":
-            raise NotImplementedError("BPRMF with optimizer='lazy_adam' under "
-                                      "a mesh is not ported (ROADMAP.md "
-                                      "Queue 1 item 4b)")
-        self._tp = model_parallel_size(self.mesh) > 1
+        lazy = cfg.optimizer == "lazy_adam"
+        self._tp = model_parallel_size(self.mesh) > 1 and not lazy
         d = cfg.n_dim
         gen = torch.Generator().manual_seed(run_config.seed)
         normal, zeros = get_initializer("normal"), get_initializer("zeros")
         full = {"user_emb": normal((self.num_users, d), gen),
                 "item_emb": normal((self.num_items, d), gen),
                 "item_bias": zeros((self.num_items,))}
-        if self.mesh is not None:
+        if self.mesh is not None and not lazy:
             self._row_blocks = {
                 name: blocks for name, blocks in
                 mf_param_shardings(self.mesh, full).items()
@@ -145,16 +142,13 @@ class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
             local = take_rows(value, self._row_blocks.get(name))
             setattr(self, name, nn.Parameter(local.to(self.device)))
         tables = {name: getattr(self, name) for name in self._JAX_PARAMS}
-        if cfg.optimizer == "lazy_adam":
+        if lazy:
             self.train_step, self.optimizer = bprmf_lazy_train_step(
                 tables, cfg.lr, cfg.reg)
-        elif self.mesh is not None:
-            self.optimizer = make_optimizer("adam", tables, cfg.lr)
-            self.train_step = make_sharded_train_step(self.optimizer,
-                                                       self._loss)
         else:
             self.optimizer = make_optimizer("adam", tables, cfg.lr)
-            self.train_step = make_train_step(self.optimizer, self._loss)
+            self.train_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
             mesh=self.mesh)
@@ -162,7 +156,7 @@ class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
     def _loss(self, users, pos, neg, w) -> torch.Tensor:
         """The loss of this batch, under a mesh of this rank's slice."""
         neg = neg[:, 0]
-        if self.mesh is None:
+        if not self._row_blocks:
             def rows(name, ids):
                 return getattr(self, name)[ids]
         else:
@@ -194,16 +188,10 @@ class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
             {name: lazy_adam_state_from_jax(*s)
              for name, s in zip(self._JAX_PARAMS, state)})
 
-    @torch.no_grad()
     def _chunk_embeddings(self):
         """The live tables; under a mesh, the tables gathered whole (on
-        every rank, once an epoch)."""
-        if self.mesh is None:
-            return self.user_emb, self.item_emb
-        if self._whole_tables is None:
-            whole = self.full_params()
-            self._whole_tables = (whole["user_emb"], whole["item_emb"])
-        return self._whole_tables
+        every rank, again after each step moves them)."""
+        return self.eval_param("user_emb"), self.eval_param("item_emb")
 
     def _chunk_bias(self):
         return self.item_bias

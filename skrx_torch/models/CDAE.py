@@ -26,6 +26,11 @@ Scoring runs the encoder without dropout on the users' rows. It is a tower
 (:class:`CachedUserVecChunkMixin`): the user vectors are the encoder's
 output and ``_topk_factors`` gives ``(uv, de_emb, de_bias)``, so the fused
 evaluation route scores them against the decoder's table.
+
+Under a mesh CDAE trains data-parallel: a step's negatives and keep mask
+are drawn for the whole batch's users (gathered over the data axis) and
+each rank takes its rows; the items the L2 term covers are the whole
+batch's, and the terms of the whole tables count once.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -37,6 +42,7 @@ from ..convert import cdae_params_from_jax
 from ..ops.initializers import get_initializer
 from ..ops.losses import sigmoid_cross_entropy, square_loss
 from ..ops.sampling import sample_negatives
+from ..parallel import gather_batch_ids, local_rows, once
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (CachedUserVecChunkMixin, EpochTrainedRecommender,
@@ -91,6 +97,12 @@ def cdae_draws(generator: torch.Generator, users: torch.Tensor,
     return neg, keep
 
 
+def batch_total_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed elementwise over the data axis (a rank's column
+    statistic made the whole batch's; not differentiated)."""
+    return gather_batch_ids(x.detach()[None]).sum(dim=0)
+
+
 def _act(name: str, h: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(h) if name == "sigmoid" else h
 
@@ -120,13 +132,15 @@ def cdae_loss(params: Dict[str, torch.Tensor], cfg: CDAEConfig,
     loss_elem = sigmoid_cross_entropy \
         if cfg.loss_func == "sigmoid_cross_entropy" else square_loss
     loss = torch.sum(loss_elem(logits, rows) * union)
-    item_mask = (torch.amax(union, dim=0) > 0).to(torch.float32)
+    # the items of the whole batch
+    item_mask = (batch_total_rows(torch.amax(union, dim=0)) > 0).to(
+        torch.float32)
     reg_term = 0.5 * (
-        torch.sum(torch.sum(en_emb ** 2, -1) * item_mask)
-        + torch.sum(en_offset ** 2)
+        once(torch.sum(torch.sum(en_emb ** 2, -1) * item_mask)
+             + torch.sum(en_offset ** 2))
         + torch.sum(torch.sum(user_rows ** 2, -1) * w)
-        + torch.sum(torch.sum(de_emb ** 2, -1) * item_mask)
-        + torch.sum(de_bias ** 2 * item_mask))
+        + once(torch.sum(torch.sum(de_emb ** 2, -1) * item_mask)
+               + torch.sum(de_bias ** 2 * item_mask)))
     return loss + cfg.reg * reg_term
 
 
@@ -148,16 +162,19 @@ class CDAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
             init((self.num_users, d), gen).to(self.device))
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = UserVecEpochPipeline(self.dataset.train_data,
-                                             cfg.batch_size, self.device)
+                                             cfg.batch_size, self.device,
+                                             mesh=self.mesh)
         lengths = self.dataset.train_data.to_padded_positive_table().lengths
         self.pos_lengths = torch.as_tensor(lengths, device=self.device)
         # negative slots a user: n_pos * num_neg, padded to the widest user
         self.max_k = max(int(lengths.max()) * cfg.num_neg, 1)
 
     def step_draws(self, users: torch.Tensor) -> _Draws:
-        """The next training step's draws, from the epoch's generator."""
+        """The next training step's draws for ``users``, from the epoch's
+        generator."""
         return cdae_draws(self.step_generator(), users,
                           self.pipeline.pos_table, self.num_items,
                           self.max_k, self.config.dropout)
@@ -166,8 +183,9 @@ class CDAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
               ) -> torch.Tensor:
         """The batch's loss under ``draws`` (negatives, keep mask), by
         default the next drawn."""
-        if draws is None:
-            draws = self.step_draws(users)
+        if draws is None:       # drawn for the whole batch's users
+            draws = tuple(map(local_rows,
+                              self.step_draws(gather_batch_ids(users))))
         return cdae_loss(dict(self.named_parameters()), self.config,
                          self.pos_lengths, users, rows, w, *draws)
 

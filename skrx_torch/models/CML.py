@@ -16,6 +16,13 @@ the negative Euclidean distance in its expanded form
 (the latter scores a chunk straight from the user rows, as JAX's CML: the
 cached user vectors of ``CachedUserVecChunkMixin`` would save one gather);
 the fused route does not apply (the score is not a dot).
+``_topk_factors`` gives ``(uv, item_emb, None)`` for the tensor-parallel
+``predict_topk``, which scores each catalog shard by that distance.
+
+Under a mesh CML trains data-parallel: each rank takes its slice of the
+batch, the covariance terms run over the whole batch's rows (gathered over
+the data axis, counted once), the gradients sum over the data axis, and
+every rank clips the whole batch's rows after the step.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -25,6 +32,7 @@ from torch import nn
 
 from ..convert import adagrad_state_from_jax, two_tables_from_jax
 from ..ops.optim import OptaxAdagrad
+from ..parallel import gather_batch, gather_batch_ids, once
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (CachedUserVecChunkMixin, EpochTrainedRecommender,
@@ -84,8 +92,11 @@ def cml_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
     rank = torch.mean(impostors.float(), dim=1) * num_items
     loss = torch.sum(torch.log(rank + 1.0) * hinge * w)
     chosen = neg.gather(1, j_idx[:, None])[:, 0]
-    item_rows = torch.cat([pe, item_emb[chosen]])
-    f2 = _cov_loss(ue, w) + _cov_loss(item_rows, torch.cat([w, w]))
+    # the moments are the whole batch's (gathered over the data axis)
+    w_all = gather_batch_ids(w)
+    item_rows = torch.cat([gather_batch(pe), gather_batch(item_emb[chosen])])
+    f2 = once(_cov_loss(gather_batch(ue), w_all)
+              + _cov_loss(item_rows, torch.cat([w_all, w_all])))
     return loss + reg * f2, chosen
 
 
@@ -116,7 +127,7 @@ class CML(CachedUserVecChunkMixin, EpochTrainedRecommender):
         self.optimizer = OptaxAdagrad([self.user_emb, self.item_emb], cfg.lr)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
-            num_neg=cfg.dns)
+            num_neg=cfg.dns, mesh=self.mesh)
 
     def train_step(self, batch) -> torch.Tensor:
         cfg = self.config
@@ -125,10 +136,13 @@ class CML(CachedUserVecChunkMixin, EpochTrainedRecommender):
         loss, chosen = cml_loss(self.user_emb, self.item_emb, cfg.margin,
                                 cfg.reg, users, pos, neg, w)
         loss.backward()
+        self.sync_gradients()
         self.optimizer.step()
-        clip_rows_by_norm(self.user_emb, users, cfg.clip_norm)
-        clip_rows_by_norm(self.item_emb, torch.cat([pos, chosen]),
+        # every rank clips the whole batch's rows
+        clip_rows_by_norm(self.user_emb, gather_batch_ids(users),
                           cfg.clip_norm)
+        clip_rows_by_norm(self.item_emb, torch.cat(
+            [gather_batch_ids(pos), gather_batch_ids(chosen)]), cfg.clip_norm)
         return loss.detach()
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
@@ -158,6 +172,9 @@ class CML(CachedUserVecChunkMixin, EpochTrainedRecommender):
 
     def _user_vectors(self, users: torch.Tensor) -> torch.Tensor:
         return self.user_emb[users]
+
+    def _topk_factors(self, uv):
+        return uv, self.item_emb, None
 
     @torch.no_grad()
     def predict_chunk(self, users, item_lo: int, item_hi: int

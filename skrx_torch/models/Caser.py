@@ -31,6 +31,12 @@ N + 1 columns, the last scored 0, and ``_eval_width`` is N + 1, so every
 route ranks the same columns. It is a tower: ``_topk_factors`` gives
 ``(uv, W2 with row N zeroed, b2 with entry N zeroed)`` for the fused
 route.
+
+Under a mesh Caser trains data-parallel: each rank takes its data index's
+slice of the batch and of the step's dropout mask (drawn at the whole
+batch's shape), the mean divides by the whole batch's valid rows, and the
+dense gradients sum over the data axis (with lazy Adam the whole batch's
+row gradients are gathered).
 """
 from typing import Dict, Optional, Union
 
@@ -41,6 +47,7 @@ from torch import nn
 from ..convert import caser_params_from_jax
 from ..ops.initializers import get_initializer, torch_layer_default
 from ..ops.losses import sigmoid_cross_entropy
+from ..parallel import batch_total, global_rows, local_rows
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from ..ops.optim import make_lazy_train_step
@@ -136,7 +143,7 @@ def _caser_scores_loss(x: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     t = scores.shape[1] // 2
     loss = (sigmoid_cross_entropy(scores[:, :t], 1.0)
             + sigmoid_cross_entropy(scores[:, t:], 0.0))
-    return torch.sum(torch.mean(loss, 1) * w) / torch.clamp(torch.sum(w),
+    return torch.sum(torch.mean(loss, 1) * w) / torch.clamp(batch_total(w),
                                                             min=1.0)
 
 
@@ -218,20 +225,23 @@ class Caser(LazyAdamTowerMixin, PadColumnTowerMixin,
         self.b2 = param(torch.zeros(self.num_items + 1))
         if cfg.optimizer == "lazy_adam":
             def loss_fn(gathered, dense, batch):
-                keep = batch[5] if len(batch) > 5 else \
-                    self.step_keep_mask(batch[0].shape[0])
+                keep = batch[5] if len(batch) > 5 else local_rows(
+                    self.step_keep_mask(global_rows(batch[0].shape[0])))
                 return caser_gathered_loss(gathered, dense, cfg,
                                            self.pad_idx, batch, keep)
             self.train_step, (self.optimizer, self.dense_optimizer) = \
                 make_lazy_train_step(cfg.lr, LAZY_GATHERS, loss_fn,
                                      dict(self.named_parameters()),
-                                     weight_decay=cfg.l2_reg)
+                                     weight_decay=cfg.l2_reg,
+                                     sync=self.sync_gradients)
         else:
             self.optimizer = adam_l2(self.parameters(), cfg.lr, cfg.l2_reg)
-            self.train_step = make_train_step(self.optimizer, self._loss)
+            self.train_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
-            num_previous=big_l, num_next=cfg.seq_T, pad=self.pad_idx)
+            num_previous=big_l, num_next=cfg.seq_T, pad=self.pad_idx,
+            mesh=self.mesh)
         table, _ = self.dataset.train_data.to_padded_seq_tensor(
             big_l, pad_value=self.pad_idx)
         self.seq_table = torch.as_tensor(table.astype(np.int64),
@@ -246,7 +256,9 @@ class Caser(LazyAdamTowerMixin, PadColumnTowerMixin,
         """The batch's loss under the dropout mask ``keep``, by default the
         next drawn."""
         if keep is None and self.config.dropout > 0:
-            keep = self.step_keep_mask(users.shape[0])
+            # drawn at the whole batch's shape, the rank's rows taken
+            keep = local_rows(self.step_keep_mask(global_rows(
+                users.shape[0])))
         return caser_loss(dict(self.named_parameters()), self.config,
                           self.pad_idx, users, pos, neg, w, prev, keep)
 

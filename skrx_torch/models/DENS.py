@@ -26,6 +26,14 @@ times the hop-0 L2 of the batch's rows over ``batch_size``; dense Adam.
 Poolings: mean, sum, concat, final. ``evaluate()`` freezes the pooled
 embeddings for ``predict``, ``_chunk_embeddings`` and serving until the
 next epoch.
+
+Under a mesh (``RunConfig.mesh_shape``) the graph's destination rows split
+over every rank (segsum on each rank's edges) with the rows of
+``user_emb`` and ``item_emb`` in the rank's block; the hops of the rank's
+rows are gathered whole (the step's masks are drawn whole and each rank
+takes its rows), the rank's slice of the batch selects and scores, and the
+gates' gradients sum over the data axis; the loss's mean is over the whole
+batch's valid rows.
 """
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -39,9 +47,11 @@ from ..ops.initializers import get_initializer
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .LightGCN import build_bipartite_adj
+from ..parallel import batch_total
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
                      FrozenEmbeddingMixin, build_prop_graph, make_optimizer,
-                     make_train_step)
+                     make_train_step, node_rows, node_table_rows,
+                     own_node_rows, whole_nodes)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["DENS", "DENSConfig", "dens_dropout_masks", "dens_gcn",
@@ -110,22 +120,25 @@ def dens_dropout_masks(generator: torch.Generator, graph: Graph,
 
 def dens_gcn(graph: Graph, user_emb: torch.Tensor, item_emb: torch.Tensor,
              hops: int, mess_rate: float = 0.0,
-             masks: Optional[_Masks] = None
+             masks: Optional[_Masks] = None,
+             num_users: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(users (U, hops + 1, d), items (N, hops + 1, d)): every hop of the
     propagation of the ego embeddings, under ``masks``
     (:func:`dens_dropout_masks`; a message keep mask scales by 1 / (1 -
-    ``mess_rate``))."""
-    ego = torch.cat([user_emb, item_emb], dim=0)
+    ``mess_rate``)). On a sharded graph the tables are the rank's rows and
+    ``num_users`` the whole count."""
+    ego = node_rows(graph, user_emb, item_emb)
     embs, h = [ego], ego
     for hop in range(hops):
         edge, keep = (None, None) if masks is None else masks[hop]
         h = propagate(graph, h, edge)
         if keep is not None:
-            h = torch.where(keep, h / (1 - mess_rate), 0.0)
+            h = torch.where(own_node_rows(graph, keep), h / (1 - mess_rate),
+                            0.0)
         embs.append(h)
-    stacked = torch.stack(embs, dim=1)
-    num_users = user_emb.shape[0]
+    stacked = whole_nodes(graph, torch.stack(embs, dim=1))
+    num_users = user_emb.shape[0] if num_users is None else num_users
     return stacked[:num_users], stacked[num_users:]
 
 
@@ -182,14 +195,15 @@ def dens_select(params: Dict[str, torch.Tensor], ns: str, pool: str,
 def dens_loss(graph: Graph, params: Dict[str, torch.Tensor],
               cfg: DENSConfig, users: torch.Tensor, pos: torch.Tensor,
               neg: torch.Tensor, w: torch.Tensor, anneal: float,
-              masks: Optional[_Masks] = None) -> torch.Tensor:
+              masks: Optional[_Masks] = None,
+              num_users: Optional[int] = None) -> torch.Tensor:
     """One batch's loss (neg: (B, K * n_negs)); ``params`` by the model's
     parameter names (``user_emb``, ``item_emb``, ``user_gate.weight``,
-    ``user_gate.bias``, ...)."""
+    ``user_gate.bias``, ...); ``num_users`` as :func:`dens_gcn`."""
     pool, K = cfg.pool, cfg.K
     mess_rate = cfg.mess_dropout_rate if cfg.mess_dropout else 0.0
     u_all, i_all = dens_gcn(graph, params["user_emb"], params["item_emb"],
-                            cfg.context_hops, mess_rate, masks)
+                            cfg.context_hops, mess_rate, masks, num_users)
     s_e, p_e = u_all[users], i_all[pos]                  # (B, H, D)
     groups = neg.reshape(neg.shape[0], K, cfg.n_negs)
     neg_sel = torch.stack([
@@ -198,7 +212,7 @@ def dens_loss(graph: Graph, params: Dict[str, torch.Tensor],
     u_pool = dens_pool(s_e, pool)
     pos_scores = torch.sum(u_pool * dens_pool(p_e, pool), dim=-1)
     neg_scores = torch.sum(u_pool[:, None] * dens_pool(neg_sel, pool), dim=-1)
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
 
     def mlog(x):
         return torch.sum(x * w) / n_valid
@@ -237,14 +251,16 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
         cfg = self.config
         adj = build_bipartite_adj(self.dataset.train_data.to_user_item_pairs(),
                                   self.num_users, self.num_items, "pre")
-        self.graph = build_prop_graph(adj, cfg.graph_impl, device=self.device)
+        self.graph = build_prop_graph(adj, cfg.graph_impl, mesh=self.mesh,
+                                      device=self.device)
         gen = torch.Generator().manual_seed(run_config.seed)
         init = get_initializer("xavier_uniform")
         d = cfg.dim
-        self.user_emb = nn.Parameter(
-            init((self.num_users, d), gen).to(self.device))
-        self.item_emb = nn.Parameter(
-            init((self.num_items, d), gen).to(self.device))
+        tables = node_table_rows(self, self.graph, {
+            "user_emb": init((self.num_users, d), gen),
+            "item_emb": init((self.num_items, d), gen)})
+        for name, table in tables.items():
+            setattr(self, name, nn.Parameter(table.to(self.device)))
         for name in ("user_gate", "item_gate", "pos_gate", "neg_gate"):
             gate = nn.Linear(d, d, device="meta")   # no default init drawn
             gate.weight = nn.Parameter(
@@ -253,10 +269,11 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
             setattr(self, name, gate)
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
-            num_neg=cfg.K * cfg.n_negs)
+            num_neg=cfg.K * cfg.n_negs, mesh=self.mesh)
         self.anneal = 1.0
 
     def step_masks(self) -> Optional[_Masks]:
@@ -276,7 +293,8 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
         if masks is None:
             masks = self.step_masks()
         return dens_loss(self.graph, dict(self.named_parameters()),
-                         self.config, users, pos, neg, w, self.anneal, masks)
+                         self.config, users, pos, neg, w, self.anneal, masks,
+                         self.num_users)
 
     def _train_epoch(self, epoch: int) -> float:
         self.anneal = 1.0 - min(1.0, epoch / max(self.config.warmup, 1))
@@ -285,7 +303,7 @@ class DENS(FrozenEmbeddingMixin, EpochTrainedRecommender):
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
         u_all, i_all = dens_gcn(self.graph, self.user_emb, self.item_emb,
-                                cfg.context_hops)
+                                cfg.context_hops, num_users=self.num_users)
         return dens_pool(u_all, cfg.pool), dens_pool(i_all, cfg.pool)
 
     def load_jax_params(self, params: Dict) -> None:

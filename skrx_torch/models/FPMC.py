@@ -14,6 +14,14 @@ gathers (``make_lazy_train_step``). Scoring uses each user's last training
 item by time (0 for a user without one). It is a dot model:
 ``_chunk_embeddings`` gives ``([UI | LI_last], [IU | IL])``, 2d wide, for
 the fused route.
+
+Under a mesh whose model axis is above 1 (dense Adam) each table keeps
+only its rank's rows over the model axis (the JAX package's
+tensor-parallel ``_finalize_setup_flat``); a step reads the batch's rows
+through ``lookup_rows`` and scoring gathers the tables whole. Each rank
+trains on its data index's slice of the batch; with lazy Adam the tables
+stay whole on every rank and the whole batch's row gradients are gathered
+over the data axis.
 """
 from typing import Dict, Optional, Union
 
@@ -70,14 +78,17 @@ def fpmc_gathered_loss(ui, iu_p, iu_n, il_p, il_n, li_l, w,
     return loss + reg * reg_term
 
 
-def fpmc_loss(params: Dict[str, torch.Tensor], reg: float,
-              users: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
-              w: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
-    """One batch's loss; ``params`` by the model's parameter names."""
+def fpmc_loss(params, reg: float, users: torch.Tensor, pos: torch.Tensor,
+              neg: torch.Tensor, w: torch.Tensor,
+              prev: torch.Tensor) -> torch.Tensor:
+    """One batch's loss; ``params`` by the model's parameter names, or a
+    function ``(name, ids) -> rows``."""
+    rows = params if callable(params) else (lambda name, ids:
+                                            params[name][ids])
     neg, last = neg[:, 0], prev[:, 0]
-    return fpmc_gathered_loss(params["UI"][users], params["IU"][pos],
-                              params["IU"][neg], params["IL"][pos],
-                              params["IL"][neg], params["LI"][last], w, reg)
+    return fpmc_gathered_loss(rows("UI", users), rows("IU", pos),
+                              rows("IU", neg), rows("IL", pos),
+                              rows("IL", neg), rows("LI", last), w, reg)
 
 
 # the rows a lazy step gathers, in the loss's argument order
@@ -100,6 +111,8 @@ class FPMC(ChunkedDotPredictMixin, EpochTrainedRecommender):
         for name in self._JAX_PARAMS:
             setattr(self, name, nn.Parameter(
                 init((rows[name], cfg.embed_size), gen).to(self.device)))
+        if cfg.optimizer != "lazy_adam":
+            self._split_over_model_axis()
         tables = {name: getattr(self, name) for name in self._JAX_PARAMS}
         if cfg.optimizer == "lazy_adam":
             def loss_fn(gathered, dense, batch):
@@ -108,17 +121,18 @@ class FPMC(ChunkedDotPredictMixin, EpochTrainedRecommender):
                 cfg.lr, _LAZY_GATHERS, loss_fn, tables)
         else:
             self.optimizer = make_optimizer("adam", tables, cfg.lr)
-            self.train_step = make_train_step(self.optimizer, self._loss)
+            self.train_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
-            num_previous=1, num_next=1)
+            num_previous=1, num_next=1, mesh=self.mesh)
         self.last_items = torch.as_tensor(
             last_items_by_time(self.dataset.train_data), device=self.device)
         self._concat = None
 
     def _loss(self, users, pos, neg, w, prev) -> torch.Tensor:
-        return fpmc_loss(dict(self.named_parameters()), self.config.reg,
-                         users, pos, neg, w, prev)
+        return fpmc_loss(self.lookup, self.config.reg, users, pos, neg, w,
+                         prev)
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX FPMC's ``params`` (arrays taken with ``np.asarray``)
@@ -140,13 +154,14 @@ class FPMC(ChunkedDotPredictMixin, EpochTrainedRecommender):
         """``([UI | LI_last], [IU | IL])``, concatenated again only after the
         tables changed (a step updates them in place), so that serving's
         packed table is reused between steps."""
-        tables = (self.UI, self.LI, self.IU, self.IL)
-        key = tuple((t.data_ptr(), t._version) for t in tables)
+        ui, li, iu, il = (self.eval_param(n) for n in ("UI", "LI", "IU",
+                                                      "IL"))
+        key = tuple((t.data_ptr(), t._version) for t in (ui, li, iu, il))
         if self._concat is None or self._concat[0] != key:
             with torch.no_grad():
                 self._concat = (key, (
-                    torch.cat([self.UI, self.LI[self.last_items]], 1),
-                    torch.cat([self.IU, self.IL], 1)))
+                    torch.cat([ui, li[self.last_items]], 1),
+                    torch.cat([iu, il], 1)))
         return self._concat[1]
 
     @torch.no_grad()
@@ -155,9 +170,11 @@ class FPMC(ChunkedDotPredictMixin, EpochTrainedRecommender):
         """Scores of items [lo, hi): ``UI_u . IU_i + LI_last . IL_i``, two
         products as in JAX's FPMC."""
         users = as_user_tensor(users, self.device)
-        return (torch.matmul(self.UI[users], self.IU[item_lo:item_hi].T)
-                + torch.matmul(self.LI[self.last_items[users]],
-                               self.IL[item_lo:item_hi].T))
+        ui, li, iu, il = (self.eval_param(n) for n in ("UI", "LI", "IU",
+                                                      "IL"))
+        return (torch.matmul(ui[users], iu[item_lo:item_hi].T)
+                + torch.matmul(li[self.last_items[users]],
+                               il[item_lo:item_hi].T))
 
     def predict(self, users) -> torch.Tensor:
         """(B, N) f32 scores on the model's device."""

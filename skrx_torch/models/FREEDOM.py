@@ -30,6 +30,12 @@ positive and negative items (projected for the batch's rows only); dense
 Adam. ``evaluate()`` propagates the unpruned graph and freezes the
 embeddings that ``predict``, the chunked and fused routes and serving
 reuse until the next epoch.
+
+Under a mesh FREEDOM trains data-parallel (the JAX package has no
+tensor-parallel setup for it): every rank holds the graphs and the
+parameters whole and draws the epoch's mask alike, takes its data index's
+slice of each batch, the BPR means divide by the whole batch's valid rows,
+and the gradients sum over the data axis.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -173,9 +179,11 @@ class FREEDOM(MultimodalRecommender):
         add_param_tree(self, tree, self.device)
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
+            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
+            mesh=self.mesh)
         self._epoch_mask: Optional[torch.Tensor] = None
 
     def mask_from_keep(self, keep: torch.Tensor) -> torch.Tensor:

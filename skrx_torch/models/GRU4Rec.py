@@ -31,6 +31,13 @@ loaded state computes them anew. With the linear ``final_act`` (the
 default) GRU4Rec is a dot model with a bias (``_chunk_embeddings``,
 ``_chunk_bias``): fused evaluation and fused serving take it. A non-linear
 one sets ``_topk_score_fn`` and keeps the predict route.
+
+Under a mesh the walker's B lanes split over the data axis (the batch
+size must divide by it): each rank steps its lanes' states, the step's
+targets are the whole batch's (gathered over the data axis, with the
+sampled negatives every rank draws alike), each row's positive sits at its
+global lane, the means divide by the whole batch, the target rows' L2
+counts once and the gradients sum over the data axis.
 """
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -41,6 +48,9 @@ from torch import nn
 from ..convert import gru4rec_params_from_jax
 from ..ops.initializers import get_initializer
 from ..ops.rnn import ACTIVATIONS, gru_init, stacked_gru_step
+from ..parallel import (batch_mean, batch_offset, batch_total,
+                        data_sharding, gather_batch_ids, global_rows,
+                        local_rows, once)
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .base import TorchRecommender
@@ -154,18 +164,26 @@ def walker_num_steps(lengths: np.ndarray, perm: np.ndarray,
             rem[idx] = lengths[perm[maxiter]]
 
 
+def diagonal_positives(logits: torch.Tensor) -> torch.Tensor:
+    """(B, 1): each row's positive, at its global row (lane) of the
+    (B, Y) logits, the diagonal on one device."""
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return logits[rows, batch_offset(logits.shape[0]) + rows][:, None]
+
+
 def gru4rec_loss_from_logits(logits: torch.Tensor, loss: str
                              ) -> torch.Tensor:
     """TOP1 (with the -sigmoid(pos^2)/B correction) or BPR on (B, Y)
-    logits whose diagonal holds the positives."""
-    b = logits.shape[0]
-    pos = torch.diagonal(logits)[:, None]
+    logits whose diagonal holds the positives (a rank's rows under a mesh,
+    the means over the whole batch)."""
+    b = global_rows(logits.shape[0])
+    pos = diagonal_positives(logits)
     if loss == "bpr":
-        return torch.mean(-torch.nn.functional.logsigmoid(pos - logits))
+        return batch_mean(-torch.nn.functional.logsigmoid(pos - logits))
     loss1 = torch.mean(torch.sigmoid(logits - pos), dim=-1)
     loss2 = torch.mean(torch.sigmoid(logits ** 2), dim=-1) \
         - torch.sigmoid(torch.square(pos[:, 0])) / b
-    return torch.mean(loss1 + loss2)
+    return batch_mean(loss1 + loss2)
 
 
 def gru4rec_loss(p, cfg: GRU4RecConfig, loss_from_logits: Callable,
@@ -176,16 +194,18 @@ def gru4rec_loss(p, cfg: GRU4RecConfig, loss_from_logits: Callable,
     """(one step's loss, the new states) under the params tree ``p``: the
     rows' outputs scored against the step's targets (the next items, then
     ``neg``), ``loss_from_logits`` of them plus ``reg`` times half the
-    squares of the step's input, item and bias rows."""
+    squares of the step's input, item and bias rows. Under a mesh the rows
+    are the rank's lanes and the targets the whole batch's."""
     x = gather_rows(p["input_emb"], in_idx)
     out, new_states = stacked_gru_step(p["cells"], x, states,
                                        ACTIVATIONS[cfg.hidden_act])
+    out_idx = gather_batch_ids(out_idx)
     y = out_idx if neg is None else torch.cat([out_idx, neg])
     items = gather_rows(p["item_emb"], y)
     bias = gather_rows(p["item_bias"], y)
     logits = FINAL_ACTS[cfg.final_act](out @ items.T + bias)
-    reg = 0.5 * (torch.sum(x ** 2) + torch.sum(items ** 2)
-                 + torch.sum(bias ** 2))
+    reg = 0.5 * (torch.sum(x ** 2) + once(torch.sum(items ** 2)
+                                          + torch.sum(bias ** 2)))
     return loss_from_logits(logits) + cfg.reg * reg, new_states
 
 
@@ -228,6 +248,8 @@ class GRU4Rec(NestedParamsMixin, ChunkedDotPredictMixin, TorchRecommender):
         self._init_extra()
         self.optimizer = adam_l2(self.parameters(), cfg.lr)
         self._build_predict_tables(pairs[:, 0])
+        if self.mesh is not None:
+            data_sharding(self.mesh, cfg.batch_size)     # it must divide
 
     _topk_score_fn = None
 
@@ -261,6 +283,7 @@ class GRU4Rec(NestedParamsMixin, ChunkedDotPredictMixin, TorchRecommender):
         for p in self.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.sync_gradients()
         self.optimizer.step()
         return loss.detach(), [s.detach() for s in new_states]
 
@@ -288,7 +311,10 @@ class GRU4Rec(NestedParamsMixin, ChunkedDotPredictMixin, TorchRecommender):
             return 0.0
         gen = epoch_generator(self.run_config.seed + 1, epoch, self.device,
                               stream=1)
-        b = self.config.batch_size
+        # under a mesh the rank's lanes (columns) of the schedule
+        in_s, out_s, reset_s = (local_rows(t.T).T for t in (in_s, out_s,
+                                                              reset_s))
+        b = in_s.shape[1]
         states = [torch.zeros((b, n), device=self.device)
                   for n in self.config.layers]
         total = torch.zeros((), device=self.device)
@@ -298,7 +324,7 @@ class GRU4Rec(NestedParamsMixin, ChunkedDotPredictMixin, TorchRecommender):
             loss, states = self.train_step(in_s[t], out_s[t], states,
                                            self.draw_negatives(gen))
             total += loss
-        return float(total / n_steps)
+        return float(batch_total(total) / n_steps)
 
     # ---------------------------------------------------------- scoring
 

@@ -17,8 +17,9 @@ import numpy as np
 import torch
 
 from ..ops.rnn import ACTIVATIONS
+from ..parallel import batch_mean, batch_offset
 from ..utils import ModelConfig
-from .GRU4Rec import FINAL_ACTS, GRU4Rec
+from .GRU4Rec import FINAL_ACTS, GRU4Rec, diagonal_positives
 
 __all__ = ["GRU4RecPlus", "GRU4RecPlusConfig", "softmax_neg",
            "gru4recplus_loss_from_logits"]
@@ -58,10 +59,12 @@ class GRU4RecPlusConfig(ModelConfig):
 
 def softmax_neg(logits: torch.Tensor) -> torch.Tensor:
     """Row softmax of (B, Y) logits with the diagonal masked out (its
-    weight 0), as the JAX package's ``_softmax_neg``."""
+    weight 0), as the JAX package's ``_softmax_neg`` (a rank's rows under
+    a mesh: each row's positive at its global row)."""
     b, size_y = logits.shape
-    hm = 1.0 - torch.eye(b, size_y, device=logits.device,
-                         dtype=logits.dtype)
+    rows = torch.arange(b, device=logits.device)
+    cols = torch.arange(size_y, device=logits.device)
+    hm = (cols[None, :] != batch_offset(b) + rows[:, None]).to(logits.dtype)
     masked = logits * hm
     masked = masked - torch.amax(masked, dim=1, keepdim=True)
     e_x = torch.exp(masked) * hm
@@ -73,13 +76,13 @@ def gru4recplus_loss_from_logits(logits: torch.Tensor, loss: str,
     """BPR-max (with ``bpr_reg`` times the weighted squares of the logits)
     or TOP1-max on (B, Y) logits whose diagonal holds the positives."""
     w = softmax_neg(logits)
-    pos = torch.diagonal(logits)[:, None]
+    pos = diagonal_positives(logits)
     if loss == "bpr_max":
         prob = torch.sum(torch.sigmoid(pos - logits) * w, dim=1)
         reg_loss = torch.sum(torch.square(logits) * w, dim=1)
-        return torch.mean(-torch.log(prob + 1e-24) + bpr_reg * reg_loss)
+        return batch_mean(-torch.log(prob + 1e-24) + bpr_reg * reg_loss)
     prob = torch.sigmoid(logits - pos) + torch.sigmoid(torch.square(logits))
-    return torch.mean(torch.sum(prob * w, dim=1))
+    return batch_mean(torch.sum(prob * w, dim=1))
 
 
 class GRU4RecPlus(GRU4Rec):

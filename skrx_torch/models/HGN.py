@@ -27,6 +27,10 @@ package's.
 N + 1. It is a tower: the user vector folds ``user + union + sum of the
 item embeddings`` (d wide), and ``_topk_factors`` gives ``(uv, W2 with row
 N zeroed, b2 with entry N zeroed)`` for the fused route.
+
+Under a mesh HGN trains data-parallel: each rank takes its data index's
+slice of the batch and the dense gradients sum over the data axis (with
+lazy Adam the whole batch's row gradients are gathered).
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -169,13 +173,16 @@ class HGN(LazyAdamTowerMixin, PadColumnTowerMixin, EpochTrainedRecommender):
             self.train_step, (self.optimizer, self.dense_optimizer) = \
                 make_lazy_train_step(cfg.lr, LAZY_GATHERS, loss_fn,
                                      dict(self.named_parameters()),
-                                     weight_decay=cfg.reg)
+                                     weight_decay=cfg.reg,
+                                     sync=self.sync_gradients)
         else:
             self.optimizer = adam_l2(self.parameters(), cfg.lr, cfg.reg)
-            self.train_step = make_train_step(self.optimizer, self._loss)
+            self.train_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
-            num_previous=big_l, num_next=cfg.seq_T, pad=self.pad_idx)
+            num_previous=big_l, num_next=cfg.seq_T, pad=self.pad_idx,
+            mesh=self.mesh)
         table, _ = self.dataset.train_data.to_padded_seq_tensor(
             big_l, pad_value=self.pad_idx)
         self.seq_table = torch.as_tensor(table.astype(np.int64),

@@ -41,6 +41,15 @@ inverted-dropout mask of rate ``mess_dropout[i]`` in training, from
 tables alone); the items add ``h`` L2-normalised. The loss is the weighted
 mean BPR plus ``reg`` times half the weighted squared norms of the batch's
 rows over the batch size (padded rows included, as JAX's); dense Adam.
+
+Under a mesh the user-item graph's destination rows split over every rank
+(segsum on each rank's edges) with the rows of ``user_emb`` and
+``item_emb`` in the rank's block; the item graph runs whole on every rank
+over the item table gathered whole, the user-item layers' mean is gathered
+for the rank's slice of the batch (ngcf's layers apply to the rank's rows,
+so ``gc`` and ``bi`` sum their gradients over every rank, the rest over
+the data axis), and the BPR mean and the ``reg`` term divide by the whole
+batch.
 """
 import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -59,9 +68,11 @@ from ..ops.mm_graph import (cached_edges, inv_sqrt_positive, knn_select,
                             knn_values, l2_normalize, lattice_original_edges)
 from ..run_config import RunConfig
 from ..utils import ModelConfig, normalize_adj_matrix
+from ..parallel import global_rows
 from .common import (GRAPH_IMPLS, add_param_tree, build_prop_graph,
                      gather_rows, make_optimizer, make_train_step,
-                     mxu_msg_dtype, resolve_graph_impl)
+                     mxu_msg_dtype, node_rows, node_table_rows,
+                     own_node_rows, resolve_graph_impl, whole_nodes)
 from .multimodal import (MultimodalRecommender, bpr_mean, cache_dir_of,
                          item_features)
 from .pipeline import PairwiseEpochPipeline
@@ -162,7 +173,7 @@ def lattice_item_weights(p: Dict, cfg: LATTICEConfig,
     learned = torch.cat(learned)
     rows = item.rows.repeat(len(present))
     cols = torch.cat([i.reshape(-1) for i in item.ids])
-    rowsum = torch.zeros(p["item_emb"].shape[0], dtype=learned.dtype,
+    rowsum = torch.zeros(p[present[0][0]].shape[0], dtype=learned.dtype,
                          device=learned.device).index_add(0, rows, learned)
     d = inv_sqrt_positive(rowsum)
     lam = cfg.lambda_coeff
@@ -186,18 +197,23 @@ def lattice_draws(generator: torch.Generator, cfg: LATTICEConfig,
 
 def lattice_forward(ui_graph: Graph, item: LatticeItemGraph,
                     weights: torch.Tensor, p: Dict, cfg: LATTICEConfig,
-                    masks: Optional[List[Optional[torch.Tensor]]] = None
+                    masks: Optional[List[Optional[torch.Tensor]]] = None,
+                    num_users: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(users, items) over the item graph of edge ``weights``; ``masks``
-    ngcf's dropout masks (None: no dropout, as in evaluation)."""
-    h = p["item_emb"]
+    ngcf's dropout masks (None: no dropout, as in evaluation). On a
+    sharded ``ui_graph`` the tables are the rank's rows, ``num_users`` the
+    whole count, and both come out whole."""
+    if num_users is None:
+        num_users = p["user_emb"].shape[0]
+    x = node_rows(ui_graph, p["user_emb"], p["item_emb"])
+    ego = whole_nodes(ui_graph, x)
+    h = ego[num_users:]
     for _ in range(cfg.n_layers):
         h = propagate_weighted(item.graph, h, weights)
     h_norm = l2_normalize(h)
     if cfg.cf_model == "mf":
-        return p["user_emb"], p["item_emb"] + h_norm
-    num_users = p["user_emb"].shape[0]
-    x = torch.cat([p["user_emb"], p["item_emb"]], dim=0)
+        return ego[:num_users], ego[num_users:] + h_norm
     layers = [x]
     for i in range(len(cfg.weight_size)):
         side = propagate(ui_graph, x)
@@ -205,35 +221,41 @@ def lattice_forward(ui_graph: Graph, item: LatticeItemGraph,
             x = (F.leaky_relu(dense(side, p["gc"][i]))
                  + F.leaky_relu(dense(x * side, p["bi"][i])))
             if masks is not None and masks[i] is not None:
-                x = torch.where(masks[i], x / (1 - cfg.mess_dropout[i]), 0.0)
+                x = torch.where(own_node_rows(ui_graph, masks[i]),
+                                x / (1 - cfg.mess_dropout[i]), 0.0)
             layers.append(l2_normalize(x))
         else:
             x = side
             layers.append(x)
-    combined = torch.stack(layers, dim=1).mean(dim=1)
+    combined = whole_nodes(ui_graph, torch.stack(layers, dim=1).mean(dim=1))
     return combined[:num_users], combined[num_users:] + h_norm
 
 
 def lattice_loss(ui_graph: Graph, item: LatticeItemGraph, p: Dict,
                  cfg: LATTICEConfig, users: torch.Tensor, pos: torch.Tensor,
                  neg: torch.Tensor, w: torch.Tensor, masks,
-                 weights: Optional[torch.Tensor] = None
+                 weights: Optional[torch.Tensor] = None,
+                 num_users: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, item weights) of one batch: the weights built with gradient
     from ``p`` when ``weights`` is None (an epoch's first batch), else the
-    given (detached) ones."""
+    given (detached) ones; ``num_users`` as :func:`lattice_forward`."""
     if weights is None:
         weights = lattice_item_weights(p, cfg, item)
     neg = neg[:, 0]
-    u_all, i_all = lattice_forward(ui_graph, item, weights, p, cfg, masks)
+    u_all, i_all = lattice_forward(ui_graph, item, weights, p, cfg, masks,
+                                   num_users)
     ue, pe, ne = (gather_rows(t, ids) for t, ids in
                   ((u_all, users), (i_all, pos), (i_all, neg)))
     reg = 0.5 * torch.sum(torch.sum(ue ** 2 + pe ** 2 + ne ** 2, dim=-1)
-                          * w) / users.shape[0]
+                          * w) / global_rows(users.shape[0])
     return bpr_mean(ue, pe, ne, w) + cfg.reg * reg, weights
 
 
 class LATTICE(MultimodalRecommender):
+    # ngcf's layers, applied to the rank's own rows of a sharded graph
+    _GRAD_WORLD = ("gc", "bi")
+
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, LATTICEConfig(**model_config), device)
@@ -251,7 +273,7 @@ class LATTICE(MultimodalRecommender):
                               shape=(n, n))
         self.ui_graph = build_prop_graph(
             normalize_adj_matrix(upper + upper.T + sp.eye(n), "left"),
-            cfg.graph_impl, device=self.device)
+            cfg.graph_impl, mesh=self.mesh, device=self.device)
         cache = cache_dir_of(self.dataset)
         self.originals = tuple(
             cached_edges(os.path.join(cache, f"torch_{tag}_lattice_adj_"
@@ -268,9 +290,10 @@ class LATTICE(MultimodalRecommender):
         def lin(d_in, d_out):
             return {"w": torch_layer_default((d_in, d_out), d_in, gen),
                     "b": torch_layer_default((d_out,), d_in, gen)}
-        tree = {"user_emb": xavier((num_users, d), gen),
-                "item_emb": xavier((num_items, d), gen),
-                "modal_weight": torch.tensor([0.5, 0.5])}
+        tree = node_table_rows(self, self.ui_graph, {
+            "user_emb": xavier((num_users, d), gen),
+            "item_emb": xavier((num_items, d), gen)})
+        tree["modal_weight"] = torch.tensor([0.5, 0.5])
         for feat, trs in MODALITIES:
             if feats[feat] is not None:
                 tree[feat] = torch.from_numpy(feats[feat])
@@ -284,9 +307,11 @@ class LATTICE(MultimodalRecommender):
         add_param_tree(self, tree, self.device)
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._step_loss)
+        self.train_step = make_train_step(self.optimizer, self._step_loss,
+                                          self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
+            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
+            mesh=self.mesh)
         # the running epoch's item graph and, after its first batch, its
         # detached weights
         self.epoch_item: Optional[LatticeItemGraph] = None
@@ -312,7 +337,7 @@ class LATTICE(MultimodalRecommender):
             self.epoch_item = self.item_graph()
         return lattice_loss(self.ui_graph, self.epoch_item,
                             self.params_tree(), self.config, users, pos, neg,
-                            w, masks, weights)
+                            w, masks, weights, self.num_users)
 
     def _step_loss(self, users, pos, neg, w, masks=None) -> torch.Tensor:
         """A training step's loss (``masks`` drawn for ngcf when not
@@ -338,7 +363,7 @@ class LATTICE(MultimodalRecommender):
         item = self.item_graph()
         return lattice_forward(self.ui_graph, item,
                                lattice_item_weights(p, self.config, item),
-                               p, self.config)
+                               p, self.config, num_users=self.num_users)
 
     @staticmethod
     def _params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:

@@ -25,6 +25,13 @@ plus ``reg * 0.5 * sum(w * (|ue|^2 + |pe|^2 + |ne|^2))`` on the ego rows;
 dense Adam. ``evaluate()`` propagates over the unpruned graph under
 ``no_grad`` and freezes the embeddings that ``predict``,
 ``_chunk_embeddings`` and serving reuse until the next epoch.
+
+Under a mesh the static graph is a
+:class:`~skrx_torch.parallel.ShardedPropGraph` of the same COO edges (JAX's
+mesh branch): destination rows split over every rank, segsum on each
+rank's edges, the epoch's (2E,) mask read through each edge's original id;
+each rank holds the tables' rows in its block, and the layer sum and the
+ego rows are gathered whole for the rank's slice of the batch.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -39,9 +46,12 @@ from ..ops.losses import bpr_loss
 from ..ops.sampling import gumbel_topk_without_replacement
 from ..run_config import RunConfig
 from ..utils import ModelConfig
+from ..parallel import ShardedPropGraph
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
-                     FrozenEmbeddingMixin, make_optimizer, make_train_step,
-                     mxu_msg_dtype, resolve_graph_impl)
+                     FrozenEmbeddingMixin, graph_sharding_enabled,
+                     make_optimizer, make_train_step, mxu_msg_dtype,
+                     node_rows, node_table_rows, resolve_graph_impl,
+                     whole_nodes)
 from .pipeline import PairwiseEpochPipeline, epoch_generator
 
 __all__ = ["LayerGCN", "LayerGCNConfig", "layergcn_base_weights",
@@ -117,11 +127,14 @@ def layergcn_mask_from_keep(keep: torch.Tensor, rows: torch.Tensor,
 
 def layergcn_embeddings(graph: Graph, user_emb: torch.Tensor,
                         item_emb: torch.Tensor, n_layers: int,
-                        edge_mask: Optional[torch.Tensor] = None
+                        edge_mask: Optional[torch.Tensor] = None,
+                        num_users: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(users, items): the sum of layers 1..n_layers, each propagated layer
-    scaled per node by its cosine with the ego embedding."""
-    ego = torch.cat([user_emb, item_emb], dim=0)
+    scaled per node by its cosine with the ego embedding. On a sharded
+    graph the tables are the rank's rows and ``num_users`` the whole
+    count."""
+    ego = node_rows(graph, user_emb, item_emb)
     ego_norm = torch.linalg.vector_norm(ego, dim=-1)
     h, total = ego, torch.zeros_like(ego)
     for _ in range(n_layers):
@@ -130,21 +143,27 @@ def layergcn_embeddings(graph: Graph, user_emb: torch.Tensor,
             torch.linalg.vector_norm(h, dim=-1) * ego_norm + 1e-12)
         h = cos_w[:, None] * h
         total = total + h
-    num_users = user_emb.shape[0]
+    total = whole_nodes(graph, total)
+    num_users = user_emb.shape[0] if num_users is None else num_users
     return total[:num_users], total[num_users:]
 
 
 def layergcn_loss(graph: Graph, params: Dict[str, torch.Tensor],
                   cfg: LayerGCNConfig, users: torch.Tensor, pos: torch.Tensor,
                   neg: torch.Tensor, w: torch.Tensor,
-                  edge_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  edge_mask: Optional[torch.Tensor] = None,
+                  num_users: Optional[int] = None) -> torch.Tensor:
     """One batch's loss (summed BPR plus ``reg`` times the L2 of the batch's
     ego rows) over ``graph`` pruned by ``edge_mask``; ``params`` holds
-    ``user_emb`` and ``item_emb``."""
+    ``user_emb`` and ``item_emb``; ``num_users`` as
+    :func:`layergcn_embeddings`."""
     user_emb, item_emb = params["user_emb"], params["item_emb"]
     neg = neg[:, 0]
     u_all, i_all = layergcn_embeddings(graph, user_emb, item_emb,
-                                       cfg.n_layers, edge_mask)
+                                       cfg.n_layers, edge_mask, num_users)
+    if isinstance(graph, ShardedPropGraph):     # the ego rows, whole
+        ego = whole_nodes(graph, node_rows(graph, user_emb, item_emb))
+        user_emb, item_emb = ego[:num_users], ego[num_users:]
     ue = u_all[users]
     y_pos = torch.sum(ue * i_all[pos], dim=-1)
     y_neg = torch.sum(ue * i_all[neg], dim=-1)
@@ -168,28 +187,37 @@ class LayerGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
         base = layergcn_base_weights(rows, cols, num_users, num_items)
         self.num_pairs = len(pairs)
         self.keep_len = int(self.num_pairs * (1.0 - cfg.dropout))
-        self.graph = graph_from_coo(
-            np.concatenate([cols + num_users, rows]),
-            np.concatenate([rows, cols + num_users]),
-            np.concatenate([base, base]), num_users + num_items,
-            msg_dtype=mxu_msg_dtype(resolve_graph_impl(cfg.graph_impl)),
-            device=self.device)
+        edges = (np.concatenate([cols + num_users, rows]),
+                 np.concatenate([rows, cols + num_users]),
+                 np.concatenate([base, base]))
+        msg_dtype = mxu_msg_dtype(resolve_graph_impl(cfg.graph_impl))
+        if graph_sharding_enabled(self.mesh):
+            self.graph = ShardedPropGraph(
+                self.mesh, msg_dtype=msg_dtype, coo_edges=edges,
+                num_nodes=num_users + num_items, device=self.device)
+        else:
+            self.graph = graph_from_coo(*edges, num_users + num_items,
+                                        msg_dtype=msg_dtype,
+                                        device=self.device)
         self._rows = torch.as_tensor(rows, device=self.device)
         self._cols = torch.as_tensor(cols, device=self.device)
         self._base = torch.as_tensor(base, device=self.device)
         self._log_base = torch.log(self._base)
         gen = torch.Generator().manual_seed(run_config.seed)
         init = get_initializer("xavier_uniform")
-        self.user_emb = nn.Parameter(
-            init((num_users, cfg.embed_dim), gen).to(self.device))
-        self.item_emb = nn.Parameter(
-            init((num_items, cfg.embed_dim), gen).to(self.device))
+        tables = node_table_rows(self, self.graph, {
+            "user_emb": init((num_users, cfg.embed_dim), gen),
+            "item_emb": init((num_items, cfg.embed_dim), gen)})
+        for name, table in tables.items():
+            setattr(self, name, nn.Parameter(table.to(self.device)))
         self.optimizer = make_optimizer("adam", {"user_emb": self.user_emb,
                                                  "item_emb": self.item_emb},
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
+            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
+            mesh=self.mesh)
         self._epoch_mask: Optional[torch.Tensor] = None
 
     def epoch_mask(self, epoch: int) -> Optional[torch.Tensor]:
@@ -210,7 +238,8 @@ class LayerGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
         """The batch's loss under ``edge_mask``, by default the epoch's."""
         mask = self._epoch_mask if edge_mask is None else edge_mask
         return layergcn_loss(self.graph, dict(self.named_parameters()),
-                             self.config, users, pos, neg, w, mask)
+                             self.config, users, pos, neg, w, mask,
+                             self.num_users)
 
     def _train_epoch(self, epoch: int) -> float:
         self._epoch_mask = self.epoch_mask(epoch)
@@ -221,7 +250,8 @@ class LayerGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return layergcn_embeddings(self.graph, self.user_emb, self.item_emb,
-                                   self.config.n_layers)   # unpruned
+                                   self.config.n_layers,   # unpruned
+                                   num_users=self.num_users)
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX LayerGCN's ``params`` (arrays taken with

@@ -21,6 +21,16 @@ terms between the SVD and the GCN views (``lambda1``; positive logits
 clamped to +-5), the mean BPR, and ``lambda2`` times the squared norms of
 the ego tables; dense Adam. ``evaluate()`` freezes ``(E_u, E_i)`` for
 ``predict``, ``_chunk_embeddings`` and serving until the next epoch.
+
+Under a mesh R and Rᵀ are one square bipartite graph ``[[0, R], [Rᵀ,
+0]]`` over the users then the items (JAX's mesh branch), a
+:class:`~skrx_torch.parallel.ShardedPropGraph` whose edges 0..E-1 run R
+and E..2E-1 Rᵀ, so a layer's two masks concatenate into one (2E,) mask;
+destination rows split over every rank (segsum on each rank's edges) and
+each rank holds the tables' rows in its block. The SVD factors stay whole
+on every rank: each layer's input is gathered whole for the SVD view, and
+the layer sums are gathered for the rank's slice of the batch; the means
+are over the whole batch's valid rows and the L2 term counts once.
 """
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
@@ -37,9 +47,12 @@ from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
 from ..run_config import RunConfig
 from ..utils import ModelConfig
+from ..parallel import ShardedPropGraph, batch_total, once
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
-                     FrozenEmbeddingMixin, make_optimizer, make_train_step,
-                     mxu_msg_dtype, resolve_graph_impl)
+                     FrozenEmbeddingMixin, graph_sharding_enabled,
+                     make_optimizer, make_train_step, mxu_msg_dtype,
+                     node_rows, node_table_rows, resolve_graph_impl,
+                     whole_nodes)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["LightGCL", "LightGCLConfig", "LightGCLOperators",
@@ -79,13 +92,15 @@ class LightGCLConfig(ModelConfig):
 
 
 class LightGCLOperators(NamedTuple):
-    """R and Rᵀ for propagation and the SVD factors, on one device."""
-    r: Graph                 # R: (N, D) item rows -> (U, D) user rows
-    rt: Graph                # Rᵀ: (U, D) -> (N, D)
+    """R and Rᵀ for propagation and the SVD factors, on one device; under
+    a mesh the square bipartite graph ``sq`` in place of R and Rᵀ."""
+    r: Optional[Graph]       # R: (N, D) item rows -> (U, D) user rows
+    rt: Optional[Graph]      # Rᵀ: (U, D) -> (N, D)
     u_mul_s: torch.Tensor    # (U, q) U S
     v_mul_s: torch.Tensor    # (N, q) V S
     ut: torch.Tensor         # (q, U)
     vt: torch.Tensor         # (q, N)
+    sq: Optional[ShardedPropGraph] = None
 
     def to(self, device) -> "LightGCLOperators":
         r = self.r.to(device)
@@ -96,10 +111,13 @@ class LightGCLOperators(NamedTuple):
 
 def lightgcl_operators(coo: sp.coo_matrix, svd_q: int,
                        msg_dtype: torch.dtype = torch.float32, device="cpu",
-                       seed: Optional[int] = None) -> LightGCLOperators:
+                       seed: Optional[int] = None,
+                       mesh=None) -> LightGCLOperators:
     """The normalised R of the (U, N) interaction matrix ``coo`` (entries
     in row-major order, each counted once) and its rank-q SVD factors,
-    ``q = min(svd_q, min(U, N) - 1)``; ``seed`` fixes svds' start vector."""
+    ``q = min(svd_q, min(U, N) - 1)``; ``seed`` fixes svds' start vector.
+    Under a ``mesh`` of several ranks R and Rᵀ are the square graph
+    ``sq``, sharded over its ranks."""
     coo = coo.astype(np.float64)
     coo.data[:] = 1.0
     row_deg = np.asarray(coo.sum(axis=1)).flatten()
@@ -112,14 +130,22 @@ def lightgcl_operators(coo: sp.coo_matrix, svd_q: int,
     v0 = np.random.default_rng(seed).uniform(-1.0, 1.0, min(adj.shape))
     svd_u, s, svd_vt = svds(adj.tocsc(), k=q, v0=v0)
     num_users, num_items = coo.shape
-    r = graph_from_coo(coo.col, coo.row, norm_data.astype(np.float32),
-                       num_users, msg_dtype, num_src_nodes=num_items,
-                       device=device)
 
     def dev(a):
         return torch.as_tensor(a.astype(np.float32), device=device)
-    return LightGCLOperators(r, transpose_graph(r), dev(svd_u * s),
-                             dev(svd_vt.T * s), dev(svd_u.T), dev(svd_vt))
+    factors = (dev(svd_u * s), dev(svd_vt.T * s), dev(svd_u.T), dev(svd_vt))
+    w32 = norm_data.astype(np.float32)
+    if graph_sharding_enabled(mesh):
+        sq = ShardedPropGraph(
+            mesh, msg_dtype=msg_dtype,
+            coo_edges=(np.concatenate([coo.col + num_users, coo.row]),
+                       np.concatenate([coo.row, coo.col + num_users]),
+                       np.concatenate([w32, w32])),
+            num_nodes=num_users + num_items, device=device)
+        return LightGCLOperators(None, None, *factors, sq)
+    r = graph_from_coo(coo.col, coo.row, w32, num_users, msg_dtype,
+                       num_src_nodes=num_items, device=device)
+    return LightGCLOperators(r, transpose_graph(r), *factors)
 
 
 def lightgcl_dropout_masks(generator: torch.Generator, num_edges: int,
@@ -136,13 +162,41 @@ def lightgcl_dropout_masks(generator: torch.Generator, num_edges: int,
             for _ in range(n_layers)]
 
 
+def _sharded_forward(ops: LightGCLOperators, e_u: torch.Tensor,
+                     e_i: torch.Tensor, n_layers: int,
+                     masks: Optional[list], num_users: int
+                     ) -> Tuple[torch.Tensor, ...]:
+    """:func:`lightgcl_forward` on ``ops.sq`` from the rank's rows of the
+    tables: each layer's input gathered whole for the SVD view (the same
+    on every rank), the GCN layers summed on the rank's block and gathered
+    at the end."""
+    sq, nu = ops.sq, num_users
+    x = node_rows(sq, e_u, e_i)
+    whole = whole_nodes(sq, x)
+    sum_x, sum_g = x, whole
+    for layer in range(n_layers):
+        if layer:
+            whole = whole_nodes(sq, x)
+        g = torch.cat([ops.u_mul_s @ (ops.vt @ whole[nu:]),
+                       ops.v_mul_s @ (ops.ut @ whole[:nu])])
+        mask = None if masks is None else torch.cat(masks[layer])
+        x = propagate(sq, x, mask)
+        sum_x, sum_g = sum_x + x, sum_g + g
+    sum_e = whole_nodes(sq, sum_x)
+    return sum_e[:nu], sum_e[nu:], sum_g[:nu], sum_g[nu:]
+
+
 def lightgcl_forward(ops: LightGCLOperators, e_u: torch.Tensor,
                      e_i: torch.Tensor, n_layers: int,
-                     masks: Optional[list] = None
+                     masks: Optional[list] = None,
+                     num_users: Optional[int] = None
                      ) -> Tuple[torch.Tensor, ...]:
     """(E_u, E_i, G_u, G_i): the sums over layers 0..n_layers of the GCN
     view and of the SVD view; ``masks`` as :func:`lightgcl_dropout_masks`
-    gives them."""
+    gives them. Under a mesh (``ops.sq``) the tables are the rank's rows,
+    ``num_users`` the whole count, and the sums come out whole."""
+    if ops.sq is not None:
+        return _sharded_forward(ops, e_u, e_i, n_layers, masks, num_users)
     sum_eu, sum_ei, sum_gu, sum_gi = e_u, e_i, e_u, e_i
     for layer in range(n_layers):
         mask_u, mask_i = (None, None) if masks is None else masks[layer]
@@ -158,7 +212,8 @@ def lightgcl_forward(ops: LightGCLOperators, e_u: torch.Tensor,
 def lightgcl_loss(ops: LightGCLOperators, params: Dict[str, torch.Tensor],
                   cfg: LightGCLConfig, users: torch.Tensor, pos: torch.Tensor,
                   neg: torch.Tensor, w: torch.Tensor,
-                  masks: Optional[list] = None) -> torch.Tensor:
+                  masks: Optional[list] = None,
+                  num_users: Optional[int] = None) -> torch.Tensor:
     """One batch's loss: mean BPR + ``lambda1`` InfoNCE + ``lambda2`` L2;
     ``params`` holds the ego tables ``E_u_0`` and ``E_i_0``. The InfoNCE
     terms keep JAX's ``log(sum(exp(x / temp)) + 1e-8)`` (no log-sum-exp
@@ -166,14 +221,14 @@ def lightgcl_loss(ops: LightGCLOperators, params: Dict[str, torch.Tensor],
     neg = neg[:, 0]
     e_u_0, e_i_0 = params["E_u_0"], params["E_i_0"]
     E_u, E_i, G_u, G_i = lightgcl_forward(ops, e_u_0, e_i_0, cfg.gnn_layer,
-                                          masks)
+                                          masks, num_users)
     temp = cfg.temp
     loss_s = 0.0
     if cfg.lambda1 > 0:
         iids = torch.cat([pos, neg])
         w_ii = torch.cat([w, w])
-        n_u = torch.clamp(torch.sum(w), min=1.0)
-        n_i = torch.clamp(torch.sum(w_ii), min=1.0)
+        n_u = torch.clamp(batch_total(w), min=1.0)
+        n_i = torch.clamp(batch_total(w_ii), min=1.0)
         g_u, g_i = G_u[users], G_i[iids]
         neg_score = torch.sum(torch.log(torch.sum(
             torch.exp(g_u @ E_u.T / temp), 1) + 1e-8) * w) / n_u
@@ -187,9 +242,13 @@ def lightgcl_loss(ops: LightGCLOperators, params: Dict[str, torch.Tensor],
     ue = E_u[users]
     y_pos = torch.sum(ue * E_i[pos], dim=-1)
     y_neg = torch.sum(ue * E_i[neg], dim=-1)
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
     loss_r = torch.sum(bpr_loss(y_pos, y_neg) * w) / n_valid
-    loss_reg = cfg.lambda2 * (torch.sum(e_u_0 ** 2) + torch.sum(e_i_0 ** 2))
+    if ops.sq is not None:              # the ego tables, whole
+        ego = whole_nodes(ops.sq, node_rows(ops.sq, e_u_0, e_i_0))
+        e_u_0, e_i_0 = ego[:num_users], ego[num_users:]
+    loss_reg = once(cfg.lambda2 * (torch.sum(e_u_0 ** 2)
+                                   + torch.sum(e_i_0 ** 2)))
     return loss_r + loss_s + loss_reg
 
 
@@ -200,21 +259,25 @@ class LightGCL(FrozenEmbeddingMixin, EpochTrainedRecommender):
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, LightGCLConfig(**model_config), device)
         cfg = self.config
+        coo = self.dataset.train_data.to_coo_matrix()
+        self.num_edges = coo.nnz
         self.ops = lightgcl_operators(
-            self.dataset.train_data.to_coo_matrix(), cfg.svd_q,
-            mxu_msg_dtype(resolve_graph_impl(cfg.graph_impl)), self.device,
-            seed=run_config.seed)
+            coo, cfg.svd_q, mxu_msg_dtype(resolve_graph_impl(cfg.graph_impl)),
+            self.device, seed=run_config.seed, mesh=self.mesh)
         gen = torch.Generator().manual_seed(run_config.seed)
         init = get_initializer("xavier_uniform")
-        self.E_u_0 = nn.Parameter(
-            init((self.num_users, cfg.d), gen).to(self.device))
-        self.E_i_0 = nn.Parameter(
-            init((self.num_items, cfg.d), gen).to(self.device))
+        tables = node_table_rows(self, self.ops.sq, {
+            "E_u_0": init((self.num_users, cfg.d), gen),
+            "E_i_0": init((self.num_items, cfg.d), gen)})
+        for name, table in tables.items():
+            setattr(self, name, nn.Parameter(table.to(self.device)))
         self.optimizer = make_optimizer("adam", {"E_u_0": self.E_u_0,
                                                  "E_i_0": self.E_i_0}, cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
+            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
+            mesh=self.mesh)
 
     def step_masks(self) -> Optional[list]:
         """The next training step's dropout masks, from the epoch's
@@ -223,7 +286,7 @@ class LightGCL(FrozenEmbeddingMixin, EpochTrainedRecommender):
         if cfg.dropout <= 0:
             return None
         return lightgcl_dropout_masks(self.step_generator(),
-                                      self.ops.r.num_edges, cfg.gnn_layer,
+                                      self.num_edges, cfg.gnn_layer,
                                       cfg.dropout)
 
     def _loss(self, users, pos, neg, w, masks=None) -> torch.Tensor:
@@ -231,11 +294,13 @@ class LightGCL(FrozenEmbeddingMixin, EpochTrainedRecommender):
         if masks is None:
             masks = self.step_masks()
         return lightgcl_loss(self.ops, dict(self.named_parameters()),
-                             self.config, users, pos, neg, w, masks)
+                             self.config, users, pos, neg, w, masks,
+                             self.num_users)
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         E_u, E_i, _, _ = lightgcl_forward(self.ops, self.E_u_0, self.E_i_0,
-                                          self.config.gnn_layer)
+                                          self.config.gnn_layer,
+                                          num_users=self.num_users)
         return E_u, E_i
 
     def load_jax_params(self, params: Dict[str, np.ndarray],

@@ -31,7 +31,6 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import scipy.sparse as sp
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..convert import two_tables_from_jax
@@ -39,13 +38,13 @@ from ..ops.graph import Graph, propagate_layers
 from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss
 from ..parallel import ShardedPropGraph, gather_all_rows, take_rows
-from ..parallel.distributed import all_gather_rows, all_reduce_sum
+from ..parallel.distributed import all_reduce_sum
 from ..run_config import RunConfig
 from ..utils import ModelConfig, normalize_adj_matrix
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
                      FrozenEmbeddingMixin, build_prop_graph,
-                     graph_param_shardings, make_optimizer,
-                     make_sharded_train_step, make_train_step)
+                     graph_param_shardings, make_optimizer, make_train_step,
+                     node_rows, whole_nodes)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["LightGCN", "LightGCNConfig", "build_bipartite_adj",
@@ -128,14 +127,6 @@ def lightgcn_loss(graph: Graph, user_emb: torch.Tensor,
     return loss + reg * reg_term / batch_size
 
 
-def _ego_rows(graph: ShardedPropGraph, user_emb: torch.Tensor,
-              item_emb: torch.Tensor) -> torch.Tensor:
-    """This rank's block of the padded node table: its user rows, then its
-    item rows, then zeros up to ``rows_per_shard``."""
-    ego = torch.cat([user_emb, item_emb], dim=0)
-    return F.pad(ego, (0, 0, 0, graph.rows_per_shard - ego.shape[0]))
-
-
 def sharded_lightgcn_loss(graph: ShardedPropGraph, user_emb: torch.Tensor,
                           item_emb: torch.Tensor, num_users: int,
                           n_layers: int, reg: float, batch_size: int,
@@ -149,7 +140,7 @@ def sharded_lightgcn_loss(graph: ShardedPropGraph, user_emb: torch.Tensor,
     ``w``), the mean BPR over the whole batch's valid rows. The slices'
     losses sum to the single device's."""
     mesh = graph.mesh
-    ego = _ego_rows(graph, user_emb, item_emb)
+    ego = node_rows(graph, user_emb, item_emb)
     combined = propagate_layers(graph, ego, n_layers, "mean")
     table = gather_all_rows(torch.cat([combined, ego], dim=1), mesh)
     d = ego.shape[1]
@@ -168,7 +159,6 @@ def sharded_lightgcn_loss(graph: ShardedPropGraph, user_emb: torch.Tensor,
 
 class LightGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb")
-    _MESH_READY = True
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
@@ -191,11 +181,8 @@ class LightGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
         self.optimizer = make_optimizer("adam", {"user_emb": self.user_emb,
                                                  "item_emb": self.item_emb},
                                         cfg.lr)
-        if self.mesh is not None:
-            self.train_step = make_sharded_train_step(self.optimizer,
-                                                      self._loss)
-        else:
-            self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
             mesh=self.mesh)
@@ -232,12 +219,10 @@ class LightGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
         if not isinstance(self.graph, ShardedPropGraph):
             return lightgcn_embeddings(self.graph, self.user_emb,
                                        self.item_emb, self.config.n_layers)
-        ego = _ego_rows(self.graph, self.user_emb, self.item_emb)
-        combined = propagate_layers(self.graph, ego, self.config.n_layers,
-                                    "mean")
-        table = all_gather_rows(combined, self.mesh.world, self.mesh.size)
-        return (table[:self.num_users],
-                table[self.num_users:self.num_users + self.num_items])
+        ego = node_rows(self.graph, self.user_emb, self.item_emb)
+        table = whole_nodes(self.graph, propagate_layers(
+            self.graph, ego, self.config.n_layers, "mean"))
+        return table[:self.num_users], table[self.num_users:]
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX LightGCN's ``params`` (arrays taken with

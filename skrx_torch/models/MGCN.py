@@ -30,6 +30,15 @@ Adam update from ``update_count``, the updates taken (optax's count; it
 rides in checkpoints). Dense Adam otherwise. ``evaluate()`` freezes the
 embeddings that ``predict``, the chunked and fused routes and serving
 reuse until the next epoch.
+
+Under a mesh whose model axis is above 1 every 2-D parameter of at least m
+rows keeps only its rank's rows over the model axis (the JAX package's
+tensor-parallel ``_finalize_setup_flat``: the tables, the features and the
+projection weights); a step gathers each whole (differentiable, the
+backward summing over the data axis) and runs the rank's slice of the
+batch. The means divide by the whole batch's valid rows, the InfoNCEs of
+the rank's rows run against the whole batch (gathered over the data axis),
+and the replicated parameters' gradients sum over the data axis.
 """
 import os
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
@@ -45,9 +54,10 @@ from ..ops.initializers import get_initializer, torch_layer_default
 from ..ops.mm_graph import cached_edges, weighted_knn_edges
 from ..run_config import RunConfig
 from ..utils import ModelConfig
+from ..parallel import batch_total, gather_batch, gather_batch_ids
 from .common import (GRAPH_IMPLS, add_param_tree, gather_rows,
                      make_optimizer, make_train_step, mxu_msg_dtype,
-                     resolve_graph_impl)
+                     nest_params, resolve_graph_impl)
 from .multimodal import (MultimodalRecommender, bpr_mean, cache_dir_of,
                          item_features)
 from .pipeline import PairwiseEpochPipeline
@@ -165,12 +175,15 @@ def mgcn_forward(graphs: MGCNGraphs, p: Dict, cfg: MGCNConfig):
 def mgcn_info_nce(v1: torch.Tensor, v2: torch.Tensor, temp: float,
                   w: torch.Tensor) -> torch.Tensor:
     """The weighted InfoNCE of rows ``v1`` against ``v2``, the padded
-    (zero-weight) rows out of every denominator."""
+    (zero-weight) rows out of every denominator; data-parallel, the rank's
+    rows against the whole batch's ``v2``, the mean over the whole batch's
+    valid rows."""
     v1 = v1 / (torch.linalg.vector_norm(v1, dim=1, keepdim=True) + 1e-12)
     v2 = v2 / (torch.linalg.vector_norm(v2, dim=1, keepdim=True) + 1e-12)
     pos = torch.exp(torch.sum(v1 * v2, dim=-1) / temp)
-    ttl = torch.sum(torch.exp(v1 @ v2.T / temp) * w[None, :], dim=1)
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
+    ttl = torch.sum(torch.exp(v1 @ gather_batch(v2).T / temp)
+                    * gather_batch_ids(w)[None, :], dim=1)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
     return torch.sum(-torch.log(pos / torch.clamp(ttl, min=1e-12)) * w) \
         / n_valid
 
@@ -184,7 +197,7 @@ def mgcn_loss(graphs: MGCNGraphs, p: Dict, cfg: MGCNConfig,
     u_all, i_all, side, content = mgcn_forward(graphs, p, cfg)
     ue, pe, ne = (gather_rows(t, ids) for t, ids in
                   ((u_all, users), (i_all, pos), (i_all, neg)))
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
     mf = bpr_mean(ue, pe, ne, w)
     reg = 0.5 * torch.sum(torch.sum(ue ** 2 + pe ** 2 + ne ** 2, dim=-1)
                           * w) / n_valid
@@ -242,11 +255,14 @@ class MGCN(MultimodalRecommender):
             "gate_v": lin(d, d), "gate_t": lin(d, d),
             "gate_image_prefer": lin(d, d), "gate_text_prefer": lin(d, d)},
             self.device)
+        self._split_over_model_axis()
         self.pipeline = PairwiseEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1)
+            self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
+            mesh=self.mesh)
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self._adam_step = make_train_step(self.optimizer, self._loss)
+        self._adam_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
 
     update_count = 0    # Adam updates taken: the schedule's count
 
@@ -255,6 +271,14 @@ class MGCN(MultimodalRecommender):
         rate, period = self.config.lr_scheduler
         return mgcn_lr(self.config.lr, rate, period,
                        self.pipeline.num_batches, count)
+
+    def params_tree(self):
+        """The parameters as the JAX package's nested tree, the ones split
+        over the model axis gathered whole (differentiable)."""
+        if not self._row_blocks:
+            return super().params_tree()
+        return nest_params({name: self.whole_param(name)
+                            for name, _ in self.named_parameters()})
 
     def _loss(self, users, pos, neg, w) -> torch.Tensor:
         return mgcn_loss(self.graphs, self.params_tree(), self.config, users,

@@ -30,6 +30,11 @@ state before its last layer, and ``_topk_factors`` gives ``(uv, w_last.T,
 b_last)``, rounded to bf16 and back under bf16 compute, so the fused
 route scores them with the kernels' f32 arithmetic (under bf16 within
 rounding of ``predict``'s bf16 matmul; equal under f32).
+
+Under a mesh MultVAE trains data-parallel: a step's keep mask and noise
+are drawn at the whole batch's shape (each rank takes its rows), the
+means divide by the whole batch's valid rows, the weights' L2 counts once
+and the gradients sum over the data axis.
 """
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -39,6 +44,7 @@ from torch import nn
 
 from ..convert import linear_port_name, multvae_params_from_jax
 from ..ops.initializers import get_initializer
+from ..parallel import batch_total, global_rows, local_rows, once
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (CachedUserVecChunkMixin, EpochTrainedRecommender,
@@ -147,14 +153,14 @@ def multvae_loss(params: Dict[str, torch.Tensor], cfg: MultVAEConfig,
                                 cfg.keep_prob)
     z = mu + eps * torch.exp(0.5 * logvar)
     log_softmax = F.log_softmax(_mlp(p_layers, z, cdt), dim=-1)
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
     neg_ll = -torch.sum(torch.sum(log_softmax * rows, dim=-1) * w) / n_valid
     kl = torch.sum(torch.sum(
         0.5 * (-logvar + torch.exp(logvar) + mu ** 2 - 1.0), dim=1) * w) \
         / n_valid
     reg_var = 0.5 * sum(torch.sum(weight ** 2)
                         for weight, _ in q_layers + p_layers) * cfg.reg
-    return neg_ll + anneal * kl + 2.0 * reg_var
+    return neg_ll + anneal * kl + 2.0 * once(reg_var)
 
 
 def _linear_stack(dims: List[int], init, gen: torch.Generator,
@@ -194,7 +200,8 @@ class MultVAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
         self.cdt = _DTYPES[cfg.compute_dtype]
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        step = make_train_step(self.optimizer, self._loss)
+        step = make_train_step(self.optimizer, self._loss,
+                               self.sync_gradients)
 
         def train_step(batch):
             loss = step(batch)
@@ -202,7 +209,8 @@ class MultVAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
             return loss
         self.train_step = train_step
         self.pipeline = UserVecEpochPipeline(self.dataset.train_data,
-                                             cfg.batch_size, self.device)
+                                             cfg.batch_size, self.device,
+                                             mesh=self.mesh)
         # f32 count of the steps taken: the KL anneal's progress
         self.update_count = torch.zeros((), device=self.device)
 
@@ -223,8 +231,9 @@ class MultVAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
               ) -> torch.Tensor:
         """The batch's loss under ``draws`` (keep mask, eps), by default
         the next drawn, at the current anneal."""
-        if draws is None:
-            draws = self.step_draws(users.shape[0])
+        if draws is None:       # drawn at the whole batch's shape
+            draws = tuple(map(local_rows, self.step_draws(
+                global_rows(users.shape[0]))))
         return multvae_loss(dict(self.named_parameters()), self.config,
                             rows, w, *draws, self.anneal())
 

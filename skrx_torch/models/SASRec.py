@@ -28,6 +28,12 @@ parameters; the logits and the loss stay f32.
 A user's vector is the encoder's last position over the last ``max_len``
 training items; ``predict`` is ``uv @ (item_emb * sqrt(d)).T``. It is a
 tower (``_topk_factors``: ``(uv, item_emb * sqrt(d), None)``).
+
+Under a mesh SASRec trains data-parallel: each rank takes its data index's
+slice of the batch and of the step's dropout masks (drawn at the whole
+batch's shape), the mean divides by the whole batch's target positions,
+``l2_emb`` counts once and the gradients sum over the data axis;
+``predict_topk`` ranks the catalog split over the model axis.
 """
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -39,6 +45,7 @@ from ..ops.attention import (dropout, feedforward_conv1, keep_mask,
                              layer_norm, multihead_attention_kyubyong)
 from ..ops.initializers import get_initializer
 from ..ops.sampling import sample_negatives
+from ..parallel import batch_total, global_rows, local_rows, once
 from ..run_config import RunConfig
 from ..utils import ModelConfig, pad_sequences
 from .common import (CachedUserVecChunkMixin, EpochTrainedRecommender,
@@ -142,11 +149,11 @@ def sasrec_loss(p, cfg: SASRecConfig, pad_id: int, seqs: torch.Tensor,
     is_target = (poss != pad_id).float() * w[:, None]
     pos_loss = -torch.log(torch.sigmoid(pos_logits) + 1e-24) * is_target
     neg_loss = -torch.log(1 - torch.sigmoid(neg_logits) + 1e-24) * is_target
-    loss = torch.sum(pos_loss + neg_loss) / torch.clamp(torch.sum(is_target),
-                                                        min=1.0)
+    loss = torch.sum(pos_loss + neg_loss) / torch.clamp(
+        batch_total(is_target), min=1.0)
     if cfg.l2_emb > 0:
-        loss = loss + cfg.l2_emb * 0.5 * (torch.sum(p["item_emb"] ** 2)
-                                          + torch.sum(p["pos_emb"] ** 2))
+        loss = loss + cfg.l2_emb * 0.5 * once(
+            torch.sum(p["item_emb"] ** 2) + torch.sum(p["pos_emb"] ** 2))
     return loss
 
 
@@ -157,8 +164,8 @@ class SASRecEpochPipeline(RowsEpochPipeline):
     user's positives), pad where the target is pad."""
 
     def __init__(self, train_data, users, seqs, poss, batch_size: int,
-                 device: torch.device):
-        super().__init__([users, seqs, poss], batch_size, device)
+                 device: torch.device, mesh=None):
+        super().__init__([users, seqs, poss], batch_size, device, mesh)
         self.num_items = train_data.num_items
         self.max_len = seqs.shape[1]
         self._pos_table = torch.as_tensor(
@@ -190,7 +197,7 @@ class SASRec(NestedParamsMixin, CachedUserVecChunkMixin,
                              max_len=big_l, padding="pre", truncating="pre")
         self.pipeline = SASRecEpochPipeline(self.dataset.train_data, users,
                                             seqs, poss, cfg.batch_size,
-                                            self.device)
+                                            self.device, mesh=self.mesh)
         test_seqs = pad_sequences(
             [user_pos[u][-big_l:] if u in user_pos else [pad]
              for u in range(self.num_users)],
@@ -215,7 +222,8 @@ class SASRec(NestedParamsMixin, CachedUserVecChunkMixin,
         add_param_tree(self, tree, self.device)
         self.optimizer = torch.optim.Adam(self.parameters(), lr=cfg.lr,
                                           betas=(0.9, 0.98), eps=1e-8)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
 
     def step_draws(self, batch: int) -> Optional[Draws]:
         """The next training step's dropout masks, from the epoch's step
@@ -225,8 +233,8 @@ class SASRec(NestedParamsMixin, CachedUserVecChunkMixin,
     def _loss(self, users, seqs, poss, neg, w, draws=None) -> torch.Tensor:
         """The batch's loss under the dropout masks ``draws``, by default
         the next drawn."""
-        if draws is None:
-            draws = self.step_draws(seqs.shape[0])
+        if draws is None:       # drawn at the whole batch's shape
+            draws = local_rows(self.step_draws(global_rows(seqs.shape[0])))
         return sasrec_loss(self.params_tree(), self.config, self.pad_id,
                            seqs, poss, neg, w, draws)
 

@@ -33,6 +33,15 @@ serving reuse until the next epoch. ``predict`` scores by the direct
 sequences are each user's last ``n_seqs`` training items, pre-padded (a
 user without training items: all pad). ``_topk_score_fn``, the expanded
 form, takes the fused route off this model: it evaluates full and chunked.
+
+Under a mesh whose model axis is above 1 ``user_emb`` and ``item_emb``
+keep only their rank's rows over the model axis (the JAX package's
+tensor-parallel ``_finalize_setup_flat``): a step gathers both whole
+(differentiable, the backward summing over the data axis) for the graph
+over every item and user, scoring gathers them once, and ``item_bias``
+stays whole. Each rank trains on its data index's slice of the batch. The
+graph cache is written under a name of the process's own and then moved
+into place, so the ranks of a mesh may build it at once.
 """
 import os
 from typing import Dict, NamedTuple, Optional, Tuple, Union
@@ -239,12 +248,15 @@ class SGAT(CachedUserVecChunkMixin, EpochTrainedRecommender):
             init((self.num_users, d), gen).to(self.device))
         self.item_emb = nn.Parameter(init((n, d), gen).to(self.device))
         self.item_bias = nn.Parameter(torch.zeros(n, device=self.device))
+        self._split_over_model_axis()
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
-            num_previous=cfg.n_seqs, num_next=cfg.n_next, pad=n)
+            num_previous=cfg.n_seqs, num_next=cfg.n_next, pad=n,
+            mesh=self.mesh)
         seqs = [user_pos[u][-cfg.n_seqs:] if u in user_pos else [n]
                 for u in range(self.num_users)]
         self.test_seqs = torch.as_tensor(pad_sequences(
@@ -263,12 +275,17 @@ class SGAT(CachedUserVecChunkMixin, EpochTrainedRecommender):
             with np.load(path) as blob:
                 return tuple(blob[k] for k in _GRAPH_KEYS)
         arrays = build_sgat_graph(user_pos)
-        np.savez(path, **dict(zip(_GRAPH_KEYS, arrays)))
+        # written under a name of this process's own, then moved into
+        # place: the ranks of a mesh may build it at once
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, **dict(zip(_GRAPH_KEYS, arrays)))
+        os.replace(tmp, path)
         return arrays
 
     def _loss(self, users, pos, neg, w, prev) -> torch.Tensor:
-        return sgat_loss(self.graph, dict(self.named_parameters()),
-                         self.config, users, pos, neg, w, prev)
+        params = {name: self.whole_param(name) for name in self._JAX_PARAMS}
+        return sgat_loss(self.graph, params, self.config, users, pos, neg, w,
+                         prev)
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:
         """Copy a JAX SGAT's ``params`` (arrays taken with ``np.asarray``;
@@ -283,9 +300,9 @@ class SGAT(CachedUserVecChunkMixin, EpochTrainedRecommender):
     @torch.no_grad()
     def _items(self) -> torch.Tensor:
         if self._final_emb is None:
-            self._final_emb = sgat_propagate(self.graph, self.item_emb,
-                                             self.user_emb,
-                                             self.config.n_layers)
+            self._final_emb = sgat_propagate(
+                self.graph, self.eval_param("item_emb"),
+                self.eval_param("user_emb"), self.config.n_layers)
         return self._final_emb
 
     def _train_epoch(self, epoch: int):
@@ -303,7 +320,7 @@ class SGAT(CachedUserVecChunkMixin, EpochTrainedRecommender):
     def _user_vectors(self, users: torch.Tensor) -> torch.Tensor:
         head_e = head_embedding(self._items(), self.test_seqs[users],
                                 self.num_items)
-        return head_e + self.user_emb[users]
+        return head_e + self.eval_param("user_emb")[users]
 
     def _score_user_chunk(self, uv: torch.Tensor, item_lo: int,
                           item_hi: int) -> torch.Tensor:

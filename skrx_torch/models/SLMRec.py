@@ -32,6 +32,15 @@ generator or are passed to ``_loss`` as tensors. Dense Adam.
 ``evaluate()``; ``_topk_score_fn`` says so, so the fused route leaves
 SLMRec out and the full and chunked routes rank the sigmoid values, as
 JAX's (which saturate to 1.0 in f32 and tie there).
+
+Under a mesh the graph's destination rows split over every rank (segsum on
+each rank's edges) with the rows of ``user_emb`` and ``item_emb`` in the
+rank's block; each tower's item input is the rank's item rows (its rows of
+the features projected, so ``v_dense`` and ``t_dense`` sum their
+gradients over every rank), the tower means are gathered whole, the
+in-batch cross-entropies of the rank's rows run against the whole batch's
+other side (gathered over the data axis) and the FD masks are drawn whole,
+each rank taking its block.
 """
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -45,9 +54,12 @@ from ..ops.graph import Graph, propagate
 from ..ops.initializers import get_initializer, torch_layer_default
 from ..run_config import RunConfig
 from ..utils import ModelConfig
+from ..parallel import (batch_offset, batch_total, gather_batch,
+                        gather_batch_ids, take_rows)
 from .common import (GRAPH_IMPLS, add_param_tree, as_user_tensor,
                      build_prop_graph, gather_rows, make_optimizer,
-                     make_train_step)
+                     make_train_step, node_rows, node_table_rows,
+                     own_node_rows, whole_nodes)
 from .multimodal import MultimodalRecommender, item_features
 from .pipeline import InteractionEpochPipeline
 
@@ -160,14 +172,15 @@ def slmrec_draws(generator: torch.Generator, cfg: SLMRecConfig,
 def _gcn(graph: Graph, u_emb: torch.Tensor, i_emb: torch.Tensor,
          n_layers: int, keeps: Optional[List[torch.Tensor]], rate: float
          ) -> torch.Tensor:
-    x = torch.cat([u_emb, i_emb], dim=0)
+    x = node_rows(graph, u_emb, i_emb)
     layers = [x]
     for layer in range(n_layers):
         x = propagate(graph, x)
         if keeps is not None:
-            x = torch.where(keeps[layer], x / (1 - rate), 0.0)
+            x = torch.where(own_node_rows(graph, keeps[layer]),
+                            x / (1 - rate), 0.0)
         layers.append(x)
-    return torch.stack(layers, dim=1).mean(dim=1)
+    return whole_nodes(graph, torch.stack(layers, dim=1).mean(dim=1))
 
 
 def slmrec_towers(graph: Graph, p: Dict, cfg: SLMRecConfig,
@@ -176,7 +189,9 @@ def slmrec_towers(graph: Graph, p: Dict, cfg: SLMRecConfig,
                   ) -> List[torch.Tensor]:
     """[ids, image, text]: each tower's mean of layers over the users' and
     its items' embeddings; ``keeps[tower]`` the layers' dropout masks,
-    ``masked`` the index (FM's) of the tower whose item input is zeroed."""
+    ``masked`` the index (FM's) of the tower whose item input is zeroed.
+    On a sharded graph the tables and the features are the rank's rows,
+    and the towers come out whole."""
     inputs = (p["item_emb"], dense(v_feat, p["v_dense"]),
               dense(t_feat, p["t_dense"]))
     out = []
@@ -212,11 +227,16 @@ def slmrec_fuse(p: Dict, cfg: SLMRecConfig, towers: List[torch.Tensor],
 def ce_diag(logits: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Weighted in-batch cross-entropy with diagonal labels; a padded
     (zero-weight) row's column is masked out of every row by ``log(w)``
-    and its own term selected away before weighting."""
-    logits = logits + torch.log(torch.clamp(w, min=1e-38))[None, :]
+    and its own term selected away before weighting. Data-parallel: the
+    rank's rows (B, whole batch) of the logits, their labels at the rank's
+    offset, the mean over the whole batch's valid rows."""
+    w_cols = gather_batch_ids(w)
+    logits = logits + torch.log(torch.clamp(w_cols, min=1e-38))[None, :]
     log_probs = torch.log_softmax(logits, dim=-1)
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
-    diag = torch.where(w > 0, torch.diagonal(log_probs), 0.0)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    labels = log_probs[rows, batch_offset(logits.shape[0]) + rows]
+    diag = torch.where(w > 0, labels, 0.0)
     return -torch.sum(diag * w) / n_valid
 
 
@@ -229,18 +249,22 @@ def slmrec_loss(graph: Graph, p: Dict, cfg: SLMRecConfig,
                 num_users: int, users: torch.Tensor, items: torch.Tensor,
                 w: torch.Tensor, draws) -> torch.Tensor:
     """One batch's loss under one step's draws (:func:`slmrec_draws`)."""
+    def cross(a, b):        # the rank's rows against the whole batch's
+        return a @ gather_batch(b).T
+
     towers = slmrec_towers(graph, p, cfg, v_feat, t_feat)
     u_b, i_b = slmrec_fuse(p, cfg, towers, num_users, users, items)
-    main = ce_diag(_norm_rows(u_b) @ _norm_rows(i_b).T / cfg.temp, w)
+    main = ce_diag(cross(_norm_rows(u_b), _norm_rows(i_b)) / cfg.temp, w)
     if cfg.ssl_task == "FAC":
         i_emb, v_emb, t_emb = (gather_rows(t[num_users:], items)
                                for t in towers)
         x_i_iv = dense(i_emb, p["g_i_iv"])
         x_v_iv = dense(v_emb, p["g_v_iv"])
-        v_loss = ce_diag(x_i_iv @ x_v_iv.T / cfg.ssl_temp, w)
+        v_loss = ce_diag(cross(x_i_iv, x_v_iv) / cfg.ssl_temp, w)
         x_iva_ivat = dense(dense(x_i_iv, p["g_iv_iva"]), p["g_iva_ivat"])
         x_t_ivat = dense(t_emb, p["g_t_ivat"])
-        ssl = v_loss + ce_diag(x_iva_ivat @ x_t_ivat.T / cfg.ssl_temp, w)
+        ssl = v_loss + ce_diag(cross(x_iva_ivat, x_t_ivat) / cfg.ssl_temp,
+                               w)
     else:
         fd, fm = draws
         branches = []
@@ -251,13 +275,17 @@ def slmrec_loss(graph: Graph, p: Dict, cfg: SLMRecConfig,
             branches.append(slmrec_fuse(p, cfg, tw, num_users, users,
                                         items))
         (u1, i1), (u2, i2) = branches
-        ssl = (ce_diag(_norm_rows(u1) @ _norm_rows(u2).T / cfg.ssl_temp, w)
-               + ce_diag(_norm_rows(i1) @ _norm_rows(i2).T / cfg.ssl_temp,
-                         w))
+        ssl = (ce_diag(cross(_norm_rows(u1), _norm_rows(u2))
+                       / cfg.ssl_temp, w)
+               + ce_diag(cross(_norm_rows(i1), _norm_rows(i2))
+                         / cfg.ssl_temp, w))
     return main + cfg.ssl_alpha * ssl
 
 
 class SLMRec(MultimodalRecommender):
+    # projections of the rank's own item rows of a sharded graph
+    _GRAD_WORLD = ("v_dense", "t_dense")
+
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, SLMRecConfig(**model_config), device)
@@ -273,7 +301,7 @@ class SLMRec(MultimodalRecommender):
         self.graph = build_prop_graph(
             slmrec_adj(self.dataset.train_data.to_user_item_pairs(),
                        self.num_users, self.num_items, cfg.adj_type),
-            cfg.graph_impl, device=self.device)
+            cfg.graph_impl, mesh=self.mesh, device=self.device)
         gen = torch.Generator().manual_seed(run_config.seed)
         xavier = get_initializer("xavier_uniform")
         d = cfg.rec_dim
@@ -282,11 +310,17 @@ class SLMRec(MultimodalRecommender):
         def lin(d_in, d_out):
             return {"w": xavier((d_in, d_out), gen),
                     "b": torch_layer_default((d_out,), d_in, gen)}
-        tree = {"user_emb": xavier((self.num_users, d), gen),
-                "item_emb": xavier((self.num_items, d), gen),
+        tree = node_table_rows(self, self.graph, {
+            "user_emb": xavier((self.num_users, d), gen),
+            "item_emb": xavier((self.num_items, d), gen)})
+        # the towers' item inputs: the rank's item rows of the features
+        items = self._row_blocks.get("item_emb")
+        self.v_rows = take_rows(self.v_feat, items)
+        self.t_rows = take_rows(self.t_feat, items)
+        tree.update({
                 "v_dense": lin(v_feat.shape[1], d),
                 "t_dense": lin(t_feat.shape[1], d),
-                "after_gcn_u": lin(fused, d), "after_gcn_i": lin(fused, d)}
+                "after_gcn_u": lin(fused, d), "after_gcn_i": lin(fused, d)})
         if cfg.ssl_task == "FAC":
             tree.update({"g_i_iv": lin(d, d), "g_v_iv": lin(d, d),
                          "g_iv_iva": lin(d, d), "g_iva_ivat": lin(d, d // 2),
@@ -294,9 +328,11 @@ class SLMRec(MultimodalRecommender):
         add_param_tree(self, tree, self.device)
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = InteractionEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device)
+            self.dataset.train_data, cfg.batch_size, self.device,
+            mesh=self.mesh)
 
     def step_draws(self):
         """The next training step's draws, from the epoch's generator."""
@@ -309,13 +345,13 @@ class SLMRec(MultimodalRecommender):
         if draws is None:
             draws = self.step_draws()
         return slmrec_loss(self.graph, self.params_tree(), self.config,
-                           self.v_feat, self.t_feat, self.num_users, users,
+                           self.v_rows, self.t_rows, self.num_users, users,
                            items, w, draws)
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         p = self.params_tree()
-        towers = slmrec_towers(self.graph, p, self.config, self.v_feat,
-                               self.t_feat)
+        towers = slmrec_towers(self.graph, p, self.config, self.v_rows,
+                               self.t_rows)
         return slmrec_fuse(p, self.config, towers, self.num_users)
 
     @staticmethod

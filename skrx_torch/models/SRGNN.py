@@ -32,6 +32,11 @@ last partial batch dropped.
 A user's vector is the session embedding of its last ``max_seq_len``
 training items, and ``predict`` is ``uv @ embedding.T``: a tower
 (``_topk_factors``: ``(uv, embedding, None)``).
+
+Under a mesh SRGNN trains data-parallel: each rank takes its data index's
+rows of every batch (the batch size must divide by the data axis), the
+mean divides by the whole batch, the L2 term counts once and the
+gradients sum over the data axis.
 """
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -42,6 +47,8 @@ import torch
 from ..convert import srgnn_params_from_jax
 from ..ops.optim import staircase_exponential_decay
 from ..ops.rnn import gru_init, gru_step
+from ..parallel import (batch_mean, batch_total, data_sharding, local_rows,
+                        once)
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (CachedUserVecChunkMixin, NestedParamsMixin,
@@ -212,7 +219,7 @@ def srgnn_loss(p, cfg: SRGNNConfig, nodes: torch.Tensor, alias: torch.Tensor,
     ce = -torch.gather(torch.log_softmax(logits, dim=-1), 1,
                        targets[:, None])[:, 0]
     l2 = sum(0.5 * torch.sum(torch.square(x)) for x in _leaves(p))
-    return torch.mean(ce) + cfg.l2_reg * l2
+    return batch_mean(ce) + cfg.l2_reg * once(l2)
 
 
 def _leaves(tree) -> Sequence[torch.Tensor]:
@@ -276,6 +283,8 @@ class SRGNN(NestedParamsMixin, CachedUserVecChunkMixin, TorchRecommender):
                                                        cfg.lr_dc)
         self.optimizer = adam_l2(self.parameters(), cfg.lr)
         self.num_batches = self.num_examples // self.batch_size
+        if self.mesh is not None:
+            data_sharding(self.mesh, self.batch_size)    # it must divide
 
     # -------------------------------------------------------- training
 
@@ -292,6 +301,7 @@ class SRGNN(NestedParamsMixin, CachedUserVecChunkMixin, TorchRecommender):
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(*batch)
         loss.backward()
+        self.sync_gradients()
         self.optimizer.step()
         self.update_count += 1
         return loss.detach()
@@ -325,8 +335,8 @@ class SRGNN(NestedParamsMixin, CachedUserVecChunkMixin, TorchRecommender):
     def _train_epoch(self, epoch: int) -> Optional[float]:
         total = torch.zeros((), device=self.device)
         for batch in self.batches(epoch):
-            total += self.train_step(batch)
-        return float(total / max(self.num_batches, 1))
+            total += self.train_step(local_rows(batch))
+        return float(batch_total(total) / max(self.num_batches, 1))
 
     def _train_state(self) -> Dict:
         state = super()._train_state()

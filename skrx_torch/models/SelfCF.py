@@ -25,6 +25,12 @@ freezes ``[u_pred | u_on]`` and ``[i_on | i_pred]``: ``predict``, the
 chunked and fused routes and serving score that one concatenated dot,
 ``u_pred . i_on + u_on . i_pred`` (JAX's ``predict`` sums the two dots
 apart, which rounds differently).
+
+Under a mesh the graph's destination rows split over every rank (segsum on
+each rank's edges) with the tables' rows in the rank's block; the layer
+mean is gathered whole, the step's draws are made at the whole batch's
+shape (each rank takes its rows), the means are over the whole batch's
+valid rows and the predictor's gradient sums over the data axis.
 """
 from typing import Dict, Optional, Tuple, Union
 
@@ -39,9 +45,11 @@ from ..ops.graph import Graph, propagate_layers
 from ..ops.initializers import get_initializer, torch_layer_default
 from ..run_config import RunConfig
 from ..utils import ModelConfig
+from ..parallel import batch_total, global_rows, local_rows
 from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
                      FrozenEmbeddingMixin, build_prop_graph, make_optimizer,
-                     make_train_step)
+                     make_train_step, node_rows, node_table_rows,
+                     whole_nodes)
 from .pipeline import InteractionEpochPipeline
 
 __all__ = ["SelfCF", "SelfCFConfig", "selfcf_norm_adj", "selfcf_encode",
@@ -94,13 +102,16 @@ def selfcf_norm_adj(pairs: np.ndarray, num_users: int,
 
 def selfcf_encode(graph: Graph, user_emb: torch.Tensor,
                   item_emb: torch.Tensor, n_layers: int,
-                  edge_mask: Optional[torch.Tensor] = None
+                  edge_mask: Optional[torch.Tensor] = None,
+                  num_users: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(users, items): the mean of layers 0..n_layers of the propagation
-    of the ego embeddings under ``edge_mask``."""
-    ego = torch.cat([user_emb, item_emb], dim=0)
-    combined = propagate_layers(graph, ego, n_layers, "mean", edge_mask)
-    num_users = user_emb.shape[0]
+    of the ego embeddings under ``edge_mask``. On a sharded graph the
+    tables are the rank's rows and ``num_users`` the whole count."""
+    ego = node_rows(graph, user_emb, item_emb)
+    combined = whole_nodes(graph, propagate_layers(graph, ego, n_layers,
+                                                   "mean", edge_mask))
+    num_users = user_emb.shape[0] if num_users is None else num_users
     return combined[:num_users], combined[num_users:]
 
 
@@ -132,13 +143,16 @@ def selfcf_loss(graph: Graph, params: Dict[str, torch.Tensor],
                 cfg: SelfCFConfig, users: torch.Tensor, pos: torch.Tensor,
                 w: torch.Tensor, edge_mask: Optional[torch.Tensor],
                 mask_u: Optional[torch.Tensor],
-                mask_i: Optional[torch.Tensor]) -> torch.Tensor:
+                mask_i: Optional[torch.Tensor],
+                num_users: Optional[int] = None) -> torch.Tensor:
     """One batch's BYOL loss under one step's draws
-    (:func:`selfcf_draws`); ``params`` by the model's parameter names
-    (``user_emb``, ``item_emb``, ``predictor.weight``,
-    ``predictor.bias``)."""
+    (:func:`selfcf_draws`; the keep masks of the batch's rows); ``params``
+    by the model's parameter names (``user_emb``, ``item_emb``,
+    ``predictor.weight``, ``predictor.bias``); ``num_users`` as
+    :func:`selfcf_encode`."""
     u_all, i_all = selfcf_encode(graph, params["user_emb"],
-                                 params["item_emb"], cfg.n_layers, edge_mask)
+                                 params["item_emb"], cfg.n_layers, edge_mask,
+                                 num_users)
     u_on, i_on = u_all[users], i_all[pos]
     u_tgt, i_tgt = u_on.detach(), i_on.detach()
     if cfg.dropout > 0:
@@ -149,7 +163,7 @@ def selfcf_loss(graph: Graph, params: Dict[str, torch.Tensor],
                                 + torch.sum(i_on ** 2, -1)) * w)
     weight, bias = params["predictor.weight"], params["predictor.bias"]
     u_pred, i_pred = F.linear(u_on, weight, bias), F.linear(i_on, weight, bias)
-    n_valid = torch.clamp(torch.sum(w), min=1.0)
+    n_valid = torch.clamp(batch_total(w), min=1.0)
     loss_ui = -torch.sum(_cos(u_pred, i_tgt) * w) / n_valid / 2
     loss_iu = -torch.sum(_cos(i_pred, u_tgt) * w) / n_valid / 2
     return loss_ui + loss_iu + cfg.reg * reg_term
@@ -162,14 +176,16 @@ class SelfCF(FrozenEmbeddingMixin, EpochTrainedRecommender):
         cfg = self.config
         adj = selfcf_norm_adj(self.dataset.train_data.to_user_item_pairs(),
                               self.num_users, self.num_items)
-        self.graph = build_prop_graph(adj, cfg.graph_impl, device=self.device)
+        self.graph = build_prop_graph(adj, cfg.graph_impl, mesh=self.mesh,
+                                      device=self.device)
         gen = torch.Generator().manual_seed(run_config.seed)
         init = get_initializer("xavier_uniform")
         d = cfg.embed_dim
-        self.user_emb = nn.Parameter(
-            init((self.num_users, d), gen).to(self.device))
-        self.item_emb = nn.Parameter(
-            init((self.num_items, d), gen).to(self.device))
+        tables = node_table_rows(self, self.graph, {
+            "user_emb": init((self.num_users, d), gen),
+            "item_emb": init((self.num_items, d), gen)})
+        for name, table in tables.items():
+            setattr(self, name, nn.Parameter(table.to(self.device)))
         self.predictor = nn.Linear(d, d, device="meta")  # no init drawn
         self.predictor.weight = nn.Parameter(
             torch_layer_default((d, d), d, gen).T.contiguous().to(self.device))
@@ -177,9 +193,11 @@ class SelfCF(FrozenEmbeddingMixin, EpochTrainedRecommender):
             torch_layer_default((d,), d, gen).to(self.device))
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients)
         self.pipeline = InteractionEpochPipeline(
-            self.dataset.train_data, cfg.batch_size, self.device)
+            self.dataset.train_data, cfg.batch_size, self.device,
+            mesh=self.mesh)
 
     def step_draws(self, batch: int) -> _Draws:
         """The next training step's draws, from the epoch's generator."""
@@ -190,15 +208,20 @@ class SelfCF(FrozenEmbeddingMixin, EpochTrainedRecommender):
     def _loss(self, users, pos, w, draws: Optional[_Draws] = None
               ) -> torch.Tensor:
         """The batch's loss under ``draws`` (edge mask, user and item keep
-        masks), by default the next drawn."""
+        masks of the whole batch), by default the next drawn; each rank of
+        a mesh takes its rows of the keep masks."""
         if draws is None:
-            draws = self.step_draws(users.shape[0])
+            draws = self.step_draws(global_rows(users.shape[0]))
+        edge_mask, mask_u, mask_i = draws
         return selfcf_loss(self.graph, dict(self.named_parameters()),
-                           self.config, users, pos, w, *draws)
+                           self.config, users, pos, w, edge_mask,
+                           local_rows(mask_u), local_rows(mask_i),
+                           self.num_users)
 
     def _embeddings(self) -> Tuple[torch.Tensor, torch.Tensor]:
         u_on, i_on = selfcf_encode(self.graph, self.user_emb, self.item_emb,
-                                   self.config.n_layers)
+                                   self.config.n_layers,
+                                   num_users=self.num_users)
         u_pred, i_pred = self.predictor(u_on), self.predictor(i_on)
         return torch.cat([u_pred, u_on], 1), torch.cat([i_on, i_pred], 1)
 

@@ -15,6 +15,14 @@ Adam. Scoring, in ``predict`` as in ``predict_chunk``, is the expanded
 form of the distance (:meth:`TransRec._topk_score_fn`), as JAX's TransRec
 scores every route, from each user's last training item by time (0 for a
 user without one). The score is not a dot: the fused route does not apply.
+
+Under a mesh whose model axis is above 1 (dense Adam) ``user_emb`` and
+``item_emb`` keep only their rank's rows over the model axis (the JAX
+package's tensor-parallel ``_finalize_setup_flat``); a step reads the
+batch's rows through ``lookup_rows``, ``trans`` and ``item_bias`` stay
+whole, and scoring gathers the tables whole. Each rank trains on its data
+index's slice of the batch (``|trans|^2`` counts once); with lazy Adam the
+tables stay whole on every rank.
 """
 from typing import Dict, Optional, Union
 
@@ -26,6 +34,7 @@ from ..convert import lazy_adam_state_from_jax, transrec_params_from_jax
 from ..ops.initializers import get_initializer
 from ..ops.losses import bpr_loss, euclidean_distance
 from ..ops.optim import make_lazy_train_step
+from ..parallel import once
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (CachedUserVecChunkMixin, EpochTrainedRecommender,
@@ -70,20 +79,24 @@ def transrec_gathered_loss(ue, ie_l, ie_p, ie_n, b_p, b_n, trans, w,
     reg_term = 0.5 * (
         torch.sum(torch.sum(ue ** 2 + ie_l ** 2 + ie_p ** 2 + ie_n ** 2, -1)
                   * w)
-        + torch.sum(trans ** 2) + torch.sum((b_p ** 2 + b_n ** 2) * w))
+        + once(torch.sum(trans ** 2)) + torch.sum((b_p ** 2 + b_n ** 2) * w))
     return loss + reg * reg_term
 
 
-def transrec_loss(params: Dict[str, torch.Tensor], reg: float,
-                  users: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
-                  w: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
-    """One batch's loss; ``params`` by the model's parameter names."""
+def transrec_loss(params, reg: float, users: torch.Tensor,
+                  pos: torch.Tensor, neg: torch.Tensor, w: torch.Tensor,
+                  prev: torch.Tensor, trans: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """One batch's loss; ``params`` by the model's parameter names, or a
+    function ``(name, ids) -> rows`` with ``trans`` given."""
+    if not callable(params):
+        trans = params["trans"]
+        params = (lambda p: lambda name, ids: p[name][ids])(params)
     neg, last = neg[:, 0], prev[:, 0]
-    item_emb, item_bias = params["item_emb"], params["item_bias"]
     return transrec_gathered_loss(
-        params["user_emb"][users], item_emb[last], item_emb[pos],
-        item_emb[neg], item_bias[pos], item_bias[neg], params["trans"], w,
-        reg)
+        params("user_emb", users), params("item_emb", last),
+        params("item_emb", pos), params("item_emb", neg),
+        params("item_bias", pos), params("item_bias", neg), trans, w, reg)
 
 
 # the rows a lazy step gathers, in the loss's argument order
@@ -112,25 +125,29 @@ class TransRec(CachedUserVecChunkMixin, EpochTrainedRecommender):
         self.trans = nn.Parameter(normal((1, d), gen).to(self.device))
         self.item_bias = nn.Parameter(
             torch.zeros(self.num_items, device=self.device))
+        if cfg.optimizer != "lazy_adam":
+            self._split_over_model_axis()
         params = {name: getattr(self, name) for name in self._JAX_PARAMS}
         if cfg.optimizer == "lazy_adam":
             def loss_fn(gathered, dense, batch):
                 return transrec_gathered_loss(*gathered, dense["trans"],
                                               batch[3], cfg.reg)
             self.train_step, (self.optimizer, self.dense_optimizer) = \
-                make_lazy_train_step(cfg.lr, _LAZY_GATHERS, loss_fn, params)
+                make_lazy_train_step(cfg.lr, _LAZY_GATHERS, loss_fn, params,
+                                     sync=self.sync_gradients)
         else:
             self.optimizer = make_optimizer("adam", params, cfg.lr)
-            self.train_step = make_train_step(self.optimizer, self._loss)
+            self.train_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
-            num_previous=1, num_next=1)
+            num_previous=1, num_next=1, mesh=self.mesh)
         self.last_items = torch.as_tensor(
             last_items_by_time(self.dataset.train_data), device=self.device)
 
     def _loss(self, users, pos, neg, w, prev) -> torch.Tensor:
-        return transrec_loss(dict(self.named_parameters()), self.config.reg,
-                             users, pos, neg, w, prev)
+        return transrec_loss(self.lookup, self.config.reg, users, pos, neg,
+                             w, prev, self.trans)
 
     def _train_state(self) -> Dict:
         state = super()._train_state()
@@ -175,16 +192,17 @@ class TransRec(CachedUserVecChunkMixin, EpochTrainedRecommender):
         return -torch.sqrt(torch.clamp(d2, min=0.0) + 1e-12) + bias[None, :]
 
     def _user_vectors(self, users: torch.Tensor) -> torch.Tensor:
-        return (self.user_emb[users] + self.trans
-                + self.item_emb[self.last_items[users]])
+        return (self.eval_param("user_emb")[users] + self.trans
+                + self.eval_param("item_emb")[self.last_items[users]])
 
     def _topk_factors(self, uv):
-        return uv, self.item_emb, self.item_bias
+        return uv, self.eval_param("item_emb"), self.item_bias
 
     def _score_user_chunk(self, uv: torch.Tensor, item_lo: int,
                           item_hi: int) -> torch.Tensor:
-        return self._topk_score_fn(uv, self.item_emb[item_lo:item_hi],
-                                   self.item_bias[item_lo:item_hi])
+        return self._topk_score_fn(
+            uv, self.eval_param("item_emb")[item_lo:item_hi],
+            self.item_bias[item_lo:item_hi])
 
     @torch.no_grad()
     def predict(self, users) -> torch.Tensor:

@@ -21,12 +21,20 @@ train) and ``predict``; a model trained by ``self.optimizer`` names in
 
 ``RunConfig.mesh_shape`` (d, m) with ``d * m`` above 1 builds the mesh of
 the started process group (one process a rank; ``make_mesh`` checks the
-world size) and hands it to the evaluator and the model; a model that
-cannot train under a mesh (``_MESH_READY`` False) raises. A rank holds
-its rows of a table split over the ranks (``_row_blocks``); checkpoints
-hold the gathered whole tables and moments, as a single-device run's, and
-resume takes each rank's rows again. Only rank 0 writes the log and the
-checkpoints; every rank runs every epoch, evaluation and collective.
+world size) and hands it to the evaluator and the model; every model
+trains, evaluates and serves under it. Each rank trains on its data
+index's rows of every batch inside a :func:`~skrx_torch.parallel.
+data_parallel` block (``fit`` opens one around each training epoch), and
+:meth:`sync_gradients` sums the gradients of its replicated parameters over
+the data axis after each backward (``_GRAD_WHOLE`` names the parameters
+whose gradient the backward's collectives already made whole, besides the
+split tables; ``_GRAD_WORLD`` those applied to the rank's own node rows of
+a sharded graph, summed over every rank). A rank holds its rows of a table
+split over the ranks (``_row_blocks``; :meth:`whole_param` gathers one);
+checkpoints hold the gathered whole tables and moments, as a
+single-device run's, and resume takes each rank's rows again. Only rank 0
+writes the log and the checkpoints; every rank runs every epoch,
+evaluation and collective.
 """
 import os
 import platform
@@ -36,13 +44,16 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..convert import adam_state_from_jax
 from ..eval import (EarlyStopping, MetricReport, RankingEvaluator,
                     fused_family)
 from ..io import RSDataset, group_users_by_interactions
-from ..parallel import (RowBlocks, gather_rows, make_mesh, process_index,
+from ..parallel import (RowBlocks, data_parallel, gather_rows, gather_whole,
+                        lookup_rows, make_mesh, mf_param_shardings,
+                        model_parallel_size, process_index, sync_gradients,
                         take_rows)
 from ..run_config import RunConfig
 from ..utils import Config, Logger, resolve_device, slugify
@@ -68,8 +79,12 @@ def resolve_eval_batch_size(batch_size: Union[int, str],
 
 class TorchRecommender(nn.Module):
     _JAX_PARAMS: Tuple[str, ...] = ()
-    # whether the model trains and evaluates under a mesh of several ranks
-    _MESH_READY = False
+    # under a mesh: the parameters (and their dotted children) whose
+    # gradient the backward's collectives deliver whole, besides the tables
+    # split over ranks, and those summed over every rank (applied to the
+    # rank's own rows of a sharded graph); the rest sum over the data axis
+    _GRAD_WHOLE: Tuple[str, ...] = ()
+    _GRAD_WORLD: Tuple[str, ...] = ()
 
     def __init__(self, run_config: RunConfig, model_config: Config,
                  device: Optional[Union[str, torch.device]] = None):
@@ -81,11 +96,6 @@ class TorchRecommender(nn.Module):
         self._row_blocks: Dict[str, RowBlocks] = {}
         shape = run_config.mesh_shape
         if shape is not None and shape[0] * shape[1] > 1:
-            if not self._MESH_READY:
-                raise NotImplementedError(
-                    f"{type(self).__name__} under mesh_shape={shape}: only "
-                    f"LightGCN and BPRMF train on a mesh so far; the rest "
-                    f"is ROADMAP.md Queue 1 item 4b")
             self.mesh = make_mesh(shape, self.device)
         self.run_config = run_config
         self.config = model_config
@@ -190,6 +200,69 @@ class TorchRecommender(nn.Module):
         return {name: gather_rows(p.detach(), self._row_blocks.get(name))
                 for name, p in self.named_parameters()}
 
+    def _split_over_model_axis(self) -> None:
+        """Under a mesh whose model axis is above 1, keep of each parameter
+        split by :func:`~skrx_torch.parallel.mf_param_shardings` (a 2-D one
+        of at least m rows) only this rank's rows (the tensor-parallel
+        tables of the JAX package's ``_finalize_setup_flat``); called
+        before the optimizer is made."""
+        if model_parallel_size(self.mesh) <= 1:
+            return
+        params = dict(self.named_parameters())
+        for name, blocks in mf_param_shardings(self.mesh, params).items():
+            if blocks is None:
+                continue
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            setattr(module, leaf, nn.Parameter(
+                take_rows(params[name].detach(), blocks)))
+            self._row_blocks[name] = blocks
+
+    def whole_param(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` whole: a table split over the mesh's ranks
+        gathered (differentiable, a collective), any other as it is."""
+        p = self.get_parameter(name)
+        blocks = self._row_blocks.get(name)
+        return p if blocks is None else gather_whole(p, blocks, self.mesh)
+
+    @torch.no_grad()
+    def eval_param(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` whole for scoring: a table split over the
+        mesh's ranks gathered once (a collective) and kept while the
+        parameter is the same tensor at the same version, any other as it
+        is."""
+        p = self.get_parameter(name)
+        blocks = self._row_blocks.get(name)
+        if blocks is None:
+            return p
+        cache = self.__dict__.setdefault("_whole_cache", {})
+        hit = cache.get(name)
+        if hit is None or hit[0] is not p or hit[1] != p._version:
+            hit = cache[name] = (p, p._version, gather_rows(p.detach(),
+                                                            blocks))
+        return hit[2]
+
+    def lookup(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of parameter ``name`` for a training step: of a
+        table split over the model axis through
+        :func:`~skrx_torch.parallel.lookup_rows` (its backward sums the
+        whole batch's gradient into the rank's rows), else indexed."""
+        p = self.get_parameter(name)
+        blocks = self._row_blocks.get(name)
+        if blocks is None:
+            return p[ids]
+        return lookup_rows(p, ids, blocks, self.mesh)
+
+    def sync_gradients(self) -> None:
+        """Under a mesh, sum the gradients of the rank's parameters after a
+        backward: over the data axis (with a model axis above 1 the mean
+        over the model axis of every rank's sums, equal on every rank),
+        the split tables and ``_GRAD_WHOLE`` skipped, ``_GRAD_WORLD`` over
+        every rank (a no-op on one device)."""
+        sync_gradients(self.named_parameters(), self.mesh,
+                       (*self._row_blocks, *self._GRAD_WHOLE),
+                       self._GRAD_WORLD)
+
     def _optimizer_state_rows(self, state_dict: Dict, rows) -> Dict:
         """``state_dict`` of ``self.optimizer`` with each moment of a split
         table mapped by ``rows(tensor, RowBlocks)`` (gather or take)."""
@@ -268,6 +341,10 @@ class TorchRecommender(nn.Module):
                 ckpt.save(epoch, state,
                           {"epoch": epoch,
                            "early_stopping": early_stopping.get_state()})
+            if self.mesh is not None:
+                # no rank goes on (to a resume, say) before the file is
+                # in place
+                dist.barrier()
 
         prof = None
         epoch_start = time.perf_counter()
@@ -277,7 +354,8 @@ class TorchRecommender(nn.Module):
                 if rc.profile_dir and epoch == start_epoch + 1:
                     prof = self._start_trace()
                 t0 = time.perf_counter()
-                loss = self._train_epoch(epoch)
+                with data_parallel(self.mesh):
+                    loss = self._train_epoch(epoch)
                 self._sync()
                 self._invalidate_predict_cache()
                 record = {"epoch": epoch, "loss": loss,

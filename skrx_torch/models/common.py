@@ -15,7 +15,8 @@ from torch import nn
 from ..convert import adam_state_from_jax, lazy_adam_state_from_jax
 from ..ops.graph import Graph, graph_from_sp_matrix
 from ..ops.optim import LazyAdam
-from ..parallel import RowBlocks, ShardedPropGraph, sharded_dot_topk
+from ..parallel import (RowBlocks, ShardedPropGraph, gather_all_rows,
+                        sharded_dot_topk, take_rows)
 from ..parallel.mesh import row_blocks
 from .base import TorchRecommender
 from .pipeline import epoch_generator
@@ -30,7 +31,8 @@ __all__ = ["ParamTree", "param_tree", "add_param_tree", "cast_tree",
            "adam_l2", "make_train_step", "make_sharded_train_step",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
            "build_prop_graph", "graph_sharding_enabled",
-           "graph_param_shardings"]
+           "graph_param_shardings", "node_rows", "whole_nodes",
+           "own_node_rows", "node_table_rows"]
 
 GRAPH_IMPLS = ("auto", "segment", "mxu", "mxu_bf16")
 
@@ -159,12 +161,15 @@ def adam_l2(params, lr: float, weight_decay: float = 0.0
 
 
 def make_train_step(optimizer: torch.optim.Optimizer,
-                    loss_fn: Callable[..., torch.Tensor]) -> Callable:
+                    loss_fn: Callable[..., torch.Tensor],
+                    sync: Optional[Callable[[], None]] = None) -> Callable:
     """``train_step(batch) -> loss``: the loss of ``loss_fn(*batch)`` before
     the update, then one optimizer step. The loss stays on the device. A
     parameter the loss does not reach (DENS's gates under ``rns``, ``dns``)
     gets a zero gradient, so that Adam moves it by its moments, as optax
-    steps every leaf of a JAX model's params."""
+    steps every leaf of a JAX model's params. ``sync`` runs after the
+    backward, before the step (a model's ``sync_gradients`` under a
+    mesh)."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(batch):
@@ -174,24 +179,30 @@ def make_train_step(optimizer: torch.optim.Optimizer,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if sync is not None:
+            sync()
         optimizer.step()
         return loss.detach()
     return train_step
 
 
 def make_sharded_train_step(optimizer: torch.optim.Optimizer,
-                            loss_fn: Callable[..., torch.Tensor]) -> Callable:
+                            loss_fn: Callable[..., torch.Tensor],
+                            sync: Optional[Callable[[], None]] = None
+                            ) -> Callable:
     """``train_step(batch) -> loss`` on one rank of a mesh: the loss of
     ``loss_fn(*batch)``, the rank's share (its data index's slice of the
     batch) of the summed loss, before the update; then one optimizer step
     over the rank's parameters, its rows of a split table. It is
-    :func:`make_train_step`: each parameter gets its whole gradient from
-    the backward of the collectives that read it
+    :func:`make_train_step` with ``sync`` (the model's
+    ``sync_gradients``): a split table gets its whole gradient from the
+    backward of the collectives that read it
     (:func:`~skrx_torch.parallel.lookup_rows`,
     :func:`~skrx_torch.parallel.gather_all_rows`, the sharded propagate),
-    and Adam is elementwise, so stepping a rank's rows and their moments
-    is the single-device step."""
-    return make_train_step(optimizer, loss_fn)
+    a replicated parameter read directly its slice's, which ``sync`` sums
+    over the data axis; Adam is elementwise, so stepping a rank's rows and
+    their moments is the single-device step."""
+    return make_train_step(optimizer, loss_fn, sync)
 
 
 def as_user_tensor(users, device: torch.device) -> torch.Tensor:
@@ -220,6 +231,22 @@ def pad_masked_rows(table: torch.Tensor, ids: torch.Tensor,
     keep = ids != pad_id
     return torch.where(keep[..., None] if rows.dim() > ids.dim() else keep,
                        rows, 0.0)
+
+
+def _sharded_topk(model, uv: torch.Tensor, table: torch.Tensor,
+                  bias: Optional[torch.Tensor], k: int, train_table):
+    """:func:`~skrx_torch.parallel.sharded_dot_topk` of ``uv`` against the
+    whole ``table`` (and bias) on the model's mesh, with its
+    ``_topk_score_fn`` where it has one; no train ids masked when
+    ``train_table`` is None."""
+    n_items = int(table.shape[0])
+    if train_table is None:
+        train_table = torch.full((uv.shape[0], 1), n_items,
+                                 dtype=torch.int32, device=uv.device)
+    return sharded_dot_topk(
+        model.mesh, uv, table, bias, k, n_items, train_table,
+        model.__dict__.setdefault("_topk_cache", {}),
+        score_fn=getattr(model, "_topk_score_fn", None))
 
 
 class ChunkedDotPredictMixin:
@@ -268,14 +295,8 @@ class ChunkedDotPredictMixin:
         masked or padding ids."""
         u_all, i_all = self._chunk_embeddings()
         users = as_user_tensor(users, u_all.device)
-        n_items = int(i_all.shape[0])
-        if train_table is None:
-            train_table = torch.full((users.shape[0], 1), n_items,
-                                     dtype=torch.int32, device=u_all.device)
-        return sharded_dot_topk(
-            self.mesh, u_all[users], i_all, self._chunk_bias(), k, n_items,
-            train_table, self.__dict__.setdefault("_topk_cache", {}),
-            score_fn=getattr(self, "_topk_score_fn", None))
+        return _sharded_topk(self, u_all[users], i_all, self._chunk_bias(),
+                             k, train_table)
 
 
 class FrozenEmbeddingMixin(ChunkedDotPredictMixin):
@@ -349,8 +370,7 @@ class CachedUserVecChunkMixin:
     transform after the dot sets ``_topk_score_fn`` instead and keeps the
     predict route. Serving keeps the predict route for every tower, as
     the JAX package's fused serving takes only ``_chunk_embeddings``. The
-    towers' tensor-parallel ``predict_topk`` is not ported (ROADMAP.md,
-    Queue 1 item 4b)."""
+    same factors give the towers' tensor-parallel :meth:`predict_topk`."""
 
     _uv_cache = None
 
@@ -387,10 +407,21 @@ class CachedUserVecChunkMixin:
         return self._score_user_chunk(self._cached_user_vectors(users),
                                       item_lo, item_hi)
 
+    @torch.no_grad()
     def predict_topk(self, users, k: int, train_table=None):
-        raise NotImplementedError("the towers' tensor-parallel predict_topk "
-                                  "is not ported (ROADMAP.md, Queue 1 item "
-                                  "4b)")
+        """The exact train-masked top-k with the catalog split over the
+        mesh's model axis (model axis above 1, else ``ValueError``; every
+        rank of the model group calls it with the same users): the user
+        encoder runs on every rank (cached), then each rank scores its
+        items of ``_topk_factors``' table, with the model's
+        ``_topk_score_fn`` where it has one, takes its local top-k (#1-#4
+        on a card) and the candidates merge through #5
+        (:func:`~skrx_torch.parallel.sharded_dot_topk`). Returns (values
+        (B, k'), global ids (B, k') int32), ``k' = min(k, width)`` over
+        the table's rows (a pad column included); -inf slots carry masked
+        or padding ids."""
+        uv, table, bias = self._topk_factors(self._cached_user_vectors(users))
+        return _sharded_topk(self, uv, table, bias, k, train_table)
 
 
 class PadColumnTowerMixin(NestedParamsMixin, CachedUserVecChunkMixin):
@@ -542,3 +573,56 @@ def graph_param_shardings(mesh, sizes: Dict[str, int]
                                offset=offset, span=total)
         offset += rows
     return out
+
+
+def node_table_rows(model, graph, tables: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """A graph model's node tables (name -> whole table, in node order:
+    users, then items) as the model holds them: on a
+    :class:`~skrx_torch.parallel.ShardedPropGraph` each table's rows in
+    the rank's block of the node table (:func:`graph_param_shardings`,
+    recorded in ``model._row_blocks``), on one device whole."""
+    if isinstance(graph, ShardedPropGraph):
+        model._row_blocks.update(graph_param_shardings(
+            model.mesh, {name: t.shape[0] for name, t in tables.items()}))
+    return {name: take_rows(t, model._row_blocks.get(name))
+            for name, t in tables.items()}
+
+
+def node_rows(graph, *tables: torch.Tensor) -> torch.Tensor:
+    """The propagation's input from node tables in node order (users, then
+    items): their rows concatenated; on a sharded graph the rank's rows of
+    each table, its block of the node table, padded with zero rows up to
+    ``rows_per_shard``."""
+    x = torch.cat(tables, dim=0)
+    if isinstance(graph, ShardedPropGraph):
+        pad = graph.rows_per_shard - x.shape[0]
+        x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+    return x
+
+
+def whole_nodes(graph, x: torch.Tensor) -> torch.Tensor:
+    """Every node's rows of the propagation's output ``x``: ``x`` itself on
+    one device; on a sharded graph every rank's block gathered in rank
+    order and cut to the node count (differentiable: the backward sums the
+    cotangent over the data axis and keeps the rank's block)."""
+    if not isinstance(graph, ShardedPropGraph):
+        return x
+    flat = gather_all_rows(x.reshape(x.shape[0], -1), graph.mesh)
+    return flat[:graph.num_nodes].reshape(graph.num_nodes, *x.shape[1:])
+
+
+def own_node_rows(graph, x: Optional[torch.Tensor]
+                  ) -> Optional[torch.Tensor]:
+    """This rank's block of ``x``, a tensor over every node (a mask drawn
+    whole): all of it on one device; on a sharded graph rows ``rank *
+    rows_per .. (rank + 1) * rows_per``, padded with zeros."""
+    if x is None or not isinstance(graph, ShardedPropGraph):
+        return x
+    rp = graph.rows_per_shard
+    lo = graph.mesh.rank * rp
+    rows = x[lo:lo + rp]
+    if rows.shape[0] < rp:
+        rows = torch.cat([rows, rows.new_zeros((rp - rows.shape[0],
+                                                *x.shape[1:]))])
+    return rows

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import batch_total
 from .common import (EpochTrainedRecommender, FrozenEmbeddingMixin,
                      NestedParamsMixin)
 
@@ -32,11 +33,12 @@ def cache_dir_of(dataset) -> str:
 
 def bpr_mean(u: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
-    """``-sum(w * log sigmoid(u.pos - u.neg)) / max(sum(w), 1)``."""
+    """``-sum(w * log sigmoid(u.pos - u.neg)) / max(sum(w), 1)``, the count
+    the whole batch's (a rank's share under a mesh)."""
     y_pos = torch.sum(u * pos, dim=-1)
     y_neg = torch.sum(u * neg, dim=-1)
     return -torch.sum(F.logsigmoid(y_pos - y_neg) * w) \
-        / torch.clamp(torch.sum(w), min=1.0)
+        / torch.clamp(batch_total(w), min=1.0)
 
 
 class MultimodalRecommender(NestedParamsMixin, FrozenEmbeddingMixin,

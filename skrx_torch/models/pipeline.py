@@ -13,7 +13,7 @@ not fit at Gowalla scale), and the host waits once, for the epoch's mean
 loss. JAX's scan chunking (``max_scan_steps``) has no counterpart in such a
 loop.
 
-Under a mesh (``mesh=``, the pairwise and interaction pipelines) every rank
+Under a mesh (``mesh=``, every pipeline) every rank
 draws the same global epoch from the same seeded generator, the
 permutation and the negatives, and takes its data index's rows of each
 batch (the batch size must divide by the data axis); ``run_epoch`` sums
@@ -171,13 +171,15 @@ class SequentialPairwiseEpochPipeline(PairwiseEpochPipeline):
 
     def __init__(self, train_data: ImplicitFeedback, batch_size: int,
                  device: torch.device, num_previous: int = 1,
-                 num_next: int = 1, pad=None, num_trials: int = 8):
+                 num_next: int = 1, pad=None, num_trials: int = 8,
+                 mesh=None):
         _, users, prev, nxt = _generate_time_order_positive_items(
             train_data.to_user_dict_by_time(), num_previous=num_previous,
             num_next=num_next, pad=pad)
         # the examples are these windows, not the training pairs that
         # InteractionEpochPipeline's constructor reads
-        _ShuffledEpochPipeline.__init__(self, users, batch_size, device)
+        _ShuffledEpochPipeline.__init__(self, users, batch_size, device,
+                                        mesh)
         pos = nxt if num_next > 1 else nxt[:, 0]
         self._pos = self._put(pad_to_batches(pos, batch_size)[0])
         self._prev = self._put(pad_to_batches(prev, batch_size)[0])
@@ -195,9 +197,10 @@ class UserVecEpochPipeline(_ShuffledEpochPipeline):
     interaction matrix is never built."""
 
     def __init__(self, train_data: ImplicitFeedback, batch_size: int,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         pp = train_data.to_padded_positive_table()
-        super().__init__(np.nonzero(pp.lengths > 0)[0], batch_size, device)
+        super().__init__(np.nonzero(pp.lengths > 0)[0], batch_size, device,
+                         mesh)
         self.num_items = train_data.num_items
         self.pos_table = torch.as_tensor(pp.table, device=device)
 
@@ -221,8 +224,9 @@ class RowsEpochPipeline(_ShuffledEpochPipeline):
     per-example integer rows, padded with weight 0, on ``device``: SASRec's
     (user, input sequence, target sequence), BERT4Rec's windows."""
 
-    def __init__(self, rows, batch_size: int, device: torch.device):
-        super().__init__(rows[0], batch_size, device)
+    def __init__(self, rows, batch_size: int, device: torch.device,
+                 mesh=None):
+        super().__init__(rows[0], batch_size, device, mesh)
         self._rows = [self._users] + [
             self._put(pad_to_batches(r, batch_size)[0]) for r in rows[1:]]
 

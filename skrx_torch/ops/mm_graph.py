@@ -118,7 +118,9 @@ def mm_edges(img_features: Optional[torch.Tensor],
 def cached_edges(path: str, build: Callable[[], Edges],
                  device) -> Edges:
     """The edges saved at ``path`` (``rows``, ``cols`` int32, ``vals``
-    f32), or ``build()`` saved there first; on ``device``."""
+    f32), or ``build()`` saved there first (under a name of the process's
+    own, then moved into place: the ranks of a mesh may build it at once);
+    on ``device``."""
     if os.path.exists(path):
         with np.load(path) as blob:
             arrays = [blob[name] for name in ("rows", "cols", "vals")]
@@ -128,7 +130,7 @@ def cached_edges(path: str, build: Callable[[], Edges],
                   cols.cpu().numpy().astype(np.int32),
                   vals.cpu().numpy().astype(np.float32)]
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = path + ".tmp.npz"
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
         np.savez(tmp, rows=arrays[0], cols=arrays[1], vals=arrays[2])
         os.replace(tmp, path)
     rows, cols = (torch.as_tensor(a.astype(np.int64), device=device)

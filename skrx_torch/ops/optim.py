@@ -26,7 +26,8 @@ update has lr 0; ``LambdaLR`` steps after the update), ``OptaxAdamW``
 then the schedule) and the staircase exponential decay.
 """
 import math
-from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -170,7 +171,8 @@ def make_lazy_train_step(lr: float,
                          gathers: Sequence[Tuple[str, Callable]],
                          loss_fn: Callable,
                          params: Dict[str, torch.Tensor],
-                         weight_decay: float = 0.0):
+                         weight_decay: float = 0.0,
+                         sync: Optional[Callable[[], None]] = None):
     """A train step with row-wise lazy Adam on embedding tables and dense
     Adam (L2 ``weight_decay`` on the gradient, ``adam_l2``) on the rest.
 
@@ -184,8 +186,16 @@ def make_lazy_train_step(lr: float,
     Returns ``(train_step, (lazy, dense_opt))``: ``train_step(batch) ->
     loss`` updates ``params`` in place; ``lazy`` is the :class:`LazyAdam`
     of the tables, ``dense_opt`` the ``torch.optim.Adam`` of the rest (None
-    when there is none)."""
+    when there is none).
+
+    Inside a data-parallel block (:func:`~skrx_torch.parallel.
+    data_parallel`, a rank's slice of each batch) each gather's rows and
+    row gradients are all-gathered over the data axis, in data-index order,
+    so every rank applies the whole batch's row update to its replicated
+    tables, as one device would; ``sync`` (the model's ``sync_gradients``)
+    sums the dense parameters' gradients before their step."""
     from ..models.common import make_optimizer
+    from ..parallel.batch import gather_batch_ids
 
     table_keys: List[str] = []
     for key, _ in gathers:
@@ -209,11 +219,14 @@ def make_lazy_train_step(lr: float,
         loss.backward()
         by_table: Dict[str, list] = {}
         for (k, _), r, leaf in zip(gathers, rows, gathered):
-            by_table.setdefault(k, []).append((r, leaf.grad))
+            by_table.setdefault(k, []).append(
+                (gather_batch_ids(r), gather_batch_ids(leaf.grad)))
         for k, items in by_table.items():
             lazy.update(k, torch.cat([r for r, _ in items]),
                         torch.cat([g for _, g in items]))
         if dense_opt is not None:
+            if sync is not None:
+                sync()
             dense_opt.step()
         return loss.detach()
 

@@ -249,8 +249,8 @@ def test_cml_predict_and_chunks_match_jax(data):
     tm.evaluator.eval_mode, tm.evaluator.chunk_size = "chunked", 64
     np.testing.assert_allclose(list(tm.evaluate().values()), full, rtol=0,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.predict_topk(users, 5)
+    with pytest.raises(ValueError, match="model axis is above 1"):
+        tm.predict_topk(users, 5)           # JAX asserts a model axis
     # the mixin's cached route scores the same chunks; the user vectors
     # are taken once per (state, users)
     cached = _cached_cml(data)

@@ -5,9 +5,9 @@ pipeline's own draws, which each rank slices by data index), so the
 parameters, the losses and the metrics of the sharded run must be the
 single device's. Also the two-stage ``predict_topk`` against the full
 top-k, ``eval_mode="topk"`` against "full", checkpoints gathered whole and
-resumed, the refusals under a mesh, and the command line on 2 ranks. The
-ranks are spawned without JAX: this module imports it only inside the
-tests."""
+resumed, Pop and lazy-Adam BPRMF built under a mesh, and the command
+line on 2 ranks. The ranks are spawned without JAX: this module imports it
+only inside the tests."""
 import glob
 import os
 
@@ -79,11 +79,11 @@ def _fit_rank(rank, name, data, work, shape, cfg, params0, batches):
     out["moments"] = [s["exp_avg"].numpy()
                       for s in m.optimizer.state.values()]
     if name == "BPRMF":
-        try:
-            _model(name, data, dict(cfg, optimizer="lazy_adam"),
-                   mesh_shape=shape)
-        except NotImplementedError as e:
-            out["lazy"] = str(e)
+        lazy = _model(name, data, dict(cfg, optimizer="lazy_adam"),
+                      mesh_shape=shape)
+        out["lazy"] = (lazy._tp, dict(lazy._row_blocks),
+                       tuple(lazy.user_emb.shape),
+                       (lazy.num_users, cfg["n_dim"]))
     return out
 
 
@@ -245,14 +245,17 @@ def test_checkpoints_hold_whole_tables_and_resume_rows(fitted):
 
 
 def test_refusals_under_a_mesh(fitted, data, tmp_path, monkeypatch):
-    """A model outside the mesh slice, and BPRMF's lazy Adam, raise under
-    a mesh of several ranks, naming ROADMAP Queue 1 item 4b."""
+    """Every model builds under a mesh, which needs the ranks' process
+    group: Pop under mesh_shape (1, 2) in one process raises for the
+    missing ranks, not for the model. BPRMF's lazy Adam builds on every
+    rank with its tables whole (no tensor parallelism)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
+    with pytest.raises(ValueError, match="does not match 1 ranks"):
         _model("Pop", data[1], {}, mesh_shape=(1, 2))
     if fitted["name"] == "BPRMF":
         for r in fitted["ranks"]:
-            assert "Queue 1 item 4b" in r["lazy"]
+            tp, blocks, shape, whole = r["lazy"]
+            assert (tp, blocks, shape) == (False, {}, whole)
 
 
 def test_command_line_on_two_ranks_writes_one_log(data, tmp_path):
