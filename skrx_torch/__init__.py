@@ -7,7 +7,12 @@ unless the caller passes ``device="cpu"``.
 """
 from .version import __version__
 from .run_config import RunConfig
-from .utils import Config, ModelConfig, ModelRegistry, resolve_device
+from . import utils
+from . import io
+from .utils import (Config, ModelConfig, ModelRegistry,
+                    merge_config_with_cmd_args, merge_config_with_ini,
+                    resolve_device)
 
-__all__ = ["__version__", "RunConfig", "Config", "ModelConfig",
-           "ModelRegistry", "resolve_device"]
+__all__ = ["__version__", "RunConfig", "utils", "io", "Config",
+           "ModelConfig", "ModelRegistry", "merge_config_with_cmd_args",
+           "merge_config_with_ini", "resolve_device"]

@@ -7,7 +7,10 @@ from .data_iterator import (InteractionIterator, ItemVecIterator,
                             PointwiseIterator, SequentialPairwiseIterator,
                             SequentialPointwiseIterator, UserVecIterator)
 from .preprocessor import Preprocessor
+from .movielens import MovieLens100k
 from . import synthetic
+# Logger lives in utils and is re-exported here, as the JAX package does
+from ..utils.logger import Logger
 
 __all__ = ["BatchIterator", "CFData", "ImplicitFeedback", "KGData",
            "KnowledgeGraph", "MMData", "PaddedPositives", "RSDataset",
@@ -16,4 +19,4 @@ __all__ = ["BatchIterator", "CFData", "ImplicitFeedback", "KGData",
            "ItemVecIterator", "KGPairwiseIterator", "PairwiseIterator",
            "PointwiseIterator", "SequentialPairwiseIterator",
            "SequentialPointwiseIterator", "UserVecIterator", "Preprocessor",
-           "synthetic"]
+           "MovieLens100k", "synthetic", "Logger"]

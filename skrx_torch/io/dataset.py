@@ -5,10 +5,14 @@ layout that ``skrx.io.synthetic.make_dataset_dir`` and this package's
 :mod:`skrx_torch.io.synthetic` write, the knowledge graph ``<name>.kg``
 (head, relation, tail) and the item features ``<name>.{img,txt,audio}.npz``,
 and exposes the JAX package's views of them. ``read_delimited`` types a
-headerless file's columns as ``pandas.read_csv`` does. The JAX package's
-pickle view cache is not carried.
+headerless file's columns as ``pandas.read_csv`` does. ``CFData`` keeps the
+views it built in a pickle, ``<data_dir>/_data_cache/torch_<name>_cf.pkl``
+(the JAX package's cache under its own name), restored by the next load
+until a split file is newer.
 """
+import atexit
 import os
+import pickle
 import warnings
 from collections import OrderedDict, defaultdict
 from typing import Dict, List, Optional, Tuple
@@ -129,6 +133,16 @@ def _grouped(keys: np.ndarray, *values: np.ndarray):
     return OrderedDict((int(k), tuple(p)) for k, *p in zip(uniq, *parts))
 
 
+class _Views(dict):
+    """A holder's memoised views; ``dirty`` once a view is added (a
+    restore through ``update`` does not set it)."""
+    dirty = False
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.dirty = True
+
+
 class ImplicitFeedback:
     """Views over one split of (user, item[, rating, time]) rows, in file
     order."""
@@ -146,7 +160,7 @@ class ImplicitFeedback:
                           else int(users.max()) + 1 if len(users) else 0)
         self.num_items = (num_items if num_items is not None
                           else int(items.max()) + 1 if len(items) else 0)
-        self._views: Dict = {}
+        self._views = _Views()
 
     def __len__(self):
         return self.num_ratings
@@ -358,11 +372,71 @@ class KnowledgeGraph:
                 for rel, mat in self.to_csr_matrix_dict().items()}
 
 
+class _PersistentCache:
+    """The views of a dataset's splits pickled to one file, stale when any
+    existing source file is newer (``skrx.io.dataset._PersistentCache``'s
+    contract)."""
+
+    def __init__(self, cache_file: str, source_files: List[str]):
+        self.cache_file = cache_file
+        self.source_files = [f for f in source_files if os.path.exists(f)]
+
+    def _stale(self) -> bool:
+        if not os.path.exists(self.cache_file):
+            return True
+        cached_time = os.path.getmtime(self.cache_file)
+        return any(os.path.getmtime(f) > cached_time
+                   for f in self.source_files)
+
+    def load_into(self, holders: Dict[str, "ImplicitFeedback"]) -> None:
+        if self._stale():
+            return
+        try:
+            with open(self.cache_file, "rb") as f:
+                blobs = pickle.load(f)
+            for name, holder in holders.items():
+                if name in blobs:
+                    holder._views.update(blobs[name])
+        except Exception as err:  # a corrupt cache is not fatal
+            warnings.warn(f"failed to restore data cache: {err}")
+
+    def save_from(self, holders: Dict[str, "ImplicitFeedback"]) -> None:
+        # nothing new, or the data were deleted: nothing to keep
+        if not any(h._views.dirty for h in holders.values()) or \
+                not all(os.path.exists(f) for f in self.source_files):
+            return
+        try:
+            os.makedirs(os.path.dirname(self.cache_file), exist_ok=True)
+            blobs = {name: dict(h._views) for name, h in holders.items()}
+            # a name of this process's own, so that two processes saving
+            # one cache never write one temporary file
+            tmp = f"{self.cache_file}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                pickle.dump(blobs, f, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(tmp, self.cache_file)
+        except Exception as err:
+            warnings.warn(f"failed to persist data cache: {err}")
+
+
+# one atexit hook per cache file, saving the newest dataset loaded from it
+# (a hook per instance would keep every copy alive during a search)
+_ATEXIT_CACHES: Dict[str, tuple] = {}
+
+
+def _save_at_exit(cache_file: str) -> None:
+    cache, holders = _ATEXIT_CACHES[cache_file]
+    cache.save_from(holders)
+
+
 class CFData:
     """Load ``<prefix>.{train,valid,test}`` and the id maps; ``.train`` and
-    ``.test`` are required, ``.valid`` is optional."""
+    ``.test`` are required, ``.valid`` is optional. With ``use_cache`` the
+    splits' views come from ``_data_cache/torch_<name>_cf.pkl`` when it is
+    newer than every split file, and the views built meanwhile are saved
+    there when the process exits."""
 
-    def __init__(self, data_dir: str, sep: str, columns: str):
+    def __init__(self, data_dir: str, sep: str, columns: str,
+                 use_cache: bool = True):
         if columns not in _COLUMN_SETS:
             raise ValueError(f"'columns' must be one of {list(_COLUMN_SETS)}")
         names = _COLUMN_SETS[columns]
@@ -395,6 +469,18 @@ class CFData:
         self.train_data, self.valid_data, self.test_data = (
             ImplicitFeedback(splits[s], self.num_users, self.num_items)
             for s in ("train", "valid", "test"))
+        if use_cache:
+            cache_file = os.path.join(data_dir, "_data_cache",
+                                      f"torch_{self.data_name}_cf.pkl")
+            self._cache = _PersistentCache(
+                cache_file, [f"{prefix}.{s}" for s in ("train", "valid",
+                                                       "test")])
+            holders = {"train": self.train_data, "valid": self.valid_data,
+                       "test": self.test_data}
+            self._cache.load_into(holders)
+            if cache_file not in _ATEXIT_CACHES:
+                atexit.register(_save_at_exit, cache_file)
+            _ATEXIT_CACHES[cache_file] = (self._cache, holders)
 
     @property
     def statistic_info(self) -> str:

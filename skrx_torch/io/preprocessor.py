@@ -126,6 +126,16 @@ class Preprocessor:
         self._data_name = name
         self._dir_path = dir_path
 
+    def load_dataframe(self, df, columns: str, name: str = "data",
+                       dir_path: str = "."):
+        """Start from an in-memory frame: any object with ``columns`` (or a
+        mapping's keys) whose ``df[column]`` gives an array, such as a
+        pandas DataFrame or a dict of arrays. Its columns are taken in order
+        and named by ``columns``, as the JAX package renames them."""
+        names = list(df.columns) if hasattr(df, "columns") else list(df)
+        self.load_arrays({str(i): np.asarray(df[c]) for i, c in
+                          enumerate(names)}, columns, name, dir_path)
+
     # ---- clean ----
 
     def drop_duplicates(self, keep: str = "last"):

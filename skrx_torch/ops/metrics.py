@@ -17,8 +17,9 @@ from .kernels.topk_blocks import (MAX_BLOCK_N, blockwise_topk,
                                   order_key)
 
 __all__ = ["METRIC2ID", "ID2METRIC", "mask_items", "topk_scores_and_indices",
-           "hits_from_ranks", "hits_against_padded_truth",
-           "ranking_metrics_from_hits", "eval_score_matrix_device"]
+           "topk_from_scores", "masked_topk_indices", "hits_from_ranks",
+           "hits_against_padded_truth", "ranking_metrics_from_hits",
+           "eval_score_matrix_device", "eval_score_matrix_device_paged"]
 
 METRIC2ID = {"Precision": 1, "Recall": 2, "MAP": 3, "NDCG": 4, "MRR": 5}
 ID2METRIC = {v: k for k, v in METRIC2ID.items()}
@@ -72,6 +73,19 @@ def topk_scores_and_indices(scores: torch.Tensor, k: int,
         vals = torch.cat([vals, vals.new_full((b, k - kk), float("-inf"))], 1)
         idx = torch.cat([idx, idx.new_full((b, k - kk), n + 1)], 1)
     return vals, idx
+
+
+def topk_from_scores(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, k) int32 top-k item ids per row, by descending score; the route
+    of :func:`topk_scores_and_indices`."""
+    return topk_scores_and_indices(scores, k)[1]
+
+
+def masked_topk_indices(scores: torch.Tensor, mask_table: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """(B, k) int32 top-k item ids per row with ``mask_table`` items
+    excluded; the route of :func:`topk_scores_and_indices`."""
+    return topk_scores_and_indices(scores, k, mask_table=mask_table)[1]
 
 
 def hits_from_ranks(ranks: torch.Tensor, k: int) -> torch.Tensor:
@@ -138,3 +152,22 @@ def eval_score_matrix_device(scores: torch.Tensor, train_table: torch.Tensor,
     ranks = route(scores, top_k, test_table, mask_table=train_table)
     return ranking_metrics_from_hits(hits_from_ranks(ranks, top_k), test_len,
                                      metric_ids)
+
+
+def eval_score_matrix_device_paged(scores_g: torch.Tensor,
+                                   train_g: torch.Tensor,
+                                   test_g: torch.Tensor,
+                                   test_len_g: torch.Tensor,
+                                   metric_ids: Tuple[int, ...],
+                                   top_k: int) -> torch.Tensor:
+    """:func:`eval_score_matrix_device` over G stacked pages in one call:
+    ``scores_g`` (G, B, N), ``train_g`` / ``test_g`` (G, B, L*),
+    ``test_len_g`` (G, B); returns (G, B, len(metric_ids), top_k). The
+    pages flatten into one (G * B, N) batch, as the JAX function does:
+    every row is independent, so the numbers equal G separate calls."""
+    g, b, n = scores_g.shape
+    out = eval_score_matrix_device(
+        scores_g.reshape(g * b, n), train_g.reshape(g * b, -1),
+        test_g.reshape(g * b, -1), test_len_g.reshape(g * b), metric_ids,
+        top_k)
+    return out.reshape(g, b, len(metric_ids), top_k)

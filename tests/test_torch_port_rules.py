@@ -29,7 +29,10 @@ def _port_files():
              os.path.join(ROOT, "experiments", "chip_phase14.py"),
              os.path.join(ROOT, "experiments", "chip_phase15.py"),
              os.path.join(ROOT, "experiments", "chip_phase16.py"),
-             os.path.join(ROOT, "experiments", "chip_phase17.py")]
+             os.path.join(ROOT, "experiments", "chip_phase17.py"),
+             os.path.join(ROOT, "experiments", "chip_phase18.py"),
+             os.path.join(ROOT, "scripts", "longrun_torch.py"),
+             os.path.join(ROOT, "examples", "run_synthetic_torch.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "skrx_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     return files
