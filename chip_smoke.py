@@ -6,7 +6,15 @@ Usage, from the root of a checkout, on a machine with a card:
 
 Phases (any failure raises and exits non-zero; without CUDA it exits 2
 before doing anything; run alone, outside a checkout, the import of
-skrx_torch fails and it exits 1):
+skrx_torch fails and it exits 1). The run's depth (steps, test users,
+repetitions: REPS and the constants beside it) is cut so that the whole
+script takes about half of its 1,200 s limit; FULL_DEPTH holds the values
+before that cut, at which experiments/chip_phaseNN.py runs phase NN alone
+(9 and 12-18). Where a phase below says "one epoch" or "every test user",
+phases 8 and 10-14 run EPOCH_STEPS, SEQ_STEPS, WALK_WINDOW, TOWER_STEPS or
+MM_STEPS steps and evaluate their models on EVAL_USERS test users (the
+main path's models of phases 3-7 and Pop and CML keep every step and
+user).
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch
    version, TF32 off for f32 matmuls, and the nvcc build of the kernels
@@ -41,7 +49,15 @@ skrx_torch fails and it exits 1):
    of either sign, +inf beside NaN and a fully masked row (its max as
    jnp.maximum folds: NaN when the group holds one, -0.0 below +0.0; values
    as int32). Selection and counting do no arithmetic, so values, ids and
-   ranks must be equal (NaN equal to NaN by isnan, not by payload).
+   ranks must be equal (NaN equal to NaN by isnan, not by payload). The
+   train path's ordered sums (skrx_torch/ops/scatter.py): ordered_row_sum
+   at GRU4RecPlus's 2,176 gathered rows (index_put_), SASRec's 6,400 and
+   SRGNN's 51,200 (sorted pieces), d=64 and 1-D, ids of the data's
+   popularity, and segsum (#11) on a fixed gather set
+   (the training pairs' items into the catalog's rows, D=1 and 64, by
+   fixed_sum and by fixed_gather's gradient), each against its plain
+   version within 1e-5 * sum|g| a row and twice (three launches) with the
+   same bits.
 3. Serving: Gowalla-scale synthetic data (29,858 users, 40,981 items,
    1,027,370 interactions), BPRMF at its defaults (n_dim=64, random weights
    from a seed) built by name on cuda, TopKRecommender.recommend for
@@ -220,9 +236,11 @@ skrx_torch fails and it exits 1):
    sum|msg|), dw against a float64 (g[dst] . x[src]) within 1e-5 * sum|g_d
    x_d| an edge; its device times at that shape beside the bound,
    torch.sparse.mm of the CSR with the attention as values, and dw. fit():
-   losses finite, segsum launched exactly 2 x 5 x steps + 5 for SGAT
-   (every propagation of a step forward and backward, one propagation for
-   the evaluation) and never for the others, the full route's kernels
+   losses finite, segsum launched exactly 8 x 5 x steps + 3 x 5 for SGAT
+   (a layer of a step: its propagation forward and backward, the
+   attention's two sums over fixed index sets forward and the gradients of
+   its four fixed gathers backward; of an evaluation: the propagation and
+   the two sums) and never for the others, the full route's kernels
    launched. One train step of each (dense Adam) on the card against the
    same step on CPU copies of its parameters, Adam state and batch
    (Caser's dropout mask drawn once; SGAT's propagation through segsum's
@@ -277,10 +295,12 @@ skrx_torch fails and it exits 1):
    layers, k=10, cl 0.001) and LATTICE (d=64, k=10, lambda 0.9, 1 layer,
    lightgcn, lr 1e-4), each built by name at its defaults with batch
    2,048 (its kNN graphs built on the card, launches counted) for one
-   fit() epoch cut to its first MM_STEPS steps: losses finite, segsum launched exactly its propagations
-   forward and backward each step and once an evaluation, LATTICE's
-   learned graph through blockwise_topk (pruned_merge launched in its
-   fit()). One train step of each on the card against the same step on
+   fit() epoch cut to its first MM_STEPS steps: losses finite, segsum
+   launched exactly its propagations forward and backward each step and
+   once an evaluation (LATTICE also its learned graph's row sums over a
+   fixed index set, at an epoch's first step and at each evaluation),
+   LATTICE's learned graph through blockwise_topk (pruned_merge launched
+   in its fit()). One train step of each on the card against the same step on
    CPU copies of its parameters, Adam state, batch and draws (BM3's
    table-wide target masks, FREEDOM's epoch mask, MGCN at its LambdaLR
    rate; LATTICE's epoch-first step, the item weights built with gradient
@@ -357,10 +377,13 @@ skrx_torch fails and it exits 1):
    users (rank_count never launched); then, the 4 ranks at once, each
    runs the same steps on one device of every 4th model and holds the
    mesh model to it: the epoch loss within 1e-4 relative, every
-   parameter, gathered whole, within 1e-4 of its 2-norm (P17_GAP; the
-   greatest entry gap printed; the biases of exactly zero gradient,
-   P17_NOISE, reported; P17_TWICE's run one device twice for the card's
-   own spread), the metrics within 1e-4.
+   parameter, gathered whole, within 1e-4 of its 2-norm (the greatest
+   entry gap printed; the biases of exactly zero gradient, P17_NOISE,
+   reported), the metrics within 1e-4. P17_TWICE's models run one device
+   twice, which must give bit-equal parameters and losses; P17_REORDER's
+   a third time with each step's batch in reverse order, and their loss
+   and parameter bounds are P17_ORDER_MULT times that run's gaps, 1e-4 at
+   the least (the comment above P17_TWICE says why).
    Every rank's predict_topk over P17_TOPK_USERS users against the
    masked top-k of its predict: values within 1e-5 of the scores' scale
    (the largest finite |score| of the rows), an id different only where
@@ -384,14 +407,13 @@ skrx_torch fails and it exits 1):
    JAX's, not checked (P18 says why); segsum (#11) launched in LightGCN's,
    LightGCL's and BM3's fit(), and a rank kernel at least once an
    evaluation in every fit(). BPRMF and GRU4Rec run twice from the same
-   seed, and the gap between their two bests is printed (the card's own
-   run-to-run spread), not checked. It prints each model's best, its epoch
+   seed, and every epoch's NDCG@10 must be the same in both runs. It prints each model's best, its epoch
    and seconds an epoch with the card's name and power limit. Alone:
    `python3 experiments/chip_phase18.py`.
 
-The second-to-last line is the per-kernel JSON record (one row for each of
-the 11 TPU kernels), the last line
-``{"ok": true, "device": {...}}``.
+Before them it prints each phase's seconds and the whole run's. The
+second-to-last line is the per-kernel JSON record (one row for each of the
+11 TPU kernels), the last line ``{"ok": true, "device": {...}}``.
 """
 import gc
 import glob
@@ -442,6 +464,7 @@ from skrx_torch.ops.kernels import segsum as ss
 from skrx_torch.ops.mm_graph import knn_select
 from skrx_torch.ops.kernels import topk_blocks as tb
 from skrx_torch.ops.optim import LazyAdam, OptaxAdamW, dedup_rows
+from skrx_torch.ops import scatter
 from skrx_torch.parallel import (ShardedPropGraph, make_mesh, pad_rows,
                                  run_ranks, sharded_dot_topk)
 from skrx_torch.serve import TopKRecommender
@@ -460,7 +483,6 @@ EPOCHS = 2
 BLOCK_N = 4096
 BPRMF_TABLES = ("user_emb", "item_emb", "item_bias")
 SEED = 2021
-REPS = 20
 SERVING = ("submax", "kth_largest", "extract", "pruned_merge")
 SOURCE = {name: "skrx_torch/ops/kernels/csrc/topk_blocks.cu"
           for name in SERVING + ("vmem_topk",)}
@@ -485,15 +507,33 @@ GCN_SERVE = (1, 64, 1024)
 FUSED = ("dot_submax", "dot_extract")
 BIG_ITEMS, BIG_B = 1_048_576, 256       # the catalog only fused serves cheaply
 CHUNK = 8_192
+# The run's depth: steps, test users and repetitions, cut so that the whole
+# script takes about half of its time limit. FULL_DEPTH holds each one's
+# value before that cut; experiments/chip_phaseNN.py runs a phase at it
+# (full_depth()), and a phase's spawned ranks take the spawning process's
+# values (depth()). None: every step or every test user.
+REPS = 10                         # calls a kernel time is taken over
 TRAIN_WINDOW = 8                  # steps of an epoch under the profiler
-WALK_WINDOW = 600                 # steps of GRU4Rec's, GRU4RecPlus's epoch
-TOWER_STEPS = 300                 # steps of BERT4Rec's and SRGNN's epoch
-# steps of phase 12's epochs (FPMC, TransRec, SGAT, Caser, HGN)
-SEQ_STEPS = 80
+WALK_WINDOW = 200                 # steps of GRU4Rec's, GRU4RecPlus's epoch
+TOWER_STEPS = 100                 # steps of BERT4Rec's and SRGNN's epoch
+# steps of phase 12's epochs (FPMC, TransRec, SGAT, Caser, HGN); on an
+# H100, 20 made the step check after them fail (TransRec's user_emb 6.5e-7
+# against a bound of 1.35e-7: Adam's state after few steps magnifies the
+# gradients' rounding), 40 holds it within 4.7e-9
+SEQ_STEPS = 40
 # steps of phase 14's epochs (BM3, SLMRec, FREEDOM, MGCN, LATTICE)
-MM_STEPS = 120
+MM_STEPS = 40
+# steps of the epochs of phases 8, 10 and 11 (lazy-Adam BPRMF, AOBPR past
+# its first re-sort, LayerGCN, LightGCL, DENS, SelfCF, CDAE, MultVAE)
+EPOCH_STEPS = 150
+# test users of every evaluation of the models of phases 8 and 10-14 (the
+# first EVAL_USERS by id; Pop's and CML's metrics checks take all)
+EVAL_USERS = 4_096
+# calls of the latency and busy-share loops of phase 9
+LATENCY_CALLS = 15
 IMG_DIM, TXT_DIM = 4_096, 384     # VGG image, sentence-transformer text
-KNN_K, KNN_ROWS = 10, 256         # the kNN graphs' k; rows held to float64
+KNN_K = 10                        # the kNN graphs' k
+KNN_ROWS = 128                    # rows held to float64
 MSG = {"f32": torch.float32, "bf16": torch.bfloat16}
 # F, the most survivors of a block that extract ranks directly
 # (csrc/topk_blocks.cu kRankCap)
@@ -508,15 +548,15 @@ _, F32_OPS, MEM_RATE = PEAKS["NVIDIA H100 80GB HBM3"]
 # 2,048 and 716 at BPRMF's 1,024; the pipeline's num_batches) and the
 # command line's batch, so that the phase stays near 150 s
 MESH_GCN_STEPS = 10
-MESH_BPR_STEPS = 25
+MESH_BPR_STEPS = 10
 MESH_CLI_BATCH = 32_768
 # phase 17: the steps of each model's cut epoch on (2, 2), fewer where a
 # step moves a 4,096-wide feature table (671 MB) through gloo's host
 # staging, and the users of its evaluate() and of predict_topk
-P17_STEPS = 20
-P17_FEW = {"DENS": 10, "LayerGCN": 10, "LightGCL": 10, "SLMRec": 10,
-           "BM3": 3, "FREEDOM": 3, "MGCN": 2, "LATTICE": 3, "MultVAE": 8}
-P17_EVAL_USERS = 1_024
+P17_STEPS = 5
+P17_FEW = {"DENS": 3, "LayerGCN": 3, "LightGCL": 3, "SLMRec": 3,
+           "BM3": 2, "FREEDOM": 2, "MGCN": 1, "LATTICE": 2, "MultVAE": 3}
+P17_EVAL_USERS = 256
 P17_TOPK_USERS = 64
 P17_MODELS = ("Pop", "AOBPR", "CML", "DENS", "SelfCF", "LayerGCN",
               "LightGCL", "CDAE", "MultVAE", "FPMC", "TransRec", "SGAT",
@@ -528,21 +568,27 @@ P17_CONFIG = {"LayerGCN": {"dropout": 0.1}, "BPRMF": {"optimizer":
 P17_GRAPH = ("DENS", "SelfCF", "LayerGCN", "LightGCL", "BM3", "SLMRec",
              "LATTICE")
 # the gap allowed after the cut epoch, |mesh - one device| over |one
-# device| of each parameter (2-norms): 1e-4 (the CPU tests hold every
-# entry within 1e-5 of its table's scale). On the card the backward's
-# scatter-adds are unordered, and an entry whose gradient cancels to
-# rounding (an item row the batch pushes both ways) takes Adam's whole
-# step on that rounding's sign, on one device from run to run as on the
-# mesh; the greatest entry gap is printed beside it, and P17_TWICE's
-# models run one device twice for that spread (on an H100 80GB HBM3 at
-# 700 W: one device's AOBPR epoch loss 1.1e-5 apart in two runs, its
-# parameters 5.2e-5 in one, GRU4RecPlus's 7.5e-3, SASRec's 4.2e-5), which
-# also sets the loss's check at 1e-4 relative. GRU4Rec's and GRU4RecPlus's 1e-2: at
-# their initial weights the TOP1 and BPR-max gradients of many item
-# biases cancel to ~1e-9, near Adam's eps (their step-0 gradients agree
-# within 3e-4 of their scale)
-P17_GAP = {"GRU4Rec": 1e-2, "GRU4RecPlus": 1e-2}
+# device| of each parameter (2-norms), and of the epoch loss (relative):
+# 1e-4 (the CPU tests hold every entry within 1e-5 of its table's scale).
+# Every sum of the train path runs in one fixed order, so P17_TWICE's
+# models, run twice on one device, must give bit-equal parameters and
+# losses. The mesh still sums a step's gradients in another order than
+# one device by design (each data index's rows, then the all-reduce over
+# the data axis), and an entry whose gradient cancels to rounding (an item
+# bias the batch pushes both ways: GRU4Rec's TOP1 and GRU4RecPlus's
+# BPR-max gradients of many biases cancel to ~1e-9 at their initial
+# weights, near Adam's eps) takes Adam's whole step on that rounding's
+# sign. For P17_REORDER's models one device runs a third time with each
+# step's batch in reverse order (GRU4Rec's lanes, AOBPR's rows: the same
+# examples and draws, every sum over the batch in another order), and
+# their bound is P17_ORDER_MULT times that run's gap, 1e-4 at the least:
+# both gaps are the steps of the entries whose near-zero gradients change
+# sign under a new rounding, and 4 lets the mesh's perturbation flip up to
+# 16 times as many entries as the reversal's (a norm gap grows as the
+# square root of their count)
 P17_TWICE = ("AOBPR", "GRU4Rec", "GRU4RecPlus", "SASRec", "SGAT")
+P17_REORDER = ("AOBPR", "GRU4Rec", "GRU4RecPlus")
+P17_ORDER_MULT = 4.0
 # biases whose exact gradient is 0 (each shifts every logit of a softmax
 # row alike), moved only by rounding noise that Adam magnifies
 P17_NOISE = {"SASRec": ("blocks.{}.att.k.b",), "BERT4Rec": ("blocks.{}.k.b",),
@@ -562,8 +608,54 @@ P18 = {"BPRMF": ("sweep", 10), "MultVAE": ("sweep", 20),
        "CML": ("sweep", 20), "LightGCN": ("sweep", 20),
        "LightGCL": ("sweep", 10), "BM3": ("sweep", 20)}
 P18_TWICE = ("BPRMF", "GRU4Rec")
+# the depth before the cut (see REPS)
+FULL_DEPTH = {"REPS": 20, "TRAIN_WINDOW": 8, "WALK_WINDOW": 600,
+              "TOWER_STEPS": 300, "SEQ_STEPS": 80, "MM_STEPS": 120,
+              "EPOCH_STEPS": None, "EVAL_USERS": None, "LATENCY_CALLS": 35,
+              "KNN_ROWS": 256,
+              "MESH_GCN_STEPS": 10, "MESH_BPR_STEPS": 25, "P17_STEPS": 20,
+              "P17_FEW": {"DENS": 10, "LayerGCN": 10, "LightGCL": 10,
+                          "SLMRec": 10, "BM3": 3, "FREEDOM": 3, "MGCN": 2,
+                          "LATTICE": 3, "MultVAE": 8},
+              "P17_EVAL_USERS": 1_024, "P17_TOPK_USERS": 64}
 NEG_INF = float("-inf")
 INT_MIN = -2 ** 31                      # -0.0 as int32
+
+
+def full_depth() -> None:
+    """Run every phase at FULL_DEPTH from now on."""
+    globals().update(FULL_DEPTH)
+
+
+def depth() -> dict:
+    """The depth settings now in force, by name (FULL_DEPTH's names)."""
+    return {name: globals()[name] for name in FULL_DEPTH}
+
+
+def cut_epoch(m, steps):
+    """Cut model m's epochs to their first ``steps`` steps (None: all);
+    returns the steps an epoch runs (0 for Pop, which trains nothing)."""
+    if hasattr(m, "step_limit"):                  # GRU4Rec's walk
+        m.step_limit = steps
+        return steps
+    # AOBPR and SRGNN count their own steps, the rest their pipeline's
+    owner = m if hasattr(m, "num_batches") else getattr(m, "pipeline", None)
+    if owner is None:
+        return 0
+    if steps is not None:
+        owner.num_batches = min(steps, owner.num_batches)
+    return owner.num_batches
+
+
+def cut_eval(m, users=None):
+    """Hold model m's evaluations to its first ``users`` test users by id
+    (EVAL_USERS when None; all when that is None too)."""
+    users = users or EVAL_USERS
+    if users is None:
+        return m
+    test = m.evaluator.user_pos_test
+    m.evaluator.set_test_data({u: test[u] for u in sorted(test)[:users]})
+    return m
 
 
 def require(ok: bool, what: str) -> None:
@@ -1066,6 +1158,56 @@ def adversarial_ranks(dev, errs: dict) -> None:
     rank_adversarial(dev, errs)
 
 
+def check_ordered_sums(dev, items: np.ndarray, errs: dict) -> None:
+    """The train path's ordered sums on the card against their plain
+    versions on CPU copies (per row within 1e-5 * sum|g| of float64), each
+    called twice with bit-equal results: ordered_row_sum (index_put_ or
+    sorted pieces on the card, index_add_ on the CPU) at GRU4RecPlus's
+    2,176, SASRec's 6,400 and SRGNN's 51,200 gathered rows of the (N, 64)
+    table and of the (N,) bias, ids drawn
+    from ``items`` (the training pairs' items: their popularity, hubs of
+    hundreds of repeats); and kernel #11 on a fixed gather set, the
+    training pairs' items as a FixedIndex (fixed_index), by fixed_sum and
+    by fixed_gather's gradient, at D = 1 and 64 (check_segsum's rule; three
+    launches bit-equal)."""
+    rng = np.random.default_rng(SEED + 2)
+    for k in (2_176, 6_400, 51_200):
+        ids = torch.as_tensor(rng.choice(items, k), device=dev)
+        for width in ((DIM,), ()):
+            g = torch.randn((k, *width), device=dev,
+                            generator=torch.Generator(dev).manual_seed(k))
+            got = scatter.ordered_row_sum(ids, g, ITEMS)
+            again = scatter.ordered_row_sum(ids, g, ITEMS)
+            ref = scatter.ordered_row_sum(ids.cpu(), g.cpu().double(), ITEMS)
+            bound = 1e-5 * scatter.ordered_row_sum(
+                ids.cpu(), g.cpu().double().abs(), ITEMS) + 1e-30
+            err = (got.cpu().double() - ref).abs()
+            require(bool((err <= bound).all()) and same_bits(again, got),
+                    f"ordered_row_sum K={k} width {width}: error "
+                    f"{float((err / bound).max())} x the bound, twice equal "
+                    f"{same_bits(again, got)}")
+            print(f"ordered_row_sum of {k} rows (width {width or 1}, "
+                  f"largest run {int(torch.bincount(ids).max())}) == plain "
+                  f"within {float((err / bound).max())} of the bound, two "
+                  f"calls bit-equal", flush=True)
+    fixed = scatter.fixed_index(items, ITEMS, dev)
+    for d in (1, DIM):
+        x = torch.randn((len(items), d), device=dev,
+                        generator=torch.Generator(dev).manual_seed(d))
+        share = check_segsum(fixed.seg, x, None, "f32", errs)
+        check_repeat(fixed.seg, x, None, "f32")
+        table = torch.zeros((ITEMS, d), device=dev, requires_grad=True)
+        scatter.fixed_gather(table, fixed).backward(x)
+        summed = scatter.fixed_sum(x, fixed)
+        require(same_bits(table.grad, summed),
+                "fixed_gather's gradient is not fixed_sum's")
+        print(f"segsum on the fixed gather set of {len(items)} training "
+              f"pairs' items into {ITEMS} rows ({fixed.seg.seg_dst.shape[0]}"
+              f" segments, {fixed.seg.merge_row.shape[0]} rows merged), D="
+              f"{d}: within {share} of the bound, three launches bit-equal, "
+              f"fixed_gather's gradient == fixed_sum", flush=True)
+
+
 def check_segsum(seg, x, mask, msg: str, errs: dict):
     """segsum (its merge pass included) on the card against segsum_plain in
     float64 on CPU copies: per row |kernel - ref| <= 1e-5 * sum|msg| +
@@ -1480,14 +1622,14 @@ def rank_segments(vals: torch.Tensor, ids: torch.Tensor,
     return new.sum(1)
 
 
-def evaluate_as(m, mode: str, chunk_size: int = 0):
-    """(MetricReport, host seconds) of m.evaluate() with the evaluator's
-    eval_mode (and chunk size) set for the call."""
+def evaluate_as(m, mode: str, chunk_size: int = 0, users=None):
+    """(MetricReport, host seconds) of m.evaluate(users) with the
+    evaluator's eval_mode (and chunk size) set for the call."""
     ev = m.evaluator
     saved = ev.eval_mode, ev.chunk_size
     ev.eval_mode, ev.chunk_size = mode, chunk_size or ev.chunk_size
     try:
-        return timed(m.evaluate)
+        return timed(lambda: m.evaluate(users))
     finally:
         ev.eval_mode, ev.chunk_size = saved
 
@@ -1535,8 +1677,10 @@ def bit_equal_states(a: dict, b: dict) -> bool:
         and a[k].numpy().tobytes() == b[k].numpy().tobytes() for k in a)
 
 
-def time_ms(fn, reps: int = REPS) -> float:
-    """Median device time of fn() over reps launches (CUDA events)."""
+def time_ms(fn, reps: int = None) -> float:
+    """Median device time of fn() over reps launches (CUDA events; REPS
+    when None)."""
+    reps = reps or REPS
     for _ in range(5):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True),
@@ -1576,7 +1720,7 @@ def _device_events(prof):
             and "#" not in e.key]
 
 
-def device_ms(fn, reps: int = REPS) -> float:
+def device_ms(fn, reps: int = None) -> float:
     """Device time per call of fn: the summed durations of the kernels and
     copies it launches (torch.profiler), over reps calls after warm-up.
     Unlike time_ms it
@@ -1585,6 +1729,7 @@ def device_ms(fn, reps: int = REPS) -> float:
     event at all; it is taken again, and after three empty ones the
     CUDA-event time of time_ms stands in (a line says so)."""
     from torch.profiler import ProfilerActivity, profile
+    reps = reps or REPS
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -1641,11 +1786,12 @@ def _raw_device_events(prof):
             yield e.name(), e.duration_ns()
 
 
-def epoch_window(m, steps: int = TRAIN_WINDOW):
+def epoch_window(m, steps: int = None):
     """A training epoch of model m cut to its first ``steps`` steps (its
     step count lowered for the call; GRU4Rec's walk by its step limit):
     the steady state of an epoch, at a fraction of a long epoch's time
-    under the profiler."""
+    under the profiler (TRAIN_WINDOW steps when None)."""
+    steps = steps or TRAIN_WINDOW
     if hasattr(m, "step_limit"):
         m.step_limit = steps
         try:
@@ -1697,7 +1843,8 @@ def phase_fit_and_models(root, path, reg, model_cls, dev, rng, test_users):
     def lazy_run(**over):
         return RunConfig(recommender="BPRMF", data_dir=path, seed=SEED,
                          checkpoint_dir=ck_dir, checkpoint_every=1, **over)
-    lazy = model_cls(lazy_run(), dict(lazy_cfg))
+    lazy = cut_eval(model_cls(lazy_run(), dict(lazy_cfg)))
+    cut_epoch(lazy, EPOCH_STEPS)
     require(isinstance(lazy.optimizer, LazyAdam), "lazy Adam built")
     # 1. epoch 0 alone, from the state fit() then starts from
     start = cpu_copy(lazy._train_state())
@@ -1787,7 +1934,9 @@ def phase_fit_and_models(root, path, reg, model_cls, dev, rng, test_users):
         es_states.append(self_.get_state())
     EarlyStopping.set_state = spy_set_state
     try:
-        resumed = model_cls(lazy_run(resume=True), dict(lazy_cfg, epochs=3))
+        resumed = cut_eval(model_cls(lazy_run(resume=True),
+                                     dict(lazy_cfg, epochs=3)))
+        cut_epoch(resumed, EPOCH_STEPS)
         first_epoch = resumed._train_epoch
 
         def snapshot_then_train(epoch):
@@ -1890,6 +2039,9 @@ def phase_fit_and_models(root, path, reg, model_cls, dev, rng, test_users):
     require(ao.config.embed_size == DIM
             and 0 < ao.resort_every < ao.num_batches,
             f"AOBPR re-sorts at step {ao.resort_every} of {ao.num_batches}")
+    # its epoch cut past its first re-sort
+    cut_eval(ao)
+    cut_epoch(ao, EPOCH_STEPS and max(EPOCH_STEPS, ao.resort_every + 1))
     ao_best, ao_launches = counted(ao.fit)
     require(bool(np.isfinite(ao.history[0]["loss"])), "AOBPR loss finite")
     ao_runs = {}
@@ -2003,15 +2155,19 @@ def step_card_vs_cpu(tag, m, cpu_loss, batch, masks, card_step=None,
     return errs
 
 
-def fit_counted(m, steps_per_epoch: int, props: int, tag: str):
+def fit_counted(m, steps_per_epoch: int, props: int, tag: str,
+                sums=(0, 0, 0)):
     """fit() of a model with its launches counted: losses finite, segsum
     launched exactly ``props`` propagations forward and backward a step
-    plus ``props`` an evaluation (none for a model without a graph), the
-    full route's kernels launched."""
+    plus ``props`` an evaluation (none for a model without a graph), and
+    ``sums`` (a step's, an epoch's, an evaluation's) fixed-index sums on
+    top, the full route's kernels launched."""
     best, launched = counted(m.fit)
     losses = [h["loss"] for h in m.history]
     evals = sum("report" in h for h in m.history)
-    expect = len(losses) * steps_per_epoch * 2 * props + props * evals
+    per_step, per_epoch, per_eval = sums
+    expect = (len(losses) * (steps_per_epoch * (2 * props + per_step)
+                             + per_epoch) + (props + per_eval) * evals)
     print(f"{tag} fit() ({len(losses)} epochs of {steps_per_epoch} steps, "
           f"{evals} evaluations): losses {losses}, NDCG@10 "
           f"{best['NDCG@10']}; launches {launched}; expected segsum "
@@ -2063,8 +2219,10 @@ def phase_graph_models(path, reg, dev):
 
     def build(name, cfg):
         reg.load_skrx_model(name)
-        return reg.get_model(name)[0](
-            RunConfig(recommender=name, data_dir=path, seed=SEED), cfg)
+        m = cut_eval(reg.get_model(name)[0](
+            RunConfig(recommender=name, data_dir=path, seed=SEED), cfg))
+        cut_epoch(m, EPOCH_STEPS)
+        return m
     # LayerGCN: epoch 0 pruned by degree, epoch 1 at random
     lg = build("LayerGCN", {"dropout": 0.1, "epochs": EPOCHS,
                             "early_stop": EPOCHS})
@@ -2148,9 +2306,11 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
 
     def build(name):
         reg.load_skrx_model(name)
-        return reg.get_model(name)[0](
+        m = cut_eval(reg.get_model(name)[0](
             RunConfig(recommender=name, data_dir=path, seed=SEED),
-            {"epochs": 1, "early_stop": 1})
+            {"epochs": 1, "early_stop": 1}))
+        cut_epoch(m, EPOCH_STEPS)
+        return m
 
     def first_batch(m):
         return next(m.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
@@ -2340,9 +2500,9 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
 
     def build(name, **over):
         reg.load_skrx_model(name)
-        return reg.get_model(name)[0](
+        return cut_eval(reg.get_model(name)[0](
             RunConfig(recommender=name, data_dir=path, seed=SEED),
-            {"epochs": 1, "early_stop": 1, **over})
+            {"epochs": 1, "early_stop": 1, **over}))
 
     def first_batch(m):
         return next(m.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
@@ -2353,9 +2513,9 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
         m = build(name)
         require(m.config.embed_size == DIM and m.pipeline.num_neg == 1
                 and m.pipeline._prev.shape[1] == 1, f"{name} at its defaults")
-        runs.append(fit_counted(m, _mesh_steps(m, SEQ_STEPS), 0, name))
+        runs.append(fit_counted(m, cut_epoch(m, SEQ_STEPS), 0, name))
         lazy = build(name, optimizer="lazy_adam")
-        runs.append(fit_counted(lazy, _mesh_steps(lazy, SEQ_STEPS), 0,
+        runs.append(fit_counted(lazy, cut_epoch(lazy, SEQ_STEPS), 0,
                                 f"{name} (lazy Adam)"))
         reg_ = m.config.reg
         step_card_vs_cpu(name, m, lambda p, *b, f=loss, r=reg_: f(p, r, *b),
@@ -2388,8 +2548,11 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
           f"within their bounds, largest share of the bound {shares}",
           flush=True)
     weighted_times(g.items, x, att, ct, card)
-    runs.append(fit_counted(sg, _mesh_steps(sg, SEQ_STEPS), scfg.n_layers,
-                            "SGAT"))
+    # a layer's attention: two fixed-index sums forward, the gradients of
+    # its four fixed gathers backward
+    runs.append(fit_counted(sg, cut_epoch(sg, SEQ_STEPS), scfg.n_layers,
+                            "SGAT", (6 * scfg.n_layers, 0,
+                                     2 * scfg.n_layers)))
     g_cpu = g.to("cpu")
     step_card_vs_cpu("SGAT", sg, lambda p, *b: sgat_loss(g_cpu, p, scfg, *b),
                      first_batch(sg), None)
@@ -2400,7 +2563,7 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
     require(ccfg.embed_size == DIM and (ccfg.seq_L, ccfg.seq_T, ccfg.nv,
                                         ccfg.nh) == (5, 3, 4, 16)
             and cs._eval_width == ITEMS + 1, "Caser at its defaults")
-    runs.append(fit_counted(cs, _mesh_steps(cs, SEQ_STEPS), 0, "Caser"))
+    runs.append(fit_counted(cs, cut_epoch(cs, SEQ_STEPS), 0, "Caser"))
     batch = first_batch(cs)
     keep = caser_keep_mask(torch.Generator(dev).manual_seed(SEED),
                            batch[0].shape[0], ccfg)
@@ -2410,7 +2573,7 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
     hg = build("HGN")
     require(hg.config.embed_size == DIM and hg._eval_width == ITEMS + 1,
             "HGN at its defaults")
-    runs.append(fit_counted(hg, _mesh_steps(hg, SEQ_STEPS), 0, "HGN"))
+    runs.append(fit_counted(hg, cut_epoch(hg, SEQ_STEPS), 0, "HGN"))
     step_card_vs_cpu("HGN", hg, lambda p, *b: hgn_loss(p, hg.pad_idx, *b),
                      first_batch(hg), None)
     models.update(Caser=cs, HGN=hg)
@@ -2471,9 +2634,9 @@ def phase_sequence_towers(path, reg, dev, card: str, errs: dict):
     def build(name, **over):
         reg.load_skrx_model(name)
         t0 = time.perf_counter()
-        m = reg.get_model(name)[0](
+        m = cut_eval(reg.get_model(name)[0](
             RunConfig(recommender=name, data_dir=path, seed=SEED),
-            {"epochs": 1, "early_stop": 1, **over})
+            {"epochs": 1, "early_stop": 1, **over}))
         print(f"{name} built in {time.perf_counter() - t0} s", flush=True)
         return m
     models, runs, steps = {}, [], {}
@@ -2694,16 +2857,17 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
               f"graphs included); launches {launched}", flush=True)
         runs.append(launched)
         m.pipeline.num_batches = min(MM_STEPS, m.pipeline.num_batches)
-        return m
+        return cut_eval(m)
 
     def first_batch(m):
         return next(m.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
 
-    def finish(tag, m, props, modes, step):
+    def finish(tag, m, props, modes, step, sums=(0, 0, 0)):
         """fit(), one step card vs CPU, the evaluate() routes, serving and
         the epoch's reports of model m."""
         t0 = time.perf_counter()
-        runs.append(fit_counted(m, m.pipeline.num_batches, props, tag))
+        runs.append(fit_counted(m, m.pipeline.num_batches, props, tag,
+                                sums))
         t1 = time.perf_counter()
         step()
         t2 = time.perf_counter()
@@ -2835,8 +2999,10 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
                 "LATTICE keeps the first step's weights, detached")
         m.epoch_item = m.epoch_weights = None
     runs_before = len(runs)
+    # the learned graph's row sums: once an epoch (its first step) and once
+    # an evaluation
     finish("LATTICE", m, cfg.n_layers + len(cfg.weight_size), full3,
-           lattice_step)
+           lattice_step, (0, 1, 1))
     require(runs[runs_before]["pruned_merge"] >= 1,
             "LATTICE's fit() selected its graph without blockwise_topk")
     peak = torch.cuda.max_memory_allocated() - base
@@ -3034,17 +3200,12 @@ def _mesh_inputs(n_rows: int, dev):
     return x, ct, uv, items, bias, train
 
 
-def _mesh_steps(m, steps: int) -> int:
-    """Cut a model's epoch to its first ``steps`` steps (the pipeline's
-    num_batches); the steps it will run."""
-    m.pipeline.num_batches = min(steps, m.pipeline.num_batches)
-    return m.pipeline.num_batches
-
-
 def _mesh_fit_rank(m, steps: int) -> dict:
-    """One fit() epoch of a model on a mesh, cut to ``steps``; its launches
-    counted, its whole parameters on rank 0."""
-    _mesh_steps(m, steps)
+    """One fit() epoch of a model on a mesh, cut to ``steps`` and evaluated
+    on EVAL_USERS test users; its launches counted, its whole parameters
+    on rank 0."""
+    cut_epoch(m, steps)
+    cut_eval(m)
     best, launches = counted(m.fit)
     whole = {k: v.cpu().numpy() for k, v in m.full_params().items()}
     h = m.history[0]
@@ -3055,8 +3216,11 @@ def _mesh_fit_rank(m, steps: int) -> dict:
 
 
 def _mesh_pair_rank(rank: int, path: str, adj_path: str, work: str,
-                    device: str) -> dict:
-    """Phase 16 (a)-(d) on one of 2 ranks sharing ``device``."""
+                    device: str, depth: dict) -> dict:
+    """Phase 16 (a)-(d) on one of 2 ranks sharing ``device`` at the
+    spawning process's ``depth`` (a spawned rank imports this module
+    anew)."""
+    globals().update(depth)
     import scipy.sparse as sp
     import torch.distributed as dist
     dev = torch.device(device)
@@ -3091,8 +3255,11 @@ def _mesh_pair_rank(rank: int, path: str, adj_path: str, work: str,
     return out
 
 
-def _mesh_quad_rank(rank: int, path: str, work: str, device: str) -> dict:
-    """Phase 16 (e): BPRMF on one of 4 ranks sharing ``device``."""
+def _mesh_quad_rank(rank: int, path: str, work: str, device: str,
+                    depth: dict) -> dict:
+    """Phase 16 (e): BPRMF on one of 4 ranks sharing ``device`` at the
+    spawning process's ``depth``."""
+    globals().update(depth)
     os.chdir(work)
     reg = ModelRegistry()
     reg.load_skrx_model("BPRMF")
@@ -3155,9 +3322,9 @@ def phase_mesh(path, work: str, card: str, device=None) -> dict:
     try:
         # the single device: LightGCN (it writes the adjacency the ranks
         # read), the propagate and the top-k, and one cut fit() epoch
-        gcn = reg.get_model("LightGCN")[0](
+        gcn = cut_eval(reg.get_model("LightGCN")[0](
             RunConfig(recommender="LightGCN", data_dir=path, seed=SEED),
-            {"batch_size": 2048, "epochs": 1, "early_stop": 1}, device=dev)
+            {"batch_size": 2048, "epochs": 1, "early_stop": 1}, device=dev))
         require((gcn.config.embed_size, gcn.config.n_layers) == (DIM, 3),
                 "LightGCN at full width")
         x, ct, uv, items, bias, train = _mesh_inputs(gcn.graph.num_nodes,
@@ -3167,13 +3334,13 @@ def phase_mesh(path, work: str, card: str, device=None) -> dict:
         torch.sum(y_ref * ct).backward()
         ref_v, ref_i = metrics.topk_scores_and_indices(
             uv @ items.T + bias[None, :], K_EVAL, mask_table=train)
-        gcn_steps = _mesh_steps(gcn, MESH_GCN_STEPS)
+        gcn_steps = cut_epoch(gcn, MESH_GCN_STEPS)
         _, gcn_launches = counted(gcn.fit)
         adj_path = os.path.join(path, "_LightGCN_data", "pre_adj.npz")
         t0 = time.perf_counter()
         pair = run_ranks(_mesh_pair_rank, 2,
-                         (path, adj_path, work, str(dev)), device=dev,
-                         timeout=600)
+                         (path, adj_path, work, str(dev), depth()),
+                         device=dev, timeout=600)
         pair_s = time.perf_counter() - t0
         # (a) the backend
         for r, o in enumerate(pair):
@@ -3253,14 +3420,15 @@ def phase_mesh(path, work: str, card: str, device=None) -> dict:
                   f"segsum expected {expect}", flush=True)
         del gcn
         # (e) BPRMF on (2, 2)
-        bpr = reg.get_model("BPRMF")[0](
+        bpr = cut_eval(reg.get_model("BPRMF")[0](
             RunConfig(recommender="BPRMF", data_dir=path, seed=SEED),
-            {"epochs": 1, "early_stop": 1}, device=dev)
-        bpr_steps = _mesh_steps(bpr, MESH_BPR_STEPS)
+            {"epochs": 1, "early_stop": 1}, device=dev))
+        bpr_steps = cut_epoch(bpr, MESH_BPR_STEPS)
         _, bpr_launches = counted(bpr.fit)
         t0 = time.perf_counter()
-        quad = run_ranks(_mesh_quad_rank, 4, (path, work, str(dev)),
-                         device=dev, timeout=600)
+        quad = run_ranks(_mesh_quad_rank, 4,
+                         (path, work, str(dev), depth()), device=dev,
+                         timeout=600)
         quad_s = time.perf_counter() - t0
         require(all(o["tp"] for o in quad), "BPRMF's tensor-parallel step")
         bpr_one = bpr.history[0]
@@ -3351,16 +3519,7 @@ def _p17_model(name: str, path: str, dev, mesh_shape=None):
                 if key.rsplit(".", 1)[-1].startswith("ln") \
                         and key.endswith("_b"):
                     p.copy_(0.1 * torch.randn(p.shape, generator=gen))
-    steps = P17_FEW.get(name, P17_STEPS)
-    if hasattr(m, "step_limit"):                  # GRU4Rec's walk
-        m.step_limit = steps
-    elif hasattr(m, "num_batches"):               # AOBPR, SRGNN
-        m.num_batches = min(steps, m.num_batches)
-    elif hasattr(m, "pipeline"):
-        m.pipeline.num_batches = min(steps, m.pipeline.num_batches)
-    else:                                         # Pop trains nothing
-        steps = 0
-    return m, steps
+    return m, cut_epoch(m, P17_FEW.get(name, P17_STEPS))
 
 
 def _p17_noise(name: str, m) -> set:
@@ -3418,8 +3577,9 @@ def _p17_gaps(whole: dict, one, noise: set):
 
 def _p17_single(name: str, path: str, dev, whole: dict) -> dict:
     """Model ``name``'s same cut epoch on one device, its gaps to the mesh
-    model's whole parameters ``whole``; for P17_TWICE a second run's gap
-    to the first (the card's own run-to-run spread)."""
+    model's whole parameters ``whole``; for P17_TWICE whether a second run
+    gives the same bits (and its gap), for P17_REORDER a third run's gap
+    with each step's batch in reverse order (P17_ORDER_MULT)."""
     t0 = time.perf_counter()
     one, _ = _p17_model(name, path, dev)
     out = {"single_build_seconds": time.perf_counter() - t0}
@@ -3430,22 +3590,35 @@ def _p17_single(name: str, path: str, dev, whole: dict) -> dict:
                                                                 noise)
     out.update(single_loss=h1["loss"], single_seconds=h1["train_seconds"],
                single_report=dict(one_best.results))
+    first = {k: p.detach().clone() for k, p in one.named_parameters()}
+    del one
     if name in P17_TWICE:
-        first = {k: p.detach().clone() for k, p in one.named_parameters()}
-        del one
         again, _ = _p17_model(name, path, dev)
         again.fit()
         out["twice_gap"] = _p17_gaps(first, again, noise)[0]
+        out["twice_equal"] = again.history[0]["loss"] == h1["loss"] and all(
+            same_bits(p.detach(), first[k])
+            for k, p in again.named_parameters())
         del again
+    if name in P17_REORDER:
+        other, _ = _p17_model(name, path, dev)
+        other.lanes_reversed = other.rows_reversed = True
+        other.fit()
+        out["reorder_gap"] = _p17_gaps(first, other, noise)[0]
+        out["reorder_loss"] = other.history[0]["loss"]
+        del other
     return out
 
 
-def _p17_rank(rank: int, path: str, work: str, device: str) -> dict:
+def _p17_rank(rank: int, path: str, work: str, device: str,
+              depth: dict) -> dict:
     """Phase 17 on one of 4 ranks sharing ``device``: every model of
     P17_MODELS on (2, 2); then, all ranks at once, the same steps on one
     device of the models whose index is the rank's modulo 4, against the
-    whole parameters the rank kept."""
+    whole parameters the rank kept. ``depth``: the spawning process's
+    depth settings (a spawned rank imports this module anew)."""
     import torch.distributed as dist
+    globals().update(depth)
     os.chdir(work)
     dev = torch.device(device)
     out, kept = {}, {}
@@ -3490,7 +3663,8 @@ def phase_mesh_models(path, work: str, card: str, device=None) -> dict:
     on_card = dev.type == "cuda"       # a CPU rehearsal launches nothing
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    ranks = run_ranks(_p17_rank, 4, (path, work, str(dev)), device=dev,
+    ranks = run_ranks(_p17_rank, 4, (path, work, str(dev), depth()),
+                      device=dev,
                       timeout=1000)
     runs, failed = [], []
 
@@ -3502,13 +3676,21 @@ def phase_mesh_models(path, work: str, card: str, device=None) -> dict:
     for i, name in enumerate(P17_MODELS):
         per = [r[name] for r in ranks]
         one = per[i % 4]                 # the rank that ran one device
+        loss_bound = gap_bound = 1e-4
+        if name in P17_REORDER:         # calibrated in this run
+            gap_bound = max(gap_bound,
+                            P17_ORDER_MULT * one["reorder_gap"][1])
+            loss_bound = max(loss_bound, P17_ORDER_MULT * abs(
+                one["reorder_loss"] - one["single_loss"])
+                / abs(one["single_loss"]))
         for r, o in enumerate(per):
             runs.append(o["launches"])
             check(abs(o["loss"] - one["single_loss"])
-                  <= 1e-4 * abs(one["single_loss"])
+                  <= loss_bound * abs(one["single_loss"])
                   if one["single_loss"] is not None else o["loss"] is None,
                   f"phase 17 {name} rank {r}: loss {o['loss']}, one "
-                  f"device {one['single_loss']}")
+                  f"device {one['single_loss']} (bound {loss_bound} "
+                  f"relative)")
             for key, value in one["single_report"].items():
                 check(abs(o["report"][key] - value) <= 1e-4,
                       f"phase 17 {name} rank {r} {key}: mesh "
@@ -3537,8 +3719,11 @@ def phase_mesh_models(path, work: str, card: str, device=None) -> dict:
                       f"in its sharded fit()")
         runs.append(one["single_launches"])
         key, gap = one["gap"]
-        check(gap <= P17_GAP.get(name, 1e-4), f"phase 17 {name}: {key} "
-              f"off by {gap} of its norm")
+        check(gap <= gap_bound, f"phase 17 {name}: {key} off by {gap} of "
+              f"its norm (bound {gap_bound})")
+        if name in P17_TWICE:
+            check(one["twice_equal"], f"phase 17 {name}: one device run "
+                  f"twice is not bit-equal ({one['twice_gap']})")
         metric_gap = max((abs(one["report"][k] - v) for k, v in
                           one["single_report"].items()), default=0.0)
         steps = max(one["steps"], 1)
@@ -3553,8 +3738,13 @@ def phase_mesh_models(path, work: str, card: str, device=None) -> dict:
               f"({one['entry_gap'][0]})"
               + (f", zero-gradient biases {one['noise_gaps']}"
                  if one["noise_gaps"] else "")
-              + (f"; one device run twice: {twice[1]} of its norm "
-                 f"({twice[0]})" if twice else "")
+              + (f"; one device run twice: bit-equal {one['twice_equal']}"
+                 f", {twice[1]} of its norm ({twice[0]})" if twice else "")
+              + (f"; one device with each step's batch reversed: "
+                 f"{one['reorder_gap'][1]} of its norm "
+                 f"({one['reorder_gap'][0]}), loss {one['reorder_loss']}; "
+                 f"bounds {gap_bound} of a norm, {loss_bound} of the loss"
+                 if name in P17_REORDER else "")
               + f"; 'topk' evaluate() of {P17_EVAL_USERS} users "
               f"{one['eval_seconds']} s, metric gap {metric_gap}"
               + (f"; predict_topk of {P17_TOPK_USERS} users within "
@@ -3642,16 +3832,25 @@ def phase_longrun(work: str, card: str, device=None) -> dict:
               f"{first['best']} and {again['best']} (gap "
               f"{abs(first['best'] - again['best'])}; the largest gap of "
               f"an epoch's NDCG@10 {gap})  [{card}]", flush=True)
+        require(gap == 0.0, f"phase 18 {name}: two runs from one seed "
+                f"differ, by {gap} of an epoch's NDCG@10")
     print(f"phase 18 took {time.perf_counter() - t_phase} s", flush=True)
     return {"runs": runs, "records": records}
 
 
-def main() -> int:
+def main(skip=()) -> int:
+    """The whole run; the phases in ``skip`` (13-18) left out, as
+    experiments/chip_phase9.py runs it."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     t_main = time.perf_counter()
+    marks = [("1", t_main)]           # (phase, when it began)
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
+        print(f"[{marks[-1][1] - t_main:.1f} s] phase {phase}", flush=True)
     dev = torch.device("cuda", 0)
     card = card_line()
     # the bounds take this card's data-sheet rates; an unknown card raises
@@ -3700,7 +3899,7 @@ def main() -> int:
           flush=True)
 
     # ------------------------------------------- phase 2: kernels vs plain
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 2", flush=True)
+    mark("2")
     rng = np.random.default_rng(SEED + 1)
     errs: dict = {}
     users = torch.as_tensor(rng.integers(0, USERS, B_KERNEL), device=dev)
@@ -3719,11 +3918,13 @@ def main() -> int:
                     errs)
     t_eval, l_eval = eval_in[B_EVAL][3].shape[1], eval_in[B_EVAL][2].shape[1]
     adversarial_ranks(dev, errs)
+    check_ordered_sums(
+        dev, model.dataset.train_data.to_user_item_pairs()[:, 1], errs)
     print(f"kernels == plain versions (max abs err {errs}); evaluation "
           f"tables: train width {l_eval}, test width T={t_eval}", flush=True)
 
     # ---------------------------------------------------- phase 3: serving
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 3", flush=True)
+    mark("3")
     served = []
 
     def serve_all():
@@ -3750,7 +3951,7 @@ def main() -> int:
           "predict within 1e-6 + 1e-5|ref| of float64", flush=True)
 
     # ---------------------------------------- phase 4: training at Gowalla
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 4", flush=True)
+    mark("4")
     ndcg0 = model.evaluate()["NDCG@10"]
     best, fit_launches = counted(model.fit)
     losses = [h["loss"] for h in model.history]
@@ -3770,7 +3971,7 @@ def main() -> int:
           f"{metric_err}", flush=True)
 
     # ------------------------------------------ phase 5: ML-1M-scale catalog
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 5", flush=True)
+    mark("5")
     ml_root = os.path.join(root, "ml1m")
     t0 = time.perf_counter()
     ml_path = synthetic.make_dataset_dir(ml_root, num_users=ML_USERS,
@@ -3801,7 +4002,7 @@ def main() -> int:
           f"T={te.shape[1]}, L={tr.shape[1]}", flush=True)
 
     # ----------------------------------------- phase 6: LightGCN at Gowalla
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 6", flush=True)
+    mark("6")
     t0 = time.perf_counter()
     reg.load_skrx_model("LightGCN")
     gcn_cls, _ = reg.get_model("LightGCN")
@@ -3898,7 +4099,7 @@ def main() -> int:
           "item", flush=True)
 
     # ------------------------- phase 7: fused score-and-select and chunked
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 7", flush=True)
+    mark("7")
     # 1. the kernels against their plain versions
     packed_s = dt.pack_items(model.item_emb, model.item_bias)
     uv_s = model.user_emb.detach()[users]
@@ -3987,51 +4188,57 @@ def main() -> int:
             "the fused route must allocate less than one score matrix")
 
     # ----------------------- phase 8: the rest of fit(); Pop, AOBPR and CML
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 8", flush=True)
+    mark("8")
     p8 = phase_fit_and_models(root, path, reg, model_cls, dev, rng,
                               test_users)
     lazy, pop, ao, cml = p8["lazy"], p8["pop"], p8["ao"], p8["cml"]
 
     # ------------------------ phase 10: LayerGCN, LightGCL and DENS (#11)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 10", flush=True)
+    mark("10")
     p10 = phase_graph_models(path, reg, dev)
     lg, gcl, dn = p10["LayerGCN"], p10["LightGCL"], p10["DENS"]
 
     # --------------- phase 11: SelfCF, CDAE and MultVAE (#11, the towers)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 11", flush=True)
+    mark("11")
     p11 = phase_selfcf_and_autoencoders(path, reg, dev, errs)
     sc, cd, mv = p11["SelfCF"], p11["CDAE"], p11["MultVAE"]
 
     # ------- phase 12: FPMC, TransRec, SGAT (#11, traced weights), Caser, HGN
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 12", flush=True)
+    mark("12")
     p12 = phase_sequential_models(path, reg, dev, card, errs)
     sequential = [(f"{tag} Gowalla", p12[tag]) for tag in
                   ("FPMC", "TransRec", "SGAT", "Caser", "HGN")]
 
     # ---- phase 13: GRU4Rec, GRU4RecPlus, SASRec, BERT4Rec, SRGNN (towers)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 13", flush=True)
-    p13 = phase_sequence_towers(path, reg, dev, card, errs)
+    mark("13")
+    p13 = phase_sequence_towers(path, reg, dev, card, errs) \
+        if 13 not in skip else {"runs": []}
 
     # ------ phase 14: the multimodal models (#11; kNN graphs through #1-#4)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 14", flush=True)
-    p14 = phase_multimodal(path, reg, dev, card, errs)
+    mark("14")
+    p14 = phase_multimodal(path, reg, dev, card, errs) \
+        if 14 not in skip else {"runs": []}
 
     # -------------------- phase 15: the command line (#11, #1-#3, #6)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 15", flush=True)
-    p15 = phase_command_line(path, os.path.join(root, "cli"))
+    mark("15")
+    p15 = phase_command_line(path, os.path.join(root, "cli")) \
+        if 15 not in skip else {"runs": []}
 
     # ---- phase 16: the mesh, ranks sharing the card (#11, #1-#5 a rank)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 16", flush=True)
-    p16 = phase_mesh(path, os.path.join(root, "mesh"), card)
+    mark("16")
+    p16 = phase_mesh(path, os.path.join(root, "mesh"), card) \
+        if 16 not in skip else {"runs": []}
     # ------- phase 17: every other model on (2, 2) (#11, #1-#5 a rank)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 17", flush=True)
-    p17 = phase_mesh_models(path, os.path.join(root, "mesh_models"), card)
+    mark("17")
+    p17 = phase_mesh_models(path, os.path.join(root, "mesh_models"), card) \
+        if 17 not in skip else {"runs": []}
     # ------ phase 18: the long-run sweep, cut (#11, the rank kernels)
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 18", flush=True)
-    p18 = phase_longrun(os.path.join(root, "longrun"), card)
+    mark("18")
+    p18 = phase_longrun(os.path.join(root, "longrun"), card) \
+        if 18 not in skip else {"runs": []}
 
     # ------------------------------------------------------ phase 9: times
-    print(f"[{time.perf_counter() - t_main:.1f} s] phase 9", flush=True)
+    mark("9")
     b, n, w_sub, w_c = B_KERNEL, ITEMS, bmf.shape[1], cv.shape[1]
     s_masked = tb._masked_padded(scores, mask, BLOCK_N).reshape(b, -1, BLOCK_N)
     found = ((s_masked >= tau[:, None, None]) & (s_masked != NEG_INF)).sum(2)
@@ -4339,7 +4546,7 @@ def main() -> int:
         u = rng.integers(0, USERS, bs)
         for route, srv in (("score matrix", server), ("fused", fused_server)):
             lat = []
-            for _ in range(35):
+            for _ in range(LATENCY_CALLS):
                 t0 = time.perf_counter()
                 srv.recommend(u)
                 lat.append((time.perf_counter() - t0) * 1e3)
@@ -4385,22 +4592,15 @@ def main() -> int:
           f"{device_ms(lambda: dedup_rows(item_rows, g_rows, ITEMS))} ms of "
           f"device time ({time_ms(lambda: dedup_rows(item_rows, g_rows, ITEMS))}"
           f" between CUDA events)  [{card}]", flush=True)
-    for tag, m, n_users in (("Gowalla", model, len(test_users)),
-                            ("ML-1M", ml, len(ml_test)),
-                            ("LightGCN Gowalla", gcn, len(test_users)),
-                            ("lazy-Adam BPRMF Gowalla", lazy,
-                             len(test_users)),
-                            ("Pop Gowalla", pop, len(test_users)),
-                            ("AOBPR Gowalla", ao, len(test_users)),
-                            ("CML Gowalla", cml, len(test_users)),
-                            ("LayerGCN Gowalla", lg, len(test_users)),
-                            ("LightGCL Gowalla", gcl, len(test_users)),
-                            ("DENS Gowalla", dn, len(test_users)),
-                            ("SelfCF Gowalla", sc, len(test_users)),
-                            ("CDAE Gowalla", cd, len(test_users)),
-                            ("MultVAE Gowalla", mv, len(test_users)),
-                            *((tag, m, len(test_users))
-                              for tag, m in sequential)):
+    for tag, m in (("Gowalla", model), ("ML-1M", ml),
+                   ("LightGCN Gowalla", gcn),
+                   ("lazy-Adam BPRMF Gowalla", lazy), ("Pop Gowalla", pop),
+                   ("AOBPR Gowalla", ao), ("CML Gowalla", cml),
+                   ("LayerGCN Gowalla", lg), ("LightGCL Gowalla", gcl),
+                   ("DENS Gowalla", dn), ("SelfCF Gowalla", sc),
+                   ("CDAE Gowalla", cd), ("MultVAE Gowalla", mv),
+                   *sequential):
+        n_users = len(m.evaluator.user_pos_test)      # EVAL_USERS's cut
         (_, sec), per_eval = counted(lambda: timed(m.evaluate))
         print(f"{tag} evaluate(): {sec} s, {n_users / sec} users/s, "
               f"launches per evaluate() {per_eval}  [{card}]")
@@ -4408,19 +4608,23 @@ def main() -> int:
         # profile their own models' epochs)
         if m not in (model, ml, gcn, lazy, ao):
             continue
-        busy, heads = busy_share(m.evaluate, reps=1, warm=False, top=6)
-        print(f"{tag} evaluate() device busy {busy}; top device kernels "
-              f"(ms): {heads}")
+        # the windows over the first EVAL_USERS test users (all: None)
+        window = sorted(m.evaluator.user_pos_test)[:EVAL_USERS]
+        busy, heads = busy_share(lambda: m.evaluate(window), reps=1,
+                                 warm=False, top=6)
+        print(f"{tag} evaluate() of {len(window)} users: device busy "
+              f"{busy}; top device kernels (ms): {heads}")
         # the models of phases 10-12 had each route timed there
         modes = {model: ("fused", "chunked"), gcn: ("fused",),
                  ao: ("fused",)}.get(m, ())
         for mode in modes:
-            (_, sec) = evaluate_as(m, mode, CHUNK)
-            busy, heads = busy_share(lambda: evaluate_as(m, mode, CHUNK),
-                                     reps=1, warm=False, top=6)
-            print(f"{tag} evaluate() eval_mode={mode!r}: {sec} s, "
-                  f"{n_users / sec} users/s; device busy {busy}; top device "
-                  f"kernels (ms): {heads}  [{card}]")
+            (_, sec) = evaluate_as(m, mode, CHUNK, window)
+            busy, heads = busy_share(
+                lambda: evaluate_as(m, mode, CHUNK, window), reps=1,
+                warm=False, top=6)
+            print(f"{tag} evaluate() eval_mode={mode!r} of {len(window)} "
+                  f"users: {sec} s, {len(window) / sec} users/s; device busy"
+                  f" {busy}; top device kernels (ms): {heads}  [{card}]")
         busy, heads = busy_share(lambda: epoch_window(m), reps=1,
                                  warm=False, top=6)
         print(f"{tag} train epoch, its first {TRAIN_WINDOW} steps: "
@@ -4428,7 +4632,12 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30} "
           f"GiB")
     shutil.rmtree(root, ignore_errors=True)
-    print(f"[{time.perf_counter() - t_main:.1f} s] done", flush=True)
+    t_end = time.perf_counter()
+    ends = [t for _, t in marks[1:]] + [t_end]
+    seconds = {phase: end - t for (phase, t), end in zip(marks, ends)}
+    print(f"phase seconds (phase 1 with the kernel build and the data): "
+          f"{seconds}; the whole run {t_end - t_main} s  [{card}]",
+          flush=True)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

@@ -8,8 +8,9 @@ Usage, from the root of a checkout, on a machine with a card:
 
 Builds the kernels, generates phase 3's data (seed 2021) under
 ``build/chip_phase13_data`` and runs ``chip_smoke.phase_sequence_towers``
-with all its checks; prints its lines, the card's name and power limit,
-the peak device memory and the seconds taken (~3 min on an H100).
+at ``chip_smoke.FULL_DEPTH`` (the depth before the script's cut) with all
+its checks; prints its lines, the card's name and power limit, the peak
+device memory and the seconds taken (~3 min on an H100).
 Exits 2 without CUDA.
 """
 import os
@@ -29,6 +30,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import chip_smoke as cs
+    cs.full_depth()                       # the depth before the cut
     from skrx_torch import ModelRegistry
     from skrx_torch.io import synthetic
     from skrx_torch.ops.kernels import _build

@@ -9,7 +9,8 @@ Usage, from the root of a checkout, on a machine with a card:
     python3 experiments/chip_phase16.py
 
 Builds the kernels, generates phase 3's data (seed 2021) under
-``build/chip_phase16_data`` and runs ``chip_smoke.phase_mesh`` with all its
+``build/chip_phase16_data`` and runs ``chip_smoke.phase_mesh`` at
+``chip_smoke.FULL_DEPTH`` (the depth before the script's cut) with all its
 checks from a working directory there; prints its lines, the launches of
 its main-path runs (every rank's summed), the card's name and power limit
 and the seconds taken. Exits 2 without CUDA.
@@ -31,6 +32,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import chip_smoke as cs
+    cs.full_depth()                       # the depth before the cut
     from skrx_torch.io import synthetic
     from skrx_torch.ops.kernels import _build
 

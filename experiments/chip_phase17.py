@@ -9,8 +9,9 @@ Usage, from the root of a checkout, on a machine with a card:
 
 Builds the kernels, generates phase 3's data (seed 2021) under
 ``build/chip_phase17_data`` with phase 14's 4,096-d image and 384-d text
-features, and runs ``chip_smoke.phase_mesh_models`` with all its checks;
-prints its lines, the launches of its main-path runs (every rank's
+features, and runs ``chip_smoke.phase_mesh_models`` at
+``chip_smoke.FULL_DEPTH`` (the depth before the script's cut) with all its
+checks; prints its lines, the launches of its main-path runs (every rank's
 summed), the card's name and power limit and the seconds taken. Exits 2
 without CUDA.
 """
@@ -31,6 +32,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import chip_smoke as cs
+    cs.full_depth()                       # the depth before the cut
     from skrx_torch.io import synthetic
     from skrx_torch.ops.kernels import _build
 

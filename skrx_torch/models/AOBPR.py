@@ -28,6 +28,8 @@ import torch
 from torch import nn
 
 from ..convert import two_tables_from_jax
+from ..ops.sampling import categorical_cdf, draw_with_replacement
+from ..ops.scatter import ordered_row_sum
 from ..parallel import batch_total, gather_batch_ids, local_rows
 from ..run_config import RunConfig
 from ..utils import ModelConfig
@@ -67,6 +69,10 @@ def sort_factors(item_emb: torch.Tensor
 
 class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
     _JAX_PARAMS = ("user_emb", "item_emb")
+    # each step's rows in reverse order: the same examples and draws, the
+    # updates of repeated rows summed in another order (a check's
+    # calibration)
+    rows_reversed = False
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
@@ -93,6 +99,7 @@ class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
         rank = np.arange(1, n + 1)
         self._rank_prob = torch.as_tensor(
             np.exp(-rank / cfg.alpha).astype(np.float32), device=self.device)
+        self._rank_cdf = categorical_cdf(self._rank_prob)
         # the JAX package re-sorts every N ln N examples
         self.resort_every = max(1, round(n * math.log(max(n, 2))
                                          / cfg.batch_size))
@@ -129,11 +136,12 @@ class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
         loss = torch.sum(-torch.nn.functional.logsigmoid(x_uij) * w)
         users, pos, neg, du, di, dj = map(gather_batch_ids,
                                           (users, pos, neg, du, di, dj))
-        # index_put_ sums repeated rows in a fixed order (a card's
-        # index_add_ does not), so every replica takes the same update
-        self.user_emb.index_put_((users,), du, accumulate=True)
-        self.item_emb.index_put_((pos,), di, accumulate=True)
-        self.item_emb.index_put_((neg,), dj, accumulate=True)
+        # repeated rows summed in batch order (a card's index_add_ adds in
+        # no fixed order), so every replica takes the same update
+        for table, ids, delta in ((self.user_emb, users, du),
+                                  (self.item_emb, pos, di),
+                                  (self.item_emb, neg, dj)):
+            ordered_row_sum(ids, delta, table.shape[0], out=table)
         return loss
 
     @torch.no_grad()
@@ -142,8 +150,8 @@ class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
         s, bsz = len(self._users), self.config.batch_size
         perm = torch.randperm(s, generator=gen, device=self.device)
         users, pos, w = self._users[perm], self._pos[perm], self._w[perm]
-        rank_idx = torch.multinomial(self._rank_prob, s, replacement=True,
-                                     generator=gen)
+        rank_idx = draw_with_replacement(self._rank_prob, s, gen,
+                                         self._rank_cdf)
         sorted_items, std = sort_factors(self.item_emb)
         total = torch.zeros((), device=self.device)
         for step in range(self.num_batches):
@@ -152,8 +160,10 @@ class AOBPR(ChunkedDotPredictMixin, TorchRecommender):
             sl = slice(step * bsz, (step + 1) * bsz)
             neg = self._negatives(gen, users[sl], rank_idx[sl], sorted_items,
                                   std)
-            total += self._sgd_step(*map(local_rows, (users[sl], pos[sl],
-                                                      neg, w[sl])))
+            batch = (users[sl], pos[sl], neg, w[sl])
+            if self.rows_reversed:
+                batch = tuple(t.flip(0) for t in batch)
+            total += self._sgd_step(*map(local_rows, batch))
         return float(batch_total(total) / torch.clamp(torch.sum(w), min=1.0))
 
     def load_jax_params(self, params: Dict[str, np.ndarray]) -> None:

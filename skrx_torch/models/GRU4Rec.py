@@ -301,6 +301,9 @@ class GRU4Rec(NestedParamsMixin, ChunkedDotPredictMixin, TorchRecommender):
                                                device=self.device)
 
     step_limit: Optional[int] = None   # steps of an epoch run (all: None)
+    # the walk's lanes in reverse order: the same sessions and steps, every
+    # sum over the batch taken in another order (a check's calibration)
+    lanes_reversed: bool = False
 
     def _train_epoch(self, epoch: int) -> Optional[float]:
         in_s, out_s, reset_s = self.epoch_schedule(epoch)
@@ -311,6 +314,9 @@ class GRU4Rec(NestedParamsMixin, ChunkedDotPredictMixin, TorchRecommender):
             return 0.0
         gen = epoch_generator(self.run_config.seed + 1, epoch, self.device,
                               stream=1)
+        if self.lanes_reversed:
+            in_s, out_s, reset_s = (t.flip(1) for t in (in_s, out_s,
+                                                        reset_s))
         # under a mesh the rank's lanes (columns) of the schedule
         in_s, out_s, reset_s = (local_rows(t.T).T for t in (in_s, out_s,
                                                               reset_s))

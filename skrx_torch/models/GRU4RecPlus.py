@@ -5,8 +5,9 @@ Everything of :class:`~skrx_torch.models.GRU4Rec.GRU4Rec` (the same
 parameters, so ``load_jax_params`` takes a JAX GRU4RecPlus's), plus
 ``n_sample`` negatives a step appended to the step's targets, drawn from
 popularity ** ``sample_alpha`` over the training pairs (an item never
-seen has log-weight -1e30: probability 0) by ``torch.multinomial`` on the
-epoch's step generator (stream 1 of ``epoch_generator(seed + 1, epoch)``;
+seen has log-weight -1e30: probability 0) by
+:func:`~skrx_torch.ops.sampling.draw_with_replacement` on the epoch's step
+generator (stream 1 of ``epoch_generator(seed + 1, epoch)``;
 JAX draws ``jax.random.categorical`` over the same log-weights), and the
 BPR-max or TOP1-max loss: each row's negatives weighted by a softmax over
 its logits with the positive (the diagonal) masked out.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.rnn import ACTIVATIONS
+from ..ops.sampling import categorical_cdf, draw_with_replacement
 from ..parallel import batch_mean, batch_offset
 from ..utils import ModelConfig
 from .GRU4Rec import FINAL_ACTS, GRU4Rec, diagonal_positives
@@ -99,6 +101,7 @@ class GRU4RecPlus(GRU4Rec):
         self.neg_log_weights = torch.as_tensor(logw.astype(np.float32),
                                                device=self.device)
         self._neg_probs = torch.softmax(self.neg_log_weights, dim=0)
+        self._neg_cdf = categorical_cdf(self._neg_probs)
 
     def draw_negatives(self, generator: torch.Generator
                        ) -> Optional[torch.Tensor]:
@@ -106,8 +109,8 @@ class GRU4RecPlus(GRU4Rec):
         (None at ``n_sample`` 0)."""
         if self.config.n_sample == 0:
             return None
-        return torch.multinomial(self._neg_probs, self.config.n_sample,
-                                 replacement=True, generator=generator)
+        return draw_with_replacement(self._neg_probs, self.config.n_sample,
+                                     generator, self._neg_cdf)
 
     def _loss_from_logits(self, logits: torch.Tensor) -> torch.Tensor:
         return gru4recplus_loss_from_logits(logits, self.config.loss,

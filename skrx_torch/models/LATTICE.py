@@ -23,8 +23,9 @@ original``, held sparsely: 4k edges a row, the same function.
   features' cosine similarity; the selected values ``<n_r, n_c>`` of the
   normalised projections, differentiable; blended by the softmax (one
   modality alone unweighted); normalised by the rows' sums of the blend
-  (``index_add_``, ``d = rowsum ** -0.5`` where it is > 0, else 0), with
-  the gradient through ``d``.
+  (kernel #11 over the learned edges' rows, an index set laid out once,
+  :func:`~skrx_torch.ops.scatter.fixed_index`; ``d = rowsum ** -0.5``
+  where it is > 0, else 0), with the gradient through ``d``.
 
 The edges form one :class:`~skrx_torch.ops.graph.WeightedGraph` whose
 weights are traced: ``h <- A(w) @ h`` runs ``n_layers`` times through
@@ -66,6 +67,7 @@ from ..ops.graph import (Graph, WeightedGraph, propagate, propagate_weighted,
 from ..ops.initializers import get_initializer, torch_layer_default
 from ..ops.mm_graph import (cached_edges, inv_sqrt_positive, knn_select,
                             knn_values, l2_normalize, lattice_original_edges)
+from ..ops.scatter import FixedIndex, fixed_index, fixed_sum
 from ..run_config import RunConfig
 from ..utils import ModelConfig, normalize_adj_matrix
 from ..parallel import global_rows
@@ -123,11 +125,14 @@ class LATTICEConfig(ModelConfig):
 class LatticeItemGraph(NamedTuple):
     """One selection of the item graph: the edges of the learned graphs
     (``ids[m]`` (N, k) per present modality), then of the originals, as a
-    :class:`WeightedGraph`, and the originals' normalised values."""
+    :class:`WeightedGraph`, the originals' normalised values, and the
+    rows of every modality's learned edges as an index set (the same for
+    every selection)."""
     ids: Tuple[torch.Tensor, ...]
     graph: WeightedGraph
     rows: torch.Tensor                # (N k,) row of each learned edge
     orig_vals: Tuple[torch.Tensor, ...]
+    learned_rows: FixedIndex          # (M N k,) rows, M modalities
 
 
 def lattice_select(p: Dict, k: int) -> Tuple[torch.Tensor, ...]:
@@ -139,11 +144,13 @@ def lattice_select(p: Dict, k: int) -> Tuple[torch.Tensor, ...]:
 
 
 def lattice_item_graph(ids: Sequence[torch.Tensor], originals,
-                       num_items: int, msg_dtype=torch.float32
+                       num_items: int, msg_dtype=torch.float32,
+                       learned_rows: Optional[FixedIndex] = None
                        ) -> LatticeItemGraph:
     """The item graph of the learned neighbours ``ids`` and the originals'
     ``(rows, cols, vals)`` edges, built on the host and placed on the
-    devices of ``ids``."""
+    devices of ``ids``; ``learned_rows`` an earlier selection's (laid out
+    anew when None)."""
     device = ids[0].device
     k = ids[0].shape[1]
     rows = torch.arange(num_items, device=device).repeat_interleave(k)
@@ -152,8 +159,10 @@ def lattice_item_graph(ids: Sequence[torch.Tensor], originals,
     graph = weighted_graph_from_coo(torch.cat(src).cpu().numpy(),
                                     torch.cat(dst).cpu().numpy(), num_items,
                                     msg_dtype, device=device)
+    if learned_rows is None:
+        learned_rows = fixed_index(rows.repeat(len(ids)), num_items)
     return LatticeItemGraph(tuple(ids), graph, rows,
-                            tuple(o[2] for o in originals))
+                            tuple(o[2] for o in originals), learned_rows)
 
 
 def lattice_item_weights(p: Dict, cfg: LATTICEConfig,
@@ -173,9 +182,7 @@ def lattice_item_weights(p: Dict, cfg: LATTICEConfig,
     learned = torch.cat(learned)
     rows = item.rows.repeat(len(present))
     cols = torch.cat([i.reshape(-1) for i in item.ids])
-    rowsum = torch.zeros(p[present[0][0]].shape[0], dtype=learned.dtype,
-                         device=learned.device).index_add(0, rows, learned)
-    d = inv_sqrt_positive(rowsum)
+    d = inv_sqrt_positive(fixed_sum(learned, item.learned_rows))
     lam = cfg.lambda_coeff
     learned = (1 - lam) * (learned * d[rows] * d[cols])
     original = [lam * (weight[m] * v if both else v)
@@ -316,12 +323,17 @@ class LATTICE(MultimodalRecommender):
         # detached weights
         self.epoch_item: Optional[LatticeItemGraph] = None
         self.epoch_weights: Optional[torch.Tensor] = None
+        # the learned edges' rows, laid out at the first selection
+        self._learned_rows: Optional[FixedIndex] = None
 
     def item_graph(self) -> LatticeItemGraph:
         """The item graph selected from the current parameters."""
-        return lattice_item_graph(
+        item = lattice_item_graph(
             lattice_select(self.params_tree(), self.config.knn_k),
-            self.originals, self.num_items, self.msg_dtype)
+            self.originals, self.num_items, self.msg_dtype,
+            self._learned_rows)
+        self._learned_rows = item.learned_rows
+        return item
 
     def step_draws(self):
         """The next training step's ngcf dropout masks (None for the other

@@ -116,6 +116,7 @@ def layergcn_mask_from_keep(keep: torch.Tensor, rows: torch.Tensor,
     1e-7)^-1/2 (coldeg_kept + 1e-7)^-1/2``, over its base weight; 0 for a
     pruned pair. Both halves of the graph take the same values."""
     ind = torch.zeros_like(base).index_fill_(0, keep, 1.0)
+    # counts of 0/1 entries: exact in f32 whatever the order of the adds
     row_sum = torch.zeros(num_users, dtype=base.dtype,
                           device=base.device).index_add_(0, rows, ind) + 1e-7
     col_sum = torch.zeros(num_items, dtype=base.dtype,

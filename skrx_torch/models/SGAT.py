@@ -14,12 +14,16 @@ Each of ``n_layers`` layers (:func:`sgat_propagate`) scores every
 occurrence by ``-l2d(item[head] + user[u], item[tail])`` (``l2d(a, b) =
 sqrt(|a - b|^2 + 1e-12)``), min-max normalises the scores over the whole
 graph (``(s - min) / (max - min + 1e-12)``, ``mexp``), sums their
-exponentials into each edge and each edge's into its tail row (two
-``index_add``s over sorted indices), and adds
+exponentials into each edge and each edge's into its tail row, and adds
 ``A(att) @ items`` with ``att = edge_sum / (row_sum + 1e-6)[tail]``:
 kernel #11 with the attention as traced per-edge weights
 (:func:`~skrx_torch.ops.graph.propagate_weighted`), differentiable in both.
-Every ``graph_impl`` runs the kernel ("mxu_bf16" with bf16 messages). The
+Every ``graph_impl`` runs the kernel ("mxu_bf16" with bf16 messages).
+The attention's two sums and the gradients of its four gathers go
+through the kernel too, over the five index sets the graph fixes
+(occurrences by head, user, tail and edge, edges by tail), each laid out
+once with the graph (:func:`~skrx_torch.ops.scatter.fixed_index`): every
+sum in one order from run to run, and no step sorts. The
 epochs come from :class:`SequentialPairwiseEpochPipeline` (``n_seqs``
 previous items, pre-padded with id N, ``n_next`` next items and as many
 negatives); a step propagates the whole graph, and takes the summed BPR
@@ -54,6 +58,7 @@ from ..convert import bprmf_params_from_jax
 from ..ops.graph import WeightedGraph, propagate_weighted, \
     weighted_graph_from_coo
 from ..ops.initializers import get_initializer
+from ..ops.scatter import FixedIndex, fixed_gather, fixed_index, fixed_sum
 from ..run_config import RunConfig
 from ..utils import ModelConfig, pad_sequences
 from .common import (GRAPH_IMPLS, CachedUserVecChunkMixin,
@@ -127,32 +132,40 @@ def build_sgat_graph(user_pos_train: Dict[int, np.ndarray]
 
 class SGATGraph(NamedTuple):
     """The occurrences and edges on a device: the (tail, head, user)
-    occurrences with their edge, each edge's tail, and the edges as a
-    :class:`WeightedGraph` (src = head, dst = tail)."""
+    occurrences with their edge, each edge's tail, the edges as a
+    :class:`WeightedGraph` (src = head, dst = tail), and the first five
+    as the index sets the attention sums over (``fixed``: occurrences into
+    users, items by head, items by tail and edges; edges into items)."""
     occ_user: torch.Tensor        # (O,) int64
     occ_head: torch.Tensor
     occ_tail: torch.Tensor
     occ_edge: torch.Tensor        # (O,) int64, ascending
     edge_tail: torch.Tensor       # (E,) int64, ascending
     items: WeightedGraph
+    fixed: Tuple[FixedIndex, ...]
 
     def to(self, device) -> "SGATGraph":
         return SGATGraph(*(t.to(device) for t in self[:5]),
-                         self.items.to(device))
+                         self.items.to(device),
+                         tuple(f.to(device) for f in self.fixed))
 
 
 def sgat_graph(arrays: Tuple[np.ndarray, ...], num_items: int,
-               msg_dtype: torch.dtype = torch.float32,
+               num_users: int, msg_dtype: torch.dtype = torch.float32,
                device="cpu") -> SGATGraph:
-    """The :class:`SGATGraph` of :func:`build_sgat_graph`'s arrays."""
+    """The :class:`SGATGraph` of :func:`build_sgat_graph`'s arrays over
+    ``num_users`` users and ``num_items`` items."""
     *occurrences, edge_tail, edge_head = arrays
 
     def put(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
+    rows = (num_users, num_items, num_items, len(edge_tail), num_items)
     return SGATGraph(
         *map(put, occurrences), put(edge_tail),
         weighted_graph_from_coo(edge_head, edge_tail, num_items, msg_dtype,
-                                device=device))
+                                device=device),
+        tuple(fixed_index(ids, n, device)
+              for ids, n in zip((*occurrences, edge_tail), rows)))
 
 
 def l2d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -167,19 +180,18 @@ def sgat_attention(graph: SGATGraph, items: torch.Tensor,
     min-max normalised over the graph, exponentiated, summed into their
     edge and normalised by their tail row's sum (``+ 1e-6``). The min and
     max split their gradient evenly among ties, as ``jnp.min`` and
-    ``jnp.max`` do. The gathers are ``index_select``s, whose gradient is
-    one ``index_add_``: an indexing gradient sorts its indices first, slow
-    on hub items of thousands of occurrences."""
-    h_e = (items.index_select(0, graph.occ_head)
-           + user_emb.index_select(0, graph.occ_user))
-    logit = -l2d(h_e, items.index_select(0, graph.occ_tail))
+    ``jnp.max`` do. The sums, and the gradients of the gathers, run
+    through kernel #11 over the graph's fixed index sets (an indexing
+    gradient would sort its indices every step, slow on hub items of
+    thousands of occurrences)."""
+    by_user, by_head, by_tail, by_edge, edge_by_tail = graph.fixed
+    h_e = fixed_gather(items, by_head) + fixed_gather(user_emb, by_user)
+    logit = -l2d(h_e, fixed_gather(items, by_tail))
     lo, hi = torch.amin(logit), torch.amax(logit)
     exp_logit = torch.exp((logit - lo) / (hi - lo + 1e-12))
-    edge_sum = exp_logit.new_zeros(graph.edge_tail.shape[0]).index_add(
-        0, graph.occ_edge, exp_logit)
-    row_sum = edge_sum.new_zeros(items.shape[0]).index_add(
-        0, graph.edge_tail, edge_sum)
-    return edge_sum / (row_sum + 1e-6).index_select(0, graph.edge_tail)
+    edge_sum = fixed_sum(exp_logit, by_edge)
+    row_sum = fixed_sum(edge_sum, edge_by_tail)
+    return edge_sum / fixed_gather(row_sum + 1e-6, edge_by_tail)
 
 
 def sgat_propagate(graph: SGATGraph, item_emb: torch.Tensor,
@@ -241,7 +253,8 @@ class SGAT(CachedUserVecChunkMixin, EpochTrainedRecommender):
         user_pos = self.dataset.train_data.to_user_dict_by_time()
         impl = resolve_graph_impl(cfg.graph_impl)
         self.graph = sgat_graph(self._load_graph(user_pos), n,
-                                mxu_msg_dtype(impl), device=self.device)
+                                self.num_users, mxu_msg_dtype(impl),
+                                device=self.device)
         gen = torch.Generator().manual_seed(run_config.seed)
         init = get_initializer("truncated_normal")
         self.user_emb = nn.Parameter(

@@ -197,7 +197,10 @@ def srgnn_session_embed(p, cfg: SRGNNConfig, nodes: torch.Tensor,
     rows = torch.arange(b, device=nodes.device)
     last_alias = alias[rows, torch.clamp(lengths - 1, min=0)]
     last_h = fin[rows, last_alias]
-    seq_h = torch.gather(fin, 1, alias[:, :, None].expand(b, l_max, d))
+    # fin[rows, alias] as rows of the flattened (B N, D) table: the
+    # gradient of a session's repeated items summed in batch order
+    seq_h = gather_rows(fin.reshape(b * n_max, d),
+                        alias + rows[:, None] * n_max)
     mask = (torch.arange(l_max, device=nodes.device)[None, :]
             < lengths[:, None]).float()
     last_proj = last_h @ p["nasr_w1"]

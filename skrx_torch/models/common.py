@@ -15,6 +15,7 @@ from torch import nn
 from ..convert import adam_state_from_jax, lazy_adam_state_from_jax
 from ..ops.graph import Graph, graph_from_sp_matrix
 from ..ops.optim import LazyAdam
+from ..ops.scatter import ordered_gather
 from ..parallel import (RowBlocks, ShardedPropGraph, gather_all_rows,
                         sharded_dot_topk, take_rows)
 from ..parallel.mesh import row_blocks
@@ -107,10 +108,10 @@ def nest_params(flat: Dict[str, torch.Tensor]):
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` (ids of any shape) by ``index_select``, whose gradient
-    is one ``index_add_`` (the indexing gradient sorts its indices)."""
-    rows = torch.index_select(table, 0, ids.reshape(-1))
-    return rows.reshape(*ids.shape, *table.shape[1:])
+    """``table[ids]`` (ids of any shape) by ``index_select``, its gradient
+    summed in batch order (:func:`~skrx_torch.ops.scatter.ordered_gather`):
+    the same bits from run to run on a card."""
+    return ordered_gather(table, ids)
 
 
 def dotted_jax_leaves(model: nn.Module) -> Dict[str, Tuple[str, bool]]:

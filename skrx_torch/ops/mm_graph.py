@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .metrics import topk_scores_and_indices
+from .scatter import ordered_gather
 
 __all__ = ["l2_normalize", "knn_select", "cosine_knn",
            "normalized_laplacian_values", "knn_adj_edges", "mm_edges",
@@ -159,6 +160,7 @@ def weighted_knn_edges(features: torch.Tensor, k: int,
     n = ids.shape[0]
     rows, cols = _rows(n, k, ids.device), ids.reshape(-1)
     vals = sims.reshape(-1).double()
+    # unordered on a card, but taken once when the graph is built and cached
     deg = torch.zeros(n, dtype=torch.float64,
                       device=vals.device).index_add_(0, rows, vals)
     d_inv_sqrt = deg ** -0.5
@@ -170,8 +172,8 @@ def knn_values(norm: torch.Tensor, rows: torch.Tensor,
                cols: torch.Tensor) -> torch.Tensor:
     """(E,) ``<norm[rows_e], norm[cols_e]>``: the similarities of selected
     pairs of L2-normalised rows, differentiable in ``norm`` (LATTICE's
-    learned graph)."""
-    return torch.sum(norm.index_select(0, rows) * norm.index_select(0, cols),
+    learned graph), the gathers' gradients summed in batch order."""
+    return torch.sum(ordered_gather(norm, rows) * ordered_gather(norm, cols),
                      dim=-1)
 
 
@@ -185,6 +187,7 @@ def lattice_original_edges(features: torch.Tensor, k: int,
     n = ids.shape[0]
     rows, cols = _rows(n, k, ids.device), ids.reshape(-1)
     vals = sims.reshape(-1)
+    # unordered on a card, but taken once when the graph is built and cached
     rowsum = torch.zeros(n, device=vals.device).index_add_(0, rows, vals)
     d = inv_sqrt_positive(rowsum)
     return rows, cols, vals * d[rows] * d[cols]

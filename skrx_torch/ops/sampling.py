@@ -13,11 +13,20 @@ Randomness comes from an explicit ``torch.Generator`` on the tensors'
 device. JAX keys and torch generators give different streams from one seed,
 so the tests check the contract (exclusion, fallback, uniformity), not the
 bits.
+
+Draws with replacement from a weighted catalog (:func:`draw_with_replacement`)
+take ``torch.multinomial`` on the CPU. On a card ``torch.multinomial``
+builds its CDF with a scan whose float sums take no fixed order, so two
+runs from one seed draw other ids now and then; there the draws are
+uniforms from the generator searched in a CDF summed once, in float64 on
+the host (:func:`categorical_cdf`): the same ids from run to run.
 """
+import numpy as np
 import torch
 
 __all__ = ["is_member_sorted", "sample_negatives", "sample_negatives_weighted",
-           "gumbel_topk_without_replacement"]
+           "gumbel_topk_without_replacement", "categorical_cdf",
+           "draw_with_replacement"]
 
 
 def is_member_sorted(sorted_rows: torch.Tensor,
@@ -70,10 +79,37 @@ def sample_negatives_weighted(generator: torch.Generator, users: torch.Tensor,
     b = users.shape[0]
     rows = pos_table[users]
     probs = torch.softmax(log_weights.float(), dim=0)
-    cand = torch.multinomial(probs, b * num_neg * num_trials, replacement=True,
-                             generator=generator)
+    cand = draw_with_replacement(probs, b * num_neg * num_trials, generator)
     return _first_valid(cand.to(torch.int32).reshape(b, -1), rows, b, num_neg,
                         num_trials)
+
+
+def categorical_cdf(probs: torch.Tensor) -> torch.Tensor:
+    """(N,) float64 running sums of ``probs`` (N,) (unnormalised weights),
+    summed in order on the host, on ``probs``' device."""
+    return torch.as_tensor(np.cumsum(probs.detach().cpu().double().numpy()),
+                           device=probs.device)
+
+
+def draw_with_replacement(probs: torch.Tensor, n: int,
+                          generator: torch.Generator,
+                          cdf: torch.Tensor = None) -> torch.Tensor:
+    """(n,) int64 ids drawn with replacement with probabilities
+    proportional to ``probs`` (N,): ``torch.multinomial`` on the CPU; on a
+    card ``n`` uniforms from ``generator`` searched in ``cdf``
+    (:func:`categorical_cdf` of ``probs``, taken here when None), so that
+    a run's draws are the same from run to run (see the module
+    docstring)."""
+    if probs.device.type == "cpu":
+        return torch.multinomial(probs, n, replacement=True,
+                                 generator=generator)
+    if cdf is None:
+        cdf = categorical_cdf(probs)
+    u = torch.rand(n, generator=generator, dtype=torch.float64,
+                   device=cdf.device) * cdf[-1]
+    # the first id whose running sum is above u: an id of weight 0 never
+    return torch.searchsorted(cdf, u, right=True).clamp_(
+        max=cdf.shape[0] - 1)
 
 
 def gumbel_topk_without_replacement(generator: torch.Generator,

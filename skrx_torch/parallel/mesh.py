@@ -15,6 +15,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..ops.scatter import ordered_row_sum
 from .distributed import all_gather_rows, all_reduce_sum
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "make_mesh", "RowBlocks",
@@ -230,11 +231,9 @@ class _LookupRows(torch.autograd.Function):
                              mesh.data_size)
         lo, hi = (0, shape[0]) if blocks is None else (blocks.lo, blocks.hi)
         # rows owned elsewhere land in a spare row past the end; the sum is
-        # the indexing gradient's (index_put_ with accumulate, in batch
-        # order), as one device forms it
+        # in batch order, as one device's gather_rows forms it
         pos = torch.where((at >= lo) & (at < hi), at - lo, shape[0])
-        out = grad.new_zeros((shape[0] + 1, *shape[1:]))
-        out.index_put_((pos,), g, accumulate=True)
+        out = ordered_row_sum(pos, g, shape[0] + 1)
         return out[:shape[0]], None, None, None
 
 

@@ -24,6 +24,10 @@ def _port_files():
              os.path.join(ROOT, "experiments", "submax_variants.py"),
              os.path.join(ROOT, "experiments", "direct_rank_designs.py"),
              os.path.join(ROOT, "experiments", "dedup_rows_designs.py"),
+             os.path.join(ROOT, "experiments", "ordered_row_sum_designs.py"),
+             os.path.join(ROOT, "experiments", "chip_phase9.py"),
+             os.path.join(ROOT, "experiments", "determinism_scan.py"),
+             os.path.join(ROOT, "experiments", "epoch_times.py"),
              os.path.join(ROOT, "experiments", "chip_phase12.py"),
              os.path.join(ROOT, "experiments", "chip_phase13.py"),
              os.path.join(ROOT, "experiments", "chip_phase14.py"),
@@ -78,6 +82,61 @@ def test_importing_every_port_module_pulls_in_no_jax_or_skrx():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+# the float index_add calls the port keeps, by (file under skrx_torch/,
+# enclosing function), each with its reason; on a card index_add adds
+# through atomics in no fixed order, so any other sum of the train path
+# goes through skrx_torch.ops.scatter
+INDEX_ADD_KEPT = {
+    # the plain versions of kernel #11 and its merge pass: CPU-only
+    # contracts, where index_add_ is a serial loop
+    ("ops/kernels/segsum.py", "segsum_plain"): "plain kernel version",
+    ("ops/kernels/segsum.py", "segsum_merge_plain"): "plain kernel version",
+    # the ordered sum itself on CPU tensors, serial in batch order there
+    ("ops/scatter.py", "ordered_row_sum"): "CPU branch, batch order",
+    # 0/1 counts: exact in f32 whatever the order
+    ("models/LayerGCN.py", "layergcn_mask_from_keep"): "exact counts",
+    # kNN graph normalisers taken once when the graph is built, cached
+    ("ops/mm_graph.py", "weighted_knn_edges"): "build time, cached",
+    ("ops/mm_graph.py", "lattice_original_edges"): "build time, cached",
+}
+
+
+def _index_add_calls(tree):
+    """(enclosing function, line) of every ``.index_add``/``index_add_``
+    call and ``torch.index_add`` in a module's tree."""
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Call) and isinstance(
+                    child.func, ast.Attribute) and child.func.attr in (
+                    "index_add", "index_add_"):
+                yield func, child.lineno
+            yield from walk(child, inner)
+    yield from walk(tree, None)
+
+
+def test_no_unordered_index_add_outside_the_named_exceptions():
+    """Every index_add under skrx_torch/ is one of INDEX_ADD_KEPT, and
+    every entry there still has its call: a new sum in no fixed order
+    fails here, on the CPU, not on the card."""
+    pkg = os.path.join(ROOT, "skrx_torch")
+    found = set()
+    for dirpath, _, names in os.walk(pkg):
+        for name in names:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, pkg).replace(os.sep, "/")
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for func, line in _index_add_calls(tree):
+                assert (rel, func) in INDEX_ADD_KEPT, \
+                    f"skrx_torch/{rel}:{line} ({func}) sums by index_add"
+                found.add((rel, func))
+    assert found == set(INDEX_ADD_KEPT)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path,
