@@ -64,7 +64,19 @@ user).
    batches of 1, 16, 64, 256 and 1024 users. The launch counts are reset
    just before and read just after; every serving kernel must have
    launched. Each answer must equal the plain top-k of the same scores on
-   the CPU and hold no seen item.
+   the CPU and hold no seen item. The host time of a call
+   (experiments/host_call_times.py): blockwise_topk at B=1 and 64,
+   recommend p50 at B=1, the loaded exported tail at B=64. The rank tail
+   exported (TopKRecommender.export_program at B=64): its bytes, seconds
+   and the skrx operators of its graph (submax, kth_largest, extract and
+   pruned_merge required); loaded back with torch.export.load and run on
+   64 users' predict scores and seen rows, each of the four launched
+   (counts set to 0 just before, read just after; part of the main path's
+   counts), ids and values bit-equal to recommend's and to the plain top-k
+   on the CPU; the same bytes loaded and run in a fresh process that
+   imports torch and skrx_torch only (no jax), bit-equal again, each
+   kernel launched there (the process runs beside phases 4-6 and is
+   checked at their end).
 4. Training at Gowalla scale: the same model, fit() for 2 epochs with
    evaluation after each (metrics Precision/Recall/MAP/NDCG at 10..50,
    test batch 64). Both losses finite and falling, rank_count launched
@@ -415,8 +427,10 @@ Before them it prints each phase's seconds and the whole run's. The
 second-to-last line is the per-kernel JSON record (one row for each of the
 11 TPU kernels), the last line ``{"ok": true, "device": {...}}``.
 """
+import atexit
 import gc
 import glob
+import io
 import json
 import os
 import shutil
@@ -484,6 +498,7 @@ BLOCK_N = 4096
 BPRMF_TABLES = ("user_emb", "item_emb", "item_bias")
 SEED = 2021
 SERVING = ("submax", "kth_largest", "extract", "pruned_merge")
+EXPORT_B = 64                     # scripts/bench_serve.py's export batch
 SOURCE = {name: "skrx_torch/ops/kernels/csrc/topk_blocks.cu"
           for name in SERVING + ("vmem_topk",)}
 SOURCE.update(rank_count="skrx_torch/ops/kernels/csrc/rank_counts.cu",
@@ -1322,6 +1337,103 @@ def check_served(server, u, ids, vals, seen) -> torch.Tensor:
         require(not np.isin(row, seen.get(int(user), [])).any(),
                 f"user {user} got a seen item")
     return s_cpu
+
+
+def _host_call_times():
+    """``experiments/host_call_times.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "host_call_times", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "experiments", "host_call_times.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# a fresh process: load the exported tail, run it on saved inputs, save
+# its answer, print its launches and whether JAX or the JAX package loaded
+FRESH_LOAD = """
+import json, sys
+import torch
+import skrx_torch
+from skrx_torch.ops.kernels import runtime
+program = torch.export.load(sys.argv[1])
+scores, seen = (t.to("cuda") for t in torch.load(sys.argv[2]))
+runtime.reset_launches()
+ids, vals = program.module()(scores, seen)
+torch.cuda.synchronize()
+launches = dict(runtime.LAUNCHES)
+torch.save((ids.cpu(), vals.cpu()), sys.argv[3])
+print(json.dumps({"launches": launches, "jax": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "skrx"))}))
+"""
+
+
+def check_export(server, rng, seen: dict, work: str, card: str):
+    """Phase 3's export (the module docstring). Returns the launches of
+    the loaded program's run and a function that waits for the fresh
+    process and checks its answer: the process starts here and runs beside
+    the next phases (killed at exit if the run fails first)."""
+    blob, sec = timed(lambda: server.export_program(EXPORT_B))
+    program = torch.export.load(io.BytesIO(blob))
+    ops = [str(n.target) for n in program.graph.nodes
+           if n.op == "call_function" and str(n.target).startswith("skrx.")]
+    print(f"export_program({EXPORT_B}): {len(blob)} bytes in {sec} s; skrx "
+          f"operators in its graph: {ops}  [{card}]", flush=True)
+    require(sorted({o.split(".")[1] for o in ops}) == sorted(SERVING),
+            "the exported graph must call the four tail operators")
+    u = rng.choice(USERS, EXPORT_B, replace=False)
+    u_t = torch.as_tensor(u, device=server.device)
+    scores = server.model.predict(u_t).to(torch.float32)
+    seen_rows = server._seen[u_t]
+    run = program.module()
+    (ids, vals), launches = counted(lambda: run(scores, seen_rows))
+    print(f"launches while the loaded program ran: {launches}")
+    for kname in SERVING:
+        require(launches[kname] >= 1,
+                f"{kname} never launched by the loaded program")
+    ids, vals = ids.cpu().numpy(), vals.cpu().numpy()
+    r_ids, r_vals = server.recommend(u)
+    require(np.array_equal(ids, r_ids)
+            and np.array_equal(vals.view(np.int32), r_vals.view(np.int32)),
+            "the loaded program's answer != recommend's")
+    check_served(server, u, ids, vals, seen)
+    os.makedirs(work, exist_ok=True)
+    paths = [os.path.join(work, f) for f in ("rank_tail.pt2", "in.pt",
+                                             "out.pt")]
+    with open(paths[0], "wb") as f:
+        f.write(blob)
+    torch.save((scores.cpu(), seen_rows.cpu()), paths[1])
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", FRESH_LOAD, *paths],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=root, env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    print("exported tail == recommend == plain top-k; a fresh process "
+          "loads it beside the next phases", flush=True)
+
+    def finish() -> None:
+        stdout, stderr = proc.communicate(timeout=600)
+        require(proc.returncode == 0,
+                f"the fresh process failed: {stderr[-3000:]}")
+        rec = json.loads(stdout.strip().splitlines()[-1])
+        f_ids, f_vals = torch.load(paths[2])
+        print(f"fresh process (done {time.perf_counter() - t0} s after its "
+              f"start): launches {rec['launches']}, JAX modules "
+              f"{rec['jax']}")
+        require(rec["jax"] == [], "the fresh process imported JAX or skrx")
+        for kname in SERVING:
+            require(rec["launches"][kname] >= 1,
+                    f"{kname} never launched in the fresh process")
+        require(np.array_equal(f_ids.numpy(), ids)
+                and np.array_equal(f_vals.numpy().view(np.int32),
+                                   vals.view(np.int32)),
+                "the fresh process's answer != the loaded program's")
+        print("the exported tail loaded in a fresh process == the loaded "
+              "program", flush=True)
+    return launches, finish
 
 
 def cpu_packed(packed: dt.PackedItems) -> dt.PackedItems:
@@ -3949,6 +4061,10 @@ def main(skip=()) -> int:
                                    rtol=1e-5, atol=1e-6)
     print("recommend == plain top-k of the same scores, no seen item, "
           "predict within 1e-6 + 1e-5|ref| of float64", flush=True)
+    host = _host_call_times().measure(server, rng)
+    print(f"host time a call: {host}  [{card}]", flush=True)
+    export_launches, finish_fresh_load = check_export(
+        server, rng, seen, os.path.join(root, "export"), card)
 
     # ---------------------------------------- phase 4: training at Gowalla
     mark("4")
@@ -4099,6 +4215,7 @@ def main(skip=()) -> int:
           "item", flush=True)
 
     # ------------------------- phase 7: fused score-and-select and chunked
+    finish_fresh_load()                    # started in phase 3
     mark("7")
     # 1. the kernels against their plain versions
     packed_s = dt.pack_items(model.item_emb, model.item_bias)
@@ -4363,18 +4480,18 @@ def main(skip=()) -> int:
             lambda: tb.rank_lookup_count(l_cv, l_ci, e_te),
             lambda: tb.rank_lookup_count_plain(l_cv, l_ci, e_te), None),
     }
-    # launches over every main-path run of this script: serving, both
-    # fit()s at Gowalla, the ML-1M-scale fit(), LightGCN serving, fused
-    # serving, the fused and chunked evaluate() calls, phase 8's fit()s
-    # and evaluations (lazy Adam, resume, profile, groups, Pop, AOBPR, CML),
-    # phase 10's (LayerGCN, LightGCL, DENS), phase 11's (SelfCF, CDAE,
-    # MultVAE), phase 12's (FPMC, TransRec, SGAT, Caser, HGN), phase 13's
+    # launches over every main-path run of this script: serving, the
+    # loaded exported tail, both fit()s at Gowalla, the ML-1M-scale fit(),
+    # LightGCN serving, fused serving, the fused and chunked evaluate()
+    # calls, phase 8's fit()s and evaluations (lazy Adam, resume, profile,
+    # groups, Pop, AOBPR, CML), phase 10's (LayerGCN, LightGCL, DENS),
+    # phase 11's (SelfCF, CDAE, MultVAE), phase 12's (FPMC, TransRec, SGAT, Caser, HGN), phase 13's
     # (the sequence towers), phase 14's (the kNN builds and the
     # multimodal models), phase 15's (the command line's runs), phase
     # 16's and 17's (the single-device and every rank's fit() on the mesh)
     # and phase 18's (the long-run sweep's fit()s)
-    path_runs = [serve_launches, fit_launches, ml_launches, gcn_launches,
-                 gcn_serve_launches, *fused_launches.values(),
+    path_runs = [serve_launches, export_launches, fit_launches, ml_launches,
+                 gcn_launches, gcn_serve_launches, *fused_launches.values(),
                  *(r[2] for r in eval_runs.values()), *p8["runs"],
                  *p10["runs"], *p11["runs"], *p12["runs"], *p13["runs"],
                  *p14["runs"], *p15["runs"], *p16["runs"],

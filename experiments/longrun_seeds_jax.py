@@ -16,7 +16,10 @@ Runs each model of ``scripts/longrun.py``'s sweep on its data at run seeds
 sweep's widths or its ``ModelConfig`` defaults, and prints per model and
 epoch budget E the best NDCG@10 through E of each JAX seed, their mean and
 range, and the mean and range of the port's same seeds read from the JSON
-lines of ``scripts/longrun_torch.py``.
+lines of ``scripts/longrun_torch.py``; with the port's seeds also whether
+the port's mean lies within JAX's mean +- max(2 r, 0.05 mu) (the sweep's
+band, r JAX's range) and the two-sided Welch t and p of the two sets of
+seeds (``scipy.stats.ttest_ind(equal_var=False)``).
 """
 import argparse
 import json
@@ -29,6 +32,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import longrun_jax_reference as ref  # noqa: E402
 
 FIRST_SEED = 2021
+
+
+def welch(a, b):
+    """Two-sided Welch t and p of ``a`` against ``b``."""
+    from scipy import stats
+    res = stats.ttest_ind(a, b, equal_var=False)
+    return float(res.statistic), float(res.pvalue)
 
 
 def main(argv=None) -> int:
@@ -65,7 +75,8 @@ def main(argv=None) -> int:
         print(f"{name} ({args.widths}), best NDCG@10 through E: JAX seeds "
               f"{list(seeds)} on the CPU; port {len(port_bests)} seeds")
         print(f"{'E':>3s} {'JAX seeds':>36s} {'mean':>7s} {'range':>7s} "
-              f"{'port mean':>9s} {'range':>7s}")
+              f"{'port mean':>9s} {'range':>7s} {'in band':>7s} "
+              f"{'Welch t':>8s} {'p':>7s}")
         for e in range(args.epochs):
             vals = [b[e] for b in jax_bests]
             line = (f"{e + 1:3d} {' '.join(f'{v:.4f}' for v in vals):>36s}"
@@ -73,8 +84,12 @@ def main(argv=None) -> int:
                     f"{max(vals) - min(vals):7.4f}")
             if port_bests:
                 pv = [b[e] for b in port_bests]
-                line += (f" {sum(pv) / len(pv):9.4f} "
-                         f"{max(pv) - min(pv):7.4f}")
+                mu, r = sum(vals) / len(vals), max(vals) - min(vals)
+                pmu = sum(pv) / len(pv)
+                inside = abs(pmu - mu) <= max(2 * r, 0.05 * mu)
+                t, p = welch(pv, vals)
+                line += (f" {pmu:9.4f} {max(pv) - min(pv):7.4f} "
+                         f"{'yes' if inside else 'NO':>7s} {t:8.3f} {p:7.4f}")
             print(line, flush=True)
     return 0
 

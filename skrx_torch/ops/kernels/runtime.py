@@ -2,8 +2,10 @@
 ctypes signature of each C launcher in ``csrc/``, the launch itself on
 PyTorch's current stream, and the device and argument checks.
 
-A wrapper adds one to ``LAUNCHES[<kernel>]`` per kernel launch and nowhere
-else, so a run can show that its main path went through the kernels.
+Each kernel's launch adds one to ``LAUNCHES[<kernel>]`` where it is made
+and nowhere else (in its wrapper, or in the CUDA implementation of an
+operator of ``operators``), so a run can show that its main path went
+through the kernels.
 """
 import ctypes
 from typing import Dict
@@ -13,7 +15,7 @@ import torch
 from . import _build
 
 __all__ = ["KERNELS", "LAUNCHES", "reset_launches", "launch", "on_cuda",
-           "check"]
+           "check_device", "check"]
 
 # kernel name -> its launches since the last reset; "vmem_topk" counts the
 # pruned_merge kernel launched with tau = -inf (the TPU kernel #5)
@@ -66,16 +68,22 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
 
 
-def on_cuda(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix or on
-    another device type."""
+def check_device(*tensors) -> torch.device:
+    """The device of the tensors (None entries skipped); raises on a mix or
+    on a device that is neither the CPU nor CUDA."""
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors must share one device, got {devs}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
+    return dev
+
+
+def on_cuda(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises as
+    :func:`check_device`."""
+    return check_device(*tensors).type == "cuda"
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

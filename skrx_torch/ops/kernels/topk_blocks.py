@@ -29,8 +29,13 @@ beyond the row's unmasked items hold (-inf, ``SENTINEL`` = int32max // 2);
 
 Every kernel has a plain PyTorch version of the same function beside it
 (``*_plain``). A wrapper runs the plain version when its tensor lies on the
-CPU (the tests) and launches the kernel on a CUDA tensor, or raises. It adds
-one to ``runtime.LAUNCHES[<kernel>]`` per kernel launch and nowhere else.
+CPU (the tests) and launches the kernel on a CUDA tensor, or raises. The
+kernels of the rank tail (submax, kth_largest, extract, pruned_merge and
+vmem_topk) are the operators ``torch.ops.skrx.*`` of ``operators``: their
+wrappers check the arguments and call the operator, whose CUDA
+implementation launches the kernel and counts it, so that
+``torch.export`` can record them. The rank kernels' wrappers launch and
+count (``runtime.LAUNCHES[<kernel>]``) themselves.
 """
 from typing import Optional, Tuple
 
@@ -38,7 +43,7 @@ import torch
 
 from ..sampling import is_member_sorted
 from .runtime import LAUNCHES, check as _check, launch as _launch
-from .runtime import on_cuda as _on_cuda
+from .runtime import check_device as _check_device, on_cuda as _on_cuda
 
 __all__ = ["blockwise_topk", "blockwise_candidates", "kth_largest",
            "pruned_merge", "vmem_topk", "submax", "extract",
@@ -113,18 +118,8 @@ def submax(scores: torch.Tensor, mask_table: Optional[torch.Tensor] = None,
     _check(scores, "scores", torch.float32, 2)
     mask_table = _check_mask(mask_table, scores.shape[0])
     _check_block_n(block_n)
-    if not _on_cuda(scores, mask_table):
-        return submax_plain(scores, mask_table, block_n)
-    scores = scores.contiguous()
-    b, n = scores.shape
-    out = torch.empty((b, -(-n // block_n) * GROUPS), dtype=torch.float32,
-                      device=scores.device)
-    if b:
-        _launch("skrx_submax", scores.device, scores, b, n, block_n,
-                mask_table, 0 if mask_table is None else mask_table.shape[1],
-                out)
-        LAUNCHES["submax"] += 1
-    return out
+    _check_device(scores, mask_table)
+    return torch.ops.skrx.submax(scores, mask_table, block_n)
 
 
 # ------------------------------------------------------------- kernel 2
@@ -147,17 +142,11 @@ def kth_largest(vals: torch.Tensor, k: int) -> torch.Tensor:
     total order of the JAX kernel (-inf lowest, -0.0 below +0.0). Requires
     1 <= k <= W and no NaNs."""
     _check(vals, "vals", torch.float32, 2)
-    b, w = vals.shape
+    w = vals.shape[1]
     if not 1 <= k <= w:
         raise ValueError(f"need 1 <= k <= W, got k={k}, W={w}")
-    if not _on_cuda(vals):
-        return kth_largest_plain(vals, k)
-    vals = vals.contiguous()
-    out = torch.empty((b,), dtype=torch.float32, device=vals.device)
-    if b:
-        _launch("skrx_kth_largest", vals.device, vals, b, w, k, out)
-        LAUNCHES["kth_largest"] += 1
-    return out
+    _check_device(vals)
+    return torch.ops.skrx.kth_largest(vals, k)
 
 
 # ------------------------------------------------------------- kernel 3
@@ -186,24 +175,14 @@ def extract(scores: torch.Tensor, tau: torch.Tensor, k: int,
     SENTINEL)."""
     _check(scores, "scores", torch.float32, 2)
     _check(tau, "tau", torch.float32, 1)
-    b, n = scores.shape
+    b = scores.shape[0]
     mask_table = _check_mask(mask_table, b)
     _check_block_n(block_n)
     if tau.shape[0] != b or not 1 <= k <= block_n:
         raise ValueError(f"need tau (B,) and 1 <= k <= block_n; got tau "
                          f"{tuple(tau.shape)}, k={k}, block_n={block_n}")
-    if not _on_cuda(scores, tau, mask_table):
-        return extract_plain(scores, mask_table, tau, k, block_n)
-    scores, tau = scores.contiguous(), tau.contiguous()
-    w = -(-n // block_n) * k
-    out_v = torch.empty((b, w), dtype=torch.float32, device=scores.device)
-    out_i = torch.empty((b, w), dtype=torch.int32, device=scores.device)
-    if b:
-        _launch("skrx_extract", scores.device, scores, b, n, block_n,
-                mask_table, 0 if mask_table is None else mask_table.shape[1],
-                tau, k, out_v, out_i)
-        LAUNCHES["extract"] += 1
-    return out_v, out_i
+    _check_device(scores, tau, mask_table)
+    return torch.ops.skrx.extract(scores, tau, k, mask_table, block_n)
 
 
 # ------------------------------------------------------------- kernel 4
@@ -233,32 +212,24 @@ def pruned_merge(vals: torch.Tensor, idx: torch.Tensor, k: int,
     and int32 ids: (value desc, id asc), a (value, id) pair repeated across
     lanes taken once, -inf slots with id SENTINEL. ``tau`` (B,) must bound
     each row's k-th largest distinct pair from below (or be -inf)."""
-    return _merge(vals, idx, k, tau, "pruned_merge")
+    _check_merge(vals, idx, k, tau)
+    return torch.ops.skrx.pruned_merge(vals, idx, k, tau)
 
 
-def _merge(vals: torch.Tensor, idx: torch.Tensor, k: int, tau: torch.Tensor,
-           kernel: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pruned_merge kernel, its launch counted as ``kernel``'s: #4
-    (``pruned_merge``) or #5 (``vmem_topk``), the TPU kernel it stands
-    for."""
+def _check_merge(vals: torch.Tensor, idx: torch.Tensor, k: int,
+                 tau: Optional[torch.Tensor] = None) -> None:
+    """The merge's arguments; ``tau`` None is vmem_topk's -inf."""
     _check(vals, "vals", torch.float32, 2)
     _check(idx, "idx", torch.int32, 2)
-    _check(tau, "tau", torch.float32, 1)
     b, w = vals.shape
-    if idx.shape != vals.shape or tau.shape[0] != b or not 1 <= k <= w:
+    if tau is not None:
+        _check(tau, "tau", torch.float32, 1)
+    tau_shape = (b,) if tau is None else tuple(tau.shape)
+    if idx.shape != vals.shape or tau_shape[0] != b or not 1 <= k <= w:
         raise ValueError(f"need idx {tuple(vals.shape)}, tau ({b},) and "
                          f"1 <= k <= W; got idx {tuple(idx.shape)}, tau "
-                         f"{tuple(tau.shape)}, k={k}")
-    if not _on_cuda(vals, idx, tau):
-        return pruned_merge_plain(vals, idx, k, tau)
-    vals, idx, tau = vals.contiguous(), idx.contiguous(), tau.contiguous()
-    out_v = torch.empty((b, k), dtype=torch.float32, device=vals.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=vals.device)
-    if b:
-        _launch("skrx_pruned_merge", vals.device, vals, idx, b, w, tau, k,
-                out_v, out_i)
-        LAUNCHES[kernel] += 1
-    return out_v, out_i
+                         f"{tau_shape}, k={k}")
+    _check_device(vals, idx, tau)
 
 
 def vmem_topk(vals: torch.Tensor, idx: torch.Tensor, k: int
@@ -266,8 +237,8 @@ def vmem_topk(vals: torch.Tensor, idx: torch.Tensor, k: int
     """:func:`pruned_merge` without pruning (tau = -inf): the contract of
     ``skrx.ops.pallas.vmem_topk`` (#5), its launches counted as
     ``LAUNCHES["vmem_topk"]``."""
-    tau = torch.full((vals.shape[0],), float("-inf"), device=vals.device)
-    return _merge(vals, idx, k, tau, "vmem_topk")
+    _check_merge(vals, idx, k)
+    return torch.ops.skrx.vmem_topk(vals, idx, k)
 
 
 # ------------------------------------------------------------- composition

@@ -13,19 +13,46 @@ user's training items masked, on the model's device, by one of two routes:
   two routes can differ in the last bit of a score.
 
 "auto" keeps the score-matrix route: the JAX package takes the fused one
-there only on a TPU, behind a catalog size measured on that chip. The JAX
-package's StableHLO export has no counterpart.
+there only on a TPU, behind a catalog size measured on that chip.
+
+The score-matrix route's mask and rank are one module, :class:`RankTail`;
+``export_program`` exports it ahead of time through ``torch.export``, the
+counterpart of the JAX package's StableHLO export.
 """
+import io
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .ops.kernels.dot_topk import PackedItems, dot_topk, pack_items
 from .ops.metrics import topk_scores_and_indices
 from .utils import resolve_device
 
-__all__ = ["TopKRecommender"]
+__all__ = ["RankTail", "TopKRecommender"]
+
+
+class RankTail(nn.Module):
+    """The mask+rank tail of serving: ``forward(scores (B, N) f32,
+    seen_rows (B, P) int32)`` -> ``(ids (B, k) int32, vals (B, k) f32)``,
+    the top k of each row with its ``seen_rows`` items masked (ignored, and
+    may be None, when ``filter_seen`` is False), through
+    :func:`~skrx_torch.ops.metrics.topk_scores_and_indices`: the blockwise
+    kernels (``torch.ops.skrx.*``) on a card when N // 128 >= 2k, a sort
+    otherwise. The order of the JAX package's ``rank``: ids first."""
+
+    def __init__(self, k: int, filter_seen: bool = True):
+        super().__init__()
+        self.k = k
+        self.filter_seen = filter_seen
+
+    def forward(self, scores: torch.Tensor,
+                seen_rows: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        vals, idx = topk_scores_and_indices(
+            scores, self.k, mask_table=seen_rows if self.filter_seen else None)
+        return idx, vals
 
 
 def _table_key(t: Optional[torch.Tensor]):
@@ -62,6 +89,7 @@ class TopKRecommender:
         self.fused = (fused == "always"
                       and hasattr(model, "_chunk_embeddings")
                       and getattr(model, "_topk_score_fn", None) is None)
+        self.rank_tail = RankTail(k, filter_seen)
         # (keys of the item table and bias, the tensors, the packed table)
         self._packed_cache = None
 
@@ -100,6 +128,37 @@ class TopKRecommender:
                                  packed=packed)
         else:
             scores = self.model.predict(users_t).to(torch.float32)
-            vals, idx = topk_scores_and_indices(scores, self.k,
-                                                mask_table=seen)
+            idx, vals = self.rank_tail(scores, seen)
         return idx.cpu().numpy(), vals.cpu().numpy()
+
+    @torch.no_grad()
+    def export_program(self, batch_size: int) -> bytes:
+        """The mask+rank tail (:class:`RankTail`) exported ahead of time for
+        a batch of ``batch_size`` users: the counterpart of
+        ``skrx.serve.TopKRecommender.export_stablehlo``. The program takes
+        (B, N) f32 scores and (B, P) int32 seen rows (the padded rows of
+        the training items, pad id N) on the server's device and returns
+        (ids (B, k) int32, values (B, k) f32); N is the width of the
+        model's ``predict``, P that of the seen table. The bytes are a
+        ``torch.export.save`` archive: ``torch.export.load`` reads them
+        and ``.module()(scores, seen)`` runs them. On a card with
+        N // 128 >= 2k its graph calls ``skrx.submax``,
+        ``skrx.kth_largest``, ``skrx.extract`` and ``skrx.pruned_merge``,
+        the kernels; elsewhere it holds the sort route, as the JAX export
+        holds ``lax.top_k`` off a TPU. Loading needs ``torch`` and
+        ``import skrx_torch``, which registers the ``skrx`` operators (and
+        builds the kernels at their first launch); no loader without
+        Python exists yet."""
+        n = int(self.model.predict(torch.zeros(
+            1, dtype=torch.int64, device=self.device)).shape[1])
+        scores = torch.zeros((batch_size, n), dtype=torch.float32,
+                             device=self.device)
+        seen = torch.full((batch_size, self._seen.shape[1]), n,
+                          dtype=torch.int32, device=self.device)
+        program = torch.export.export(self.rank_tail, (scores, seen))
+        # not the zeros it was traced on (4 B N bytes): its input specs
+        # and guards stay
+        program.example_inputs = None
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        return buf.getvalue()
