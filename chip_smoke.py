@@ -79,10 +79,20 @@ user).
    checked at their end).
 4. Training at Gowalla scale: the same model, fit() for 2 epochs with
    evaluation after each (metrics Precision/Recall/MAP/NDCG at 10..50,
-   test batch 64). Both losses finite and falling, rank_count launched
-   during fit(), NDCG@10 above the untrained model's, and for 1,024 test
-   users the card's per-user metrics equal the plain route's on CPU copies
-   of the same scores and tables within 1e-6.
+   test batch 64). Both epochs on the captured route (the epoch as one
+   program: a CUDA graph of one whole step on the flat parameter vector,
+   replayed once a batch); each epoch's route, replays, warm-up steps and
+   capture seconds printed, one replay for each step. Both losses finite
+   and falling, rank_count launched during fit(), NDCG@10 above the
+   untrained model's, and for 1,024 test users the card's per-user
+   metrics equal the plain route's on CPU copies of the same scores and
+   tables within 1e-6. Then one epoch on the captured route and one on the
+   eager route (run_epoch(captured=False)) from the same weights, Adam
+   state and seed: the loss, every parameter, Adam's moments and step
+   count equal bit for bit (the card sums in one fixed order), the
+   captured one replaying fit()'s graph; the seconds of each route's
+   whole epoch and its busy share (torch.profiler over one whole epoch),
+   with the card's name and power limit (epoch_routes).
 5. Small catalog: synthetic data at MovieLens-1M scale (6,040 users, 3,706
    items, 1,000,209 interactions), fit() for one epoch and its
    evaluate(); direct_rank must have launched, and equals its plain
@@ -101,10 +111,17 @@ user).
    launch, and three launches in a row on one graph equal bit for bit. The
    gradient of one batch's loss on the card against the same loss through
    segsum_plain on CPU copies. fit() for 2 epochs with evaluation after
-   each: losses finite and falling, NDCG@10 above the untrained model's,
-   segsum launched exactly 2 x steps x 6 + 3 per evaluate(). Serving:
-   recommend for 1, 64 and 1,024 users equals the plain top-k of the same
-   scores and holds no seen item.
+   each, both on the captured route (segsum forward and backward inside
+   the graph; route, replays and capture seconds printed): losses finite
+   and falling, NDCG@10 above the untrained model's, segsum launched
+   exactly 2 x steps x 6 + 3 per evaluate() + 6 per warm-up step of the
+   capture (a replay adds the launches its capture recorded; the warm-up
+   steps before the capture launch as any step). Serving: recommend for
+   1, 64 and 1,024 users equals the plain top-k of the same scores and
+   holds no seen item. Then phase 4's two routes from one state, equal
+   bit for bit, with their times and busy shares; the captured epoch's
+   profile must hold device time and segsum among its kernels (the
+   profiler records a replay's kernels).
 7. Fused score-and-select and chunked evaluation. The fused kernels
    (dot_submax, dot_extract) and rank_lookup_count against their plain
    versions on CPU copies, bit for bit (values, ids, tau, ranks, found): at
@@ -467,7 +484,7 @@ from skrx_torch.models.SLMRec import slmrec_draws, slmrec_loss
 from skrx_torch.models.SRGNN import srgnn_loss
 from skrx_torch.models.SelfCF import selfcf_draws, selfcf_loss
 from skrx_torch.models.TransRec import transrec_loss
-from skrx_torch.models.common import make_train_step, nest_params
+from skrx_torch.models.common import adam_l2, make_train_step, nest_params
 from skrx_torch.models.pipeline import epoch_generator
 from skrx_torch.ops import metrics
 from skrx_torch.ops.graph import (graph_from_coo, propagate,
@@ -1940,6 +1957,92 @@ def counted(fn):
     return out, dict(runtime.LAUNCHES)
 
 
+def traced_routes(m) -> list:
+    """Wrap model m's ``_train_epoch`` so that each epoch's
+    ``pipeline.last_run`` (its route, replays, warm-up steps, capture
+    seconds) is appended to the returned list."""
+    runs = []
+    inner = m._train_epoch
+
+    def run(epoch):
+        loss = inner(epoch)
+        runs.append(dict(m.pipeline.last_run, epoch=epoch))
+        return loss
+    m._train_epoch = run
+    return runs
+
+
+def check_routes(tag: str, m, runs: list, card: str) -> int:
+    """fit()'s epochs of model m all on the captured route, one replay a
+    step, the graph captured once; returns the warm-up steps run."""
+    steps = m.pipeline.num_batches
+    for r in runs:
+        print(f"{tag} fit() epoch {r['epoch']}: route {r['route']}, "
+              f"{r.get('replays')} replays of {steps} steps, "
+              f"{r.get('warmup_steps')} warm-up steps, capture "
+              f"{r.get('capture_seconds')} s  [{card}]", flush=True)
+        require(r["route"] == "captured" and r["replays"] == steps,
+                f"{tag}: fit() epoch {r['epoch']} ran {r}")
+    require(sum(r["capture_seconds"] > 0 for r in runs) == 1,
+            f"{tag}: the graph captured once in fit(), not {runs}")
+    return sum(r["warmup_steps"] for r in runs)
+
+
+def epoch_routes(m, tag: str, card: str, kernel: str = None) -> dict:
+    """Phases 4 and 6: model m's epoch (seed SEED, an epoch fit() did not
+    run) on the captured route and on the eager route, each from the same
+    weights, Adam state and generator: the loss, every parameter, Adam's
+    moments and step count equal bit for bit, the captured epoch
+    replaying the graph fit() captured. Then the busy share of one more
+    whole epoch on each route (torch.profiler): the captured one must
+    show device time, and ``kernel`` among its kernels where given (the
+    profiler records a replay's kernels). Prints each route's seconds
+    with the card's name and power limit; returns them."""
+    dev, pipe = m.device, m.pipeline
+    require(m.captured_epochs, f"{tag}: fit() on the card takes the "
+            f"captured route")
+    start = cpu_copy(m._train_state())
+    out = {}
+    for route in ("captured", "eager"):
+        m._load_train_state(start)            # in place: the same buffers
+        gen = epoch_generator(SEED + 1, EPOCHS, dev)
+        loss, sec = timed(lambda: pipe.run_epoch(
+            gen, m.train_step, captured=route == "captured"))
+        out[route] = {"loss": loss, "seconds": sec,
+                      "state": flat(cpu_copy(m._train_state())),
+                      "run": dict(pipe.last_run)}
+    cap, eag = out["captured"], out["eager"]
+    require(cap["run"]["warmup_steps"] == 0,
+            f"{tag}: the loaded state was captured anew: {cap['run']}")
+    same_bits_ = (cap["loss"] == eag["loss"]
+                  and bit_equal_states(cap["state"], eag["state"]))
+    diff = max(float((cap["state"][k].double() - v.double()).abs().max())
+               for k, v in eag["state"].items())
+    print(f"{tag} one epoch ({pipe.num_batches} steps) from one state: "
+          f"captured loss {cap['loss']} in {cap['seconds']} s, eager loss "
+          f"{eag['loss']} in {eag['seconds']} s; parameters, Adam moments "
+          f"and step count bit-equal {same_bits_} (largest difference "
+          f"{diff})  [{card}]", flush=True)
+    require(same_bits_, f"{tag}: the captured epoch differs from the eager "
+            f"one (loss {cap['loss']} vs {eag['loss']}, {diff})")
+    for route in ("captured", "eager"):
+        gen = epoch_generator(SEED + 1, EPOCHS + 1, dev)
+        busy, heads = busy_share(lambda: pipe.run_epoch(
+            gen, m.train_step, captured=route == "captured"), reps=1,
+            warm=False, top=40)
+        out[route]["busy"] = busy
+        print(f"{tag} one whole epoch, {route} route: device busy "
+              f"{'not measured' if busy is None else busy}; top device "
+              f"kernels (ms, calls) {heads[:6]}  [{card}]", flush=True)
+        if route == "captured":
+            require(busy is not None, f"{tag}: the profiler recorded no "
+                    f"device time of the replays")
+            require(kernel is None or any(kernel in h[0] for h in heads),
+                    f"{tag}: {kernel} not among the replays' kernels")
+    m._invalidate_predict_cache()
+    return {route: (r["seconds"], r["busy"]) for route, r in out.items()}
+
+
 def phase_fit_and_models(root, path, reg, model_cls, dev, rng, test_users):
     """Phase 8 (the module docstring): lazy-Adam BPRMF with checkpoints,
     its step against the plain version, two runs from one seed, resume,
@@ -2238,8 +2341,12 @@ def step_card_vs_cpu(tag, m, cpu_loss, batch, masks, card_step=None,
     params = {n: named[n].detach().cpu().clone().requires_grad_(True)
               for n in order}
     if cpu_optimizer is None:
-        cpu_opt = torch.optim.Adam([params[n] for n in order],
-                                   **m.optimizer.defaults)
+        # the port's Adam on the CPU: not capturable there, also with the
+        # card's (capturable) state loaded; its bias corrections are f64
+        # on the host, the card's f32 (a step's size apart by ~1e-5 of it)
+        cpu_opt = adam_l2([params[n] for n in order],
+                          m.optimizer.defaults["lr"],
+                          m.optimizer.defaults["weight_decay"])
     else:
         cpu_opt = cpu_optimizer([[params[n] for n in g] for g in groups])
     cpu_opt.load_state_dict(cpu_copy(m.optimizer.state_dict()))
@@ -4069,6 +4176,7 @@ def main(skip=()) -> int:
     # ---------------------------------------- phase 4: training at Gowalla
     mark("4")
     ndcg0 = model.evaluate()["NDCG@10"]
+    fit_routes = traced_routes(model)
     best, fit_launches = counted(model.fit)
     losses = [h["loss"] for h in model.history]
     print(f"launches during fit() ({EPOCHS} epochs + {EPOCHS} evaluations):"
@@ -4085,6 +4193,8 @@ def main(skip=()) -> int:
           f"{best['NDCG@10']} (Recall@10 {best['Recall@10']}); per-user "
           f"metrics of {B_KERNEL} users card vs plain route: max abs err "
           f"{metric_err}", flush=True)
+    check_routes("BPRMF Gowalla", model, fit_routes, card)
+    epoch_routes(model, "BPRMF Gowalla", card)
 
     # ------------------------------------------ phase 5: ML-1M-scale catalog
     mark("5")
@@ -4177,13 +4287,18 @@ def main(skip=()) -> int:
     del grads, grads_cpu, loss, loss_cpu
     # 3. fit(): the segsum launches are counted exactly
     gcn_ndcg0 = gcn.evaluate()["NDCG@10"]
+    gcn_routes = traced_routes(gcn)
     gcn_best, gcn_launches = counted(gcn.fit)
     gcn_losses = [h["loss"] for h in gcn.history]
     evals = sum("report" in h for h in gcn.history)
-    expect = EPOCHS * gsteps * 2 * layers + layers * evals
+    warm = check_routes("LightGCN Gowalla", gcn, gcn_routes, card)
+    # the replays count what their capture recorded; the warm-up steps
+    # before the capture launch as any step
+    expect = (EPOCHS * gsteps * 2 * layers + layers * evals
+              + warm * 2 * layers)
     print(f"launches during LightGCN fit() ({EPOCHS} epochs + {evals} "
-          f"evaluations): {gcn_launches}; expected segsum {expect}",
-          flush=True)
+          f"evaluations, {warm} warm-up steps): {gcn_launches}; expected "
+          f"segsum {expect}", flush=True)
     require(gcn_launches["segsum"] == expect,
             f"segsum: {gcn_launches['segsum']} launches, not {expect}")
     for kname in ("submax", "kth_largest", "extract", "rank_count"):
@@ -4213,6 +4328,7 @@ def main(skip=()) -> int:
         check_served(gcn_server, u, ids, vals, seen)
     print("LightGCN recommend == plain top-k of the same scores, no seen "
           "item", flush=True)
+    epoch_routes(gcn, "LightGCN Gowalla", card, "segsum")
 
     # ------------------------- phase 7: fused score-and-select and chunked
     finish_fresh_load()                    # started in phase 3

@@ -1,0 +1,134 @@
+"""Seconds of ``fit()``'s training epoch for one checkout, so that two
+trees can be compared in turns on one card, and the cost of Adam's two
+arithmetics a step.
+
+Usage, from the root of a checkout, on a machine with a card:
+
+    python3 experiments/epoch_seconds.py [--tree DIR] [--data DIR]
+
+``--tree``: the checkout whose ``skrx_torch`` and ``chip_smoke.py`` are
+imported (default: this one). To compare a parent with this tree, unpack
+the parent's ``git archive`` under ``build/`` and run parent, this, this,
+parent in one call. ``--data``: where the phase-3 data of ``chip_smoke.py``
+(Gowalla scale, seed 2021) is made.
+
+For BPRMF, LightGCN, MultVAE and CDAE at their defaults: ``--epochs``
+calls of the model's ``_train_epoch`` (the epoch ``fit()`` runs, on the
+tree's own route), each timed between syncs; one more under
+torch.profiler for the busy share; where the model has a captured route
+(``captured_epochs``), one epoch on each route, timed, and the eager one
+profiled. Then Adam alone: a ``torch.optim.Adam`` over BPRMF's and LightGCN's
+tables, capturable (f32 bias corrections on the device) and not (f64 on
+the host), with gradients set, host ms a step over 200 steps between
+syncs and device ms a step from torch.profiler over 50. Each result is a
+line ``RESULT {json}``, with the card's name and power limit; exits 2
+without CUDA.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = ("BPRMF", "LightGCN", "MultVAE", "CDAE")
+SHAPES = {"BPRMF": ((29_858, 64), (40_981, 64), (40_981,)),
+          "LightGCN": ((29_858, 64), (40_981, 64))}
+
+
+def report(**kw) -> None:
+    print("RESULT " + json.dumps(kw), flush=True)
+
+
+def adam_ms(shapes, capturable: bool, cs) -> tuple:
+    """(host ms, device ms, busy share) of one Adam step over tables of
+    ``shapes``."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = [torch.randn(s, device="cuda", generator=gen,
+                          requires_grad=True) for s in shapes]
+    for p in params:
+        p.grad = torch.randn(p.shape, device="cuda", generator=gen)
+    opt = torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                           capturable=capturable)
+    for _ in range(5):
+        opt.step()
+    _, sec = cs.timed(lambda: [opt.step() for _ in range(200)])
+    busy, heads = cs.busy_share(opt.step, reps=50, top=1000)
+    device = sum(ms for _, ms, _ in heads) / 50
+    return sec / 200 * 1e3, device, busy
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--data", default=os.path.join(ROOT, "build",
+                                                   "epoch_seconds_data"))
+    ap.add_argument("--epochs", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("epoch_seconds: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    tree, data = os.path.abspath(args.tree), os.path.abspath(args.data)
+    sys.path.insert(0, tree)
+    import chip_smoke as cs
+    from skrx_torch import ModelRegistry, RunConfig
+    from skrx_torch.io import synthetic
+    from skrx_torch.models.pipeline import epoch_generator
+    from skrx_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    card = cs.card_line()
+    tag = os.path.relpath(tree, ROOT)
+    _build.load("segsum")                 # builds every kernel
+    os.makedirs(data, exist_ok=True)
+    path = synthetic.make_dataset_dir(data, num_users=cs.USERS,
+                                      num_items=cs.ITEMS,
+                                      num_ratings=cs.RATINGS, seed=cs.SEED)
+    print(f"{tag}: kernels and data ready in {time.perf_counter() - t0:.1f}"
+          f" s  [{card}]", flush=True)
+    cwd = os.getcwd()
+    os.chdir(data)                        # model construction writes log/
+    reg = ModelRegistry()
+    try:
+        for name in MODELS:
+            reg.load_skrx_model(name)
+            m = reg.get_model(name)[0](
+                RunConfig(recommender=name, data_dir=path, seed=cs.SEED), {})
+            fit_s = [cs.timed(lambda: m._train_epoch(e))[1]
+                     for e in range(args.epochs)]
+            busy, _ = cs.busy_share(lambda: m._train_epoch(args.epochs),
+                                    reps=1, warm=False)
+            out = dict(tree=tag, model=name, card=card, fit_epoch_s=fit_s,
+                       fit_busy=busy)
+            pipe = m.pipeline
+            if getattr(m, "captured_epochs", False):
+                for route in ("captured", "eager"):
+                    gen = epoch_generator(cs.SEED + 1, 50, m.device)
+                    _, sec = cs.timed(lambda: pipe.run_epoch(
+                        gen, m.train_step, captured=route == "captured"))
+                    out[f"{route}_epoch_s"] = sec
+                gen = epoch_generator(cs.SEED + 1, 51, m.device)
+                out["eager_busy"], _ = cs.busy_share(
+                    lambda: pipe.run_epoch(gen, m.train_step),
+                    reps=1, warm=False)
+            out["steps"] = pipe.num_batches
+            report(**out)
+            del m
+            torch.cuda.empty_cache()
+        for name, shapes in SHAPES.items():
+            for capturable in (False, True):
+                host, device, busy = adam_ms(shapes, capturable, cs)
+                report(tree=tag, adam=name, capturable=capturable,
+                       host_ms_step=host, device_ms_step=device, busy=busy,
+                       card=card)
+    finally:
+        os.chdir(cwd)
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

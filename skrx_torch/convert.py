@@ -20,8 +20,8 @@ __all__ = ["bprmf_params_from_jax", "two_tables_from_jax",
            "srgnn_params_from_jax", "bm3_params_from_jax",
            "slmrec_params_from_jax", "freedom_params_from_jax",
            "mgcn_params_from_jax", "lattice_params_from_jax",
-           "adam_state_from_jax", "lazy_adam_state_from_jax",
-           "adagrad_state_from_jax"]
+           "adam_state_from_jax", "flat_adam_state_from_jax",
+           "lazy_adam_state_from_jax", "adagrad_state_from_jax"]
 
 DENS_GATES = ("item_gate", "neg_gate", "pos_gate", "user_gate")
 
@@ -536,6 +536,25 @@ def adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
                 nu[lo:lo + size].reshape(shapes[key]).copy())}
         lo += size
     return out
+
+
+def flat_adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
+                             size: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``(step, exp_avg, exp_avg_sq)``, f32 CPU tensors, of one
+    ``torch.optim.Adam`` over a model's flat parameter vector of ``size``
+    values (:class:`~skrx_torch.models.common.FlatTrainStep`) from a JAX
+    model's ``optax.adam`` state over its raveled parameters: the flat
+    vector follows JAX's ravel order, so ``mu`` and ``nu`` go in as they
+    are."""
+    mu = np.asarray(mu, dtype=np.float32).reshape(-1)
+    nu = np.asarray(nu, dtype=np.float32).reshape(-1)
+    if mu.shape != (size,) or nu.shape != (size,):
+        raise ValueError(f"mu and nu must hold {size} values, got "
+                         f"{mu.shape} and {nu.shape}")
+    return (torch.tensor(float(count), dtype=torch.float32),
+            torch.from_numpy(mu.copy()), torch.from_numpy(nu.copy()))
 
 
 def lazy_adam_state_from_jax(m: np.ndarray, v: np.ndarray,

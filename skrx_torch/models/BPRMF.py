@@ -6,7 +6,10 @@ Same config fields, defaults and search grid, same parameters
 ``item_bias`` (N,) zeros).
 Training: per step the summed BPR loss of the batch plus
 ``reg * 0.5 * sum(w * (|ue|^2 + |pe|^2 + |ne|^2 + bp^2 + bn^2))`` over its
-gathered rows (padded rows weigh 0), then one dense Adam step, or with
+gathered rows (padded rows weigh 0), then one dense Adam step (on one
+device over the three tables as one flat vector, JAX's flat step:
+:class:`~skrx_torch.models.common.FlatTrainStep`; on a card each
+epoch a CUDA graph of the step replayed a batch), or with
 ``optimizer="lazy_adam"`` one row-wise lazy Adam step
 (:func:`bprmf_lazy_train_step`, built on ``make_lazy_train_step``): the loss
 is taken over the gathered rows as leaf tensors, ``user_emb`` is updated on
@@ -48,7 +51,8 @@ from ..parallel import (lookup_rows, mf_param_shardings, model_parallel_size,
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (ChunkedDotPredictMixin, EpochTrainedRecommender,
-                     as_user_tensor, make_optimizer, make_train_step)
+                     FlatTrainStep, as_user_tensor, make_optimizer,
+                     make_train_step)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["BPRMF", "BPRMFConfig", "bprmf_gathered_loss",
@@ -145,6 +149,11 @@ class BPRMF(ChunkedDotPredictMixin, EpochTrainedRecommender):
         if lazy:
             self.train_step, self.optimizer = bprmf_lazy_train_step(
                 tables, cfg.lr, cfg.reg)
+        elif self.mesh is None:
+            self._flat_step = FlatTrainStep(self, self._JAX_PARAMS,
+                                            self._loss, cfg.lr)
+            self.train_step = self._flat_step
+            self.optimizer = self._flat_step.optimizer
         else:
             self.optimizer = make_optimizer("adam", tables, cfg.lr)
             self.train_step = make_train_step(self.optimizer, self._loss,

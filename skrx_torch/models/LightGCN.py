@@ -9,7 +9,11 @@ Parameters: the ego embeddings ``user_emb`` (U, d) and ``item_emb`` (N, d),
 Xavier-uniform. A training step propagates ``n_layers`` times over the
 whole graph, averages the layers, and takes the mean BPR loss over the
 batch's valid rows plus ``reg * 0.5 * sum(w * (|ue|^2 + |pe|^2 + |ne|^2)) /
-batch_size`` on the ego rows; then one dense Adam step. ``evaluate()``
+batch_size`` on the ego rows; then one dense Adam step, on one device
+over both tables as one flat vector (JAX's flat step,
+:class:`~skrx_torch.models.common.FlatTrainStep`; on a card each
+epoch a CUDA graph of the step, kernel #11 inside it, replayed a batch).
+``evaluate()``
 propagates once under ``no_grad`` and scores from those frozen embeddings,
 which ``predict`` and ``_chunk_embeddings`` reuse until the next epoch.
 
@@ -41,7 +45,7 @@ from ..parallel import ShardedPropGraph, gather_all_rows, take_rows
 from ..parallel.distributed import all_reduce_sum
 from ..run_config import RunConfig
 from ..utils import ModelConfig, normalize_adj_matrix
-from .common import (GRAPH_IMPLS, EpochTrainedRecommender,
+from .common import (GRAPH_IMPLS, EpochTrainedRecommender, FlatTrainStep,
                      FrozenEmbeddingMixin, build_prop_graph,
                      graph_param_shardings, make_optimizer, make_train_step,
                      node_rows, whole_nodes)
@@ -178,11 +182,17 @@ class LightGCN(FrozenEmbeddingMixin, EpochTrainedRecommender):
         for name, full in tables.items():
             local = take_rows(full, self._row_blocks.get(name))
             setattr(self, name, nn.Parameter(local.to(self.device)))
-        self.optimizer = make_optimizer("adam", {"user_emb": self.user_emb,
-                                                 "item_emb": self.item_emb},
-                                        cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss,
-                                          self.sync_gradients)
+        if self.mesh is None:
+            self._flat_step = FlatTrainStep(self, self._JAX_PARAMS,
+                                            self._loss, cfg.lr)
+            self.train_step = self._flat_step
+            self.optimizer = self._flat_step.optimizer
+        else:
+            self.optimizer = make_optimizer(
+                "adam", {"user_emb": self.user_emb,
+                         "item_emb": self.item_emb}, cfg.lr)
+            self.train_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
             mesh=self.mesh)

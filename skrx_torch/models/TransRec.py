@@ -176,8 +176,9 @@ class TransRec(CachedUserVecChunkMixin, EpochTrainedRecommender):
         lazy, (count, mu, nu) = state
         self.optimizer.load_state_dict(
             {name: lazy_adam_state_from_jax(*s) for name, s in lazy.items()})
+        # on a card Adam is capturable: its step count on the device
         self.dense_optimizer.state[self.trans] = {
-            "step": torch.tensor(float(count)),
+            "step": torch.tensor(float(count), device=self.device),
             "exp_avg": torch.as_tensor(np.asarray(mu, np.float32).reshape(
                 self.trans.shape), device=self.device),
             "exp_avg_sq": torch.as_tensor(np.asarray(nu, np.float32).reshape(

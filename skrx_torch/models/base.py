@@ -445,8 +445,9 @@ class TorchRecommender(nn.Module):
                          for k, v in state.items()}
             state = {k: take_rows(v, self._row_blocks.get(name))
                      if v.dim() else v for k, v in state.items()}
+            # on a card Adam is capturable: its step count on the device
             self.optimizer.state[self.get_parameter(name)] = {
-                "step": state["step"],
+                "step": state["step"].to(self.device),
                 "exp_avg": state["exp_avg"].to(self.device),
                 "exp_avg_sq": state["exp_avg_sq"].to(self.device)}
 

@@ -12,7 +12,8 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from ..convert import adam_state_from_jax, lazy_adam_state_from_jax
+from ..convert import (adam_state_from_jax, flat_adam_state_from_jax,
+                       lazy_adam_state_from_jax)
 from ..ops.graph import Graph, graph_from_sp_matrix
 from ..ops.optim import LazyAdam
 from ..ops.scatter import ordered_gather
@@ -30,6 +31,7 @@ __all__ = ["ParamTree", "param_tree", "add_param_tree", "cast_tree",
            "EpochTrainedRecommender", "as_user_tensor", "last_items_by_time",
            "pad_masked_rows", "LazyAdamTowerMixin", "make_optimizer",
            "adam_l2", "make_train_step", "make_sharded_train_step",
+           "FlatTrainStep",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
            "build_prop_graph", "graph_sharding_enabled",
            "graph_param_shardings", "node_rows", "whole_nodes",
@@ -156,9 +158,20 @@ def make_optimizer(name: str, params: Dict[str, torch.nn.Parameter],
 def adam_l2(params, lr: float, weight_decay: float = 0.0
             ) -> torch.optim.Adam:
     """``torch.optim.Adam`` with ``weight_decay`` added to the gradient
-    before the moments (L2, not AdamW): the JAX package's ``adam_l2``."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+    before the moments (L2, not AdamW): the JAX package's ``adam_l2``.
+    Over parameters on a CUDA device it is capturable: the step count and
+    the bias corrections stay on the device in f32, as optax computes
+    them, so the card runs one Adam arithmetic, in a CUDA graph or not. A
+    state saved on another device loads with this choice (and the step
+    count where it asks)."""
+    params = list(params)
+    capturable = any(p.device.type == "cuda" for p in params)
+    adam = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay, capturable=capturable)
+    adam.register_load_state_dict_pre_hook(
+        lambda opt, state: dict(state, param_groups=[
+            dict(g, capturable=capturable) for g in state["param_groups"]]))
+    return adam
 
 
 def make_train_step(optimizer: torch.optim.Optimizer,
@@ -204,6 +217,126 @@ def make_sharded_train_step(optimizer: torch.optim.Optimizer,
     over the data axis; Adam is elementwise, so stepping a rank's rows and
     their moments is the single-device step."""
     return make_train_step(optimizer, loss_fn, sync)
+
+
+class FlatTrainStep:
+    """The port of the JAX package's ``make_flat_train_step``: the model's
+    parameters ``names`` become views of one flat f32 vector (``flat``),
+    laid out in JAX's ravel order (sorted names: BPRMF's ``item_bias``,
+    ``item_emb``, ``user_emb``), their gradients views of one flat gradient
+    (``grad``), and one Adam (:func:`adam_l2`, capturable on a CUDA device)
+    steps the one vector: its update is one elementwise pass.
+
+    ``step(batch) -> loss`` is :func:`make_train_step`'s step: the loss of
+    ``loss_fn(*batch)`` before the update, a parameter the loss does not
+    reach moved by its moments. It zeroes the flat gradient in place, and
+    the backward adds into it (the gradients stay the same tensors), so
+    every tensor it updates stays in place (``state``) and a CUDA graph
+    can hold it (:class:`~skrx_torch.models.pipeline.EpochProgram`).
+
+    Checkpoints see the state as a per-parameter Adam over ``names`` in
+    their given order (:meth:`state_dict`, :meth:`load_state_dict`: views
+    of the flat moments out, copies into them in), so that one device's
+    and a mesh's are alike; JAX's flat Adam state goes straight into the
+    flat moments (:meth:`load_jax_adam`)."""
+
+    def __init__(self, model: nn.Module, names, loss_fn: Callable,
+                 lr: float):
+        self.names, self.loss_fn = tuple(names), loss_fn
+        old = {n: model.get_parameter(n) for n in self.names}
+        device = old[self.names[0]].device
+        order = sorted(self.names)
+        with torch.no_grad():
+            self.flat = nn.Parameter(torch.cat([old[n].reshape(-1)
+                                                for n in order]))
+        self.grad = torch.zeros_like(self.flat)
+        self.slices, lo = {}, 0
+        for n in order:
+            self.slices[n] = (lo, lo + old[n].numel(), old[n].shape)
+            lo += old[n].numel()
+        # (tensor, its gradient view): re-attached before a step where a
+        # caller dropped it (zero_grad), or the backward would not add here
+        self._grads = [(self.flat, self.grad)]
+        for n in self.names:
+            lo, hi, shape = self.slices[n]
+            view = nn.Parameter(self.flat.detach()[lo:hi].view(shape))
+            owner, _, leaf = n.rpartition(".")
+            setattr(model.get_submodule(owner) if owner else model, leaf,
+                    view)
+            self._grads.append((view, self.grad[lo:hi].view(shape)))
+        for p, g in self._grads:
+            p.grad = g
+        self.optimizer = adam_l2([self.flat], lr)
+        # the state made now, in place from here on (Adam's lazy init
+        # would make it inside the first step); a capturable Adam's step
+        # count on the device
+        capturable = self.optimizer.defaults["capturable"]
+        self.optimizer.state[self.flat] = {
+            "step": torch.zeros((), device=device if capturable else "cpu"),
+            "exp_avg": torch.zeros_like(self.flat),
+            "exp_avg_sq": torch.zeros_like(self.flat)}
+
+    @property
+    def _adam(self) -> Dict[str, torch.Tensor]:
+        return self.optimizer.state[self.flat]
+
+    @property
+    def state(self) -> Tuple[torch.Tensor, ...]:
+        """The tensors a step updates in place: the flat parameters and
+        gradient, Adam's moments and step count."""
+        st = self._adam
+        return (self.flat, self.grad, st["exp_avg"], st["exp_avg_sq"],
+                st["step"])
+
+    def __call__(self, batch) -> torch.Tensor:
+        for p, g in self._grads:
+            if p.grad is not g:
+                p.grad = g
+        self.grad.zero_()
+        loss = self.loss_fn(*batch)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def state_dict(self) -> Dict:
+        """The Adam state as ``torch.optim.Adam`` over the parameters
+        ``names`` (in that order) gives it: per parameter its step count
+        and views of the flat moments."""
+        sd = self.optimizer.state_dict()
+        st = self._adam
+        state = {}
+        for i, n in enumerate(self.names):
+            lo, hi, shape = self.slices[n]
+            state[i] = {"step": st["step"],
+                        "exp_avg": st["exp_avg"][lo:hi].view(shape),
+                        "exp_avg_sq": st["exp_avg_sq"][lo:hi].view(shape)}
+        group = dict(sd["param_groups"][0],
+                     params=list(range(len(self.names))))
+        return {"state": state, "param_groups": [group]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: Dict) -> None:
+        """Copy a :meth:`state_dict` (or a per-parameter Adam's over
+        ``names``) into the flat moments and the step count."""
+        st = self._adam
+        for i, n in enumerate(self.names):
+            lo, hi, _ = self.slices[n]
+            saved = state_dict["state"][i]
+            for key in ("exp_avg", "exp_avg_sq"):
+                st[key][lo:hi].copy_(saved[key].reshape(-1))
+        st["step"].copy_(state_dict["state"][0]["step"])
+
+    @torch.no_grad()
+    def load_jax_adam(self, count: int, mu: np.ndarray,
+                      nu: np.ndarray) -> None:
+        """JAX's ``optax.adam`` state over the raveled parameters
+        (``count``, flat ``mu`` and ``nu``) into the flat moments."""
+        step, m, v = flat_adam_state_from_jax(count, mu, nu,
+                                              self.flat.numel())
+        st = self._adam
+        st["step"].copy_(step)
+        st["exp_avg"].copy_(m)
+        st["exp_avg_sq"].copy_(v)
 
 
 def as_user_tensor(users, device: torch.device) -> torch.Tensor:
@@ -487,8 +620,9 @@ class LazyAdamTowerMixin:
         shapes = {key: tuple(self.get_parameter(name).shape)
                   for key, name in leaves.items()}
         for key, st in adam_state_from_jax(count, mu, nu, shapes).items():
+            # on a card Adam is capturable: its step count on the device
             self.dense_optimizer.state[self.get_parameter(leaves[key])] = {
-                "step": st["step"],
+                "step": st["step"].to(self.device),
                 "exp_avg": st["exp_avg"].to(self.device),
                 "exp_avg_sq": st["exp_avg_sq"].to(self.device)}
 
@@ -496,14 +630,29 @@ class LazyAdamTowerMixin:
 class EpochTrainedRecommender(TorchRecommender):
     """Base of models trained by an epoch pipeline: a subclass sets
     ``self.optimizer``, ``self.pipeline`` (``run_epoch(generator,
-    train_step) -> loss``) and ``self.train_step``. Epoch ``e``'s pipeline
-    draws from ``epoch_generator(seed + 1, e)``, as the JAX package folds
-    the epoch into its key, so a resumed run draws the batches of an
-    uninterrupted one. A step's own draws (dropout masks, an autoencoder's
-    negatives) come from :meth:`step_generator`, stream 1 of the same
-    (seed + 1, e), independent of the pipeline's."""
+    train_step, captured) -> loss``) and ``self.train_step``. Epoch ``e``'s
+    pipeline draws from ``epoch_generator(seed + 1, e)``, as the JAX
+    package folds the epoch into its key, so a resumed run draws the
+    batches of an uninterrupted one. A step's own draws (dropout masks, an
+    autoencoder's negatives) come from :meth:`step_generator`, stream 1 of
+    the same (seed + 1, e), independent of the pipeline's.
+
+    A model whose step runs on one flat parameter vector sets
+    ``self._flat_step`` (:class:`FlatTrainStep`; BPRMF with Adam and
+    LightGCN on one device, as the JAX package's flat step): on a CUDA
+    device its epochs run as one captured program
+    (:attr:`captured_epochs`), and its checkpoints and JAX's Adam state
+    read and write the flat buffers."""
 
     _step_gen: Optional[torch.Generator] = None
+    _flat_step: Optional[FlatTrainStep] = None
+
+    @property
+    def captured_epochs(self) -> bool:
+        """Whether ``_train_epoch`` runs the epoch as a CUDA graph of one
+        step replayed a batch (``run_epoch(captured=True)``): for a model
+        with a flat step on a CUDA device."""
+        return self._flat_step is not None and self.device.type == "cuda"
 
     def step_generator(self) -> torch.Generator:
         """The generator of the running epoch's in-step draws."""
@@ -517,9 +666,31 @@ class EpochTrainedRecommender(TorchRecommender):
         gen = epoch_generator(seed, epoch, self.device)
         self._step_gen = epoch_generator(seed, epoch, self.device, stream=1)
         try:
-            return self.pipeline.run_epoch(gen, self.train_step)
+            return self.pipeline.run_epoch(gen, self.train_step,
+                                           captured=self.captured_epochs)
         finally:
             self._step_gen = None
+
+    def _train_state(self) -> Dict:
+        state = super()._train_state()
+        if self._flat_step is not None:
+            state["optimizer"] = self._flat_step.state_dict()
+        return state
+
+    def _load_train_state(self, state: Dict) -> None:
+        if self._flat_step is None:
+            super()._load_train_state(state)
+            return
+        self._copy_params(state["params"])         # into the flat vector
+        self._flat_step.load_state_dict(state["optimizer"])
+        self._invalidate_predict_cache()
+
+    def load_jax_opt_state(self, count: int, mu: np.ndarray,
+                           nu: np.ndarray) -> None:
+        if self._flat_step is None:
+            super().load_jax_opt_state(count, mu, nu)
+        else:
+            self._flat_step.load_jax_adam(count, mu, nu)
 
 
 def resolve_graph_impl(graph_impl: str) -> str:

@@ -6,12 +6,24 @@
 Per epoch, as in the JAX package: one permutation of the (padded) training
 examples, drawn from a generator seeded from ``(seed + 1, epoch)``; padded
 rows carry weight 0. The pairwise pipeline also draws fresh negatives,
-excluded against each user's positives. JAX runs the epoch as one
-``lax.scan``; here a plain loop of steps runs on the device, building each
-step's negatives or interaction rows as it goes (a whole epoch of them would
-not fit at Gowalla scale), and the host waits once, for the epoch's mean
-loss. JAX's scan chunking (``max_scan_steps``) has no counterpart in such a
-loop.
+excluded against each user's positives. Each step builds its negatives or
+interaction rows as it goes (a whole epoch of them would not fit at
+Gowalla scale), and the host waits once, for the epoch's mean loss.
+
+JAX runs the epoch as one program, a ``lax.scan`` of the step under
+``jit``. Its counterpart here is :class:`EpochProgram`:
+``run_epoch(..., captured=True)`` holds one whole step (its slice of the
+permutation, its draws, the loss, the backward and the optimizer's update,
+the loss added into a sum on the device) in a CUDA graph, captured once per
+pipeline and step, and replays it once for each batch; the host submits a
+replay a step and reads nothing back until the epoch's end. It takes a step
+whose tensors stay in place (``train_step.state``:
+:class:`~skrx_torch.models.common.FlatTrainStep`), on a CUDA device, without
+a mesh. The graph replays the draws of the pipeline's generator only: a
+step that draws from another (a model's ``step_generator()``) fails to
+capture. ``captured=False`` runs the steps as a plain loop, the route of
+every other model and device. JAX's scan chunking (``max_scan_steps``) has
+no counterpart: a replay holds one step, whatever the epoch's length.
 
 Under a mesh (``mesh=``, every pipeline) every rank
 draws the same global epoch from the same seeded generator, the
@@ -21,6 +33,7 @@ the ranks' step losses over the data axis, so the epoch's loss is the
 single device's.
 """
 import math
+import time
 from typing import Callable, Tuple
 
 import numpy as np
@@ -28,13 +41,14 @@ import torch
 
 from ..io.data_iterator import _generate_time_order_positive_items
 from ..io.dataset import ImplicitFeedback
+from ..ops.kernels.runtime import WARMUP_STEPS, CapturedStep
 from ..ops.sampling import sample_negatives
 from ..parallel import data_sharding
 from ..parallel.distributed import all_reduce_sum
 
 __all__ = ["PairwiseEpochPipeline", "SequentialPairwiseEpochPipeline",
            "InteractionEpochPipeline", "UserVecEpochPipeline",
-           "RowsEpochPipeline",
+           "RowsEpochPipeline", "EpochProgram",
            "pad_to_batches", "epoch_generator"]
 
 
@@ -90,6 +104,9 @@ class _ShuffledEpochPipeline:
             self._data_rows = slice(blocks.lo, blocks.hi)
         self._users = self._put(padded)
         self._w = torch.as_tensor(weights, device=device)
+        # train step -> (its EpochProgram, CapturedStep, the step's state)
+        self._programs = {}
+        self.last_run = None
 
     def _put(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(ids.astype(np.int64), device=self.device)
@@ -107,17 +124,112 @@ class _ShuffledEpochPipeline:
             yield batch if self._data_rows is None else \
                 tuple(t[self._data_rows] for t in batch)
 
-    def run_epoch(self, generator: torch.Generator,
-                  train_step: Callable) -> float:
+    def run_epoch(self, generator: torch.Generator, train_step: Callable,
+                  captured: bool = False) -> float:
         """Run ``train_step(batch) -> loss`` over the batches of one epoch;
         returns the mean over steps of the step losses (one device
-        sync; under a mesh the ranks' losses summed over the data axis)."""
+        sync; under a mesh the ranks' losses summed over the data axis).
+        ``captured``: the epoch as one program, each step a replay of a
+        CUDA graph (:class:`EpochProgram`; a CUDA device, no mesh, a step
+        with ``state``), else a loop of eager steps. Either way
+        ``last_run`` then says how the epoch ran: its ``route``, and
+        ``replays``, ``warmup_steps`` and ``capture_seconds`` (0 where it
+        replayed a graph captured before) of a captured one."""
+        if captured:
+            return self._run_captured(generator, train_step)
         total = torch.zeros((), device=self.device)
         for batch in self.batches(generator):
             total += train_step(batch)
         if self.mesh is not None:
             all_reduce_sum(total, self.mesh.data_group, self.mesh.data_size)
+        self.last_run = {"route": "eager", "steps": self.num_batches}
         return float(total / self.num_batches)
+
+    def _run_captured(self, generator: torch.Generator,
+                      train_step: Callable) -> float:
+        if self.device.type != "cuda":
+            raise ValueError(f"a captured epoch runs on a CUDA device, not "
+                             f"{self.device}; run_epoch(captured=False) "
+                             f"runs its steps eagerly")
+        if self.mesh is not None:
+            raise ValueError("a mesh's epoch runs eagerly: its steps call "
+                             "the process group's collectives")
+        state = getattr(train_step, "state", None)
+        if state is None:
+            raise TypeError("a captured epoch needs a step whose tensors "
+                            "stay in place (train_step.state; "
+                            "FlatTrainStep)")
+        state = tuple(state)
+        held = self._programs.get(train_step)
+        capture_s, warmup = 0.0, 0
+        # captured anew when the step's tensors were replaced (an
+        # optimizer's load_state_dict): the graph holds their addresses
+        if held is None or any(a is not b for a, b in zip(held[2], state)):
+            program = EpochProgram(self, train_step)
+            t0 = time.perf_counter()
+            graph = CapturedStep(program.step, self.device,
+                                 keep=(*state, program.index, program.total),
+                                 generators=(program.generator,))
+            capture_s, warmup = time.perf_counter() - t0, WARMUP_STEPS
+            held = self._programs[train_step] = (program, graph, state)
+        program, graph, _ = held
+        loss = program.run(generator, graph.replay)
+        # a replay moves the tensors without their version counters, which
+        # caches of derived tables (serving's packed items) key on
+        for t in state:
+            torch.autograd.graph.increment_version(t)
+        self.last_run = {"route": "captured", "replays": self.num_batches,
+                         "warmup_steps": warmup,
+                         "capture_seconds": capture_s}
+        return loss
+
+
+class EpochProgram:
+    """One epoch of ``pipeline`` as a program of one step, the counterpart
+    of the JAX package's scanned epoch (``PairwiseEpochPipeline.
+    _epoch_impl``): the epoch's permutation, the step index and the sum of
+    the losses live in buffers on the pipeline's device, and :meth:`step`
+    runs one whole step from them (the index's slice of the permutation,
+    the batch and its draws from the program's own generator,
+    ``train_step``, the loss added in, the index moved on) without reading
+    anything back to the host, so that a CUDA graph can hold it.
+    :meth:`run` runs an epoch: eagerly, or a graph's replay a step."""
+
+    def __init__(self, pipeline: "_ShuffledEpochPipeline",
+                 train_step: Callable):
+        dev = pipeline.device
+        self.pipeline, self.train_step = pipeline, train_step
+        self.generator = torch.Generator(device=dev)
+        self.perm = torch.zeros(len(pipeline._users), dtype=torch.int64,
+                                device=dev)
+        self.index = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.total = torch.zeros((), device=dev)
+
+    def step(self) -> None:
+        p = self.pipeline
+        idx = self.perm.view(-1, p.batch_size).index_select(0, self.index)[0]
+        self.total.add_(self.train_step(p._batch(self.generator, idx)))
+        self.index.add_(1)
+
+    def run(self, generator: torch.Generator,
+            replay: Callable[[], None] = None) -> float:
+        """One epoch from ``generator``'s state (the program's generator
+        takes it over): the permutation drawn into its buffer, then
+        ``pipeline.num_batches`` steps, each ``replay()`` (a graph of
+        :meth:`step`) or :meth:`step` itself; ``generator`` is left where
+        the epoch's draws end, as the eager loop leaves it. Returns the
+        mean step loss, the eager loop's bits."""
+        p = self.pipeline
+        self.generator.set_state(generator.get_state())
+        self.perm.copy_(torch.randperm(len(self.perm),
+                                       generator=self.generator,
+                                       device=p.device))
+        self.index.zero_()
+        self.total.zero_()
+        for _ in range(p.num_batches):
+            (replay or self.step)()
+        generator.set_state(self.generator.get_state())
+        return float(self.total / p.num_batches)
 
 
 class InteractionEpochPipeline(_ShuffledEpochPipeline):

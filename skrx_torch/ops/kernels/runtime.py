@@ -1,21 +1,25 @@
 """What every kernel wrapper of the port shares: the launch counts, the
 ctypes signature of each C launcher in ``csrc/``, the launch itself on
-PyTorch's current stream, and the device and argument checks.
+PyTorch's current stream, the device and argument checks, and a step
+captured in a CUDA graph (:class:`CapturedStep`) with its launches counted.
 
 Each kernel's launch adds one to ``LAUNCHES[<kernel>]`` where it is made
 and nowhere else (in its wrapper, or in the CUDA implementation of an
 operator of ``operators``), so a run can show that its main path went
-through the kernels.
+through the kernels. The counts move in Python: a wrapper called while a
+graph is captured counts a launch that the capture records and does not
+run, and a replay calls no wrapper. So :class:`CapturedStep` takes the
+capture's counts back out and adds them once for each replay.
 """
 import ctypes
-from typing import Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 
 from . import _build
 
 __all__ = ["KERNELS", "LAUNCHES", "reset_launches", "launch", "on_cuda",
-           "check_device", "check"]
+           "check_device", "check", "CapturedStep", "WARMUP_STEPS"]
 
 # kernel name -> its launches since the last reset; "vmem_topk" counts the
 # pruned_merge kernel launched with tau = -inf (the TPU kernel #5)
@@ -90,3 +94,72 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name} must be a {ndim}-D {dtype} tensor, got "
                          f"{t.dim()}-D {t.dtype}")
+
+
+# calls of a step before its capture (on a side stream, as PyTorch's CUDA
+# graphs ask): the first makes the lazy initialisations (the optimizer's
+# state, the autograd engine's device thread, a C launcher's first-call
+# set-up), the second runs as every later step does
+WARMUP_STEPS = 2
+
+
+class CapturedStep:
+    """``step()``, a function of no arguments that reads and writes only
+    tensors which stay in place, captured once in a CUDA graph on
+    ``device``; :meth:`replay` launches it again.
+
+    Before the capture every kernel of ``csrc/`` is built and loaded, and
+    ``WARMUP_STEPS`` calls of ``step`` run on a side stream under
+    ``torch.cuda.set_sync_debug_mode("error")``: a step that reads the
+    device from the host raises there, since a graph cannot hold the read.
+    The warm-up's launches are launches and count as such. Its effects are
+    taken back after the capture: the tensors of ``keep`` get their values
+    from before it, and ``generators`` their states, so that the first
+    replay starts where the warm-up did. The ``generators`` are registered
+    with the graph: each replay draws from where a generator's state then
+    is and moves it on, as a call of ``step`` would.
+
+    ``launches`` holds the launches the capture recorded (each wrapper
+    counted one; none ran), taken back out of ``LAUNCHES``; each replay
+    adds them. A failed capture or replay raises."""
+
+    def __init__(self, step: Callable[[], None], device: torch.device,
+                 keep: Sequence[torch.Tensor] = (),
+                 generators: Sequence[torch.Generator] = ()):
+        _build.load("segsum")                 # builds every source
+        with torch.no_grad():
+            saved = [t.clone() for t in keep]
+        gen_states = [g.get_state() for g in generators]
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    step()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        current.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
+        before = dict(LAUNCHES)
+        try:
+            with torch.cuda.graph(self.graph):
+                step()
+        finally:
+            self.launches = {k: LAUNCHES[k] - before[k] for k in KERNELS}
+            LAUNCHES.update(before)
+        with torch.no_grad():
+            for t, value in zip(keep, saved):
+                t.copy_(value)
+        for g, state in zip(generators, gen_states):
+            g.set_state(state)
+
+    def replay(self) -> None:
+        """Launch the captured step once; its launches counted."""
+        self.graph.replay()
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n

@@ -12,7 +12,9 @@ half the catalog).
 Randomness comes from an explicit ``torch.Generator`` on the tensors'
 device. JAX keys and torch generators give different streams from one seed,
 so the tests check the contract (exclusion, fallback, uniformity), not the
-bits.
+bits. Inside a CUDA graph (a captured epoch) the generator must be one
+registered with the graph (``EpochProgram``'s): each replay then draws on
+from the generator's state at the replay, the eager calls' numbers.
 
 Draws with replacement from a weighted catalog (:func:`draw_with_replacement`)
 take ``torch.multinomial`` on the CPU. On a card ``torch.multinomial``

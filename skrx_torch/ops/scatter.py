@@ -27,6 +27,11 @@ fixed order on its chip; these sums give the port the same property.
   ``index_put_``'s one, hence the split by size. ``index_put_`` also
   adds into a table in place (AOBPR's update).
   :func:`ordered_gather` is ``table[ids]`` with it as the gradient.
+  The ``index_put_`` route reads nothing back to the host: on an H100
+  (``experiments/epoch_routes.py``) neither it nor ``ordered_gather``'s
+  backward, nor a plain ``table[ids]``'s backward (BPRMF's and
+  LightGCN's gathers), raises under ``torch.cuda.set_sync_debug_mode
+  ("error")`` at 1,024 and 2,048 rows, so a CUDA graph can hold them.
 - :func:`fixed_index` lays an index set that stays the same from step to
   step (SGAT's occurrences and edges, LATTICE's learned rows) out once as
   kernel #11's :class:`~skrx_torch.ops.kernels.segsum.Segments`;
