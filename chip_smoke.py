@@ -265,19 +265,32 @@ user).
    sum|msg|), dw against a float64 (g[dst] . x[src]) within 1e-5 * sum|g_d
    x_d| an edge; its device times at that shape beside the bound,
    torch.sparse.mm of the CSR with the attention as values, and dw. fit():
-   losses finite, segsum launched exactly 8 x 5 x steps + 3 x 5 for SGAT
-   (a layer of a step: its propagation forward and backward, the
-   attention's two sums over fixed index sets forward and the gradients of
-   its four fixed gathers backward; of an evaluation: the propagation and
-   the two sums) and never for the others, the full route's kernels
-   launched. One train step of each (dense Adam) on the card against the
+   losses finite, segsum launched exactly 8 x 5 x (steps + warm-up steps)
+   + 3 x 5 for SGAT (a layer of a step: its propagation forward and
+   backward, the attention's two sums over fixed index sets forward and
+   the gradients of its four fixed gathers backward; of an evaluation:
+   the propagation and the two sums) and never for the others, the full
+   route's kernels launched. FPMC's and TransRec's dense-Adam fit() and
+   SGAT's on the captured route (the epoch a CUDA graph of one whole step
+   on the flat parameter vector, replayed a batch: route, replays,
+   warm-up steps and capture seconds printed; one capture, one replay a
+   step; segsum's launches inside the replays counted a replay, the two
+   warm-up steps before the capture launching as steps), the lazy-Adam
+   ones on the eager route; after fit() the tables serving and evaluation
+   derive (FPMC's concatenated tables, TransRec's and SGAT's user
+   vectors) equal bit for bit those of the trained parameters and moved
+   from before. One train step of each (dense Adam) on the card against the
    same step on CPU copies of its parameters, Adam state and batch
    (Caser's dropout mask drawn once; SGAT's propagation through segsum's
    plain version): the loss within 1e-5 relative, every parameter within
    1e-5 of its largest magnitude. evaluate() full and chunked for all
    five, fused for FPMC (its 128-wide concatenated dot), Caser (128 wide)
    and HGN: each route's kernels launched, metrics within 1e-4 of the
-   full route's. recommend() for 64 test users of each equal to the plain
+   full route's. Then for FPMC, TransRec and SGAT one cut epoch on the
+   captured and one on the eager route from one state: loss, parameters,
+   Adam's moments and step count bit-equal, the seconds and busy share of
+   each route (segsum among SGAT's replayed kernels; epoch_routes).
+   recommend() for 64 test users of each equal to the plain
    top-k of its scores, no seen item. It prints each model's epoch seconds
    and steps/s, the busy share and top device kernels of the first
    TRAIN_WINDOW steps of an SGAT epoch, and its seconds; it runs before phase 9, whose tables take its models.
@@ -329,12 +342,19 @@ user).
    once an evaluation (LATTICE also its learned graph's row sums over a
    fixed index set, at an epoch's first step and at each evaluation),
    LATTICE's learned graph through blockwise_topk (pruned_merge launched
-   in its fit()). One train step of each on the card against the same step on
-   CPU copies of its parameters, Adam state, batch and draws (BM3's
-   table-wide target masks, FREEDOM's epoch mask, MGCN at its LambdaLR
-   rate; LATTICE's epoch-first step, the item weights built with gradient
-   on the card's selection of neighbours): the loss within 1e-5
-   relative, every parameter within 1e-5 of its largest magnitude.
+   in its fit()). MGCN's fit() on the captured route (its whole nested
+   tree one flat vector, the 4,096-d table included; its LambdaLR rate
+   computed inside the step from Adam's count over the whole epoch's
+   steps; segsum's launches counted as phase 12's), its frozen embeddings
+   after fit() those of the trained parameters; one cut epoch on each
+   route from one state, bit-equal, with seconds and busy share, segsum
+   among the replayed kernels. One train step of each on the card
+   against the same step on CPU copies of its parameters, Adam state,
+   batch and draws (BM3's table-wide target masks, FREEDOM's epoch mask,
+   MGCN at the rate its schedule gives on the card; LATTICE's epoch-first
+   step, the item weights built with gradient on the card's selection of
+   neighbours): the loss within 1e-5 relative, every parameter within
+   1e-5 of its largest magnitude.
    evaluate() full, fused and chunked (SLMRec, whose score is a sigmoid,
    full and chunked): each route's kernels launched, metrics within 1e-4
    of the full route's. recommend() for 64 test users of each equal to
@@ -479,7 +499,8 @@ from skrx_torch.models.LightGCN import lightgcn_loss
 from skrx_torch.models.MGCN import MGCNGraphs, mgcn_loss
 from skrx_torch.models.MultVAE import multvae_draws, multvae_loss
 from skrx_torch.models.SASRec import sasrec_draws, sasrec_loss
-from skrx_torch.models.SGAT import sgat_attention, sgat_loss
+from skrx_torch.models.SGAT import (head_embedding, sgat_attention, sgat_loss,
+                                    sgat_propagate)
 from skrx_torch.models.SLMRec import slmrec_draws, slmrec_loss
 from skrx_torch.models.SRGNN import srgnn_loss
 from skrx_torch.models.SelfCF import selfcf_draws, selfcf_loss
@@ -1988,6 +2009,47 @@ def check_routes(tag: str, m, runs: list, card: str) -> int:
     return sum(r["warmup_steps"] for r in runs)
 
 
+def derived_tables(tag: str, m) -> tuple:
+    """What serving and evaluation of model m (FPMC, TransRec, SGAT, MGCN)
+    derive from its parameters and cache: FPMC's concatenated tables,
+    TransRec's and SGAT's user vectors of the first B_EVAL users (SGAT's
+    read its propagated items), MGCN's frozen embeddings; copies."""
+    u = torch.arange(B_EVAL, device=m.device)
+    with torch.no_grad():
+        out = ((m._cached_user_vectors(u),) if tag in ("TransRec", "SGAT")
+               else m._chunk_embeddings())
+    return tuple(t.clone() for t in out)
+
+
+def check_fresh(tag: str, m, before: tuple) -> None:
+    """After fit()'s captured epochs (replays that move no version
+    counter; the pipeline moves them after the epoch) the tables of
+    :func:`derived_tables` equal, bit for bit, the same tables computed
+    anew from the parameters, and differ from ``before`` (the caches
+    filled before fit())."""
+    u = torch.arange(B_EVAL, device=m.device)
+    got = derived_tables(tag, m)
+    with torch.no_grad():
+        if tag == "FPMC":
+            want = (torch.cat([m.UI, m.LI[m.last_items]], 1),
+                    torch.cat([m.IU, m.IL], 1))
+        elif tag == "TransRec":
+            want = (m._user_vectors(u),)
+        elif tag == "SGAT":
+            items = sgat_propagate(m.graph, m.item_emb, m.user_emb,
+                                   m.config.n_layers)
+            want = (head_embedding(items, m.test_seqs[u], m.num_items)
+                    + m.user_emb[u],)
+        else:
+            want = m._embeddings()
+    fresh = all(same_bits(a, b) for a, b in zip(got, want))
+    moved = not any(same_bits(a, b) for a, b in zip(got, before))
+    print(f"{tag} after fit(): the derived tables serving and evaluation "
+          f"read equal those of the trained parameters {fresh}, moved from "
+          f"before fit() {moved}", flush=True)
+    require(fresh and moved, f"{tag}: stale derived tables after fit()")
+
+
 def epoch_routes(m, tag: str, card: str, kernel: str = None) -> dict:
     """Phases 4 and 6: model m's epoch (seed SEED, an epoch fit() did not
     run) on the captured route and on the eager route, each from the same
@@ -2334,9 +2396,17 @@ def step_card_vs_cpu(tag, m, cpu_loss, batch, masks, card_step=None,
     parameter its value names instead (the key weight beside it, the
     scale at which it enters the logits)."""
     named = dict(m.named_parameters())
-    by_id = {id(p): n for n, p in named.items()}
-    groups = [[by_id[id(p)] for p in g["params"]]
-              for g in m.optimizer.param_groups]
+    flat_step = getattr(m, "_flat_step", None)
+    if flat_step is None:
+        by_id = {id(p): n for n, p in named.items()}
+        groups = [[by_id[id(p)] for p in g["params"]]
+                  for g in m.optimizer.param_groups]
+        opt_state = m.optimizer.state_dict()
+    else:
+        # a flat step: its state as a per-parameter Adam's, whose update is
+        # the same elementwise one
+        groups = [list(flat_step.names)]
+        opt_state = flat_step.state_dict()
     order = [n for g in groups for n in g]
     params = {n: named[n].detach().cpu().clone().requires_grad_(True)
               for n in order}
@@ -2345,11 +2415,18 @@ def step_card_vs_cpu(tag, m, cpu_loss, batch, masks, card_step=None,
         # card's (capturable) state loaded; its bias corrections are f64
         # on the host, the card's f32 (a step's size apart by ~1e-5 of it)
         cpu_opt = adam_l2([params[n] for n in order],
-                          m.optimizer.defaults["lr"],
+                          float(m.optimizer.defaults["lr"]),
                           m.optimizer.defaults["weight_decay"])
     else:
         cpu_opt = cpu_optimizer([[params[n] for n in g] for g in groups])
-    cpu_opt.load_state_dict(cpu_copy(m.optimizer.state_dict()))
+    cpu_opt.load_state_dict(cpu_copy(opt_state))
+    if flat_step is not None:
+        # the rate the card's step takes: its schedule's, computed on the
+        # card from Adam's count (MGCN), or the constant one
+        rate = flat_step.next_lr()
+        for g in cpu_opt.param_groups:
+            g["lr"] = float(m.optimizer.defaults["lr"] if rate is None
+                            else rate)
     cpu_step = make_train_step(cpu_opt,
                                lambda *b: cpu_loss(params, *b))
     args = tuple(batch) if masks is None else (*batch, masks)
@@ -2375,22 +2452,32 @@ def step_card_vs_cpu(tag, m, cpu_loss, batch, masks, card_step=None,
 
 
 def fit_counted(m, steps_per_epoch: int, props: int, tag: str,
-                sums=(0, 0, 0)):
+                sums=(0, 0, 0), route: str = None, card: str = ""):
     """fit() of a model with its launches counted: losses finite, segsum
     launched exactly ``props`` propagations forward and backward a step
     plus ``props`` an evaluation (none for a model without a graph), and
     ``sums`` (a step's, an epoch's, an evaluation's) fixed-index sums on
-    top, the full route's kernels launched."""
+    top, the full route's kernels launched. ``route``: every epoch must
+    take it ("captured": one replay a step, one capture, and the capture's
+    warm-up steps launch as steps; "eager"); None: not read."""
+    runs = traced_routes(m) if route is not None else None
     best, launched = counted(m.fit)
     losses = [h["loss"] for h in m.history]
     evals = sum("report" in h for h in m.history)
     per_step, per_epoch, per_eval = sums
+    warm = 0
+    if route == "captured":
+        warm = check_routes(tag, m, runs, card)
+    elif route == "eager":
+        require(all(r["route"] == "eager" for r in runs),
+                f"{tag}: fit() left the eager route: {runs}")
     expect = (len(losses) * (steps_per_epoch * (2 * props + per_step)
-                             + per_epoch) + (props + per_eval) * evals)
+                             + per_epoch) + (props + per_eval) * evals
+              + warm * (2 * props + per_step))
     print(f"{tag} fit() ({len(losses)} epochs of {steps_per_epoch} steps, "
-          f"{evals} evaluations): losses {losses}, NDCG@10 "
-          f"{best['NDCG@10']}; launches {launched}; expected segsum "
-          f"{expect}", flush=True)
+          f"{evals} evaluations, route {route or 'not read'}, {warm} "
+          f"warm-up steps): losses {losses}, NDCG@10 {best['NDCG@10']}; "
+          f"launches {launched}; expected segsum {expect}", flush=True)
     require(bool(np.isfinite(losses).all()), f"{tag} losses {losses}")
     require(launched["segsum"] == expect,
             f"{tag}: segsum {launched['segsum']} launches, not {expect}")
@@ -2732,10 +2819,13 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
         m = build(name)
         require(m.config.embed_size == DIM and m.pipeline.num_neg == 1
                 and m.pipeline._prev.shape[1] == 1, f"{name} at its defaults")
-        runs.append(fit_counted(m, cut_epoch(m, SEQ_STEPS), 0, name))
+        before = derived_tables(name, m)
+        runs.append(fit_counted(m, cut_epoch(m, SEQ_STEPS), 0, name,
+                                route="captured", card=card))
+        check_fresh(name, m, before)
         lazy = build(name, optimizer="lazy_adam")
         runs.append(fit_counted(lazy, cut_epoch(lazy, SEQ_STEPS), 0,
-                                f"{name} (lazy Adam)"))
+                                f"{name} (lazy Adam)", route="eager"))
         reg_ = m.config.reg
         step_card_vs_cpu(name, m, lambda p, *b, f=loss, r=reg_: f(p, r, *b),
                          first_batch(m), None)
@@ -2769,13 +2859,21 @@ def phase_sequential_models(path, reg, dev, card: str, errs: dict):
     weighted_times(g.items, x, att, ct, card)
     # a layer's attention: two fixed-index sums forward, the gradients of
     # its four fixed gathers backward
+    before = derived_tables("SGAT", sg)
     runs.append(fit_counted(sg, cut_epoch(sg, SEQ_STEPS), scfg.n_layers,
                             "SGAT", (6 * scfg.n_layers, 0,
-                                     2 * scfg.n_layers)))
+                                     2 * scfg.n_layers), route="captured",
+                            card=card))
+    check_fresh("SGAT", sg, before)
     g_cpu = g.to("cpu")
     step_card_vs_cpu("SGAT", sg, lambda p, *b: sgat_loss(g_cpu, p, scfg, *b),
                      first_batch(sg), None)
     models["SGAT"] = sg
+    # the epoch as one program: the captured and the eager epoch from one
+    # state, bit for bit; segsum among SGAT's replayed kernels
+    for tag, kernel in (("FPMC", None), ("TransRec", None),
+                        ("SGAT", "segsum")):
+        epoch_routes(models[tag], tag, card, kernel)
     # Caser and HGN: towers over N + 1 columns
     cs = build("Caser")
     ccfg = cs.config
@@ -3081,14 +3179,20 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
     def first_batch(m):
         return next(m.pipeline.batches(epoch_generator(SEED + 7, 0, dev)))
 
-    def finish(tag, m, props, modes, step, sums=(0, 0, 0)):
+    def finish(tag, m, props, modes, step, sums=(0, 0, 0), route=None):
         """fit(), one step card vs CPU, the evaluate() routes, serving and
-        the epoch's reports of model m."""
+        the epoch's reports of model m; with ``route`` "captured" also the
+        derived tables after fit() and the two routes of an epoch."""
         t0 = time.perf_counter()
+        before = derived_tables(tag, m) if route else None
         runs.append(fit_counted(m, m.pipeline.num_batches, props, tag,
-                                sums))
+                                sums, route, card))
+        if route:
+            check_fresh(tag, m, before)
         t1 = time.perf_counter()
         step()
+        if route:
+            epoch_routes(m, tag, card, "segsum")
         t2 = time.perf_counter()
         route_runs = evaluate_routes(m, tag, modes)
         runs.extend(r[2] for r in route_runs.values())
@@ -3112,8 +3216,9 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
         print(f"{tag} train epoch, its first {TRAIN_WINDOW} steps: device "
               f"busy {busy}; top device kernels (ms, calls): {heads}  "
               f"[{card}]", flush=True)
-        print(f"{tag}: fit() {t1 - t0} s, the step card vs CPU {t2 - t1} "
-              f"s, the rest {time.perf_counter() - t2} s", flush=True)
+        print(f"{tag}: fit() {t1 - t0} s, the step card vs CPU (and the "
+              f"two routes of an epoch) {t2 - t1} s, the rest "
+              f"{time.perf_counter() - t2} s", flush=True)
 
     def drop():
         """Free a model's device memory: the models hold reference cycles
@@ -3171,23 +3276,24 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
            freedom_step)
     del m, ui_cpu, mm_cpu
     drop()
-    # MGCN: four graphs; the LambdaLR rate set by the update count
+    # MGCN: four graphs; the LambdaLR rate computed inside the step from
+    # Adam's count, the schedule's steps an epoch those of the whole epoch
     m = build("MGCN", embed_dim=DIM, n_ui_layers=2, n_layers=1, knn_k=KNN_K,
               cl_loss=0.001)
     cfg = m.config
     graphs_cpu = MGCNGraphs(*(g.to("cpu") for g in m.graphs))
+    require(m.steps_per_epoch > m.pipeline.num_batches,
+            "MGCN's schedule keeps its whole epoch's steps")
 
     def mgcn_step():
-        # the rate the card's step sets, in the state the CPU copy loads
-        lr = m.lr_at(m.update_count)
-        for group in m.optimizer.param_groups:
-            group["lr"] = lr
+        # the rate the card's step takes, which the CPU copy is given
         step_card_vs_cpu(
-            f"MGCN (update {m.update_count}, lr {lr})", m,
+            f"MGCN (update {m.update_count}, lr "
+            f"{float(m._flat_step.next_lr())})", m,
             lambda p, *b: mgcn_loss(graphs_cpu, nest_params(p), cfg, *b),
             first_batch(m), None)
     finish("MGCN", m, 2 * cfg.n_layers + 2 + cfg.n_ui_layers, full3,
-           mgcn_step)
+           mgcn_step, route="captured")
     del m, graphs_cpu
     drop()
     # LATTICE: the learned item graph selected by blockwise_topk each epoch

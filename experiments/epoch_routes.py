@@ -1,30 +1,36 @@
-"""The epoch as one program, alone: phases 4 and 6 of ``chip_smoke.py``
-cut to their training, and whether the train path's row sums read the
-device from the host (which a CUDA graph cannot hold).
+"""The epoch as one program, alone: the route checks of ``chip_smoke.py``
+phases 4, 6, 12 and 14 cut to their training, and whether a step, and the
+train path's row sums, read the device from the host (which a CUDA graph
+cannot hold).
 
 Usage, from the root of a checkout, on a machine with a card:
 
-    python3 experiments/epoch_routes.py
+    python3 experiments/epoch_routes.py [--models BPRMF,SGAT,...]
 
-Builds the kernels and the phase-3 data (Gowalla scale, seed 2021) under
-``build/epoch_routes_data``. BPRMF and LightGCN at their defaults: fit()
-for 2 epochs, each on the captured route with one replay a step
-(``chip_smoke.traced_routes``, ``check_routes``; LightGCN's segsum
-launches counted exactly, warm-up included), then ``chip_smoke.
-epoch_routes``: one epoch on each route from one state, bit for bit, and
-each route's seconds and busy share. Then ``ordered_row_sum``,
-``ordered_gather``'s backward and a plain gather's backward (``table[ids]``,
-the gathers of BPRMF's and LightGCN's losses) at those models' batch
-(1,024 user rows; 2,048 item rows, d = 64 and 1-D) under
-``torch.cuda.set_sync_debug_mode("error")``: a call that reads the device
-from the host raises there. Last, Adam's arithmetic: a fresh BPRMF's
-first ten batches through its flat step (capturable Adam), and through a
-per-parameter Adam over copies of its initial tables, capturable (as
-every Adam of the port on a card) and not, each table's largest gap to
-the flat step's.
+Builds the kernels and the phase-3 data (Gowalla scale, seed 2021, with
+phase 14's 4,096-d image and 384-d text features) under
+``build/epoch_routes_data``. Each model of MODELS (BPRMF, LightGCN, FPMC,
+TransRec, SGAT, MGCN; ``--models`` picks some) at its defaults: two steps
+of its own under ``torch.cuda.set_sync_debug_mode("error")`` (a step that
+reads the device from the host raises there; the op's frames are
+printed); fit() for 2 epochs, evaluation cut to 4,096 test users, each
+epoch on the captured route with one replay a step (``chip_smoke.
+fit_counted``: segsum launched exactly, the capture's warm-up steps
+included); ``chip_smoke.check_fresh`` for the four models whose serving
+reads cached tables; then ``chip_smoke.epoch_routes``: one whole epoch on
+each route from one state, bit for bit, and each route's seconds and
+busy share. Then ``ordered_row_sum``, ``ordered_gather``'s backward and a
+plain gather's backward (``table[ids]``) at BPRMF's and LightGCN's batch
+(1,024 user rows; 2,048 item rows, d = 64 and 1-D) under the same check.
+Last, Adam's arithmetic: a fresh BPRMF's first ten batches through its
+flat step (capturable Adam), and through a per-parameter Adam over copies
+of its initial tables, capturable (as every Adam of the port on a card)
+and not, each table's largest gap to the flat step's.
 Prints the card's name and power limit and the seconds taken; exits 2
-without CUDA (~3 min on an H100).
+without CUDA (~10 min on an H100 for all six models).
 """
+import argparse
+import gc
 import os
 import shutil
 import sys
@@ -104,7 +110,51 @@ def adam_arithmetic(m, steps: int = 10) -> dict:
     return gaps
 
 
+# the models whose one-device dense-Adam step is a flat one
+MODELS = ("BPRMF", "LightGCN", "FPMC", "TransRec", "SGAT", "MGCN")
+
+
+def segsum_counts(name: str, m) -> tuple:
+    """(propagations, fixed-index sums) of model m's step, as phases 6, 12
+    and 14 count them."""
+    cfg = m.config
+    if name == "LightGCN":
+        return cfg.n_layers, (0, 0, 0)
+    if name == "SGAT":
+        return cfg.n_layers, (6 * cfg.n_layers, 0, 2 * cfg.n_layers)
+    if name == "MGCN":
+        return 2 * cfg.n_layers + 2 + cfg.n_ui_layers, (0, 0, 0)
+    return 0, (0, 0, 0)
+
+
+def step_host_reads(m) -> str:
+    """Two train steps of model m on one batch under
+    ``set_sync_debug_mode("error")``: "no host read", or the error and the
+    frames of the port's code that made the read."""
+    import traceback
+
+    from skrx_torch.models.pipeline import epoch_generator
+    import chip_smoke as cs
+    batch = next(m.pipeline.batches(epoch_generator(cs.SEED, 0, m.device)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            m.train_step(batch)
+        return "no host read"
+    except RuntimeError as err:
+        frames = [f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} {f.line}"
+                  for f in traceback.extract_tb(err.__traceback__)
+                  if "skrx_torch" in f.filename]
+        return f"{str(err).splitlines()[0][:160]}; at {frames[-4:]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--models", default=",".join(MODELS))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("epoch_routes: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -124,36 +174,50 @@ def main() -> int:
     path = synthetic.make_dataset_dir(root, num_users=cs.USERS,
                                       num_items=cs.ITEMS,
                                       num_ratings=cs.RATINGS, seed=cs.SEED)
+    synthetic.write_mm_features(path, cs.ITEMS, cs.SEED, cs.IMG_DIM,
+                                cs.TXT_DIM)
     print(f"kernels and data ready in {time.perf_counter() - t0:.1f} s",
           flush=True)
     cwd = os.getcwd()
     os.chdir(root)                        # model construction writes log/
     reg = ModelRegistry()
     try:
-        for name, kernel in (("BPRMF", None), ("LightGCN", "segsum")):
+        for name in args.models.split(","):
+            t1 = time.perf_counter()
             reg.load_skrx_model(name)
-            m = reg.get_model(name)[0](
-                RunConfig(recommender=name, data_dir=path, seed=cs.SEED),
-                {"epochs": cs.EPOCHS, "early_stop": cs.EPOCHS})
-            runs = cs.traced_routes(m)
-            _, launched = cs.counted(m.fit)
-            warm = cs.check_routes(name, m, runs, card)
-            losses = [h["loss"] for h in m.history]
-            print(f"{name} fit(): losses {losses}, seconds "
-                  f"{[h['train_seconds'] for h in m.history]}, launches "
-                  f"{launched}", flush=True)
-            if name == "LightGCN":
-                layers = m.config.n_layers
-                evals = sum("report" in h for h in m.history)
-                expect = 2 * layers * (cs.EPOCHS * m.pipeline.num_batches
-                                       + warm) + layers * evals
-                cs.require(launched["segsum"] == expect,
-                           f"segsum {launched['segsum']}, not {expect}")
-            cs.epoch_routes(m, name, card, kernel)
+            cls = reg.get_model(name)[0]
+
+            def build():
+                return cs.cut_eval(cls(
+                    RunConfig(recommender=name, data_dir=path, seed=cs.SEED),
+                    {"epochs": cs.EPOCHS, "early_stop": cs.EPOCHS}))
+            probe = build()
+            print(f"{name} built in {time.perf_counter() - t1:.1f} s; its "
+                  f"step under the sync check: {step_host_reads(probe)}",
+                  flush=True)
+            del probe
+            gc.collect()
+            torch.cuda.empty_cache()
+            m = build()
+            props, sums = segsum_counts(name, m)
+            fresh = name in ("FPMC", "TransRec", "SGAT", "MGCN")
+            before = cs.derived_tables(name, m) if fresh else None
+            cs.fit_counted(m, m.pipeline.num_batches, props, name, sums,
+                           route="captured", card=card)
+            if fresh:
+                cs.check_fresh(name, m, before)
+            print(f"{name} fit(): seconds "
+                  f"{[h['train_seconds'] for h in m.history]}", flush=True)
+            cs.epoch_routes(m, name, card, "segsum" if props else None)
+            print(f"{name} took {time.perf_counter() - t1:.1f} s  [{card}]",
+                  flush=True)
             del m
+            gc.collect()
+            torch.cuda.empty_cache()
         for (name, tag), result in sync_reads(torch.device("cuda", 0)
                                               ).items():
             print(f"host read check, {name} at {tag}: {result}", flush=True)
+        reg.load_skrx_model("BPRMF")
         bpr = reg.get_model("BPRMF")[0](
             RunConfig(recommender="BPRMF", data_dir=path, seed=cs.SEED), {})
         for (variant, key), gap in adam_arithmetic(bpr).items():

@@ -5,22 +5,26 @@ arithmetics a step.
 Usage, from the root of a checkout, on a machine with a card:
 
     python3 experiments/epoch_seconds.py [--tree DIR] [--data DIR]
+        [--models BPRMF,SGAT,...] [--epochs N]
 
 ``--tree``: the checkout whose ``skrx_torch`` and ``chip_smoke.py`` are
 imported (default: this one). To compare a parent with this tree, unpack
 the parent's ``git archive`` under ``build/`` and run parent, this, this,
 parent in one call. ``--data``: where the phase-3 data of ``chip_smoke.py``
-(Gowalla scale, seed 2021) is made.
+(Gowalla scale, seed 2021, with phase 14's 4,096-d image and 384-d text
+features) is made.
 
-For BPRMF, LightGCN, MultVAE and CDAE at their defaults: ``--epochs``
+For each model of ``--models`` (default MODELS: BPRMF, LightGCN, MultVAE,
+CDAE, FPMC, TransRec, SGAT, MGCN) at its defaults: ``--epochs``
 calls of the model's ``_train_epoch`` (the epoch ``fit()`` runs, on the
 tree's own route), each timed between syncs; one more under
 torch.profiler for the busy share; where the model has a captured route
 (``captured_epochs``), one epoch on each route, timed, and the eager one
-profiled. Then Adam alone: a ``torch.optim.Adam`` over BPRMF's and LightGCN's
-tables, capturable (f32 bias corrections on the device) and not (f64 on
-the host), with gradients set, host ms a step over 200 steps between
-syncs and device ms a step from torch.profiler over 50. Each result is a
+profiled. Then Adam alone, for BPRMF and LightGCN where ``--models``
+holds them: a ``torch.optim.Adam`` over the model's tables, capturable
+(f32 bias corrections on the device) and not (f64 on the host), with
+gradients set, host ms a step over 200 steps between syncs and device ms
+a step from torch.profiler over 50. Each result is a
 line ``RESULT {json}``, with the card's name and power limit; exits 2
 without CUDA.
 """
@@ -33,7 +37,8 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODELS = ("BPRMF", "LightGCN", "MultVAE", "CDAE")
+MODELS = ("BPRMF", "LightGCN", "MultVAE", "CDAE", "FPMC", "TransRec",
+          "SGAT", "MGCN")
 SHAPES = {"BPRMF": ((29_858, 64), (40_981, 64), (40_981,)),
           "LightGCN": ((29_858, 64), (40_981, 64))}
 
@@ -66,12 +71,14 @@ def main() -> int:
     ap.add_argument("--data", default=os.path.join(ROOT, "build",
                                                    "epoch_seconds_data"))
     ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--models", default=",".join(MODELS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("epoch_seconds: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     tree, data = os.path.abspath(args.tree), os.path.abspath(args.data)
+    models = args.models.split(",")
     sys.path.insert(0, tree)
     import chip_smoke as cs
     from skrx_torch import ModelRegistry, RunConfig
@@ -87,13 +94,15 @@ def main() -> int:
     path = synthetic.make_dataset_dir(data, num_users=cs.USERS,
                                       num_items=cs.ITEMS,
                                       num_ratings=cs.RATINGS, seed=cs.SEED)
+    synthetic.write_mm_features(path, cs.ITEMS, cs.SEED, cs.IMG_DIM,
+                                cs.TXT_DIM)
     print(f"{tag}: kernels and data ready in {time.perf_counter() - t0:.1f}"
           f" s  [{card}]", flush=True)
     cwd = os.getcwd()
     os.chdir(data)                        # model construction writes log/
     reg = ModelRegistry()
     try:
-        for name in MODELS:
+        for name in models:
             reg.load_skrx_model(name)
             m = reg.get_model(name)[0](
                 RunConfig(recommender=name, data_dir=path, seed=cs.SEED), {})
@@ -119,6 +128,8 @@ def main() -> int:
             del m
             torch.cuda.empty_cache()
         for name, shapes in SHAPES.items():
+            if name not in models:
+                continue
             for capturable in (False, True):
                 host, device, busy = adam_ms(shapes, capturable, cs)
                 report(tree=tag, adam=name, capturable=capturable,

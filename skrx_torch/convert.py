@@ -547,7 +547,8 @@ def flat_adam_state_from_jax(count: int, mu: np.ndarray, nu: np.ndarray,
     values (:class:`~skrx_torch.models.common.FlatTrainStep`) from a JAX
     model's ``optax.adam`` state over its raveled parameters: the flat
     vector follows JAX's ravel order, so ``mu`` and ``nu`` go in as they
-    are."""
+    are. A learning-rate schedule's count (MGCN's ``scale_by_schedule``)
+    equals Adam's ``count``, and the step count stands for both."""
     mu = np.asarray(mu, dtype=np.float32).reshape(-1)
     nu = np.asarray(nu, dtype=np.float32).reshape(-1)
     if mu.shape != (size,) or nu.shape != (size,):

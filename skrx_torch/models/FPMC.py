@@ -8,10 +8,14 @@ last-item. The score of item i after last item l for user u is
 ``<UI_u, IU_i> + <LI_l, IL_i>``. Epochs come from
 :class:`SequentialPairwiseEpochPipeline` (one previous item, one next item,
 one negative); a step takes the summed BPR loss plus ``reg * 0.5 * sum(w *
-|row|^2)`` over the batch's six gathered rows, then one dense Adam step, or
-with ``optimizer="lazy_adam"`` one row-wise lazy Adam step over those six
-gathers (``make_lazy_train_step``). Scoring uses each user's last training
-item by time (0 for a user without one). It is a dot model:
+|row|^2)`` over the batch's six gathered rows, then one dense Adam step (on
+one device over the four tables as one flat vector in JAX's ravel order
+``IL, IU, LI, UI``, JAX's flat step:
+:class:`~skrx_torch.models.common.FlatTrainStep`; on a card each epoch a
+CUDA graph of the step replayed a batch), or with ``optimizer="lazy_adam"``
+one row-wise lazy Adam step over those six gathers
+(``make_lazy_train_step``, an eager epoch). Scoring uses each user's last
+training item by time (0 for a user without one). It is a dot model:
 ``_chunk_embeddings`` gives ``([UI | LI_last], [IU | IL])``, 2d wide, for
 the fused route.
 
@@ -36,8 +40,8 @@ from ..ops.optim import make_lazy_train_step
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (ChunkedDotPredictMixin, EpochTrainedRecommender,
-                     as_user_tensor, last_items_by_time, make_optimizer,
-                     make_train_step)
+                     FlatTrainStep, as_user_tensor, last_items_by_time,
+                     make_optimizer, make_train_step)
 from .pipeline import SequentialPairwiseEpochPipeline
 
 __all__ = ["FPMC", "FPMCConfig", "fpmc_gathered_loss", "fpmc_loss"]
@@ -119,6 +123,11 @@ class FPMC(ChunkedDotPredictMixin, EpochTrainedRecommender):
                 return fpmc_gathered_loss(*gathered, batch[3], cfg.reg)
             self.train_step, (self.optimizer, _) = make_lazy_train_step(
                 cfg.lr, _LAZY_GATHERS, loss_fn, tables)
+        elif self.mesh is None:
+            self._flat_step = FlatTrainStep(self, self._JAX_PARAMS,
+                                            self._loss, cfg.lr)
+            self.train_step = self._flat_step
+            self.optimizer = self._flat_step.optimizer
         else:
             self.optimizer = make_optimizer("adam", tables, cfg.lr)
             self.train_step = make_train_step(self.optimizer, self._loss,

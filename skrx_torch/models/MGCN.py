@@ -25,10 +25,19 @@ norms of the batch's rows over the valid rows, and ``cl_loss`` times two
 InfoNCEs at 0.2 (side against content for the positive items and for the
 users; a padded row leaves every denominator). The learning rate is
 LambdaLR's ``lr * rate ** ((count // spe) / period)`` (``lr_scheduler =
-[rate, period]``, ``spe`` the pipeline's batches an epoch), set before each
-Adam update from ``update_count``, the updates taken (optax's count; it
-rides in checkpoints). Dense Adam otherwise. ``evaluate()`` freezes the
-embeddings that ``predict``, the chunked and fused routes and serving
+[rate, period]``, ``spe`` the pipeline's batches an epoch when the model
+is built, as JAX fixes it), ``count`` the updates taken before this one
+(optax's count; ``update_count``, which rides in checkpoints). Dense Adam
+otherwise. On one device the whole nested tree, the 4,096-d and 384-d
+feature tables included, is one flat vector in JAX's ravel order (JAX's
+flat step, :class:`~skrx_torch.models.common.FlatTrainStep`), the rate is
+computed inside the step, on the device in f32, from Adam's step count
+(:func:`mgcn_lr_f32`, as optax's ``scale_by_schedule`` reads its count),
+and on a card each epoch is a CUDA graph of the step, the four graphs'
+kernel #11 inside it, replayed a batch; ``update_count`` is Adam's step
+count. Under a mesh the rate is set from a host count before each
+per-parameter Adam update (:meth:`MGCN.lr_at`). ``evaluate()`` freezes
+the embeddings that ``predict``, the chunked and fused routes and serving
 reuse until the next epoch.
 
 Under a mesh whose model axis is above 1 every 2-D parameter of at least m
@@ -55,15 +64,16 @@ from ..ops.mm_graph import cached_edges, weighted_knn_edges
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from ..parallel import batch_total, gather_batch, gather_batch_ids
-from .common import (GRAPH_IMPLS, add_param_tree, gather_rows,
-                     make_optimizer, make_train_step, mxu_msg_dtype,
-                     nest_params, resolve_graph_impl)
+from .common import (GRAPH_IMPLS, FlatTrainStep, add_param_tree,
+                     gather_rows, make_optimizer, make_train_step,
+                     mxu_msg_dtype, nest_params, resolve_graph_impl)
 from .multimodal import (MultimodalRecommender, bpr_mean, cache_dir_of,
                          item_features)
 from .pipeline import PairwiseEpochPipeline
 
 __all__ = ["MGCN", "MGCNConfig", "MGCNGraphs", "mgcn_graphs",
-           "mgcn_forward", "mgcn_info_nce", "mgcn_loss", "mgcn_lr"]
+           "mgcn_forward", "mgcn_info_nce", "mgcn_loss", "mgcn_lr",
+           "mgcn_lr_f32"]
 
 
 class MGCNConfig(ModelConfig):
@@ -215,6 +225,17 @@ def mgcn_lr(lr: float, rate: float, period: float, steps_per_epoch: int,
     return lr * rate ** ((count // steps_per_epoch) / period)
 
 
+def mgcn_lr_f32(lr: float, rate: float, period: float, steps_per_epoch: int,
+                count: torch.Tensor) -> torch.Tensor:
+    """:func:`mgcn_lr` on ``count``'s device in f32 from an f32 update
+    count (Adam's step count), optax's arithmetic: the epoch by floor
+    division (exact below 2^24 updates), over ``period``, ``rate`` to its
+    power, times ``lr``. Its power rounds as the device's ``powf`` does:
+    within an ulp of XLA's."""
+    epochs = torch.div(count, steps_per_epoch, rounding_mode="floor")
+    return lr * torch.pow(rate, epochs / period)
+
+
 class MGCN(MultimodalRecommender):
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
@@ -259,18 +280,48 @@ class MGCN(MultimodalRecommender):
         self.pipeline = PairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device, num_neg=1,
             mesh=self.mesh)
-        self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
-                                        cfg.lr)
-        self._adam_step = make_train_step(self.optimizer, self._loss,
-                                          self.sync_gradients)
+        # the schedule's steps an epoch, fixed here as JAX's
+        self.steps_per_epoch = self.pipeline.num_batches
+        rate, period = cfg.lr_scheduler
+        if self.mesh is None:
+            self._flat_step = FlatTrainStep(
+                self, [n for n, _ in self.named_parameters()], self._loss,
+                cfg.lr, lambda count: mgcn_lr_f32(
+                    cfg.lr, rate, period, self.steps_per_epoch, count))
+            self.train_step = self._flat_step
+            self.optimizer = self._flat_step.optimizer
+        else:
+            self.optimizer = make_optimizer(
+                "adam", dict(self.named_parameters()), cfg.lr)
+            self._adam_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
+            self.train_step = self._scheduled_step
 
-    update_count = 0    # Adam updates taken: the schedule's count
+    _updates = 0        # a mesh's Adam updates taken
+
+    @property
+    def update_count(self) -> int:
+        """Adam updates taken: the schedule's count (on one device Adam's
+        step count, read from the device)."""
+        if self._flat_step is None:
+            return self._updates
+        return int(self._flat_step.optimizer.state[
+            self._flat_step.flat]["step"])
+
+    @update_count.setter
+    def update_count(self, count: int) -> None:
+        if self._flat_step is None:
+            self._updates = int(count)
+            return
+        self._flat_step.optimizer.state[self._flat_step.flat]["step"].fill_(
+            float(count))
 
     def lr_at(self, count: int) -> float:
-        """The learning rate of update ``count``."""
+        """The learning rate of update ``count`` (in float64 on the host;
+        a mesh's step takes it)."""
         rate, period = self.config.lr_scheduler
-        return mgcn_lr(self.config.lr, rate, period,
-                       self.pipeline.num_batches, count)
+        return mgcn_lr(self.config.lr, rate, period, self.steps_per_epoch,
+                       count)
 
     def params_tree(self):
         """The parameters as the JAX package's nested tree, the ones split
@@ -284,13 +335,13 @@ class MGCN(MultimodalRecommender):
         return mgcn_loss(self.graphs, self.params_tree(), self.config, users,
                          pos, neg, w)
 
-    def train_step(self, batch) -> torch.Tensor:
-        """One Adam step at the schedule's learning rate for this update;
-        the loss before it."""
+    def _scheduled_step(self, batch) -> torch.Tensor:
+        """A mesh's step: one Adam step at the schedule's learning rate for
+        this update; the loss before it."""
         for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_at(self.update_count)
+            group["lr"] = self.lr_at(self._updates)
         loss = self._adam_step(batch)
-        self.update_count += 1
+        self._updates += 1
         return loss
 
     def _train_state(self) -> Dict:

@@ -29,7 +29,12 @@ previous items, pre-padded with id N, ``n_next`` next items and as many
 negatives); a step propagates the whole graph, and takes the summed BPR
 loss of ``-l2d(head + user, item) + bias`` over the next slots (head: the
 last item plus the mean of the sequence's real items) plus ``reg * 0.5``
-times the weighted L2 of the batch's rows, then one dense Adam step.
+times the weighted L2 of the batch's rows, then one dense Adam step (on
+one device over the three tables as one flat vector in JAX's ravel order
+``item_bias, item_emb, user_emb``, JAX's flat step:
+:class:`~skrx_torch.models.common.FlatTrainStep`; on a card each epoch a
+CUDA graph of the whole step, the graph's five layers of kernel #11
+inside it, replayed a batch).
 
 ``evaluate()`` propagates once and freezes the table that scoring and
 serving reuse until the next epoch. ``predict`` scores by the direct
@@ -62,8 +67,9 @@ from ..ops.scatter import FixedIndex, fixed_gather, fixed_index, fixed_sum
 from ..run_config import RunConfig
 from ..utils import ModelConfig, pad_sequences
 from .common import (GRAPH_IMPLS, CachedUserVecChunkMixin,
-                     EpochTrainedRecommender, as_user_tensor, make_optimizer,
-                     make_train_step, mxu_msg_dtype, resolve_graph_impl)
+                     EpochTrainedRecommender, FlatTrainStep, as_user_tensor,
+                     make_optimizer, make_train_step, mxu_msg_dtype,
+                     resolve_graph_impl)
 from .pipeline import SequentialPairwiseEpochPipeline
 
 __all__ = ["SGAT", "SGATConfig", "SGATGraph", "build_sgat_graph",
@@ -262,10 +268,16 @@ class SGAT(CachedUserVecChunkMixin, EpochTrainedRecommender):
         self.item_emb = nn.Parameter(init((n, d), gen).to(self.device))
         self.item_bias = nn.Parameter(torch.zeros(n, device=self.device))
         self._split_over_model_axis()
-        self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
-                                        cfg.lr)
-        self.train_step = make_train_step(self.optimizer, self._loss,
-                                          self.sync_gradients)
+        if self.mesh is None:
+            self._flat_step = FlatTrainStep(self, self._JAX_PARAMS,
+                                            self._loss, cfg.lr)
+            self.train_step = self._flat_step
+            self.optimizer = self._flat_step.optimizer
+        else:
+            self.optimizer = make_optimizer(
+                "adam", dict(self.named_parameters()), cfg.lr)
+            self.train_step = make_train_step(self.optimizer, self._loss,
+                                              self.sync_gradients)
         self.pipeline = SequentialPairwiseEpochPipeline(
             self.dataset.train_data, cfg.batch_size, self.device,
             num_previous=cfg.n_seqs, num_next=cfg.n_next, pad=n,

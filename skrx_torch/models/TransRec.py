@@ -9,12 +9,17 @@ item_bias_i`` (distances ``sqrt(|.|^2 + 1e-12)``). Epochs come from
 :class:`SequentialPairwiseEpochPipeline` (one previous item, one next item,
 one negative); a step takes the summed BPR loss plus ``reg * 0.5`` times
 the weighted L2 of the batch's gathered rows and biases and the unweighted
-``|trans|^2``, then one dense Adam step, or with ``optimizer="lazy_adam"``
+``|trans|^2``, then one dense Adam step (on one device over the four
+parameters as one flat vector in JAX's ravel order ``item_bias, item_emb,
+trans, user_emb``, JAX's flat step:
+:class:`~skrx_torch.models.common.FlatTrainStep`; on a card each epoch a
+CUDA graph of the step replayed a batch), or with ``optimizer="lazy_adam"``
 one row-wise lazy Adam step over the tables with ``trans`` under dense
-Adam. Scoring, in ``predict`` as in ``predict_chunk``, is the expanded
-form of the distance (:meth:`TransRec._topk_score_fn`), as JAX's TransRec
-scores every route, from each user's last training item by time (0 for a
-user without one). The score is not a dot: the fused route does not apply.
+Adam (an eager epoch). Scoring, in ``predict`` as in ``predict_chunk``, is
+the expanded form of the distance (:meth:`TransRec._topk_score_fn`), as
+JAX's TransRec scores every route, from each user's last training item by
+time (0 for a user without one). The score is not a dot: the fused route
+does not apply.
 
 Under a mesh whose model axis is above 1 (dense Adam) ``user_emb`` and
 ``item_emb`` keep only their rank's rows over the model axis (the JAX
@@ -38,8 +43,8 @@ from ..parallel import once
 from ..run_config import RunConfig
 from ..utils import ModelConfig
 from .common import (CachedUserVecChunkMixin, EpochTrainedRecommender,
-                     as_user_tensor, last_items_by_time, make_optimizer,
-                     make_train_step)
+                     FlatTrainStep, as_user_tensor, last_items_by_time,
+                     make_optimizer, make_train_step)
 from .pipeline import SequentialPairwiseEpochPipeline
 
 __all__ = ["TransRec", "TransRecConfig", "transrec_gathered_loss",
@@ -135,6 +140,11 @@ class TransRec(CachedUserVecChunkMixin, EpochTrainedRecommender):
             self.train_step, (self.optimizer, self.dense_optimizer) = \
                 make_lazy_train_step(cfg.lr, _LAZY_GATHERS, loss_fn, params,
                                      sync=self.sync_gradients)
+        elif self.mesh is None:
+            self._flat_step = FlatTrainStep(self, self._JAX_PARAMS,
+                                            self._loss, cfg.lr)
+            self.train_step = self._flat_step
+            self.optimizer = self._flat_step.optimizer
         else:
             self.optimizer = make_optimizer("adam", params, cfg.lr)
             self.train_step = make_train_step(self.optimizer, self._loss,

@@ -31,7 +31,7 @@ __all__ = ["ParamTree", "param_tree", "add_param_tree", "cast_tree",
            "EpochTrainedRecommender", "as_user_tensor", "last_items_by_time",
            "pad_masked_rows", "LazyAdamTowerMixin", "make_optimizer",
            "adam_l2", "make_train_step", "make_sharded_train_step",
-           "FlatTrainStep",
+           "FlatTrainStep", "ravel_order",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
            "build_prop_graph", "graph_sharding_enabled",
            "graph_param_shardings", "node_rows", "whole_nodes",
@@ -155,15 +155,18 @@ def make_optimizer(name: str, params: Dict[str, torch.nn.Parameter],
     return adam_l2(list(params.values()), lr, weight_decay)
 
 
-def adam_l2(params, lr: float, weight_decay: float = 0.0
-            ) -> torch.optim.Adam:
+def adam_l2(params, lr: Union[float, torch.Tensor],
+            weight_decay: float = 0.0) -> torch.optim.Adam:
     """``torch.optim.Adam`` with ``weight_decay`` added to the gradient
     before the moments (L2, not AdamW): the JAX package's ``adam_l2``.
     Over parameters on a CUDA device it is capturable: the step count and
     the bias corrections stay on the device in f32, as optax computes
     them, so the card runs one Adam arithmetic, in a CUDA graph or not. A
     state saved on another device loads with this choice (and the step
-    count where it asks)."""
+    count where it asks). ``lr`` may be a one-value f32 tensor on the
+    parameters' device, which a schedule rewrites in place before each
+    step (:class:`FlatTrainStep`): a float would be fixed in a CUDA graph
+    at its capture."""
     params = list(params)
     capturable = any(p.device.type == "cuda" for p in params)
     adam = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
@@ -219,13 +222,26 @@ def make_sharded_train_step(optimizer: torch.optim.Optimizer,
     return make_train_step(optimizer, loss_fn, sync)
 
 
+def ravel_order(names) -> list:
+    """Dotted parameter names (``image_trs.w``, ``blocks.0.att.q.w``) in
+    the order ``jax.flatten_util.ravel_pytree`` lays the JAX package's
+    nested params out: a dict's keys sorted at each level, a list's
+    entries (numbered parts) in their order."""
+    def key(name):
+        return tuple((int(part), "") if part.isdigit() else (-1, part)
+                     for part in name.split("."))
+    return sorted(names, key=key)
+
+
 class FlatTrainStep:
     """The port of the JAX package's ``make_flat_train_step``: the model's
-    parameters ``names`` become views of one flat f32 vector (``flat``),
-    laid out in JAX's ravel order (sorted names: BPRMF's ``item_bias``,
-    ``item_emb``, ``user_emb``), their gradients views of one flat gradient
-    (``grad``), and one Adam (:func:`adam_l2`, capturable on a CUDA device)
-    steps the one vector: its update is one elementwise pass.
+    parameters ``names`` (dotted for a nested tree's leaves) become views
+    of one flat f32 vector (``flat``), laid out in JAX's ravel order
+    (:func:`ravel_order`: BPRMF's ``item_bias``, ``item_emb``,
+    ``user_emb``; MGCN's nested tree key by key), their gradients views
+    of one flat gradient (``grad``), and one Adam (:func:`adam_l2`,
+    capturable on a CUDA device) steps the one vector: its update is one
+    elementwise pass.
 
     ``step(batch) -> loss`` is :func:`make_train_step`'s step: the loss of
     ``loss_fn(*batch)`` before the update, a parameter the loss does not
@@ -234,6 +250,13 @@ class FlatTrainStep:
     every tensor it updates stays in place (``state``) and a CUDA graph
     can hold it (:class:`~skrx_torch.models.pipeline.EpochProgram`).
 
+    ``schedule``: the learning rate as a function of Adam's step count
+    before the update (an f32 tensor on the device -> an f32 tensor), as
+    optax's ``scale_by_schedule`` reads its count; Adam then takes its
+    rate from a tensor (``lr``) that each step rewrites on the device, so
+    that a captured step replays the schedule. Without one the rate is
+    the float ``lr``.
+
     Checkpoints see the state as a per-parameter Adam over ``names`` in
     their given order (:meth:`state_dict`, :meth:`load_state_dict`: views
     of the flat moments out, copies into them in), so that one device's
@@ -241,11 +264,13 @@ class FlatTrainStep:
     flat moments (:meth:`load_jax_adam`)."""
 
     def __init__(self, model: nn.Module, names, loss_fn: Callable,
-                 lr: float):
+                 lr: float,
+                 schedule: Optional[Callable[[torch.Tensor],
+                                             torch.Tensor]] = None):
         self.names, self.loss_fn = tuple(names), loss_fn
         old = {n: model.get_parameter(n) for n in self.names}
         device = old[self.names[0]].device
-        order = sorted(self.names)
+        order = ravel_order(self.names)
         with torch.no_grad():
             self.flat = nn.Parameter(torch.cat([old[n].reshape(-1)
                                                 for n in order]))
@@ -266,7 +291,11 @@ class FlatTrainStep:
             self._grads.append((view, self.grad[lo:hi].view(shape)))
         for p, g in self._grads:
             p.grad = g
-        self.optimizer = adam_l2([self.flat], lr)
+        self.schedule = schedule
+        self.lr = None if schedule is None else \
+            torch.tensor(float(lr), device=device)
+        self.optimizer = adam_l2([self.flat],
+                                 lr if self.lr is None else self.lr)
         # the state made now, in place from here on (Adam's lazy init
         # would make it inside the first step); a capturable Adam's step
         # count on the device
@@ -283,10 +312,19 @@ class FlatTrainStep:
     @property
     def state(self) -> Tuple[torch.Tensor, ...]:
         """The tensors a step updates in place: the flat parameters and
-        gradient, Adam's moments and step count."""
+        gradient, Adam's moments and step count, a schedule's rate."""
         st = self._adam
-        return (self.flat, self.grad, st["exp_avg"], st["exp_avg_sq"],
-                st["step"])
+        out = (self.flat, self.grad, st["exp_avg"], st["exp_avg_sq"],
+               st["step"])
+        return out if self.lr is None else out + (self.lr,)
+
+    @torch.no_grad()
+    def next_lr(self) -> Optional[torch.Tensor]:
+        """The schedule's rate for the next update, from Adam's step count
+        (no schedule: None)."""
+        if self.schedule is None:
+            return None
+        return self.schedule(self._adam["step"])
 
     def __call__(self, batch) -> torch.Tensor:
         for p, g in self._grads:
@@ -295,6 +333,8 @@ class FlatTrainStep:
         self.grad.zero_()
         loss = self.loss_fn(*batch)
         loss.backward()
+        if self.lr is not None:
+            self.lr.copy_(self.next_lr())
         self.optimizer.step()
         return loss.detach()
 

@@ -18,12 +18,17 @@ the loss added into a sum on the device) in a CUDA graph, captured once per
 pipeline and step, and replays it once for each batch; the host submits a
 replay a step and reads nothing back until the epoch's end. It takes a step
 whose tensors stay in place (``train_step.state``:
-:class:`~skrx_torch.models.common.FlatTrainStep`), on a CUDA device, without
-a mesh. The graph replays the draws of the pipeline's generator only: a
+:class:`~skrx_torch.models.common.FlatTrainStep`, the dense-Adam step on
+one device of BPRMF, LightGCN, FPMC, TransRec, SGAT and MGCN, the models
+whose JAX step is ``make_flat_train_step``), on a CUDA device, without a
+mesh; the pairwise batches (one negative a user, or SGAT's ``num_next`` =
+3 a window beside its (B, 5) previous items) draw nothing back to the
+host. The graph replays the draws of the pipeline's generator only: a
 step that draws from another (a model's ``step_generator()``) fails to
-capture. ``captured=False`` runs the steps as a plain loop, the route of
-every other model and device. JAX's scan chunking (``max_scan_steps``) has
-no counterpart: a replay holds one step, whatever the epoch's length.
+capture. ``captured=False`` runs the steps as a plain loop: the route on
+the CPU, under a mesh, under lazy Adam, and of the models whose step is
+not a flat one. JAX's scan chunking (``max_scan_steps``) has no
+counterpart: a replay holds one step, whatever the epoch's length.
 
 Under a mesh (``mesh=``, every pipeline) every rank
 draws the same global epoch from the same seeded generator, the
@@ -48,7 +53,7 @@ from ..parallel.distributed import all_reduce_sum
 
 __all__ = ["PairwiseEpochPipeline", "SequentialPairwiseEpochPipeline",
            "InteractionEpochPipeline", "UserVecEpochPipeline",
-           "RowsEpochPipeline", "EpochProgram",
+           "RowsEpochPipeline", "EpochProgram", "mark_written",
            "pad_to_batches", "epoch_generator"]
 
 
@@ -174,14 +179,21 @@ class _ShuffledEpochPipeline:
             held = self._programs[train_step] = (program, graph, state)
         program, graph, _ = held
         loss = program.run(generator, graph.replay)
-        # a replay moves the tensors without their version counters, which
-        # caches of derived tables (serving's packed items) key on
-        for t in state:
-            torch.autograd.graph.increment_version(t)
+        mark_written(state)
         self.last_run = {"route": "captured", "replays": self.num_batches,
                          "warmup_steps": warmup,
                          "capture_seconds": capture_s}
         return loss
+
+
+def mark_written(tensors) -> None:
+    """Move the version counters of ``tensors``, which a CUDA graph's
+    replays wrote without them: caches of derived tables key on the
+    counters (serving's packed items, FPMC's concatenated tables, a
+    tower's user vectors), and a parameter that is a view of a flat vector
+    shares its counter."""
+    for t in tensors:
+        torch.autograd.graph.increment_version(t)
 
 
 class EpochProgram:

@@ -30,11 +30,13 @@ sum of a row is the same from run to run, whichever warp merges it.
 launches the kernel on CUDA tensors, or raises. It adds one to
 ``runtime.LAUNCHES["segsum"]`` per launch.
 
-A CUDA graph can hold a launch, forward and backward (LightGCN's captured
-epoch): the layout is built on the host once, the output and partial rows
-come from PyTorch's allocator (the graph's pool under a capture), the
-launch takes the current stream, and the counters are back at 0 when a
-launch ends, so each replay finds them at rest.
+A CUDA graph can hold a launch, forward and backward (the captured epochs
+of LightGCN and MGCN, and of SGAT: its attention as per-edge weights,
+``edge_mask`` here, and the sums over its fixed index sets): the layout
+is built on the host once, the output and partial rows come from
+PyTorch's allocator (the graph's pool under a capture), the launch takes
+the current stream, and the counters are back at 0 when a launch ends, so
+each replay finds them at rest.
 """
 from typing import NamedTuple, Optional
 

@@ -15,6 +15,9 @@ so the tests check the contract (exclusion, fallback, uniformity), not the
 bits. Inside a CUDA graph (a captured epoch) the generator must be one
 registered with the graph (``EpochProgram``'s): each replay then draws on
 from the generator's state at the replay, the eager calls' numbers.
+:func:`sample_negatives` reads nothing back to the host, at one negative
+a row as at SGAT's three (its candidates, their search in the sorted
+rows and the first valid one's pick stay on the device).
 
 Draws with replacement from a weighted catalog (:func:`draw_with_replacement`)
 take ``torch.multinomial`` on the CPU. On a card ``torch.multinomial``

@@ -31,7 +31,11 @@ fixed order on its chip; these sums give the port the same property.
   (``experiments/epoch_routes.py``) neither it nor ``ordered_gather``'s
   backward, nor a plain ``table[ids]``'s backward (BPRMF's and
   LightGCN's gathers), raises under ``torch.cuda.set_sync_debug_mode
-  ("error")`` at 1,024 and 2,048 rows, so a CUDA graph can hold them.
+  ("error")`` at 1,024 and 2,048 rows, so a CUDA graph can hold them;
+  nor do the whole steps of FPMC, TransRec, SGAT (plain gathers of up to
+  5,120 rows) and MGCN (``gather_rows`` of 2,048). No captured step sums
+  more than ``PUT_ROWS`` rows here, so the ``segment_reduce`` route's
+  host reads stay unchecked.
 - :func:`fixed_index` lays an index set that stays the same from step to
   step (SGAT's occurrences and edges, LATTICE's learned rows) out once as
   kernel #11's :class:`~skrx_torch.ops.kernels.segsum.Segments`;

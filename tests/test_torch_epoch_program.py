@@ -1,19 +1,23 @@
 """The epoch as one program: the port's flat-parameter step
 (``FlatTrainStep``) against the JAX package's jitted
 ``make_flat_train_step`` (optax Adam), its parameters as views of one flat
-vector in JAX's ravel order, the captured route's step body
+vector in JAX's ravel order (MGCN's nested tree key by key, as
+``ravel_pytree`` lays it out), the captured route's step body
 (``EpochProgram``) run eagerly against the eager epoch bit for bit, and the
-captured route refused on the CPU. BPRMF (Adam) and LightGCN (2 layers) at
-n_dim 8 on 1,500 synthetic ratings; the captured route itself (a CUDA
-graph) runs only on a card, in ``chip_smoke.py`` phases 4 and 6.
+captured route refused on the CPU. BPRMF (Adam), LightGCN (2 layers),
+FPMC, TransRec, SGAT (2 layers) and MGCN (its LambdaLR schedule computed
+inside the step) at widths of 8 on 1,500 synthetic ratings; the captured
+route itself (a CUDA graph) runs only on a card, in ``chip_smoke.py``
+phases 4, 6, 12 and 14.
 
 On a card the step's Adam is capturable (its bias corrections in f32 on
 the device, as optax's), which the CPU cannot run: JAX's flat step over
-three batches, from a state with ``user_emb``'s second moments near Adam's
-eps squared, is kept in ``data/flat_step_reference.npz``. The CPU tests
-hold that file to JAX's step (and the port's CPU step to it), and the
-card's test holds the card's step to it. Write the file anew with
-``python -m tests.test_torch_epoch_program``.
+three batches, from a state with the user table's second moments near
+Adam's eps squared, is kept in ``data/flat_step_reference.npz`` for
+BPRMF, LightGCN, FPMC and MGCN (whose third step crosses an epoch of its
+schedule). The CPU tests hold that file to JAX's step (and the port's CPU
+step to it), and the card's test holds the card's step to it. Write the
+file anew with ``python -m tests.test_torch_epoch_program``.
 
 JAX is imported inside the tests that run it, so the card's test run,
 which has no JAX, runs the rest of the file."""
@@ -29,22 +33,47 @@ import torch
 from skrx_torch import RunConfig
 from skrx_torch.io import synthetic
 from skrx_torch.models.BPRMF import BPRMF
+from skrx_torch.models.FPMC import FPMC
 from skrx_torch.models.LightGCN import LightGCN
-from skrx_torch.models.common import adam_l2
-from skrx_torch.models.pipeline import EpochProgram, epoch_generator
+from skrx_torch.models.MGCN import MGCN
+from skrx_torch.models.SGAT import SGAT
+from skrx_torch.models.TransRec import TransRec
+from skrx_torch.models.common import adam_l2, ravel_order
+from skrx_torch.models.pipeline import (EpochProgram, epoch_generator,
+                                        mark_written)
 
 CPU = torch.device("cpu")
 MODELS = {
     "BPRMF": (BPRMF, dict(n_dim=8, lr=0.01, reg=0.05, batch_size=128)),
     "LightGCN": (LightGCN, dict(embed_size=8, n_layers=2, lr=0.01,
                                 reg=0.05, batch_size=128)),
+    "FPMC": (FPMC, dict(embed_size=8, lr=0.01, reg=0.05, batch_size=128)),
+    "TransRec": (TransRec, dict(embed_size=8, lr=0.01, reg=0.05,
+                                batch_size=128)),
+    "SGAT": (SGAT, dict(embed_size=8, n_layers=2, n_seqs=3, n_next=2,
+                        lr=0.01, reg=0.05, batch_size=128)),
+    "MGCN": (MGCN, dict(embed_dim=8, knn_k=5, lr=0.01, reg=0.1, cl_loss=0.5,
+                        batch_size=128, lr_scheduler=[0.5, 50])),
 }
+# the models whose batches carry the previous items, (users, pos, neg, w,
+# prev); the others' are (users, pos, neg, w)
+SEQUENTIAL = ("FPMC", "TransRec", "SGAT")
+# the JAX models run their segment route (their "auto" may take Pallas)
+SEGMENT = ("LightGCN", "SGAT", "MGCN")
+# the models of the stored reference, and each one's user table, whose
+# second moments start near eps**2
+REFERENCE_MODELS = {"BPRMF": "user_emb", "LightGCN": "user_emb",
+                    "FPMC": "UI", "MGCN": "user_emb"}
+# the models whose user rows outside the batches keep a zero gradient
+# (no propagation reaches them): their user table
+STILL = {"BPRMF": "user_emb", "FPMC": "UI"}
 RUN = dict(seed=1, metric=("NDCG",), top_k=(10,), test_batch_size=32)
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                          "flat_step_reference.npz")
 # the reference's Adam count: bias corrections near 1, so that a second
 # moment near eps**2 puts sqrt(nu_hat) near eps
 REF_COUNT = 3000
+BATCH_KEYS = ("users", "pos", "neg", "w", "prev")
 
 
 def _jax():
@@ -54,10 +83,16 @@ def _jax():
 
     from skrx import RunConfig as JaxRunConfig
     from skrx.models.BPRMF import BPRMF as JaxBPRMF
+    from skrx.models.FPMC import FPMC as JaxFPMC
     from skrx.models.LightGCN import LightGCN as JaxLightGCN
+    from skrx.models.MGCN import MGCN as JaxMGCN
+    from skrx.models.SGAT import SGAT as JaxSGAT
+    from skrx.models.TransRec import TransRec as JaxTransRec
     return types.SimpleNamespace(
         jax=jax, jnp=jax.numpy, ravel=ravel_pytree, RunConfig=JaxRunConfig,
-        models={"BPRMF": JaxBPRMF, "LightGCN": JaxLightGCN})
+        models={"BPRMF": JaxBPRMF, "LightGCN": JaxLightGCN,
+                "FPMC": JaxFPMC, "TransRec": JaxTransRec, "SGAT": JaxSGAT,
+                "MGCN": JaxMGCN})
 
 
 def _t(x):
@@ -65,8 +100,12 @@ def _t(x):
 
 
 def _make_data(root: str) -> str:
+    """50 users, 80 items, 1,500 ratings (seed 9), with 12-d image and
+    10-d text features (drawn from their own generator: the ratings are
+    those of the data without them)."""
     return synthetic.make_dataset_dir(root, num_users=50, num_items=80,
-                                      num_ratings=1500, seed=9)
+                                      num_ratings=1500, seed=9, with_mm=True,
+                                      img_dim=12, txt_dim=10)
 
 
 @pytest.fixture(scope="module")
@@ -83,9 +122,55 @@ def _port(name, data, monkeypatch, device="cpu"):
 
 
 def _weights(m, rng):
-    """Random weights of the port model's tables, as JAX's params."""
-    return {k: rng.standard_normal(tuple(getattr(m, k).shape)).astype(
-        np.float32) * 0.3 for k in m._JAX_PARAMS}
+    """Random weights of the port model's parameters (drawn in their
+    order), as JAX's params: nested by the dotted names."""
+    return _nest({k: rng.standard_normal(tuple(p.shape)).astype(
+        np.float32) * 0.3 for k, p in m.named_parameters()})
+
+
+def _nest(flat: dict) -> dict:
+    out = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return out
+
+
+def _dotted(tree, prefix: str = "") -> dict:
+    """A nested dict's leaves by dotted name, in JAX's ravel order."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_dotted(value, name + "."))
+        else:
+            out[name] = np.asarray(value)
+    return {k: out[k] for k in ravel_order(out)}
+
+
+def _size(params) -> int:
+    return sum(v.size for v in _dotted(params).values())
+
+
+def _random_batch(name, tm, rng, users_hi=None, b=32):
+    """A batch of model ``name``'s layout: users below ``users_hi`` (all
+    when None), positives, negatives (SGAT's ``n_next`` a row), weights
+    with about 10% padded rows of 0, and a sequential model's previous
+    items (SGAT's pre-padded with id N)."""
+    n = tm.num_items
+    slots = tm.config.n_next if name == "SGAT" else 1
+    batch = [rng.integers(0, users_hi or tm.num_users, b),
+             rng.integers(0, n, (b, slots)) if name == "SGAT"
+             else rng.integers(0, n, b),
+             rng.integers(0, n, (b, slots)),
+             (rng.random(b) < 0.9).astype(np.float32)]
+    if name in SEQUENTIAL:
+        width = tm.config.n_seqs if name == "SGAT" else 1
+        batch.append(rng.integers(0, n + (name == "SGAT"), (b, width)))
+    return tuple(batch)
 
 
 def _arrays(state) -> dict:
@@ -115,24 +200,39 @@ def _saved(state: dict) -> dict:
     return torch.load(buf)
 
 
+_JAX_MODELS = {}
+
+
 def _jax_model(j, name, path):
-    cfg = dict(MODELS[name][1])
-    if name == "LightGCN":
-        cfg["graph_impl"] = "segment"
-    jm = j.models[name](j.RunConfig(recommender=name, data_dir=path, **RUN),
-                        cfg)
+    """The JAX package's model ``name`` on ``path``, built once (its step
+    and optimizer are pure functions)."""
+    if (name, path) not in _JAX_MODELS:
+        cfg = dict(MODELS[name][1])
+        if name in SEGMENT:
+            cfg["graph_impl"] = "segment"
+        _JAX_MODELS[name, path] = j.models[name](
+            j.RunConfig(recommender=name, data_dir=path, **RUN), cfg)
+    jm = _JAX_MODELS[name, path]
     assert hasattr(jm, "_flat")             # JAX's make_flat_train_step
     return jm
+
+
+def _jax_opt_state(j, jm, flat, count, mu, nu):
+    """JAX's optimizer state over ``flat`` at ``count`` with the moments
+    given; a schedule's count (MGCN's) moved with Adam's."""
+    adam, *rest = jm.optimizer.init(flat)
+    c = j.jnp.asarray(count, j.jnp.int32)
+    rest = [r._replace(count=c) if "count" in getattr(r, "_fields", ())
+            else r for r in rest]
+    return (adam._replace(count=c, mu=j.jnp.asarray(mu),
+                          nu=j.jnp.asarray(nu)), *rest)
 
 
 def _jax_steps(j, jm, params, count, mu, nu, batches):
     """JAX's jitted flat step over ``batches`` from ``params`` and the Adam
     state: per step (loss, flat parameters, mu, nu, count)."""
-    flat, _ = j.ravel({k: j.jnp.asarray(v) for k, v in params.items()})
-    adam, *rest = jm.optimizer.init(flat)
-    carry = (flat, (adam._replace(count=j.jnp.asarray(count, j.jnp.int32),
-                                  mu=j.jnp.asarray(mu), nu=j.jnp.asarray(nu)),
-                    *rest))
+    flat, _ = j.ravel(j.jax.tree_util.tree_map(j.jnp.asarray, params))
+    carry = (flat, _jax_opt_state(j, jm, flat, count, mu, nu))
     step = j.jax.jit(jm._train_step)
     out = []
     for batch in batches:
@@ -160,8 +260,8 @@ def _port_steps(tm, params, count, mu, nu, batches):
                       (tm._flat_step.flat, adam["exp_avg"],
                        adam["exp_avg_sq"])),
                     float(adam["step"]),
-                    {k: getattr(tm, k).detach().cpu().numpy().copy()
-                     for k in params}))
+                    {k: tm.get_parameter(k).detach().cpu().numpy().copy()
+                     for k in _dotted(params)}))
     return out
 
 
@@ -206,81 +306,90 @@ def test_flat_step_matches_jax_flat_step(name, data, monkeypatch):
     tm = _port(name, data, monkeypatch)
     rng = np.random.default_rng(4)
     params = _weights(tm, rng)
-    size = sum(v.size for v in params.values())
+    size = _size(params)
     mu = rng.standard_normal(size).astype(np.float32) * 0.05
     nu = rng.uniform(1e-3, 1e-2, size).astype(np.float32)
-    u, n, b = tm.num_users, tm.num_items, 32
-    batches = [(rng.integers(0, u, b), rng.integers(0, n, b),
-                rng.integers(0, n, (b, 1)),
-                (rng.random(b) < 0.9).astype(np.float32)) for _ in range(3)]
-    want = _jax_steps(j, jm, params, 4, mu, nu, batches)
-    got = _port_steps(tm, params, 4, mu, nu, batches)
+    batches = [_random_batch(name, tm, rng) for _ in range(3)]
+    # MGCN from two updates before an epoch's end: its third step at the
+    # next epoch's rate
+    count = tm.steps_per_epoch - 2 if name == "MGCN" else 4
+    want = _jax_steps(j, jm, params, count, mu, nu, batches)
+    got = _port_steps(tm, params, count, mu, nu, batches)
     _assert_steps(got, want)
-    _, unravel = j.ravel({k: j.jnp.asarray(v) for k, v in params.items()})
+    _, unravel = j.ravel(j.jax.tree_util.tree_map(j.jnp.asarray, params))
     for step, ref_step in zip(got, want):
-        ref = unravel(j.jnp.asarray(ref_step[1]))
-        for key in params:
-            np.testing.assert_allclose(step[-1][key], np.asarray(ref[key]),
-                                       rtol=1e-5, atol=1e-6)
+        ref = _dotted(unravel(j.jnp.asarray(ref_step[1])))
+        assert ref.keys() == step[-1].keys()
+        for key in ref:
+            np.testing.assert_allclose(step[-1][key], ref[key], rtol=1e-5,
+                                       atol=1e-6, err_msg=key)
 
 
-def _reference_inputs(tm) -> dict:
+def _reference_count(name: str, tm) -> int:
+    """The reference's Adam count: REF_COUNT, or for MGCN the count two
+    updates before the end of the epoch at it, so that its third step
+    takes the next epoch's rate."""
+    if name != "MGCN":
+        return REF_COUNT
+    spe = tm.steps_per_epoch
+    return spe * (REF_COUNT // spe + 1) - 2
+
+
+def _reference_inputs(name: str, tm) -> dict:
     """Weights, Adam state and three batches for model ``tm`` (seed 5):
-    ``user_emb``'s second moments in [0.5, 2] * 1e-16 and its first
+    its user table's second moments in [0.5, 2] * 1e-16 and its first
     moments within 1e-8 (at count REF_COUNT, sqrt(nu_hat) near eps), the
     other leaves' in [1e-3, 1e-2]; the batches' users in the first half,
-    so that BPRMF's other half keeps a zero gradient."""
+    so that BPRMF's and FPMC's other half keeps a zero gradient."""
     rng = np.random.default_rng(5)
     params = _weights(tm, rng)
-    size = sum(v.size for v in params.values())
-    leaf = _leaf(params, "user_emb")
+    size = _size(params)
+    leaf = _leaf(params, REFERENCE_MODELS[name])
     mu = rng.standard_normal(size).astype(np.float32) * 0.05
     nu = rng.uniform(1e-3, 1e-2, size).astype(np.float32)
     mu[leaf] = rng.uniform(-1e-8, 1e-8, leaf.stop - leaf.start)
     nu[leaf] = rng.uniform(0.5e-16, 2e-16, leaf.stop - leaf.start)
-    u, n, b = tm.num_users, tm.num_items, 32
-    out = {f"w/{k}": v for k, v in params.items()}
-    out.update(count=np.int64(REF_COUNT), mu=mu, nu=nu)
+    out = {f"w/{k}": v for k, v in _dotted(params).items()}
+    out.update(count=np.int64(_reference_count(name, tm)), mu=mu, nu=nu)
     for i in range(3):
-        out.update({f"b{i}/users": rng.integers(0, u // 2, b),
-                    f"b{i}/pos": rng.integers(0, n, b),
-                    f"b{i}/neg": rng.integers(0, n, (b, 1)),
-                    f"b{i}/w": (rng.random(b) < 0.9).astype(np.float32)})
+        batch = _random_batch(name, tm, rng, users_hi=tm.num_users // 2)
+        out.update({f"b{i}/{k}": v for k, v in zip(BATCH_KEYS, batch)})
     return out
 
 
 def _leaf(params: dict, key: str) -> slice:
-    """``key``'s slice of the vector raveled in sorted order."""
+    """``key``'s slice of the vector raveled in JAX's order."""
     lo = 0
-    for k in sorted(params):
+    for k, v in _dotted(params).items():
         if k == key:
-            return slice(lo, lo + params[k].size)
-        lo += params[k].size
+            return slice(lo, lo + v.size)
+        lo += v.size
     raise KeyError(key)
 
 
 def _still(name: str, params: dict, batches) -> np.ndarray:
-    """BPRMF's entries of ``user_emb`` rows that no batch gathers (their
-    gradient is 0), in the raveled vector; none for LightGCN, whose
-    propagation reaches every row."""
-    if name != "BPRMF":
+    """BPRMF's and FPMC's entries of user rows that no batch gathers
+    (their gradient is 0), in the raveled vector; none for the graph
+    models, whose propagation reaches every row."""
+    if name not in STILL:
         return np.zeros(0, np.int64)
-    d = params["user_emb"].shape[1]
-    rows = np.setdiff1d(np.arange(params["user_emb"].shape[0]),
+    table = params[STILL[name]]
+    d = table.shape[1]
+    rows = np.setdiff1d(np.arange(table.shape[0]),
                         np.concatenate([b[0] for b in batches]))
-    lo = _leaf(params, "user_emb").start
+    lo = _leaf(params, STILL[name]).start
     return (lo + rows[:, None] * d + np.arange(d)).reshape(-1)
 
 
 def _start(params: dict) -> np.ndarray:
-    return np.concatenate([params[k].reshape(-1) for k in sorted(params)])
+    return np.concatenate([v.reshape(-1) for v in _dotted(params).values()])
 
 
 def _unpack(ref: dict):
     """(params, count, mu, nu, batches) of one model's reference inputs."""
-    params = {k[2:]: v for k, v in ref.items() if k.startswith("w/")}
-    batches = [tuple(ref[f"b{i}/{x}"] for x in ("users", "pos", "neg", "w"))
-               for i in range(3)]
+    params = _nest({k[2:]: v for k, v in ref.items() if k.startswith("w/")})
+    batches = [tuple(ref[f"b{i}/{x}"] for x in BATCH_KEYS
+                     if f"b{i}/{x}" in ref) for i in range(3)]
     return params, int(ref["count"]), ref["mu"], ref["nu"], batches
 
 
@@ -301,7 +410,7 @@ def _jax_reference(name: str, data) -> dict:
     root, path = data
     tm = MODELS[name][0](RunConfig(data_dir=path, **RUN),
                          dict(MODELS[name][1]), device="cpu")
-    ref = _reference_inputs(tm)
+    ref = _reference_inputs(name, tm)
     steps = _jax_steps(j, _jax_model(j, name, path), *_unpack(ref))
     for i, key in enumerate(("loss", "flat", "mu_out", "nu_out",
                              "count_out")):
@@ -309,14 +418,15 @@ def _jax_reference(name: str, data) -> dict:
     return ref
 
 
-@pytest.mark.parametrize("name", list(MODELS))
+@pytest.mark.parametrize("name", list(REFERENCE_MODELS))
 def test_flat_step_reference_is_jax_flat_step(name, data, monkeypatch):
     """The stored reference: its inputs are this file's, its steps JAX's
     jitted flat step over them (within 1e-6 relative: XLA's CPU code may
     round differently elsewhere), and the port's CPU step, whose Adam
     takes its bias corrections in f64, holds to it at the tolerances of
-    ``_assert_steps`` (BPRMF's rows of ``user_emb`` no batch reaches held
-    in their update and second moments too)."""
+    ``_assert_steps`` (BPRMF's and FPMC's user rows no batch reaches held
+    in their update and second moments too; MGCN's third step at the next
+    epoch's rate)."""
     monkeypatch.chdir(data[0])
     got, ref = _jax_reference(name, data), _load_reference(name)
     assert got.keys() == ref.keys()
@@ -324,23 +434,24 @@ def test_flat_step_reference_is_jax_flat_step(name, data, monkeypatch):
         np.testing.assert_allclose(got[key], ref[key], rtol=1e-6, atol=0,
                                    err_msg=key)
     params, *state = _unpack(ref)
-    assert 1e-17 < ref["nu"][_leaf(params, "user_emb")].max() < 1e-15
+    assert 1e-17 < ref["nu"][_leaf(params, REFERENCE_MODELS[name])].max() \
+        < 1e-15
     still = _still(name, params, state[-1])
-    assert name != "BPRMF" or len(still) >= 20 * 8
+    assert name not in STILL or len(still) >= 20 * 8
     tm = _port(name, data, monkeypatch)
     _assert_steps(_port_steps(tm, params, *state), _reference_steps(ref),
                   _start(params), still)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(MODELS))
+@pytest.mark.parametrize("name", list(REFERENCE_MODELS))
 def test_card_flat_step_matches_jax_reference(name, data, monkeypatch):
     """On a card: the flat step with its capturable Adam (count and bias
-    corrections in f32 on the device) over the stored reference's three
-    batches against JAX's flat step, at the tolerances of
-    ``_assert_steps`` (BPRMF's rows of ``user_emb`` no batch reaches, whose
-    second moments sit near eps**2, held in their update and second
-    moments too; needs a card)."""
+    corrections in f32 on the device; MGCN's rate from its schedule on the
+    device) over the stored reference's three batches against JAX's flat
+    step, at the tolerances of ``_assert_steps`` (BPRMF's and FPMC's user
+    rows no batch reaches, whose second moments sit near eps**2, held in
+    their update and second moments too; needs a card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     ref = _load_reference(name)
@@ -356,25 +467,35 @@ def test_card_flat_step_matches_jax_reference(name, data, monkeypatch):
 @pytest.mark.parametrize("name", list(MODELS))
 def test_parameters_are_views_of_the_flat_vector(name, data, monkeypatch):
     """Each parameter, and its gradient, is a view of the one flat vector,
-    and of the one flat gradient, at its place in JAX's ravel order; a
-    write into the vector shows in the parameter and moves its version."""
+    and of the one flat gradient, at its place in JAX's ravel order: the
+    leaves of ``ravel_pytree`` (MGCN's nested tree key by key) at their
+    offsets and shapes; a write into the vector shows in the parameter and
+    moves its version."""
     j = _jax()
     tm = _port(name, data, monkeypatch)
     step = tm._flat_step
     params = _weights(tm, np.random.default_rng(2))
     tm.load_jax_params(params)
-    ref, _ = j.ravel({k: j.jnp.asarray(v) for k, v in params.items()})
+    tree = j.jax.tree_util.tree_map(j.jnp.asarray, params)
+    ref, _ = j.ravel(tree)
     np.testing.assert_array_equal(step.flat.detach().numpy(),
                                   np.asarray(ref))
+    leaves = j.jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(leaves) == len(step.slices) == len(step.names)
     offset = 0
-    for key in sorted(params):
+    for path, leaf in leaves:
+        key = ".".join(str(part.key) for part in path)
+        assert step.slices[key][:2] == (offset, offset + leaf.size), key
         p = tm.get_parameter(key)
+        assert tuple(p.shape) == leaf.shape
         assert p.data_ptr() == step.flat.data_ptr() + 4 * offset
         assert p.grad.data_ptr() == step.grad.data_ptr() + 4 * offset
-        offset += p.numel()
+        offset += leaf.size
     assert offset == step.flat.numel()
-    assert [n for n, _ in tm.named_parameters()] == list(tm._JAX_PARAMS)
-    key = sorted(params)[-1]
+    assert [n for n, _ in tm.named_parameters()] == list(step.names)
+    if tm._JAX_PARAMS:
+        assert list(step.names) == list(tm._JAX_PARAMS)
+    key = ravel_order(step.names)[-1]
     p = tm.get_parameter(key)
     version = p._version
     with torch.no_grad():
@@ -391,7 +512,7 @@ def test_state_loads_into_the_flat_buffers(name, data, monkeypatch):
     tm._train_epoch(0)
     saved = _saved(tm._train_state())
     want = _arrays(saved)
-    shapes = [tuple(getattr(tm, k).shape) for k in tm._JAX_PARAMS]
+    shapes = [tuple(tm.get_parameter(k).shape) for k in tm._flat_step.names]
     assert [tuple(s["exp_avg"].shape) for s in
             saved["optimizer"]["state"].values()] == shapes
     buffers = tm._flat_step.state
@@ -407,6 +528,8 @@ def test_state_loads_into_the_flat_buffers(name, data, monkeypatch):
                           np.full(size, 0.25, np.float32))
     assert all(a is b for a, b in zip(tm._flat_step.state, buffers))
     assert float(buffers[4]) == 9.0 and float(buffers[2].min()) == 0.5
+    if name == "MGCN":                    # the schedule's count is Adam's
+        assert tm.update_count == 9
     with pytest.raises(ValueError):
         tm.load_jax_opt_state(1, np.zeros(3), np.zeros(3))
 
@@ -434,6 +557,92 @@ def test_program_step_equals_the_eager_epoch(name, data, monkeypatch):
     assert loss_program == loss_eager
     assert _bits(tm._train_state()) == eager
     assert torch.equal(gen.get_state(), eager_gen)
+
+
+def test_mgcn_rate_is_optax_schedule(data, monkeypatch):
+    """MGCN's rate, as the flat step computes it from Adam's f32 count
+    (``mgcn_lr_f32``), against the rate by which JAX's jitted optax
+    update scales its Adam direction at counts spe - 1, spe and 2 spe
+    (spe fixed when the model is built, as JAX's): optax's update
+    ``-lr(count) * u`` equals ``-rate * u`` in f32 for every entry with
+    the port's rate (spe - 1: the rate of epoch 0, ``lr`` itself) or with
+    one of its f32 neighbours (the powers of XLA and of the C library
+    round apart by up to an ulp)."""
+    j = _jax()
+    import optax
+    root, path = data
+    monkeypatch.chdir(root)
+    jm = _jax_model(j, "MGCN", path)
+    tm = _port("MGCN", data, monkeypatch)
+    spe = tm.steps_per_epoch
+    assert spe == jm.pipeline.num_batches >= 2
+    tm.pipeline.num_batches = 1            # a cut epoch leaves spe alone
+    rng = np.random.default_rng(6)
+    g, mu = (j.jnp.asarray(rng.standard_normal(64).astype(np.float32))
+             for _ in range(2))
+    nu = j.jnp.asarray(rng.uniform(1e-3, 1e-2, 64).astype(np.float32))
+    update = j.jax.jit(jm.optimizer.update)
+    direction = j.jax.jit(optax.scale_by_adam().update)
+    for count in (spe - 1, spe, 2 * spe):
+        state = _jax_opt_state(j, jm, j.jnp.zeros(64), count, mu, nu)
+        full = np.asarray(update(g, state)[0])
+        u = np.asarray(direction(g, state[0])[0])
+        rate = tm._flat_step.schedule(torch.tensor(float(count))).numpy()
+        assert rate.dtype == np.float32
+        near = [rate] if count < spe else \
+            [rate, np.nextafter(rate, np.float32(0)),
+             np.nextafter(rate, np.float32(1))]
+        assert any(np.array_equal(full, u * -r) for r in near), \
+            (count, rate, -full / u)
+        if count < spe:
+            assert rate == np.float32(MODELS["MGCN"][1]["lr"])
+    tm.update_count = spe                  # the step reads Adam's count
+    assert float(tm._flat_step.next_lr()) == float(
+        tm._flat_step.schedule(torch.tensor(float(spe))))
+
+
+@pytest.mark.parametrize("name", ["FPMC", "TransRec"])
+def test_caches_follow_a_replays_writes(name, data, monkeypatch):
+    """A replay writes the flat vector without moving its version counter;
+    run_epoch's captured route then moves the step's tensors' counters
+    (``mark_written``), which the views share: FPMC's concatenated tables
+    (``_chunk_embeddings``) and TransRec's user vectors
+    (``_cached_user_vectors``) are computed anew, as after an eager
+    step."""
+    tm = _port(name, data, monkeypatch)
+    users = torch.arange(8)
+
+    def derived():
+        return (tm._chunk_embeddings()[0] if name == "FPMC"
+                else tm._cached_user_vectors(users)).clone()
+    before = derived()
+    tm._flat_step.flat.detach().numpy()[:] += 0.5     # as a replay writes
+    assert torch.equal(derived(), before)             # the counters stand
+    mark_written(tm._flat_step.state)
+    assert not torch.equal(derived(), before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["FPMC", "TransRec"])
+def test_card_captured_epoch_moves_the_caches(name, data, monkeypatch):
+    """On a card: an epoch on the captured route moves FPMC's concatenated
+    tables and TransRec's user vectors, the epoch replayed a step a batch
+    (needs a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tm = _port(name, data, monkeypatch, device="cuda")
+    assert tm.captured_epochs
+    users = torch.arange(8, device=tm.device)
+
+    def derived():
+        return (tm._chunk_embeddings()[0] if name == "FPMC"
+                else tm._cached_user_vectors(users)).clone()
+    before = derived()
+    tm._train_epoch(0)
+    run = tm.pipeline.last_run
+    assert run["route"] == "captured"
+    assert run["replays"] == tm.pipeline.num_batches
+    assert not torch.equal(derived(), before)
 
 
 def test_adam_keeps_its_device_choice_on_load():
@@ -479,7 +688,7 @@ def _write_reference() -> None:
         cwd = os.getcwd()
         os.chdir(root)                    # model construction writes log/
         try:
-            for name in MODELS:
+            for name in REFERENCE_MODELS:
                 ref.update({f"{name}/{k}": v for k, v in _jax_reference(
                     name, (root, _make_data(root))).items()})
         finally:
