@@ -228,15 +228,26 @@ user).
    (p_dims [64], keep_prob 0.5, anneal cap 0.2 over 200,000 steps, batch
    256) train on dense interaction rows built on the card and score as
    towers (their ``_topk_factors``, with a bias). fit() for one epoch
-   each: losses finite, segsum launched exactly 2 x 2 x steps + 2 for
-   SelfCF and never for the others, the full route's kernels launched;
-   MultVAE's step count equal to its steps. One train step of each on
+   each, cut to its first EPOCH_STEPS steps, on the captured route (the
+   epoch a CUDA graph of one whole per-leaf dense-Adam step, its draws
+   replayed from the epoch program's step generator, one replay a step,
+   the warm-up steps and the capture under the host-read check): losses
+   finite, segsum launched exactly 2 x 2 x (steps + warm-up steps) + 2
+   for SelfCF and never for the others, the full route's kernels
+   launched; MultVAE's step count equal to its steps (the warm-up's
+   taken back); the derived tables after fit() (SelfCF's frozen
+   embeddings, CDAE's and MultVAE's cached user vectors) those of the
+   trained parameters. One train step of each on
    the card against the same step on CPU copies of its parameters, Adam
    state, batch and draws (drawn once: SelfCF's edge mask at the first
    seed whose rate is above 0.5, so that kept edges scale above 2, and
    its target masks; CDAE's negatives and dropout mask; MultVAE's
    dropout mask and eps at its anneal), the loss within 1e-5 relative,
-   every updated parameter within 1e-5 of its largest magnitude.
+   every updated parameter within 1e-5 of its largest magnitude. One
+   cut epoch of each on each route from one state, bit-equal (loss,
+   parameters, Adam's moments and counts, MultVAE's anneal count, both
+   generators), with seconds and busy share, segsum among SelfCF's
+   replayed kernels.
    evaluate() full, fused and chunked (8,192 items a chunk) for each:
    every route's kernels launched (dot_submax, dot_extract,
    kth_largest and rank_lookup_count on the fused one, vmem_topk on the
@@ -342,13 +353,15 @@ user).
    once an evaluation (LATTICE also its learned graph's row sums over a
    fixed index set, at an epoch's first step and at each evaluation),
    LATTICE's learned graph through blockwise_topk (pruned_merge launched
-   in its fit()). MGCN's fit() on the captured route (its whole nested
-   tree one flat vector, the 4,096-d table included; its LambdaLR rate
-   computed inside the step from Adam's count over the whole epoch's
-   steps; segsum's launches counted as phase 12's), its frozen embeddings
-   after fit() those of the trained parameters; one cut epoch on each
-   route from one state, bit-equal, with seconds and busy share, segsum
-   among the replayed kernels. One train step of each on the card
+   in its fit()). BM3's, SLMRec's and MGCN's fit() on the captured route
+   (BM3's and SLMRec's per-leaf step with BM3's table-wide masks drawn
+   from the program's step generator; MGCN's whole nested tree one flat
+   vector, the 4,096-d table included, its LambdaLR rate computed inside
+   the step from Adam's count over the whole epoch's steps; segsum's
+   launches counted as phase 12's), their frozen embeddings after fit()
+   those of the trained parameters; one cut epoch of each on each route
+   from one state, bit-equal, with seconds and busy share, segsum among
+   the replayed kernels. One train step of each on the card
    against the same step on CPU copies of its parameters, Adam state,
    batch and draws (BM3's table-wide target masks, FREEDOM's epoch mask,
    MGCN at the rate its schedule gives on the card; LATTICE's epoch-first
@@ -2009,14 +2022,20 @@ def check_routes(tag: str, m, runs: list, card: str) -> int:
     return sum(r["warmup_steps"] for r in runs)
 
 
+# the models whose serving reads cached user vectors (the towers); the
+# others of check_fresh read cached or frozen item and user tables
+USER_VECTOR_MODELS = ("TransRec", "SGAT", "CDAE", "MultVAE")
+
+
 def derived_tables(tag: str, m) -> tuple:
-    """What serving and evaluation of model m (FPMC, TransRec, SGAT, MGCN)
-    derive from its parameters and cache: FPMC's concatenated tables,
-    TransRec's and SGAT's user vectors of the first B_EVAL users (SGAT's
-    read its propagated items), MGCN's frozen embeddings; copies."""
+    """What serving and evaluation of model m (FPMC, TransRec, SGAT, MGCN,
+    SelfCF, CDAE, MultVAE, BM3, SLMRec) derive from its parameters and
+    cache: FPMC's concatenated tables, the user vectors of the first
+    B_EVAL users of the towers (SGAT's read its propagated items), the
+    frozen embeddings of the graph models; copies."""
     u = torch.arange(B_EVAL, device=m.device)
     with torch.no_grad():
-        out = ((m._cached_user_vectors(u),) if tag in ("TransRec", "SGAT")
+        out = ((m._cached_user_vectors(u),) if tag in USER_VECTOR_MODELS
                else m._chunk_embeddings())
     return tuple(t.clone() for t in out)
 
@@ -2033,7 +2052,7 @@ def check_fresh(tag: str, m, before: tuple) -> None:
         if tag == "FPMC":
             want = (torch.cat([m.UI, m.LI[m.last_items]], 1),
                     torch.cat([m.IU, m.IL], 1))
-        elif tag == "TransRec":
+        elif tag in ("TransRec", "CDAE", "MultVAE"):
             want = (m._user_vectors(u),)
         elif tag == "SGAT":
             items = sgat_propagate(m.graph, m.item_emb, m.user_emb,
@@ -2050,48 +2069,59 @@ def check_fresh(tag: str, m, before: tuple) -> None:
     require(fresh and moved, f"{tag}: stale derived tables after fit()")
 
 
+def epoch_generators(m, epoch: int) -> tuple:
+    """The generators of model m's epoch ``epoch`` of seed SEED: the
+    pipeline's and the steps' own draws (stream 1)."""
+    return (epoch_generator(SEED + 1, epoch, m.device),
+            epoch_generator(SEED + 1, epoch, m.device, stream=1))
+
+
 def epoch_routes(m, tag: str, card: str, kernel: str = None) -> dict:
-    """Phases 4 and 6: model m's epoch (seed SEED, an epoch fit() did not
-    run) on the captured route and on the eager route, each from the same
-    weights, Adam state and generator: the loss, every parameter, Adam's
-    moments and step count equal bit for bit, the captured epoch
+    """Phases 4, 6, 11, 12 and 14: model m's epoch (seed SEED, an epoch
+    fit() did not run) on the captured route and on the eager route, each
+    from the same weights, Adam state (MultVAE's anneal count) and
+    generators: the loss, every parameter, Adam's moments and step count
+    and both generators' end states equal bit for bit, the captured epoch
     replaying the graph fit() captured. Then the busy share of one more
     whole epoch on each route (torch.profiler): the captured one must
     show device time, and ``kernel`` among its kernels where given (the
     profiler records a replay's kernels). Prints each route's seconds
     with the card's name and power limit; returns them."""
-    dev, pipe = m.device, m.pipeline
+    pipe = m.pipeline
     require(m.captured_epochs, f"{tag}: fit() on the card takes the "
             f"captured route")
     start = cpu_copy(m._train_state())
     out = {}
     for route in ("captured", "eager"):
         m._load_train_state(start)            # in place: the same buffers
-        gen = epoch_generator(SEED + 1, EPOCHS, dev)
-        loss, sec = timed(lambda: pipe.run_epoch(
-            gen, m.train_step, captured=route == "captured"))
+        gens = epoch_generators(m, EPOCHS)
+        loss, sec = timed(lambda: m.run_epoch(
+            *gens, captured=route == "captured"))
         out[route] = {"loss": loss, "seconds": sec,
                       "state": flat(cpu_copy(m._train_state())),
+                      "gens": [g.get_state() for g in gens],
                       "run": dict(pipe.last_run)}
     cap, eag = out["captured"], out["eager"]
     require(cap["run"]["warmup_steps"] == 0,
             f"{tag}: the loaded state was captured anew: {cap['run']}")
     same_bits_ = (cap["loss"] == eag["loss"]
-                  and bit_equal_states(cap["state"], eag["state"]))
+                  and bit_equal_states(cap["state"], eag["state"])
+                  and all(torch.equal(a, b)
+                          for a, b in zip(cap["gens"], eag["gens"])))
     diff = max(float((cap["state"][k].double() - v.double()).abs().max())
                for k, v in eag["state"].items())
     print(f"{tag} one epoch ({pipe.num_batches} steps) from one state: "
           f"captured loss {cap['loss']} in {cap['seconds']} s, eager loss "
           f"{eag['loss']} in {eag['seconds']} s; parameters, Adam moments "
-          f"and step count bit-equal {same_bits_} (largest difference "
-          f"{diff})  [{card}]", flush=True)
+          f"and step count, generators bit-equal {same_bits_} (largest "
+          f"difference {diff})  [{card}]", flush=True)
     require(same_bits_, f"{tag}: the captured epoch differs from the eager "
             f"one (loss {cap['loss']} vs {eag['loss']}, {diff})")
     for route in ("captured", "eager"):
-        gen = epoch_generator(SEED + 1, EPOCHS + 1, dev)
-        busy, heads = busy_share(lambda: pipe.run_epoch(
-            gen, m.train_step, captured=route == "captured"), reps=1,
-            warm=False, top=40)
+        gens = epoch_generators(m, EPOCHS + 1)
+        busy, heads = busy_share(lambda: m.run_epoch(
+            *gens, captured=route == "captured"), reps=1, warm=False,
+            top=40)
         out[route]["busy"] = busy
         print(f"{tag} one whole epoch, {route} route: device busy "
               f"{'not measured' if busy is None else busy}; top device "
@@ -2604,10 +2634,12 @@ def phase_graph_models(path, reg, dev):
                        for r in runs.values())]}
 
 
-def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
+def phase_selfcf_and_autoencoders(path, reg, dev, card: str, errs: dict):
     """Phase 11 (the module docstring): SelfCF, CDAE and MultVAE at Gowalla
-    scale. Returns the models and the launch counts of each main-path
-    run."""
+    scale, each fit() on the captured route (their draws replayed from
+    the epoch program's step generator), the derived tables fresh after
+    it, and one epoch on each route from one state. Returns the models
+    and the launch counts of each main-path run."""
     t_phase = time.perf_counter()
 
     def build(name):
@@ -2629,8 +2661,10 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
     print(f"SelfCF: {e} edges, {sc.pipeline.num_batches} steps of "
           f"{scfg.batch_size}; ready after {time.perf_counter() - t_phase} "
           f"s of the phase", flush=True)
+    before = derived_tables("SelfCF", sc)
     sc_launches = fit_counted(sc, sc.pipeline.num_batches, scfg.n_layers,
-                              "SelfCF")
+                              "SelfCF", route="captured", card=card)
+    check_fresh("SelfCF", sc, before)
     batch = first_batch(sc)
     for s in range(SEED, SEED + 100):  # the first seed drawing rate > 0.5
         draws = selfcf_draws(torch.Generator(dev).manual_seed(s), e,
@@ -2644,6 +2678,7 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
         f"SelfCF (edge rate {1 - 1 / scale}, kept edges x {scale})", sc,
         lambda p, u, pos, w, d: selfcf_loss(g_cpu, p, scfg, u, pos, w, *d),
         batch, draws)
+    epoch_routes(sc, "SelfCF", card, "segsum")
     sc_runs = evaluate_routes(sc, "SelfCF", ("full", "fused", "chunked"))
     # CDAE: n_pos * num_neg negatives a user, a (B, N) dropout mask a step
     cd = build("CDAE")
@@ -2652,7 +2687,10 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
             and cd.en_emb.shape == (ITEMS, DIM), "CDAE at its defaults")
     print(f"CDAE: {cd.pipeline.num_batches} steps of {ccfg.batch_size} "
           f"users, {cd.max_k} negative slots a user", flush=True)
-    cd_launches = fit_counted(cd, cd.pipeline.num_batches, 0, "CDAE")
+    before = derived_tables("CDAE", cd)
+    cd_launches = fit_counted(cd, cd.pipeline.num_batches, 0, "CDAE",
+                              route="captured", card=card)
+    check_fresh("CDAE", cd, before)
     batch = first_batch(cd)
     draws = cdae_draws(torch.Generator(dev).manual_seed(SEED), batch[0],
                        cd.pipeline.pos_table, ITEMS, cd.max_k, ccfg.dropout)
@@ -2661,6 +2699,7 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
         "CDAE (negatives, dropout 0.5)", cd,
         lambda p, u, rows, w, d: cdae_loss(p, ccfg, lengths_cpu, u, rows, w,
                                            *d), batch, draws)
+    epoch_routes(cd, "CDAE", card)
     cd_runs = evaluate_routes(cd, "CDAE", ("full", "fused", "chunked"))
     # MultVAE: the KL anneal from the f32 step count
     mv = build("MultVAE")
@@ -2668,7 +2707,11 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
     require(mv.q_dims == [ITEMS, DIM] and mv.p_dims == [DIM, ITEMS]
             and mv.q[0].weight.shape == (2 * DIM, ITEMS)
             and mcfg.compute_dtype == "float32", "MultVAE at its defaults")
-    mv_launches = fit_counted(mv, mv.pipeline.num_batches, 0, "MultVAE")
+    before = derived_tables("MultVAE", mv)
+    mv_launches = fit_counted(mv, mv.pipeline.num_batches, 0, "MultVAE",
+                              route="captured", card=card)
+    check_fresh("MultVAE", mv, before)
+    # the capture's warm-up steps taken back: the anneal's count is fit()'s
     require(float(mv.update_count) == mv.pipeline.num_batches,
             f"MultVAE counted {float(mv.update_count)} steps")
     batch = first_batch(mv)
@@ -2679,6 +2722,7 @@ def phase_selfcf_and_autoencoders(path, reg, dev, errs: dict):
         f"MultVAE (keep_prob 0.5, anneal {float(anneal)})", mv,
         lambda p, u, rows, w, d: multvae_loss(p, mcfg, rows, w, *d, anneal),
         batch, draws)
+    epoch_routes(mv, "MultVAE", card)
     mv_runs = evaluate_routes(mv, "MultVAE", ("full", "fused", "chunked"))
     # the fused kernels on each model's real factors at the evaluation
     # shape (B=64, k=50): SelfCF's 128 wide, the towers' with a bias
@@ -3238,7 +3282,7 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
                           m.has_t, m.has_v)
         step_card_vs_cpu("BM3", m, lambda p, u, i, w, d: bm3_loss(
             g_cpu, nest_params(p), cfg, u, i, w, d), batch, draws)
-    finish("BM3", m, cfg.n_layers, full3, bm3_step)
+    finish("BM3", m, cfg.n_layers, full3, bm3_step, route="captured")
     del m, g_cpu
     drop()
     # SLMRec: three towers over one graph; a sigmoid score (no fused route)
@@ -3254,7 +3298,8 @@ def phase_multimodal(path, reg, dev, card: str, errs: dict):
         step_card_vs_cpu("SLMRec (FAC)", m, lambda p, u, i, w, d: slmrec_loss(
             g_cpu, nest_params(p), cfg, v_cpu, t_cpu, m.num_users, u, i, w,
             d), batch, draws)
-    finish("SLMRec", m, 3 * cfg.layer_num, ("full", "chunked"), slmrec_step)
+    finish("SLMRec", m, 3 * cfg.layer_num, ("full", "chunked"), slmrec_step,
+           route="captured")
     del m, g_cpu, v_cpu, t_cpu
     drop()
     # FREEDOM: the frozen kNN item graph and the pruned user-item graph
@@ -4539,7 +4584,7 @@ def main(skip=()) -> int:
 
     # --------------- phase 11: SelfCF, CDAE and MultVAE (#11, the towers)
     mark("11")
-    p11 = phase_selfcf_and_autoencoders(path, reg, dev, errs)
+    p11 = phase_selfcf_and_autoencoders(path, reg, dev, card, errs)
     sc, cd, mv = p11["SelfCF"], p11["CDAE"], p11["MultVAE"]
 
     # ------- phase 12: FPMC, TransRec, SGAT (#11, traced weights), Caser, HGN

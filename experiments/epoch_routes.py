@@ -1,7 +1,7 @@
 """The epoch as one program, alone: the route checks of ``chip_smoke.py``
-phases 4, 6, 12 and 14 cut to their training, and whether a step, and the
-train path's row sums, read the device from the host (which a CUDA graph
-cannot hold).
+phases 4, 6, 11, 12 and 14 cut to their training, and whether a step, and
+the train path's row sums, read the device from the host (which a CUDA
+graph cannot hold).
 
 Usage, from the root of a checkout, on a machine with a card:
 
@@ -10,16 +10,19 @@ Usage, from the root of a checkout, on a machine with a card:
 Builds the kernels and the phase-3 data (Gowalla scale, seed 2021, with
 phase 14's 4,096-d image and 384-d text features) under
 ``build/epoch_routes_data``. Each model of MODELS (BPRMF, LightGCN, FPMC,
-TransRec, SGAT, MGCN; ``--models`` picks some) at its defaults: two steps
-of its own under ``torch.cuda.set_sync_debug_mode("error")`` (a step that
-reads the device from the host raises there; the op's frames are
-printed); fit() for 2 epochs, evaluation cut to 4,096 test users, each
-epoch on the captured route with one replay a step (``chip_smoke.
-fit_counted``: segsum launched exactly, the capture's warm-up steps
-included); ``chip_smoke.check_fresh`` for the four models whose serving
-reads cached tables; then ``chip_smoke.epoch_routes``: one whole epoch on
-each route from one state, bit for bit, and each route's seconds and
-busy share. Then ``ordered_row_sum``, ``ordered_gather``'s backward and a
+TransRec, SGAT, MGCN with a flat step; SelfCF, BM3, SLMRec, CDAE, MultVAE
+with a per-leaf step drawing from the epoch program's step generator;
+``--models`` picks some) at its defaults, and SLMRec once more under
+``ssl_task="FD+FM"`` (its default FAC draws nothing): two steps of its
+own under ``torch.cuda.set_sync_debug_mode("error")`` (a step that reads
+the device from the host raises there; the op's frames are printed);
+fit() for 2 epochs, evaluation cut to 4,096 test users, each epoch on the
+captured route with one replay a step (``chip_smoke.fit_counted``: segsum
+launched exactly, the capture's warm-up steps included);
+``chip_smoke.check_fresh`` for the models whose serving reads cached or
+frozen tables; then ``chip_smoke.epoch_routes``: one whole epoch on each
+route from one state, bit for bit (both generators too), and each
+route's seconds and busy share. Then ``ordered_row_sum``, ``ordered_gather``'s backward and a
 plain gather's backward (``table[ids]``) at BPRMF's and LightGCN's batch
 (1,024 user rows; 2,048 item rows, d = 64 and 1-D) under the same check.
 Last, Adam's arithmetic: a fresh BPRMF's first ten batches through its
@@ -110,16 +113,27 @@ def adam_arithmetic(m, steps: int = 10) -> dict:
     return gaps
 
 
-# the models whose one-device dense-Adam step is a flat one
-MODELS = ("BPRMF", "LightGCN", "FPMC", "TransRec", "SGAT", "MGCN")
+# the models on the captured route: those whose one-device dense-Adam
+# step is a flat one, then those with a per-leaf step that draws
+MODELS = ("BPRMF", "LightGCN", "FPMC", "TransRec", "SGAT", "MGCN", "SelfCF",
+          "BM3", "SLMRec", "CDAE", "MultVAE")
+# each model's runs: (tag, config over its defaults)
+RUNS = {"SLMRec": (("SLMRec", {}), ("SLMRec FD+FM", {"ssl_task": "FD+FM"}))}
+# the models whose serving reads cached or frozen tables
+FRESH = ("FPMC", "TransRec", "SGAT", "MGCN", "SelfCF", "BM3", "SLMRec",
+         "CDAE", "MultVAE")
 
 
 def segsum_counts(name: str, m) -> tuple:
-    """(propagations, fixed-index sums) of model m's step, as phases 6, 12
-    and 14 count them."""
+    """(propagations, fixed-index sums) of model m's step, as phases 6, 11,
+    12 and 14 count them: SLMRec's FD and FM tasks propagate two more
+    sets of its three towers a step (not in an evaluation)."""
     cfg = m.config
-    if name == "LightGCN":
+    if name in ("LightGCN", "SelfCF", "BM3"):
         return cfg.n_layers, (0, 0, 0)
+    if name == "SLMRec":
+        props = 3 * cfg.layer_num
+        return props, (0 if cfg.ssl_task == "FAC" else 4 * props, 0, 0)
     if name == "SGAT":
         return cfg.n_layers, (6 * cfg.n_layers, 0, 2 * cfg.n_layers)
     if name == "MGCN":
@@ -136,6 +150,8 @@ def step_host_reads(m) -> str:
     from skrx_torch.models.pipeline import epoch_generator
     import chip_smoke as cs
     batch = next(m.pipeline.batches(epoch_generator(cs.SEED, 0, m.device)))
+    # the step's own draws, as an epoch's
+    m._step_gen = epoch_generator(cs.SEED, 0, m.device, stream=1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -149,6 +165,7 @@ def step_host_reads(m) -> str:
         return f"{str(err).splitlines()[0][:160]}; at {frames[-4:]}"
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        m._step_gen = None
 
 
 def main() -> int:
@@ -183,37 +200,41 @@ def main() -> int:
     reg = ModelRegistry()
     try:
         for name in args.models.split(","):
-            t1 = time.perf_counter()
             reg.load_skrx_model(name)
             cls = reg.get_model(name)[0]
+            for tag, over in RUNS.get(name, ((name, {}),)):
+                t1 = time.perf_counter()
 
-            def build():
-                return cs.cut_eval(cls(
-                    RunConfig(recommender=name, data_dir=path, seed=cs.SEED),
-                    {"epochs": cs.EPOCHS, "early_stop": cs.EPOCHS}))
-            probe = build()
-            print(f"{name} built in {time.perf_counter() - t1:.1f} s; its "
-                  f"step under the sync check: {step_host_reads(probe)}",
-                  flush=True)
-            del probe
-            gc.collect()
-            torch.cuda.empty_cache()
-            m = build()
-            props, sums = segsum_counts(name, m)
-            fresh = name in ("FPMC", "TransRec", "SGAT", "MGCN")
-            before = cs.derived_tables(name, m) if fresh else None
-            cs.fit_counted(m, m.pipeline.num_batches, props, name, sums,
-                           route="captured", card=card)
-            if fresh:
-                cs.check_fresh(name, m, before)
-            print(f"{name} fit(): seconds "
-                  f"{[h['train_seconds'] for h in m.history]}", flush=True)
-            cs.epoch_routes(m, name, card, "segsum" if props else None)
-            print(f"{name} took {time.perf_counter() - t1:.1f} s  [{card}]",
-                  flush=True)
-            del m
-            gc.collect()
-            torch.cuda.empty_cache()
+                def build():
+                    return cs.cut_eval(cls(
+                        RunConfig(recommender=name, data_dir=path,
+                                  seed=cs.SEED),
+                        {"epochs": cs.EPOCHS, "early_stop": cs.EPOCHS,
+                         **over}))
+                probe = build()
+                print(f"{tag} built in {time.perf_counter() - t1:.1f} s; "
+                      f"its step under the sync check: "
+                      f"{step_host_reads(probe)}", flush=True)
+                del probe
+                gc.collect()
+                torch.cuda.empty_cache()
+                m = build()
+                props, sums = segsum_counts(name, m)
+                fresh = name in FRESH
+                before = cs.derived_tables(name, m) if fresh else None
+                cs.fit_counted(m, m.pipeline.num_batches, props, tag, sums,
+                               route="captured", card=card)
+                if fresh:
+                    cs.check_fresh(name, m, before)
+                print(f"{tag} fit(): seconds "
+                      f"{[h['train_seconds'] for h in m.history]}",
+                      flush=True)
+                cs.epoch_routes(m, tag, card, "segsum" if props else None)
+                print(f"{tag} took {time.perf_counter() - t1:.1f} s  "
+                      f"[{card}]", flush=True)
+                del m
+                gc.collect()
+                torch.cuda.empty_cache()
         for (name, tag), result in sync_reads(torch.device("cuda", 0)
                                               ).items():
             print(f"host read check, {name} at {tag}: {result}", flush=True)

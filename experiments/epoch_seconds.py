@@ -15,12 +15,13 @@ parent in one call. ``--data``: where the phase-3 data of ``chip_smoke.py``
 features) is made.
 
 For each model of ``--models`` (default MODELS: BPRMF, LightGCN, MultVAE,
-CDAE, FPMC, TransRec, SGAT, MGCN) at its defaults: ``--epochs``
-calls of the model's ``_train_epoch`` (the epoch ``fit()`` runs, on the
-tree's own route), each timed between syncs; one more under
-torch.profiler for the busy share; where the model has a captured route
-(``captured_epochs``), one epoch on each route, timed, and the eager one
-profiled. Then Adam alone, for BPRMF and LightGCN where ``--models``
+CDAE, FPMC, TransRec, SGAT, MGCN, SelfCF, BM3, SLMRec) at its defaults,
+and SLMRec once more under ``ssl_task="FD+FM"`` (its default FAC draws
+nothing in its step): ``--epochs`` calls of the model's ``_train_epoch``
+(the epoch ``fit()`` runs, on the tree's own route), each timed between
+syncs; one more under torch.profiler for the busy share; where the model
+has a captured route (``captured_epochs``), one epoch on each route,
+timed, and the eager one profiled. Then Adam alone, for BPRMF and LightGCN where ``--models``
 holds them: a ``torch.optim.Adam`` over the model's tables, capturable
 (f32 bias corrections on the device) and not (f64 on the host), with
 gradients set, host ms a step over 200 steps between syncs and device ms
@@ -38,7 +39,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = ("BPRMF", "LightGCN", "MultVAE", "CDAE", "FPMC", "TransRec",
-          "SGAT", "MGCN")
+          "SGAT", "MGCN", "SelfCF", "BM3", "SLMRec")
+# each model's runs: (tag, config over its defaults)
+RUNS = {"SLMRec": (("SLMRec", {}), ("SLMRec FD+FM", {"ssl_task": "FD+FM"}))}
 SHAPES = {"BPRMF": ((29_858, 64), (40_981, 64), (40_981,)),
           "LightGCN": ((29_858, 64), (40_981, 64))}
 
@@ -63,6 +66,36 @@ def adam_ms(shapes, capturable: bool, cs) -> tuple:
     busy, heads = cs.busy_share(opt.step, reps=50, top=1000)
     device = sum(ms for _, ms, _ in heads) / 50
     return sec / 200 * 1e3, device, busy
+
+
+def epoch_times(m, run: str, tag: str, card: str, epochs: int, cs,
+                epoch_generator) -> dict:
+    """Model m's fit() epochs timed, the busy share of one more, and on a
+    captured route one epoch of each route timed, the eager one's busy
+    share; a tree whose models run their epochs from the model
+    (``run_epoch``, the steps' own draws from a step generator) or from
+    the pipeline alone (before it)."""
+    fit_s = [cs.timed(lambda: m._train_epoch(e))[1] for e in range(epochs)]
+    busy, _ = cs.busy_share(lambda: m._train_epoch(epochs), reps=1,
+                            warm=False)
+    out = dict(tree=tag, model=run, card=card, fit_epoch_s=fit_s,
+               fit_busy=busy)
+    pipe = m.pipeline
+
+    def epoch(e, captured):
+        gen = epoch_generator(cs.SEED + 1, e, m.device)
+        if hasattr(m, "run_epoch"):
+            return m.run_epoch(gen, epoch_generator(
+                cs.SEED + 1, e, m.device, stream=1), captured=captured)
+        return pipe.run_epoch(gen, m.train_step, captured=captured)
+    if getattr(m, "captured_epochs", False):
+        for route in ("captured", "eager"):
+            _, sec = cs.timed(lambda: epoch(50, route == "captured"))
+            out[f"{route}_epoch_s"] = sec
+        out["eager_busy"], _ = cs.busy_share(lambda: epoch(51, False),
+                                             reps=1, warm=False)
+    out["steps"] = pipe.num_batches
+    return out
 
 
 def main() -> int:
@@ -104,29 +137,14 @@ def main() -> int:
     try:
         for name in models:
             reg.load_skrx_model(name)
-            m = reg.get_model(name)[0](
-                RunConfig(recommender=name, data_dir=path, seed=cs.SEED), {})
-            fit_s = [cs.timed(lambda: m._train_epoch(e))[1]
-                     for e in range(args.epochs)]
-            busy, _ = cs.busy_share(lambda: m._train_epoch(args.epochs),
-                                    reps=1, warm=False)
-            out = dict(tree=tag, model=name, card=card, fit_epoch_s=fit_s,
-                       fit_busy=busy)
-            pipe = m.pipeline
-            if getattr(m, "captured_epochs", False):
-                for route in ("captured", "eager"):
-                    gen = epoch_generator(cs.SEED + 1, 50, m.device)
-                    _, sec = cs.timed(lambda: pipe.run_epoch(
-                        gen, m.train_step, captured=route == "captured"))
-                    out[f"{route}_epoch_s"] = sec
-                gen = epoch_generator(cs.SEED + 1, 51, m.device)
-                out["eager_busy"], _ = cs.busy_share(
-                    lambda: pipe.run_epoch(gen, m.train_step),
-                    reps=1, warm=False)
-            out["steps"] = pipe.num_batches
-            report(**out)
-            del m
-            torch.cuda.empty_cache()
+            for run, over in RUNS.get(name, ((name, {}),)):
+                m = reg.get_model(name)[0](
+                    RunConfig(recommender=name, data_dir=path, seed=cs.SEED),
+                    dict(over))
+                report(**epoch_times(m, run, tag, card, args.epochs, cs,
+                                     epoch_generator))
+                del m
+                torch.cuda.empty_cache()
         for name, shapes in SHAPES.items():
             if name not in models:
                 continue

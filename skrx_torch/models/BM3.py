@@ -168,6 +168,8 @@ def bm3_loss(graph: Graph, p: Dict, cfg: BM3Config, users: torch.Tensor,
 
 
 class BM3(MultimodalRecommender):
+    _CAPTURED_STEP = True
+
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, BM3Config(**model_config), device)

@@ -146,6 +146,7 @@ def cdae_loss(params: Dict[str, torch.Tensor], cfg: CDAEConfig,
 
 class CDAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
     _JAX_PARAMS = ("de_bias", "de_emb", "en_emb", "en_offset", "user_emb")
+    _CAPTURED_STEP = True
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):

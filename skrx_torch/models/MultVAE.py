@@ -20,9 +20,10 @@ multinomial log-likelihood of the rows under ``log_softmax`` of the
 decoder's logits, plus ``anneal`` times the KL term, each averaged over
 the valid rows, plus ``reg`` times the squared weights (not biases);
 dense Adam. ``anneal = min(anneal_cap, count / anneal_steps)`` in f32 from
-the f32 count of steps taken, which the training state carries across
-epochs and checkpoints, so a resumed ``fit()`` anneals as an
-uninterrupted one.
+the f32 count of steps taken (``update_count``, a tensor the step moves in
+place, so that a captured epoch replays the anneal), which the training
+state carries across epochs and checkpoints, so a resumed ``fit()``
+anneals as an uninterrupted one.
 
 Scoring decodes the mean (no noise, no dropout). It is a tower
 (:class:`CachedUserVecChunkMixin`): the user vectors are the decoder's
@@ -38,6 +39,7 @@ and the gradients sum over the data axis.
 """
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -179,6 +181,8 @@ def _linear_stack(dims: List[int], init, gen: torch.Generator,
 
 
 class MultVAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
+    _CAPTURED_STEP = True
+
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, MultVAEConfig(**model_config), device)
@@ -200,19 +204,29 @@ class MultVAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
         self.cdt = _DTYPES[cfg.compute_dtype]
         self.optimizer = make_optimizer("adam", dict(self.named_parameters()),
                                         cfg.lr)
-        step = make_train_step(self.optimizer, self._loss,
-                               self.sync_gradients)
-
-        def train_step(batch):
-            loss = step(batch)
-            self.update_count += 1.0
-            return loss
-        self.train_step = train_step
+        # f32 count of the steps taken: the KL anneal's progress, which the
+        # step moves on in place (part of its state)
+        self._count = torch.zeros((), device=self.device)
+        self.train_step = make_train_step(self.optimizer, self._loss,
+                                          self.sync_gradients,
+                                          count=self._count)
         self.pipeline = UserVecEpochPipeline(self.dataset.train_data,
                                              cfg.batch_size, self.device,
                                              mesh=self.mesh)
-        # f32 count of the steps taken: the KL anneal's progress
-        self.update_count = torch.zeros((), device=self.device)
+
+    @property
+    def update_count(self) -> torch.Tensor:
+        """The f32 count of the steps taken, on the device (JAX's
+        ``_update_count``); setting it copies into the tensor the step
+        moves."""
+        return self._count
+
+    @update_count.setter
+    def update_count(self, value) -> None:
+        if not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value, dtype=np.float32))
+        with torch.no_grad():
+            self._count.copy_(value)
 
     def anneal(self) -> Union[float, torch.Tensor]:
         """The KL weight of the next step (f32 on the device)."""
@@ -245,8 +259,7 @@ class MultVAE(CachedUserVecChunkMixin, EpochTrainedRecommender):
     def _load_train_state(self, state: Dict) -> None:
         super()._load_train_state(state)
         if "update_count" in state:
-            self.update_count = state["update_count"].to(
-                device=self.device, dtype=torch.float32)
+            self.update_count = state["update_count"]       # in place
 
     def _user_vectors(self, users: torch.Tensor) -> torch.Tensor:
         mu, _ = multvae_encode(_pairs(self.q), self.pipeline.rows_for(users),

@@ -285,6 +285,7 @@ def slmrec_loss(graph: Graph, p: Dict, cfg: SLMRecConfig,
 class SLMRec(MultimodalRecommender):
     # projections of the rank's own item rows of a sharded graph
     _GRAD_WORLD = ("v_dense", "t_dense")
+    _CAPTURED_STEP = True
 
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):

@@ -170,6 +170,8 @@ def selfcf_loss(graph: Graph, params: Dict[str, torch.Tensor],
 
 
 class SelfCF(FrozenEmbeddingMixin, EpochTrainedRecommender):
+    _CAPTURED_STEP = True
+
     def __init__(self, run_config: RunConfig, model_config: Dict,
                  device: Optional[Union[str, torch.device]] = None):
         super().__init__(run_config, SelfCFConfig(**model_config), device)

@@ -294,7 +294,12 @@ class TorchRecommender(nn.Module):
             opt_state = state["optimizer"]
             if self._row_blocks:
                 opt_state = self._optimizer_state_rows(opt_state, take_rows)
-            self.optimizer.load_state_dict(opt_state)
+            step = getattr(self, "train_step", None)
+            if getattr(step, "state", None) is not None:
+                # into the tensors a captured step holds
+                step.load_state_dict(opt_state)
+            else:
+                self.optimizer.load_state_dict(opt_state)
         self._invalidate_predict_cache()
 
     def _start_trace(self):
@@ -445,11 +450,17 @@ class TorchRecommender(nn.Module):
                          for k, v in state.items()}
             state = {k: take_rows(v, self._row_blocks.get(name))
                      if v.dim() else v for k, v in state.items()}
-            # on a card Adam is capturable: its step count on the device
-            self.optimizer.state[self.get_parameter(name)] = {
-                "step": state["step"].to(self.device),
-                "exp_avg": state["exp_avg"].to(self.device),
-                "exp_avg_sq": state["exp_avg_sq"].to(self.device)}
+            p = self.get_parameter(name)
+            held = self.optimizer.state[p]
+            if held:          # in place: a captured step holds the tensors
+                with torch.no_grad():
+                    for k, v in state.items():
+                        held[k].copy_(v)
+            else:
+                # on a card Adam is capturable: its step count on the
+                # device
+                self.optimizer.state[p] = {k: v.to(self.device)
+                                           for k, v in state.items()}
 
     def predict(self, users):
         raise NotImplementedError

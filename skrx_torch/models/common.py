@@ -31,6 +31,7 @@ __all__ = ["ParamTree", "param_tree", "add_param_tree", "cast_tree",
            "EpochTrainedRecommender", "as_user_tensor", "last_items_by_time",
            "pad_masked_rows", "LazyAdamTowerMixin", "make_optimizer",
            "adam_l2", "make_train_step", "make_sharded_train_step",
+           "LeafTrainStep",
            "FlatTrainStep", "ravel_order",
            "GRAPH_IMPLS", "resolve_graph_impl", "mxu_msg_dtype",
            "build_prop_graph", "graph_sharding_enabled",
@@ -179,28 +180,113 @@ def adam_l2(params, lr: Union[float, torch.Tensor],
 
 def make_train_step(optimizer: torch.optim.Optimizer,
                     loss_fn: Callable[..., torch.Tensor],
-                    sync: Optional[Callable[[], None]] = None) -> Callable:
-    """``train_step(batch) -> loss``: the loss of ``loss_fn(*batch)`` before
-    the update, then one optimizer step. The loss stays on the device. A
-    parameter the loss does not reach (DENS's gates under ``rns``, ``dns``)
-    gets a zero gradient, so that Adam moves it by its moments, as optax
-    steps every leaf of a JAX model's params. ``sync`` runs after the
-    backward, before the step (a model's ``sync_gradients`` under a
-    mesh)."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+                    sync: Optional[Callable[[], None]] = None,
+                    count: Optional[torch.Tensor] = None) -> "LeafTrainStep":
+    """``train_step(batch) -> loss``, a :class:`LeafTrainStep`: the loss of
+    ``loss_fn(*batch)`` before the update, then one optimizer step (the
+    port of the JAX package's per-leaf ``make_train_step``)."""
+    return LeafTrainStep(optimizer, loss_fn, sync, count)
 
-    def train_step(batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(*batch)
+
+class LeafTrainStep:
+    """``step(batch) -> loss``: the loss of ``loss_fn(*batch)`` before the
+    update, then one step of ``optimizer`` over its parameters, one by one
+    (the port of the JAX package's ``make_train_step``). The loss stays on
+    the device. A parameter the loss does not reach (DENS's gates under
+    ``rns``, ``dns``) gets a zero gradient, so that Adam moves it by its
+    moments, as optax steps every leaf of a JAX model's params. ``sync``
+    runs after the backward, before the step (a model's
+    ``sync_gradients`` under a mesh). ``count``: an f32 tensor the step
+    adds one to after the update (MultVAE's KL anneal count, the JAX
+    step's carried ``count``).
+
+    Each parameter's gradient is made once and zeroed in place before
+    each step (the backward adds into it; 0 + g is g, but for a -0.0
+    that becomes +0.0), and ``torch.optim.Adam``'s state (``step``,
+    ``exp_avg``, ``exp_avg_sq``) is made now where the optimizer holds
+    none (Adam's lazy init would make it inside the first step), so that
+    under Adam every tensor a step writes stays in place (``state``) and
+    a CUDA graph can hold the step
+    (:class:`~skrx_torch.models.pipeline.EpochProgram`). A checkpoint's
+    Adam state is copied into those tensors (:meth:`load_state_dict`)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 loss_fn: Callable[..., torch.Tensor],
+                 sync: Optional[Callable[[], None]] = None,
+                 count: Optional[torch.Tensor] = None):
+        self.optimizer, self.loss_fn = optimizer, loss_fn
+        self.sync, self.count = sync, count
+        self.params = [p for group in optimizer.param_groups
+                       for p in group["params"]]
+        # (parameter, its gradient): re-attached before a step where a
+        # caller dropped it (zero_grad), or the backward would not add here
+        self._grads = [(p, torch.zeros_like(p)) for p in self.params]
+        for p, g in self._grads:
+            p.grad = g
+        self.adam = type(optimizer) is torch.optim.Adam
+        if self.adam:
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    if not optimizer.state[p]:
+                        optimizer.state[p] = _adam_zeros(
+                            p, group["capturable"])
+
+    @property
+    def state(self) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The tensors a step updates in place: every parameter and its
+        gradient, Adam's moments and step count of each, ``count``; None
+        under an optimizer other than ``torch.optim.Adam``, whose state
+        this step does not make."""
+        if not self.adam:
+            return None
+        out = [t for p, g in self._grads for t in (p, g)]
+        for p in self.params:
+            st = self.optimizer.state[p]
+            out += [st["exp_avg"], st["exp_avg_sq"], st["step"]]
+        return tuple(out) if self.count is None else (*out, self.count)
+
+    def __call__(self, batch) -> torch.Tensor:
+        for p, g in self._grads:
+            if p.grad is not g:
+                p.grad = g
+        torch._foreach_zero_([g for _, g in self._grads])
+        loss = self.loss_fn(*batch)
         loss.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if sync is not None:
-            sync()
-        optimizer.step()
+        if self.sync is not None:
+            self.sync()
+        self.optimizer.step()
+        if self.count is not None:
+            with torch.no_grad():
+                self.count.add_(1.0)
         return loss.detach()
-    return train_step
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: Dict) -> None:
+        """Copy a per-parameter Adam state (``torch.optim.Adam``'s, in the
+        optimizer's parameter order) into this step's tensors (under Adam,
+        where it has ``state``); a parameter the state holds nothing for
+        starts again from zeros."""
+        saved = state_dict["state"]
+        n_saved = sum(len(g["params"]) for g in state_dict["param_groups"])
+        if n_saved != len(self.params):
+            raise ValueError(f"the state holds {n_saved} parameters, the "
+                             f"step {len(self.params)}")
+        for i, p in enumerate(self.params):
+            held = self.optimizer.state[p]
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                if i in saved:
+                    held[key].copy_(saved[i][key])
+                else:
+                    held[key].zero_()
+
+
+def _adam_zeros(p: torch.Tensor, capturable: bool) -> Dict[str, torch.Tensor]:
+    """``torch.optim.Adam``'s state of ``p`` before its first step: a
+    capturable Adam's step count on the device."""
+    return {"step": torch.zeros((), device=p.device if capturable else "cpu"),
+            "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+            "exp_avg_sq": torch.zeros_like(
+                p, memory_format=torch.preserve_format)}
 
 
 def make_sharded_train_step(optimizer: torch.optim.Optimizer,
@@ -677,39 +763,69 @@ class EpochTrainedRecommender(TorchRecommender):
     autoencoder's negatives) come from :meth:`step_generator`, stream 1 of
     the same (seed + 1, e), independent of the pipeline's.
 
-    A model whose step runs on one flat parameter vector sets
-    ``self._flat_step`` (:class:`FlatTrainStep`; BPRMF with Adam and
-    LightGCN on one device, as the JAX package's flat step): on a CUDA
-    device its epochs run as one captured program
-    (:attr:`captured_epochs`), and its checkpoints and JAX's Adam state
-    read and write the flat buffers."""
+    On a CUDA device the epochs of some models run as one captured
+    program (:attr:`captured_epochs`): those with a flat step
+    (``self._flat_step``, :class:`FlatTrainStep`; BPRMF with Adam,
+    LightGCN, FPMC, TransRec, SGAT and MGCN on one device, the JAX
+    package's flat step), whose checkpoints and JAX Adam state read and
+    write the flat buffers, and the classes that set
+    ``_CAPTURED_STEP`` (SelfCF, BM3, SLMRec, CDAE, MultVAE), whose
+    per-leaf dense-Adam step (:class:`LeafTrainStep`) keeps its tensors
+    in place on one device."""
 
     _step_gen: Optional[torch.Generator] = None
     _flat_step: Optional[FlatTrainStep] = None
+    # the class's per-leaf step may be captured (each model's own host-read
+    # check done): set by the models that take the captured route
+    _CAPTURED_STEP = False
 
     @property
     def captured_epochs(self) -> bool:
         """Whether ``_train_epoch`` runs the epoch as a CUDA graph of one
-        step replayed a batch (``run_epoch(captured=True)``): for a model
-        with a flat step on a CUDA device."""
-        return self._flat_step is not None and self.device.type == "cuda"
+        step replayed a batch (``run_epoch(captured=True)``): on a CUDA
+        device, for a model with a flat step, or of a class that sets
+        ``_CAPTURED_STEP`` on one device under dense Adam (a step with
+        ``state``)."""
+        if self.device.type != "cuda":
+            return False
+        if self._flat_step is not None:
+            return True
+        return (self._CAPTURED_STEP and self.mesh is None
+                and getattr(self.train_step, "state", None) is not None)
 
     def step_generator(self) -> torch.Generator:
-        """The generator of the running epoch's in-step draws."""
+        """The generator of the running epoch's in-step draws: the
+        epoch's stream 1, or on the captured route the epoch program's
+        step generator, which replays them inside the graph."""
         if self._step_gen is None:
             raise RuntimeError("a training step's draws are made inside an "
                                "epoch")
         return self._step_gen
 
-    def _train_epoch(self, epoch: int) -> Optional[float]:
-        seed = self.run_config.seed + 1
-        gen = epoch_generator(seed, epoch, self.device)
-        self._step_gen = epoch_generator(seed, epoch, self.device, stream=1)
+    def run_epoch(self, generator: torch.Generator,
+                  step_generator: torch.Generator,
+                  captured: bool = False) -> float:
+        """One epoch of the pipeline: its batches from ``generator``, the
+        steps' own draws from ``step_generator`` (both left where the
+        epoch's draws end), eagerly or as one captured program; returns
+        the mean step loss. On the captured route the steps draw from the
+        program's step generator, which takes ``step_generator``'s state
+        over and gives it back."""
+        pipe = self.pipeline
+        self._step_gen = (pipe.program(self.train_step).step_generator
+                          if captured else step_generator)
         try:
-            return self.pipeline.run_epoch(gen, self.train_step,
-                                           captured=self.captured_epochs)
+            return pipe.run_epoch(generator, self.train_step, captured,
+                                  step_generator)
         finally:
             self._step_gen = None
+
+    def _train_epoch(self, epoch: int) -> Optional[float]:
+        seed = self.run_config.seed + 1
+        return self.run_epoch(
+            epoch_generator(seed, epoch, self.device),
+            epoch_generator(seed, epoch, self.device, stream=1),
+            captured=self.captured_epochs)
 
     def _train_state(self) -> Dict:
         state = super()._train_state()

@@ -17,18 +17,22 @@ permutation, its draws, the loss, the backward and the optimizer's update,
 the loss added into a sum on the device) in a CUDA graph, captured once per
 pipeline and step, and replays it once for each batch; the host submits a
 replay a step and reads nothing back until the epoch's end. It takes a step
-whose tensors stay in place (``train_step.state``:
-:class:`~skrx_torch.models.common.FlatTrainStep`, the dense-Adam step on
-one device of BPRMF, LightGCN, FPMC, TransRec, SGAT and MGCN, the models
-whose JAX step is ``make_flat_train_step``), on a CUDA device, without a
-mesh; the pairwise batches (one negative a user, or SGAT's ``num_next`` =
-3 a window beside its (B, 5) previous items) draw nothing back to the
-host. The graph replays the draws of the pipeline's generator only: a
-step that draws from another (a model's ``step_generator()``) fails to
-capture. ``captured=False`` runs the steps as a plain loop: the route on
-the CPU, under a mesh, under lazy Adam, and of the models whose step is
-not a flat one. JAX's scan chunking (``max_scan_steps``) has no
-counterpart: a replay holds one step, whatever the epoch's length.
+whose tensors stay in place (``train_step.state``), on a CUDA device,
+without a mesh: :class:`~skrx_torch.models.common.FlatTrainStep`, the
+dense-Adam step on one device of BPRMF, LightGCN, FPMC, TransRec, SGAT and
+MGCN (JAX's ``make_flat_train_step``), and
+:class:`~skrx_torch.models.common.LeafTrainStep`, the per-leaf dense-Adam
+step of SelfCF, BM3 and SLMRec (interaction batches) and of CDAE and
+MultVAE (user rows). A step's own draws (a model's ``step_generator()``:
+SelfCF's edge mask, the dropout masks, CDAE's negatives, MultVAE's noise)
+come from the program's step generator, which the graph registers beside
+the pipeline's: JAX's key in the scan's carry. The pairwise batches (one
+negative a user, or SGAT's ``num_next`` = 3 a window beside its (B, 5)
+previous items) and the user rows draw nothing back to the host.
+``captured=False`` runs the steps as a plain loop: the route on the CPU,
+under a mesh, under lazy Adam, and of every other model. JAX's scan
+chunking (``max_scan_steps``) has no counterpart: a replay holds one step,
+whatever the epoch's length.
 
 Under a mesh (``mesh=``, every pipeline) every rank
 draws the same global epoch from the same seeded generator, the
@@ -109,7 +113,7 @@ class _ShuffledEpochPipeline:
             self._data_rows = slice(blocks.lo, blocks.hi)
         self._users = self._put(padded)
         self._w = torch.as_tensor(weights, device=device)
-        # train step -> (its EpochProgram, CapturedStep, the step's state)
+        # train step -> its EpochProgram
         self._programs = {}
         self.last_run = None
 
@@ -130,18 +134,23 @@ class _ShuffledEpochPipeline:
                 tuple(t[self._data_rows] for t in batch)
 
     def run_epoch(self, generator: torch.Generator, train_step: Callable,
-                  captured: bool = False) -> float:
+                  captured: bool = False,
+                  step_generator: torch.Generator = None) -> float:
         """Run ``train_step(batch) -> loss`` over the batches of one epoch;
         returns the mean over steps of the step losses (one device
         sync; under a mesh the ranks' losses summed over the data axis).
         ``captured``: the epoch as one program, each step a replay of a
         CUDA graph (:class:`EpochProgram`; a CUDA device, no mesh, a step
-        with ``state``), else a loop of eager steps. Either way
-        ``last_run`` then says how the epoch ran: its ``route``, and
-        ``replays``, ``warmup_steps`` and ``capture_seconds`` (0 where it
-        replayed a graph captured before) of a captured one."""
+        with ``state``), else a loop of eager steps. ``step_generator``:
+        the generator of the step's own draws; the captured route replays
+        them from :meth:`program`'s step generator, which takes its state
+        over and gives it back (the step must draw from that one), the
+        eager loop leaves them to the step. Either way ``last_run`` then
+        says how the epoch ran: its ``route``, and ``replays``,
+        ``warmup_steps`` and ``capture_seconds`` (0 where it replayed a
+        graph captured before) of a captured one."""
         if captured:
-            return self._run_captured(generator, train_step)
+            return self._run_captured(generator, train_step, step_generator)
         total = torch.zeros((), device=self.device)
         for batch in self.batches(generator):
             total += train_step(batch)
@@ -150,8 +159,18 @@ class _ShuffledEpochPipeline:
         self.last_run = {"route": "eager", "steps": self.num_batches}
         return float(total / self.num_batches)
 
+    def program(self, train_step: Callable) -> "EpochProgram":
+        """The :class:`EpochProgram` of ``train_step`` on this pipeline,
+        made at the first call."""
+        program = self._programs.get(train_step)
+        if program is None:
+            program = self._programs[train_step] = EpochProgram(self,
+                                                                train_step)
+        return program
+
     def _run_captured(self, generator: torch.Generator,
-                      train_step: Callable) -> float:
+                      train_step: Callable,
+                      step_generator: torch.Generator = None) -> float:
         if self.device.type != "cuda":
             raise ValueError(f"a captured epoch runs on a CUDA device, not "
                              f"{self.device}; run_epoch(captured=False) "
@@ -163,22 +182,22 @@ class _ShuffledEpochPipeline:
         if state is None:
             raise TypeError("a captured epoch needs a step whose tensors "
                             "stay in place (train_step.state; "
-                            "FlatTrainStep)")
+                            "FlatTrainStep, LeafTrainStep under Adam)")
         state = tuple(state)
-        held = self._programs.get(train_step)
+        program = self.program(train_step)
         capture_s, warmup = 0.0, 0
         # captured anew when the step's tensors were replaced (an
         # optimizer's load_state_dict): the graph holds their addresses
-        if held is None or any(a is not b for a, b in zip(held[2], state)):
-            program = EpochProgram(self, train_step)
+        if program.graph is None or any(
+                a is not b for a, b in zip(program.state, state)):
             t0 = time.perf_counter()
-            graph = CapturedStep(program.step, self.device,
-                                 keep=(*state, program.index, program.total),
-                                 generators=(program.generator,))
+            program.graph = CapturedStep(
+                program.step, self.device,
+                keep=(*state, program.index, program.total),
+                generators=(program.generator, program.step_generator))
             capture_s, warmup = time.perf_counter() - t0, WARMUP_STEPS
-            held = self._programs[train_step] = (program, graph, state)
-        program, graph, _ = held
-        loss = program.run(generator, graph.replay)
+            program.state = state
+        loss = program.run(generator, program.graph.replay, step_generator)
         mark_written(state)
         self.last_run = {"route": "captured", "replays": self.num_batches,
                          "warmup_steps": warmup,
@@ -199,23 +218,29 @@ def mark_written(tensors) -> None:
 class EpochProgram:
     """One epoch of ``pipeline`` as a program of one step, the counterpart
     of the JAX package's scanned epoch (``PairwiseEpochPipeline.
-    _epoch_impl``): the epoch's permutation, the step index and the sum of
-    the losses live in buffers on the pipeline's device, and :meth:`step`
-    runs one whole step from them (the index's slice of the permutation,
-    the batch and its draws from the program's own generator,
-    ``train_step``, the loss added in, the index moved on) without reading
-    anything back to the host, so that a CUDA graph can hold it.
-    :meth:`run` runs an epoch: eagerly, or a graph's replay a step."""
+    _epoch_impl`` and the interaction and user-row pipelines'): the
+    epoch's permutation, the step index and the sum of the losses live in
+    buffers on the pipeline's device, and :meth:`step` runs one whole step
+    from them (the index's slice of the permutation, the batch and its
+    draws from the program's generator, ``train_step`` with its own draws
+    from ``step_generator``, the loss added in, the index moved on)
+    without reading anything back to the host, so that a CUDA graph can
+    hold it (``graph``, a :class:`~skrx_torch.ops.kernels.runtime.
+    CapturedStep` of the step's tensors ``state``). :meth:`run` runs an
+    epoch: eagerly, or a graph's replay a step."""
 
     def __init__(self, pipeline: "_ShuffledEpochPipeline",
                  train_step: Callable):
         dev = pipeline.device
         self.pipeline, self.train_step = pipeline, train_step
         self.generator = torch.Generator(device=dev)
+        # the step's own draws (JAX's key in the scan's carry)
+        self.step_generator = torch.Generator(device=dev)
         self.perm = torch.zeros(len(pipeline._users), dtype=torch.int64,
                                 device=dev)
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.total = torch.zeros((), device=dev)
+        self.graph, self.state = None, ()
 
     def step(self) -> None:
         p = self.pipeline
@@ -224,15 +249,19 @@ class EpochProgram:
         self.index.add_(1)
 
     def run(self, generator: torch.Generator,
-            replay: Callable[[], None] = None) -> float:
-        """One epoch from ``generator``'s state (the program's generator
-        takes it over): the permutation drawn into its buffer, then
+            replay: Callable[[], None] = None,
+            step_generator: torch.Generator = None) -> float:
+        """One epoch from ``generator``'s state and ``step_generator``'s
+        (the program's generators take them over; None leaves the step
+        generator as it is): the permutation drawn into its buffer, then
         ``pipeline.num_batches`` steps, each ``replay()`` (a graph of
-        :meth:`step`) or :meth:`step` itself; ``generator`` is left where
-        the epoch's draws end, as the eager loop leaves it. Returns the
-        mean step loss, the eager loop's bits."""
+        :meth:`step`) or :meth:`step` itself; both generators are left
+        where the epoch's draws end, as the eager loop leaves them.
+        Returns the mean step loss, the eager loop's bits."""
         p = self.pipeline
         self.generator.set_state(generator.get_state())
+        if step_generator is not None:
+            self.step_generator.set_state(step_generator.get_state())
         self.perm.copy_(torch.randperm(len(self.perm),
                                        generator=self.generator,
                                        device=p.device))
@@ -241,6 +270,8 @@ class EpochProgram:
         for _ in range(p.num_batches):
             (replay or self.step)()
         generator.set_state(self.generator.get_state())
+        if step_generator is not None:
+            step_generator.set_state(self.step_generator.get_state())
         return float(self.total / p.num_batches)
 
 
